@@ -1,38 +1,48 @@
-// Ragged paged attention for Hopper (sm_90a), with a plain C entry point.
+// Ragged paged attention for Hopper (sm_90a), with plain C entry points.
 //
-// Replaces the TPU kernel `_ragged_kernel` in
-// paddle_tpu/ops/pallas/paged_attention.py (reached through
-// `_ragged_call` / `paged_attention_ragged`): attention of a packed query
-// buffer q [T, H, D] against a paged KV pool [NB, KVH, BS, D]. Packed
-// token t belongs to lane tok_lane[t] and sits at absolute position
-// tok_pos[t] (-1 marks a guard slot). K/V row j of a lane is read from
-// physical block tables[lane, j / BS], slot j % BS. For each query head h
-// (kv head h / G):
+// Replaces two TPU kernels of paddle_tpu/ops/pallas/paged_attention.py:
+//   - `_ragged_kernel` (reached through `_ragged_call` /
+//     `paged_attention_ragged`): entry point `ragged_paged_attention`,
+//     a bf16 or f32 pool;
+//   - `_ragged_kernel_q` (`_ragged_call_q`, `paged_attention_ragged` with
+//     `k_scale`/`v_scale`): entry point `ragged_paged_attention_q`, an
+//     int8 pool with f32 per-slot scale planes [NB, KVH, BS].
+// Both compute attention of a packed query buffer q [T, H, D] against a
+// paged KV pool [NB, KVH, BS, D]. Packed token t belongs to lane
+// tok_lane[t] and sits at absolute position tok_pos[t] (-1 marks a guard
+// slot). K/V row j of a lane is read from physical block
+// tables[lane, j / BS], slot j % BS. For each query head h (kv head h / G):
 //
 //   out[t, h] = softmax_j(q[t, h] . K[j] * sm_scale) . V[j],  j <= pos
 //
 // with the JAX kernel's block gate: block j is visited only while
 // j * BS < kv_lens[lane]. Softmax and accumulation are in f32; the output
 // is in q's dtype. Guard tokens and lanes with kv_len == 0 write exact
-// zeros.
+// zeros. In the int8 instance K[j] = k_int8[j] * k_scale[blk, kvh, slot]
+// and V likewise. The kernel applies the slot's scale after the q . k dot,
+// s = (q . k_int8) * ks, and folds vs into the probability,
+// acc += (p * vs) * v_int8: the same arithmetic as dequantizing the page
+// first, up to f32 rounding (the running sum l takes p without vs).
 //
 // Bound on an H100: bytes. A decode lane does 4 * H * D flops per cached
-// token against the 2 * KVH * D * 2 bytes it must read, far below the
-// ~295 flop/byte ridge, so the kernel's floor is reading each lane's K/V
-// once. The design aims at that floor:
+// token against the 2 * KVH * D * itemsize bytes it must read (plus 8 *
+// KVH bytes of scales for int8), far below the ~295 flop/byte ridge, so
+// the kernel's floor is reading each lane's K/V once; the int8 pool halves
+// it. The design aims at that floor:
 //   - one CTA per (packed token, kv head); the G query heads of the group
 //     share every K/V page staged in shared memory, so K/V are never
 //     repeated across the group (native GQA);
-//   - pages stream through a 3-stage ring of shared-memory buffers with
-//     16-byte cp.async copies, so the loads of the next two pages are in
-//     flight while the current one is computed; the pool is indexed
-//     through its strides, never copied or transposed;
+//   - pages (and, for int8, their two 16-slot scale rows) stream through
+//     a 3-stage ring of shared-memory buffers with 16-byte cp.async
+//     copies, so the loads of the next two pages are in flight while the
+//     current one is computed; the pool and the scale planes are indexed
+//     through their strides, never copied or transposed;
 //   - the loop stops at the token's last needed page, so table entries
 //     past it (padding, guard blocks) are never read;
 //   - scores: 8-lane groups each own one (query head, slot) pair and read
-//     K rows as 16-byte vectors (conflict-free), reducing with shuffles;
-//     the online softmax runs one warp per query head; running max and
-//     sum stay in f32.
+//     K rows as 16-byte vectors (8 bf16, 4 f32 or 16 int8 values),
+//     reducing with shuffles; the online softmax runs one warp per query
+//     head; running max and sum stay in f32.
 // Known limit: a prefill chunk of n tokens of one lane reads that lane's
 // K/V n times (one CTA per token). Tiling several query tokens of a lane
 // per CTA, then wgmma/TMA, is the way past it.
@@ -40,6 +50,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -53,6 +65,9 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -63,7 +78,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// dot of kVec f32 q values with one 16-byte vector of K
+// dot of the f32 q values with one 16-byte vector of K
 __device__ __forceinline__ float dot16(const float* q, uint4 kv, float) {
   const float* k = reinterpret_cast<const float*>(&kv);
   return q[0] * k[0] + q[1] * k[1] + q[2] * k[2] + q[3] * k[3];
@@ -77,6 +92,13 @@ __device__ __forceinline__ float dot16(const float* q, uint4 kv,
     const float2 f = __bfloat1622float2(k[i]);
     s += q[2 * i] * f.x + q[2 * i + 1] * f.y;
   }
+  return s;
+}
+__device__ __forceinline__ float dot16(const float* q, uint4 kv, int8_t) {
+  const int8_t* k = reinterpret_cast<const int8_t*>(&kv);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s += q[i] * static_cast<float>(k[i]);
   return s;
 }
 
@@ -114,16 +136,20 @@ __device__ __forceinline__ void cp_async_wait_stages() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
 }
 
-template <typename T>
+// T: q/out dtype; KV: pool dtype (T itself, or int8_t with scale planes)
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_cache,
-    const T* __restrict__ v_cache, const int* __restrict__ tables,
+    const T* __restrict__ q, const KV* __restrict__ k_cache,
+    const KV* __restrict__ v_cache, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
     const int* __restrict__ kv_lens, const int* __restrict__ tok_lane,
     const int* __restrict__ tok_pos, T* __restrict__ out, int num_heads,
     int group, int head_dim, int block_size, int table_width, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, float sm_scale) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte vector
+    long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb,
+    long long vs_sh, float sm_scale) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  constexpr int kVec = 16 / sizeof(KV);  // elements per 16-byte vector
   const int t = blockIdx.x;
   const int kvh = blockIdx.y;
   const int tid = threadIdx.x;
@@ -135,12 +161,15 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
   const int page = BS * D;              // elements of one K (or V) page
   const int row_vecs = D / kVec;
 
-  // shared memory: kStages K pages, kStages V pages (native dtype), then
-  // f32 q, acc, probabilities and the per-head running max / sum / rescale
+  // shared memory: kStages K pages, kStages V pages (pool dtype), for int8
+  // kStages K and V scale rows, then f32 q, acc, probabilities and the
+  // per-head running max / sum / rescale
   extern __shared__ __align__(16) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);                         // [S][BS][D]
-  T* v_s = k_s + kStages * page;                               // [S][BS][D]
-  float* q_s = reinterpret_cast<float*>(v_s + kStages * page); // [G][D]
+  KV* k_s = reinterpret_cast<KV*>(smem);                       // [S][BS][D]
+  KV* v_s = k_s + kStages * page;                              // [S][BS][D]
+  float* ks_s = reinterpret_cast<float*>(v_s + kStages * page);  // [S][BS]
+  float* vs_s = ks_s + (kQuant ? kStages * BS : 0);              // [S][BS]
+  float* q_s = vs_s + (kQuant ? kStages * BS : 0);             // [G][D]
   float* acc_s = q_s + G * D;                                  // [G][D]
   float* p_s = acc_s + G * D;                                  // [G][BS]
   float* m_s = p_s + G * BS;                                   // [G]
@@ -166,15 +195,26 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
   const int* table = tables + (long long)lane * table_width;
   auto issue = [&](int j) {             // page j -> ring slot j % kStages
     const long long blk = table[j];
-    const T* kb = k_cache + blk * k_sb + kvh * k_sh;
-    const T* vb = v_cache + blk * v_sb + kvh * v_sh;
-    T* kd = k_s + (j % kStages) * page;
-    T* vd = v_s + (j % kStages) * page;
+    const KV* kb = k_cache + blk * k_sb + kvh * k_sh;
+    const KV* vb = v_cache + blk * v_sb + kvh * v_sh;
+    KV* kd = k_s + (j % kStages) * page;
+    KV* vd = v_s + (j % kStages) * page;
     for (int i = tid; i < BS * row_vecs; i += kThreads) {
       const int r = i / row_vecs;
       const int c = (i - r * row_vecs) * kVec;
       cp_async16(kd + r * D + c, kb + r * k_ss + c);
       cp_async16(vd + r * D + c, vb + r * v_ss + c);
+    }
+    if constexpr (kQuant) {
+      // the page's scale rows: BS f32 each, contiguous (slot stride 1)
+      const float* ksb = k_scale + blk * ks_sb + kvh * ks_sh;
+      const float* vsb = v_scale + blk * vs_sb + kvh * vs_sh;
+      float* ksd = ks_s + (j % kStages) * BS;
+      float* vsd = vs_s + (j % kStages) * BS;
+      for (int i = tid; i < BS / 4; i += kThreads) {
+        cp_async16(ksd + 4 * i, ksb + 4 * i);
+        cp_async16(vsd + 4 * i, vsb + 4 * i);
+      }
     }
   };
   // one commit group per ring slot, empty past the last page, so the
@@ -205,8 +245,10 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
     if (j + kStages - 1 < nblk) issue(j + kStages - 1);
     cp_async_commit();
 
-    const T* kp = k_s + (j % kStages) * page;
-    const T* vp = v_s + (j % kStages) * page;
+    const KV* kp = k_s + (j % kStages) * page;
+    const KV* vp = v_s + (j % kStages) * page;
+    const float* ksp = ks_s + (j % kStages) * BS;
+    const float* vsp = vs_s + (j % kStages) * BS;
     // scores: each 8-lane group owns one (query head, slot) pair; the
     // loop is warp-uniform so every lane reaches the group shuffles
     const int base = j * BS;
@@ -220,8 +262,9 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
       float s = 0.f;
       if (live)
         for (int c = sub; c < row_vecs; c += kGroup)
-          s += dot16(qg + c * kVec, kr[c], T());
+          s += dot16(qg + c * kVec, kr[c], KV());
       s = group_sum(s);
+      if constexpr (kQuant) s *= ksp[r];
       if (live && sub == 0) p_s[pr] = (base + r <= pos) ? s : kNegInf;
     }
     __syncthreads();
@@ -236,8 +279,12 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
       float sum = 0.f;
       for (int r = lane_id; r < BS; r += 32) {
         const float e = expf(pg[r] - m_new);
-        pg[r] = e;
         sum += e;
+        // int8: fold the slot's V scale into the probability
+        if constexpr (kQuant)
+          pg[r] = e * vsp[r];
+        else
+          pg[r] = e;
       }
       sum = warp_sum(sum);
       if (lane_id == 0) {
@@ -259,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
       acc_s[i] = a;
     }
     // the next iteration's first barrier orders these reads of p_s,
-    // alpha_s and the V page before they are overwritten
+    // alpha_s, the V page and its scales before they are overwritten
   }
   __syncthreads();
 
@@ -269,43 +316,47 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
   }
 }
 
-template <typename T>
+template <typename KV>
 size_t smem_bytes(int group, int head_dim, int block_size) {
-  return 2 * (size_t)kStages * block_size * head_dim * sizeof(T) +
+  const bool quant = std::is_same<KV, int8_t>::value;
+  return 2 * (size_t)kStages * block_size * head_dim * sizeof(KV) +
+         (quant ? 2 * (size_t)kStages * block_size * sizeof(float) : 0) +
          (2 * (size_t)group * head_dim + (size_t)group * block_size +
           3 * (size_t)group) * sizeof(float);
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* q, const void* k_cache, const void* v_cache,
-           const int* tables, const int* kv_lens, const int* tok_lane,
-           const int* tok_pos, void* out, int num_tokens, int num_heads,
-           int num_kv_heads, int head_dim, int block_size, int table_width,
-           long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-           long long v_sh, long long v_ss, float sm_scale,
-           cudaStream_t stream) {
+           const float* k_scale, const float* v_scale, const int* tables,
+           const int* kv_lens, const int* tok_lane, const int* tok_pos,
+           void* out, int num_tokens, int num_heads, int num_kv_heads,
+           int head_dim, int block_size, int table_width, long long k_sb,
+           long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+           long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb,
+           long long vs_sh, float sm_scale, cudaStream_t stream) {
   const int group = num_heads / num_kv_heads;
-  const size_t smem = smem_bytes<T>(group, head_dim, block_size);
+  const size_t smem = smem_bytes<KV>(group, head_dim, block_size);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        ragged_paged_attention_kernel<T>,
+        ragged_paged_attention_kernel<T, KV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(num_tokens, num_kv_heads);
-  ragged_paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_cache),
-      static_cast<const T*>(v_cache), tables, kv_lens, tok_lane, tok_pos,
-      static_cast<T*>(out), num_heads, group, head_dim, block_size,
-      table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, sm_scale);
+  ragged_paged_attention_kernel<T, KV><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k_cache),
+      static_cast<const KV*>(v_cache), k_scale, v_scale, tables, kv_lens,
+      tok_lane, tok_pos, static_cast<T*>(out), num_heads, group, head_dim,
+      block_size, table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb,
+      ks_sh, vs_sb, vs_sh, sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32. Strides are in elements; the last
-// (head_dim) stride of both pools is 1. Returns cudaGetLastError() after
-// the launch (0 = launched).
+// dtype (of q, out and the pool): 0 = bfloat16, 1 = float32. Strides are
+// in elements; the last (head_dim) stride of both pools is 1. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int ragged_paged_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* tables, const void* kv_lens, const void* tok_lane,
@@ -321,14 +372,52 @@ extern "C" int ragged_paged_attention(
   const int* ps = static_cast<const int*>(tok_pos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<__nv_bfloat16>(q, k_cache, v_cache, tb, kl, ln, ps, out,
-                                 num_tokens, num_heads, num_kv_heads,
-                                 head_dim, block_size, table_width, k_sb,
-                                 k_sh, k_ss, v_sb, v_sh, v_ss, sm_scale, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_cache, v_cache, nullptr, nullptr, tb, kl, ln, ps, out,
+        num_tokens, num_heads, num_kv_heads, head_dim, block_size,
+        table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, 0, 0, 0, 0,
+        sm_scale, s);
   if (dtype == 1)
-    return launch<float>(q, k_cache, v_cache, tb, kl, ln, ps, out,
-                         num_tokens, num_heads, num_kv_heads, head_dim,
-                         block_size, table_width, k_sb, k_sh, k_ss, v_sb,
-                         v_sh, v_ss, sm_scale, s);
+    return launch<float, float>(
+        q, k_cache, v_cache, nullptr, nullptr, tb, kl, ln, ps, out,
+        num_tokens, num_heads, num_kv_heads, head_dim, block_size,
+        table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, 0, 0, 0, 0,
+        sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 pool: k_cache/v_cache int8 [NB, KVH, BS, D] (strides in
+// elements, head_dim stride 1), k_scale/v_scale f32 [NB, KVH, BS] (block
+// and head strides in elements, slot stride 1, rows 16-byte aligned).
+// dtype is q's and out's: 0 = bfloat16, 1 = float32.
+extern "C" int ragged_paged_attention_q(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* kv_lens, const void* tok_lane, const void* tok_pos,
+    void* out, int num_tokens, int num_heads, int num_kv_heads,
+    int head_dim, int block_size, int table_width, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb,
+    long long vs_sh, float sm_scale, int dtype, void* stream) {
+  if (num_tokens == 0) return 0;
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* tb = static_cast<const int*>(tables);
+  const int* kl = static_cast<const int*>(kv_lens);
+  const int* ln = static_cast<const int*>(tok_lane);
+  const int* ps = static_cast<const int*>(tok_pos);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<__nv_bfloat16, int8_t>(
+        q, k_cache, v_cache, ks, vs, tb, kl, ln, ps, out, num_tokens,
+        num_heads, num_kv_heads, head_dim, block_size, table_width, k_sb,
+        k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh, vs_sb, vs_sh, sm_scale,
+        s);
+  if (dtype == 1)
+    return launch<float, int8_t>(
+        q, k_cache, v_cache, ks, vs, tb, kl, ln, ps, out, num_tokens,
+        num_heads, num_kv_heads, head_dim, block_size, table_width, k_sb,
+        k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh, vs_sb, vs_sh, sm_scale,
+        s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
-"""Process-wide named integer counters (the port's slice of
-`paddle_tpu/framework/monitor.py`): `inc`, `get` and `reset`.
+"""Process-wide named counters and gauges (the port's slice of
+`paddle_tpu/framework/monitor.py`): `inc`, `set_gauge`, `get` and
+`reset`.
 
 The serving path bumps `serving.*` counters here. Where the JAX package
 counted jit retraces (`serving.ragged_retraces`), which have no meaning
@@ -10,12 +11,12 @@ wrappers (`ops/kernels/_support.py`), not here.
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Union
 
-__all__ = ["inc", "get", "reset"]
+__all__ = ["inc", "set_gauge", "get", "reset"]
 
 _lock = threading.Lock()
-_values: Dict[str, int] = {}
+_values: Dict[str, Union[int, float]] = {}
 
 
 def inc(name: str, n: int = 1) -> int:
@@ -25,7 +26,13 @@ def inc(name: str, n: int = 1) -> int:
     return v
 
 
-def get(name: str) -> int:
+def set_gauge(name: str, value) -> None:
+    """Set `name` to `value` (a gauge: the last value set wins)."""
+    with _lock:
+        _values[name] = value
+
+
+def get(name: str):
     return _values.get(name, 0)
 
 

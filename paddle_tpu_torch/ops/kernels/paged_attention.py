@@ -2,12 +2,15 @@
 
 The port of the ragged part of `paddle_tpu/ops/pallas/paged_attention.py`:
 `ragged_metadata` and `write_kv_to_cache_ragged` are plain tensor code;
-`paged_attention_ragged` launches the hand-written Hopper kernel
-(`csrc/ragged_paged_attention.cu`) on CUDA tensors and runs its plain
-PyTorch version, `paged_attention_ragged_ref`, on CPU tensors. There is no
-fallback between the two: a CUDA tensor the kernel does not take raises.
+`paged_attention_ragged` launches a hand-written Hopper kernel
+(`csrc/ragged_paged_attention.cu`) on CUDA tensors — the bf16/f32-pool
+kernel, or with `k_scale`/`v_scale` the int8-pool kernel — and runs its
+plain PyTorch version, `paged_attention_ragged_ref`, on CPU tensors. There
+is no fallback between the two: a CUDA tensor the kernel does not take
+raises.
 
 Layouts are the JAX package's: q [T, H, D]; pools [NB, KVH, BS, D];
+int8 pools' scale planes [NB, KVH, BS] f32 (`inference/kv_quant.py`);
 tables [B, W] int32; kv_lens [B]; tok_lane/tok_pos [T] int32.
 """
 from __future__ import annotations
@@ -17,16 +20,19 @@ import math
 
 import torch
 
+from ...inference import kv_quant
 from . import _support
 
 __all__ = ["ragged_metadata", "ragged_write_index", "write_kv_to_cache_ragged",
            "paged_attention_ragged", "paged_attention_ragged_ref",
-           "ragged_supported", "LAUNCHES"]
+           "ragged_supported", "LAUNCHES", "LAUNCHES_Q"]
 
 NEG_INF = -1e30
 
-# launches of the CUDA kernel (one per call on CUDA tensors)
+# launches of the CUDA kernels (one per call on CUDA tensors): the
+# bf16/f32 pool and the int8 pool
 LAUNCHES = _support.launch_counter("ragged_paged_attention")
+LAUNCHES_Q = _support.launch_counter("ragged_paged_attention_q")
 
 
 def ragged_metadata(q_lens: torch.Tensor, kv_lens: torch.Tensor,
@@ -71,23 +77,36 @@ def ragged_write_index(block_tables, tok_lane, tok_pos, block_size: int):
 
 
 def write_kv_to_cache_ragged(k, v, k_cache, v_cache, block_tables,
-                             tok_lane, tok_pos, index=None):
+                             tok_lane, tok_pos, k_scale=None, v_scale=None,
+                             index=None):
     """Scatter packed K/V tokens [T, KVH, D] into the pools IN PLACE.
 
     Token t lands at absolute position tok_pos[t] of lane tok_lane[t]'s
     block table; guard slots (tok_pos < 0) write nothing (see
     `ragged_write_index`, whose result a caller writing several layers
     may pass as `index`). Returns (k_cache, v_cache), the same tensors
-    (the JAX version returns new arrays from donated buffers)."""
+    (the JAX version returns new arrays from donated buffers).
+
+    With `k_scale`/`v_scale` (f32 [NB, KVH, BS]) the pools are int8:
+    each token's K/V quantizes with its own per-head absmax scale
+    (`kv_quant.quantize_kv`), and the int8 values and their scales land
+    at the SAME (block, slot) index, guard handling included. Returns
+    (k_cache, v_cache, k_scale, v_scale) then."""
     if index is None:
         index = ragged_write_index(block_tables, tok_lane, tok_pos,
                                    k_cache.shape[2])
     blk, off, src, any_valid = index
-    for new, cache in ((k, k_cache), (v, v_cache)):
-        val = torch.where(any_valid, new[src].to(cache.dtype),
-                          cache[blk, :, off])
-        cache[blk, :, off] = val
-    return k_cache, v_cache
+    if k_scale is None:
+        for new, cache in ((k, k_cache), (v, v_cache)):
+            val = torch.where(any_valid, new[src].to(cache.dtype),
+                              cache[blk, :, off])
+            cache[blk, :, off] = val
+        return k_cache, v_cache
+    for new, cache, plane in ((k, k_cache, k_scale), (v, v_cache, v_scale)):
+        q, s = kv_quant.quantize_kv(new[src])
+        cache[blk, :, off] = torch.where(any_valid, q, cache[blk, :, off])
+        plane[blk, :, off] = torch.where(any_valid, s, plane[blk, :, off])
+    return k_cache, v_cache, k_scale, v_scale
 
 
 def ragged_supported(q_shape, dtype) -> bool:
@@ -105,11 +124,14 @@ _REF_TOKEN_TILE = 128
 
 
 def paged_attention_ragged_ref(q, k_cache, v_cache, block_tables, kv_lens,
-                               tok_lane, tok_pos, sm_scale=None):
-    """Plain PyTorch version of the ragged kernel (gather + masked
+                               tok_lane, tok_pos, sm_scale=None,
+                               k_scale=None, v_scale=None):
+    """Plain PyTorch version of the ragged kernels (gather + masked
     softmax per packed token, in f32). Guard rows (tok_pos < 0) come back
     exactly zero. Ported from `paged_attention_ragged_ref` with its
-    128-token tiling."""
+    128-token tiling. With `k_scale`/`v_scale` (int8 pools) the gathered
+    per-lane windows are dequantized right after the gather; the pool
+    itself is never dequantized."""
     tokens, h, d = q.shape
     _nb, kv_h, bs, _ = k_cache.shape
     g = h // kv_h
@@ -118,8 +140,12 @@ def paged_attention_ragged_ref(q, k_cache, v_cache, block_tables, kv_lens,
     tables = block_tables.long()
     b, w = tables.shape
     max_s = w * bs
-    k = k_cache[tables].transpose(2, 3).reshape(b, max_s, kv_h, d)
-    v = v_cache[tables].transpose(2, 3).reshape(b, max_s, kv_h, d)
+    k, v = k_cache[tables], v_cache[tables]          # [B, W, KVH, BS, D]
+    if k_scale is not None:
+        k = kv_quant.dequantize_kv(k, k_scale[tables])
+        v = kv_quant.dequantize_kv(v, v_scale[tables])
+    k = k.transpose(2, 3).reshape(b, max_s, kv_h, d)
+    v = v.transpose(2, 3).reshape(b, max_s, kv_h, d)
     wpos = torch.arange(max_s, device=q.device)
     qg = q.reshape(tokens, kv_h, g, d)
     out = torch.empty((tokens, kv_h, g, d), dtype=torch.float32,
@@ -142,24 +168,26 @@ def paged_attention_ragged_ref(q, k_cache, v_cache, block_tables, kv_lens,
 
 
 def paged_attention_ragged(q, k_cache, v_cache, block_tables, kv_lens,
-                           tok_lane, tok_pos, sm_scale=None):
+                           tok_lane, tok_pos, sm_scale=None, k_scale=None,
+                           v_scale=None):
     """Ragged paged attention over a packed query token buffer.
 
     One launch serves every batch composition: decode lanes (q_len 1),
     prefill chunks (q_len n) and empty lanes. Args as
     `paged_attention_ragged_ref`; kv_lens counts each lane's cache
-    INCLUDING this dispatch's tokens. Returns [T, H, D] in q's dtype;
-    guard rows are exact zeros. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    INCLUDING this dispatch's tokens; `k_scale`/`v_scale` mark int8
+    pools. Returns [T, H, D] in q's dtype; guard rows are exact zeros.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (the int8-pool kernel with scales) or raise."""
     if q.device.type == "cpu":
         return paged_attention_ragged_ref(q, k_cache, v_cache, block_tables,
                                           kv_lens, tok_lane, tok_pos,
-                                          sm_scale)
+                                          sm_scale, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_ragged: unsupported device "
                          f"{q.device}")
     return _launch(q, k_cache, v_cache, block_tables, kv_lens, tok_lane,
-                   tok_pos, sm_scale)
+                   tok_pos, sm_scale, k_scale, v_scale)
 
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -167,16 +195,23 @@ _SMEM_MAX = 232448      # dynamic shared memory one Hopper block may use
 _STAGES = 3             # the kernel's ring of K/V pages (kStages)
 
 
-def _smem_bytes(group, head_dim, block_size, itemsize):
+def _smem_bytes(group, head_dim, block_size, itemsize, quant=False):
     """The kernel's dynamic shared memory (`smem_bytes` in the source)."""
     return (2 * _STAGES * block_size * head_dim * itemsize
+            + (2 * _STAGES * block_size * 4 if quant else 0)
             + (2 * group * head_dim + group * block_size + 3 * group) * 4)
 
 
-def _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos):
+def _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
+           k_scale, v_scale):
+    quant = k_scale is not None or v_scale is not None
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
                     ("block_tables", block_tables), ("kv_lens", kv_lens),
-                    ("tok_lane", tok_lane), ("tok_pos", tok_pos)):
+                    ("tok_lane", tok_lane), ("tok_pos", tok_pos)) + \
+            ((("k_scale", k_scale), ("v_scale", v_scale)) if quant else ()):
+        if t is None:
+            raise ValueError(f"an int8 pool needs both scale planes; "
+                             f"{name} is missing")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     if not ragged_supported(tuple(q.shape), q.dtype):
@@ -187,22 +222,46 @@ def _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos):
         raise ValueError("q must be contiguous")
     t, h, d = q.shape
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if c.dtype != q.dtype:
-            raise ValueError(f"{name} dtype {c.dtype} != q dtype {q.dtype}")
+        if quant and c.dtype != torch.int8:
+            raise ValueError(f"scale planes go with an int8 pool; {name} "
+                             f"is {c.dtype}")
+        if not quant and c.dtype != q.dtype:
+            raise ValueError(f"{name} dtype {c.dtype} != q dtype {q.dtype}"
+                             + (" (an int8 pool needs k_scale/v_scale)"
+                                if c.dtype == torch.int8 else ""))
         if c.dim() != 4 or c.shape[3] != d or c.shape[1:] != \
                 k_cache.shape[1:]:
             raise ValueError(f"{name} must be [NB, KVH, BS, {d}], got "
                              f"{tuple(c.shape)}")
         vec = 16 // c.element_size()
+        if d % vec:
+            raise ValueError(f"{name}: head_dim {d} is not a multiple of "
+                             f"{vec}, the values one 16-byte vector holds")
         if c.stride(3) != 1 or any(s % vec for s in c.stride()[:3]) \
                 or c.data_ptr() % 16:
             raise ValueError(f"{name} rows must be 16-byte aligned with a "
                              f"unit head_dim stride, got strides "
                              f"{c.stride()}")
+    if quant:
+        want = kv_quant.scale_shape(k_cache.shape)
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if sc.dtype != torch.float32 or tuple(sc.shape) != want:
+                raise ValueError(f"{name} must be f32 {list(want)} (the "
+                                 f"pool's shape minus head_dim), got "
+                                 f"{tuple(sc.shape)} {sc.dtype}")
+            # one page's scale row is staged with 16-byte copies
+            if sc.stride(2) != 1 or sc.shape[2] % 4 \
+                    or any(s % 4 for s in sc.stride()[:2]) \
+                    or sc.data_ptr() % 16:
+                raise ValueError(f"{name} rows must be 16-byte aligned "
+                                 f"(block_size % 4 == 0, unit slot "
+                                 f"stride), got shape {tuple(sc.shape)} "
+                                 f"strides {sc.stride()}")
     kv_h = k_cache.shape[1]
     if h % kv_h:
         raise ValueError(f"{h} query heads not a multiple of {kv_h} kv heads")
-    smem = _smem_bytes(h // kv_h, d, k_cache.shape[2], q.element_size())
+    smem = _smem_bytes(h // kv_h, d, k_cache.shape[2],
+                       k_cache.element_size(), quant)
     if smem > _SMEM_MAX:
         raise ValueError(f"ragged kernel needs {smem} bytes of shared "
                          f"memory per block, over the {_SMEM_MAX} a Hopper "
@@ -217,37 +276,47 @@ def _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos):
                     ("tok_lane", tok_lane), ("tok_pos", tok_pos)):
         if x.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {x.dtype}")
+    return quant
 
 
-def _lib():
+def _lib(quant):
     lib = _support.load_library("ragged_paged_attention")
-    fn = lib.ragged_paged_attention
+    fn = lib.ragged_paged_attention_q if quant else lib.ragged_paged_attention
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 6 + [ctypes.c_float, i, p]
+        nptr, nstride = (10, 10) if quant else (8, 6)
+        fn.argtypes = [p] * nptr + [i] * 6 + [ll] * nstride + \
+            [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
-            sm_scale):
-    _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos)
+            sm_scale, k_scale, v_scale):
+    quant = _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane,
+                   tok_pos, k_scale, v_scale)
     t, h, d = q.shape
     _nb, kv_h, bs, _ = k_cache.shape
     if sm_scale is None:
         sm_scale = 1.0 / float(math.sqrt(d))
     out = torch.empty_like(q)
-    fn = _lib()
+    fn = _lib(quant)
+    if quant:
+        ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr())
+        strides = (*k_cache.stride()[:3], *v_cache.stride()[:3],
+                   *k_scale.stride()[:2], *v_scale.stride()[:2])
+    else:
+        ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr())
+        strides = (*k_cache.stride()[:3], *v_cache.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                block_tables.data_ptr(), kv_lens.data_ptr(),
+        rc = fn(*ptrs, block_tables.data_ptr(), kv_lens.data_ptr(),
                 tok_lane.data_ptr(), tok_pos.data_ptr(), out.data_ptr(),
-                t, h, kv_h, d, bs, block_tables.shape[1],
-                *k_cache.stride()[:3], *v_cache.stride()[:3],
+                t, h, kv_h, d, bs, block_tables.shape[1], *strides,
                 float(sm_scale), _DTYPE_CODE[q.dtype], stream)
+    name = "ragged_paged_attention_q" if quant else "ragged_paged_attention"
     if rc != 0:
-        raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
-                           f"error {rc}")
-    LAUNCHES.count += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    (LAUNCHES_Q if quant else LAUNCHES).count += 1
     return out

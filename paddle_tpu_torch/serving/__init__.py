@@ -2,8 +2,10 @@ from .engine import EngineCore
 from .fault_tolerance import EngineStalled, EngineStepError
 from .frontend import RequestHandle, ServingFrontend
 from .metrics import ServingMetrics
+from .quant import greedy_agreement, quant_summary, quantize_engine
 from .scheduler import Request, RequestStatus, SamplingParams, Scheduler
 
 __all__ = ["EngineCore", "EngineStalled", "EngineStepError",
            "RequestHandle", "ServingFrontend", "ServingMetrics", "Request",
-           "RequestStatus", "SamplingParams", "Scheduler"]
+           "RequestStatus", "SamplingParams", "Scheduler",
+           "greedy_agreement", "quant_summary", "quantize_engine"]

@@ -130,6 +130,21 @@ class ServingMetrics:
         g["serving.queue_depth_peak"] = max(
             g.get("serving.queue_depth_peak", 0), depth)
 
+    # ---- quantized serving ----
+    def on_quant(self, info: dict):
+        """Publish the engine's quantization mode (`serving.quant.
+        quant_summary`): weight bits, KV bits and the per-token KV bytes
+        (`serving.quant.{wbits,kv_bits}`, `serving.kv_bytes_per_token`).
+        Called once when the scheduler binds an engine, never on the step
+        path."""
+        monitor.set_gauge("serving.quant.wbits", int(info.get("wbits", 16)))
+        monitor.set_gauge("serving.quant.kv_bits",
+                          int(info.get("kv_bits", 16)))
+        bpt = info.get("kv_bytes_per_token")
+        if bpt is not None:
+            monitor.set_gauge("serving.kv_bytes_per_token",
+                              round(float(bpt), 1))
+
     # ---- reporting ----
     def summary(self) -> Dict[str, object]:
         out: Dict[str, object] = {f"serving.{n}": monitor.get(f"serving.{n}")

@@ -40,6 +40,7 @@ from typing import Callable, Deque, List, Optional
 import numpy as np
 import torch
 
+from ..framework import monitor
 from ..inference.cache import KVCacheExhausted, SequenceTooLong
 from ..ops.sampling import sample_tokens
 from .engine import EngineCore
@@ -167,7 +168,8 @@ class Scheduler:
         self._bind_manager(engine.manager)
 
     def _bind_manager(self, mgr):
-        """Lease the guard block and derive pool geometry."""
+        """Lease the guard block, derive pool geometry, and publish the
+        engine's quantization mode."""
         # Guard block for padded lanes: empty slots point their block
         # table at this block. Negative ids keep it out of the request id
         # space; probe downward in case another scheduler already leases
@@ -183,6 +185,16 @@ class Scheduler:
         # what one sequence can ever hold: pool minus the guard (and minus
         # blocks other users of a shared engine already lease)
         self._usable_blocks = min(mgr.free_blocks, mgr.max_blocks_per_seq)
+        # the wbits / kv_bits / kv_bytes_per_token gauges: bind-time, not
+        # per step
+        info = getattr(self.engine, "quant_info", None)
+        if info is not None:
+            try:
+                self.metrics.on_quant(info())
+            except Exception:
+                # bind must survive a broken hook, but not silently: the
+                # unset gauges and this counter point at the cause
+                monitor.inc("serving.quant_info_errors")
 
     # ---- submission / cancellation ----
     def submit(self, req: Request, now: Optional[float] = None) -> Request:

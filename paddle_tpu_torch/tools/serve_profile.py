@@ -9,7 +9,11 @@ profiled window, and the host wall time per scheduler step split into
 the engine's ragged step, the sampler and the rest.
 
     python -m paddle_tpu_torch.tools.serve_profile \
-        [--out chiprun_out/serve_profile.json]
+        [--kv-bits 8] [--wbits 8|4] [--out serve_profile.json]
+
+`--kv-bits 8` serves from an int8 KV pool and `--wbits` quantizes the
+engine's weights (`serving.quant.quantize_engine`), as the smoke's
+quantized serve phase does.
 """
 from __future__ import annotations
 
@@ -42,6 +46,8 @@ def _busy_ms(intervals):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kv-bits", type=int, choices=(16, 8), default=16)
+    ap.add_argument("--wbits", type=int, choices=(8, 4), default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -53,7 +59,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]
-    fe, requests = serve_workload()
+    fe, requests = serve_workload(kv_bits=args.kv_bits, wbits=args.wbits)
     engine = fe.scheduler.engine
 
     # host wall split: wrap the engine step and the sampler
@@ -99,10 +105,13 @@ def main(argv=None):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "layers": LAYERS, "steps": steps, "wall_ms": wall * 1e3,
+        "layers": LAYERS, "kv_bits": args.kv_bits, "wbits": args.wbits,
+        "steps": steps, "wall_ms": wall * 1e3,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms": busy, "device_busy_share": busy / (wall * 1e3),
         "device_kernel_ms_total": dev_total,
+        "device_kernels_per_step": sum(v[1] for v in by_kernel.values())
+        / steps,
         "host_ms_per_step": {k: v * 1e3 / steps for k, v in host.items()},
         "top_kernels": [{"name": n[:90], "ms": v[0], "calls": v[1],
                          "share_of_device": v[0] / dev_total}

@@ -154,3 +154,101 @@ def test_cuda_tensors_never_take_the_plain_path():
     q = torch.zeros((2, 4, 16), device="meta")
     with pytest.raises(ValueError):
         tpa.paged_attention_ragged(q, q, q, q, q, q, q)
+
+
+# ---- int8 pools with per-slot f32 scale planes (kv_bits=8) ----
+
+def _q_pool(rng, nb, kvh, bs, d):
+    """int8 K/V pools and their scale planes, quantized from random
+    float pages with `quantize_kv` (the writer's formula)."""
+    from paddle_tpu_torch.inference import kv_quant
+
+    out = []
+    for _ in range(2):
+        x = torch.from_numpy(rng.normal(size=(nb, kvh, bs, d))
+                             .astype(np.float32))
+        out += [t.numpy() for t in kv_quant.quantize_kv(x)]
+    kq, ks, vq, vs = out
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("q_lens,kv_lens", [
+    ([2, 0, 3], [7, 0, 3]),             # guards at the end, empty lane
+    ([1, 4, 1], [5, 8, 1]),
+    ([0, 0, 0], [0, 0, 0]),             # every slot a guard
+])
+def test_write_kv_ragged_int8_matches_jax(q_lens, kv_lens):
+    """Quantize-on-write: the int8 values and their scales land at the
+    same (block, slot) as the JAX writer puts them; guard slots write
+    nothing, an all-guard step rewrites what is there."""
+    rng = np.random.default_rng(8)
+    nb, kvh, bs, d, t = 12, 2, 4, 16, 8
+    kc, vc, ks, vs = _q_pool(rng, nb, kvh, bs, d)
+    tables = np.asarray([[1, 2, 3], [4, 5, 6], [7, 8, 9]], np.int32)
+    k = rng.normal(size=(t, kvh, d)).astype(np.float32)
+    v = rng.normal(size=(t, kvh, d)).astype(np.float32)
+    k[0, 1] = 0.0                                   # a zero head vector
+    (jl, jp), (tl, tp) = _meta_both(q_lens, kv_lens, t)
+    want = jpa.write_kv_to_cache_ragged(
+        jnp.asarray(k), jnp.asarray(v), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(tables), jnp.asarray(jl), jnp.asarray(jp),
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    pools = [torch.from_numpy(a.copy()) for a in (kc, vc, ks, vs)]
+    got = tpa.write_kv_to_cache_ragged(
+        torch.from_numpy(k), torch.from_numpy(v), pools[0], pools[1],
+        torch.from_numpy(tables), torch.from_numpy(tl), torch.from_numpy(tp),
+        k_scale=pools[2], v_scale=pools[3])
+    assert all(g is p for g, p in zip(got, pools))  # written in place
+    assert pools[0].dtype == torch.int8 and pools[2].dtype == torch.float32
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    changed = (pools[2].numpy() != ks).any(axis=1).sum()
+    assert changed == sum(q_lens)
+
+
+def _run_all_q(q, kc, vc, ks, vs, tables, kv_lens, q_lens):
+    t = q.shape[0]
+    (jl, jp), (tl, tp) = _meta_both(q_lens, kv_lens, t)
+    jargs = (jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+             jnp.asarray(tables, jnp.int32), jnp.asarray(kv_lens, jnp.int32),
+             jnp.asarray(jl), jnp.asarray(jp))
+    jscales = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    kern = np.asarray(jpa.paged_attention_ragged(*jargs, **jscales))
+    ref = np.asarray(jpa.paged_attention_ragged_ref(*jargs, **jscales))
+    before = tpa.LAUNCHES_Q.count
+    port = tpa.paged_attention_ragged(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        torch.tensor(tables, dtype=torch.int32),
+        torch.tensor(kv_lens, dtype=torch.int32), torch.from_numpy(tl),
+        torch.from_numpy(tp), k_scale=torch.from_numpy(ks),
+        v_scale=torch.from_numpy(vs)).numpy()
+    assert tpa.LAUNCHES_Q.count == before            # CPU: the plain version
+    return port, kern, ref, tp
+
+
+@pytest.mark.parametrize("name", ["mha", "gqa", "gqa_one_kv_head",
+                                  "empty_middle_lane"])
+def test_int8_attention_matches_pallas_kernel_and_ref(name, interpret):
+    """The plain int8-pool attention against `_ragged_call_q` (Pallas,
+    interpreter mode) and the JAX reference, in f32."""
+    rng = np.random.default_rng(9)
+    q_lens, kv_lens, tables, h, kvh, d, bs, t = _case(name, rng)
+    kc, vc, ks, vs = _q_pool(rng, 20, kvh, bs, d)
+    q = rng.normal(size=(t, h, d)).astype(np.float32)
+    port, kern, ref, pos = _run_all_q(q, kc, vc, ks, vs, tables, kv_lens,
+                                      q_lens)
+    np.testing.assert_allclose(port, kern, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(port, ref, atol=ATOL, rtol=RTOL)
+    assert np.all(port[pos < 0] == 0.0)
+
+
+@pytest.mark.parametrize("q_len,kv_len", [(4, 8), (3, 11), (1, 12)])
+def test_int8_attention_chunks_at_block_boundaries(q_len, kv_len, interpret):
+    rng = np.random.default_rng(10)
+    kc, vc, ks, vs = _q_pool(rng, 16, 2, 4, 32)
+    q = rng.normal(size=(q_len + 2, 4, 32)).astype(np.float32)
+    port, kern, ref, pos = _run_all_q(q, kc, vc, ks, vs, [[1, 2, 3, 4]],
+                                      [kv_len], [q_len])
+    np.testing.assert_allclose(port, kern, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(port, ref, atol=ATOL, rtol=RTOL)
+    assert np.all(port[pos < 0] == 0.0)
