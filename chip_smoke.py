@@ -8,7 +8,11 @@ against its CPU run on a small model in every quantization mode, then
 serves a few requests through `ServingFrontend` at the full width of
 Llama-2-7B (32 layers, random weights from a seed): once in bf16, then
 with an int8 KV pool and int8 weights, and with an int8 KV pool and int4
-weights.
+weights. Then the training path: the flash attention kernels (forward,
+dQ, dK/dV) and the RMSNorm kernel against their plain versions at the
+training shapes and past the length where the JAX package streams K/V,
+three AdamW steps of a small model on the card against the CPU, and
+`train_workload`'s steps at Llama-2-7B width (8 layers, batch 4 x 2048).
 
     python3 chip_smoke.py
 
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -524,9 +529,394 @@ def phase_serve_quant(kind, smi):
     return l8, l4
 
 
-def _row(name, source, replaces, launches, case):
+FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
+FA_PY = "paddle_tpu/ops/pallas/flash_attention.py"
+
+# (B, S, H, KVH, D, causal, dtype, kv_lens): (a) the training shape, (b)
+# with GQA, (c) f32 causal and not, (d) kv_lens with an empty sequence,
+# (e) past the length where the JAX package streams K/V
+# (2 * Sk * D * 2 bytes = 8.9 MB > 8 MiB)
+FLASH_CASES = {
+    "train_mha": (4, 2048, 32, 32, 128, True, torch.bfloat16, None),
+    "train_gqa": (4, 2048, 32, 8, 128, True, torch.bfloat16, None),
+    "f32_causal": (2, 256, 4, 2, 64, True, torch.float32, None),
+    "f32_full": (2, 256, 4, 2, 64, False, torch.float32, None),
+    "lens_bf16": (4, 512, 4, 4, 128, False, torch.bfloat16,
+                  [512, 259, 0, 17]),
+    "stream_17408": (1, 17408, 2, 1, 128, True, torch.bfloat16, None),
+}
+# out, per row, relative to the row's largest |out|. bf16: 2^-6, two to
+# four bf16 ulps of that largest value: the kernel rounds P to bf16 for
+# P.V (relative 2^-9 per term, so about 2^-9 of the row's size after the
+# sum) and both sides round the output once; the largest seen on an H100
+# is 2^-7, one ulp. f32: 1e-5, ten times the largest seen (1.1e-6). The
+# gradients (sums over up to 17408 positions of products whose P and dS
+# the kernels round to bf16) within a norm-relative 1e-2, f32 1e-4.
+FLASH_OUT_ROW_REL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+FLASH_GRAD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def _live_pairs(b, s, causal, lens):
+    """(row, column) pairs one head attends to, summed over the batch:
+    the work this run's data needs."""
+    def one(n):
+        n = min(n, s)
+        if not causal:
+            return s * n
+        return n * (n + 1) // 2 + (s - n) * n
+    return sum(one(s if lens is None else n) for n in (lens or [s] * b))
+
+
+def _norm_rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _flash_case(name, gen, flush):
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    b, s, h, kvh, d, causal, dtype, lens = FLASH_CASES[name]
+    dev = torch.device("cuda")
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kvh, d), generator=gen, device=dev).to(dtype)
+    do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, kv_lens=kl)
+    ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, causal,
+                                                  kv_lens=kl)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    args = (q, k, v, do, ref_lse, delta, causal)
+    dq = fa.flash_attention_dq(*args, kv_lens=kl)
+    dk, dv = fa.flash_attention_dkv(*args, kv_lens=kl)
+    rdq, rdk, rdv = fa.flash_attention_bwd_ref(*args, kv_lens=kl)
+    torch.cuda.synchronize()
+
+    o, r = out.float(), ref_out.float()
+    err = float((o - r).abs().max())
+    mag = float(r.abs().max())
+    tol = 2.0 ** (math.floor(math.log2(max(mag, 2.0 ** -126))) - 6) \
+        if dtype == torch.bfloat16 else 1e-4
+    # row by row: a causal row averages over up to S keys, so most rows
+    # are far smaller than row 0 (= v[0]); each row is held to
+    # FLASH_OUT_ROW_REL of its own largest |out|, and never looser than
+    # `tol` (an empty row must be exactly 0)
+    row_err = (o - r).abs().amax(dim=-1)
+    row_mag = r.abs().amax(dim=-1)
+    row_tol = (FLASH_OUT_ROW_REL[dtype] * row_mag).clamp(max=tol)
+    row_rel = float((row_err / row_mag.clamp_min(1e-30)).max())
+    if not bool((row_err <= row_tol).all()):
+        worst = int((row_err - row_tol).argmax())
+        raise AssertionError(
+            f"flash {name}: out != plain version in row {worst} (flat "
+            f"[B, S, H] index): err {float(row_err.flatten()[worst])} > "
+            f"{float(row_tol.flatten()[worst])}; largest row-relative err "
+            f"{row_rel}")
+    out_rel = _norm_rel(out, ref_out)
+    live = ref_lse > -1e29
+    lse_err = float((lse[live] - ref_lse[live]).abs().max())
+    if lse_err > (1e-3 if dtype == torch.bfloat16 else 1e-5) \
+            or not bool((lse[~live] == -1e30).all()):
+        raise AssertionError(f"flash {name}: lse != plain version "
+                             f"({lse_err})")
+    gtol = FLASH_GRAD_TOL[dtype]
+    grad = {}
+    for gname, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
+                             ("dv", dv, rdv)):
+        rel = _norm_rel(got, want)
+        grad[gname] = {"norm_rel_err": rel, "max_abs_err": float(
+            (got.float() - want.float()).abs().max()),
+            "max_abs": float(want.float().abs().max())}
+        if not rel <= gtol:
+            raise AssertionError(f"flash {name}: {gname} != plain version, "
+                                 f"norm-relative err {rel} > {gtol}")
+
+    kernel = {
+        "flash_attention_fwd": time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, causal, kv_lens=kl), flush),
+        "flash_attention_dq": time_ms(lambda: fa.flash_attention_dq(
+            *args, kv_lens=kl), flush),
+        "flash_attention_dkv": time_ms(lambda: fa.flash_attention_dkv(
+            *args, kv_lens=kl), flush)}
+    plain_fwd = time_ms(lambda: fa.flash_attention_fwd_ref(
+        q, k, v, causal, kv_lens=kl), flush, reps=5)
+    plain_bwd = time_ms(lambda: fa.flash_attention_bwd_ref(
+        *args, kv_lens=kl), flush, reps=5)
+
+    # the library yardstick: SDPA on [B, H, S, D] copies made here
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    mask = None if kl is None else fa._live(s, s, causal, kl, dev)
+    sdpa_kw = dict(attn_mask=mask, is_causal=causal and mask is None,
+                   enable_gqa=h != kvh)
+
+    def lib_fwd():
+        return sdpa(qt, kt, vt, **sdpa_kw)
+
+    def lib_fwd_bwd():
+        for x in (qt, kt, vt):
+            x.grad = None
+        lib_fwd().backward(dot)
+
+    lib_f = time_ms(lib_fwd, flush)
+    lib_fb = time_ms(lib_fwd_bwd, flush)
+    del qt, kt, vt, dot, mask
+
+    pairs = _live_pairs(b, s, causal, lens)
+    item = q.element_size()
+    nq, nk = b * s * h * d * item, b * s * kvh * d * item
+    rows = 4 * b * h * s
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    work = {"flash_attention_fwd": (2 * nq + 2 * nk + rows, 4),
+            "flash_attention_dq": (3 * nq + 2 * nk + 2 * rows, 6),
+            "flash_attention_dkv": (2 * nq + 4 * nk + 2 * rows, 8)}
+    errs = {"flash_attention_fwd": err,
+            "flash_attention_dq": grad["dq"]["max_abs_err"],
+            "flash_attention_dkv": max(grad["dk"]["max_abs_err"],
+                                       grad["dv"]["max_abs_err"])}
+    res = {}
+    for kname, (nbytes, prods) in work.items():
+        flops = prods * d * h * pairs
+        bound_ms, bound_by = bound(nbytes, flops, peak)
+        res[kname] = {
+            "max_abs_err": errs[kname], "kernel_ms": kernel[kname],
+            "plain_ms": plain_fwd if kname.endswith("fwd") else plain_bwd,
+            "library_ms": lib_f if kname.endswith("fwd") else (
+                max(lib_fb - lib_f, 0.0) if kname.endswith("dq") else None),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+    res["shape"] = {"B": b, "S": s, "H": h, "KVH": kvh, "D": d,
+                    "causal": causal, "kv_lens": lens,
+                    "dtype": str(dtype).replace("torch.", "")}
+    res["out_tol"] = tol
+    res["out_row_rel_tol"] = FLASH_OUT_ROW_REL[dtype]
+    res["out_row_rel_err"] = row_rel
+    res["out_norm_rel_err"] = out_rel
+    res["grad_tol_norm_rel"] = gtol
+    res["grads"] = grad
+    res["lse_max_abs_err"] = lse_err
+    res["library_fwd_bwd_ms"] = lib_fb
+    return res
+
+
+def phase_flash():
+    """The three flash kernels against their plain versions (the backward
+    kernels on the plain version's own lse and delta). `plain_ms` of dQ
+    and dK/dV is the plain backward, which computes both; `library_ms` is
+    `F.scaled_dot_product_attention` on [B, H, S, D] copies: its forward
+    for the forward kernel, and its forward + backward less its forward
+    for the pair, reported once, on the dQ entry ("dq+dkv")."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+    results = {}
+    for name in FLASH_CASES:
+        results[name] = _flash_case(name, gen, flush)
+        release()
+    del flush
+    release()
+    emit({"phase": "flash", "kernels": ["flash_attention_fwd",
+                                        "flash_attention_dq",
+                                        "flash_attention_dkv"],
+          "library": "F.scaled_dot_product_attention ([B,H,S,D] copies); "
+                     "backward = fwd+bwd - fwd, on the dq entry (dq+dkv)",
+          "cases": results})
+    return results
+
+
+def phase_rms():
+    """The RMSNorm kernel at [8192, 4096] (the training step's rows) in
+    bf16 and f32 against `rms_norm_ref`: bf16 within one bf16 ulp of the
+    output's largest magnitude, f32 within 1e-6 relative; `library_ms` is
+    `F.rms_norm`."""
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+    results = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        x = (2 * torch.randn((8192, 4096), generator=gen,
+                             device="cuda")).to(dtype)
+        w = (1 + 0.1 * torch.randn((4096,), generator=gen,
+                                   device="cuda")).to(dtype)
+        y = rn.rms_norm_fwd(x, w, 1e-6)
+        ref = rn.rms_norm_ref(x, w, 1e-6)
+        torch.cuda.synchronize()
+        yf, rf = y.float(), ref.float()
+        err = float((yf - rf).abs().max())
+        if dtype == torch.bfloat16:
+            # one bf16 ulp of the output's largest magnitude: the output
+            # rounds twice (the normalised row, then its product with w),
+            # so a one-ulp flip of the first rounding (rsqrtf, summation
+            # order) moves a smaller output by up to two of its own ulps
+            tol = 2.0 ** (math.floor(math.log2(float(rf.abs().max()))) - 7)
+            ok = err <= tol
+        else:
+            ok = torch.allclose(yf, rf, rtol=1e-6, atol=1e-6)
+        if not ok:
+            raise AssertionError(f"rms_norm {name}: kernel != plain "
+                                 f"version, max abs err {err}")
+        nbytes = 2 * x.numel() * x.element_size() + w.numel() * \
+            w.element_size()
+        flops = 4 * x.numel()
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS
+                                   if dtype == torch.bfloat16 else F32_FLOPS)
+        results[name] = {
+            "shape": [8192, 4096], "max_abs_err": err,
+            "kernel_ms": time_ms(lambda: rn.rms_norm_fwd(x, w, 1e-6), flush),
+            "plain_ms": time_ms(lambda: rn.rms_norm_ref(x, w, 1e-6), flush),
+            "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(
+                x, (4096,), w, 1e-6), flush),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        del x, w, y, ref
+    del flush
+    release()
+    emit({"phase": "kernel", "kernel": "rms_norm", "cases": results})
+    return results
+
+
+def phase_train_reference():
+    """Three AdamW steps of the small f32 model (head_dim 128, so the f32
+    flash kernels and the RMSNorm kernel run on the card) on the card and
+    on the CPU (plain versions): losses within 1e-4, every gradient of
+    step 1 within 1e-3 of that gradient's largest magnitude, parameters
+    after step 3 within 1e-4. lr is 1e-5: Adam's step is scale-free (up to
+    lr per element per step whatever the gradient's size), so a gradient
+    element at the f32 noise floor moves its parameter by at most 3e-5
+    here."""
+    from paddle_tpu_torch import llama_tiny
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cpu_m = _small_model()
+    gpu_m = llama_tiny(vocab=512, layers=2, hidden=256, heads=2, seq=256,
+                       num_key_value_heads=1, device="cuda")
+    gpu_m.load_state_dict(cpu_m.state_dict())
+    rng = np.random.default_rng(11)
+    ids = torch.from_numpy(rng.integers(0, 512, (2, 256)))
+    labels = torch.from_numpy(rng.integers(0, 512, (2, 256)))
+    kw = dict(learning_rate=1e-5, beta1=0.9, beta2=0.95, epsilon=1e-8,
+              weight_decay=0.1)
+    runs = [(cpu_m, AdamW(parameters=cpu_m.parameters(), **kw), "cpu"),
+            (gpu_m, AdamW(parameters=gpu_m.parameters(), **kw), "cuda")]
+    before = {c: _support.launch_counter(c).count for c in (
+        "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+        "rms_norm")}
+    losses, grads = [], {}
+    for step in range(3):
+        pair = []
+        for m, opt, dev in runs:
+            loss, _ = m(ids.to(dev), labels=labels.to(dev))
+            loss.backward()
+            if step == 0:
+                grads[dev] = {n: p.grad.detach().cpu().clone()
+                              for n, p in m.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            pair.append(float(loss.detach()))
+        losses.append(pair)
+        if abs(pair[0] - pair[1]) > 1e-4:
+            raise AssertionError(f"train reference step {step}: loss on the "
+                                 f"card {pair[1]} != CPU {pair[0]}")
+    grad_err = 0.0
+    for n, g in grads["cpu"].items():
+        e = float((grads["cuda"][n] - g).abs().max())
+        rel = e / max(float(g.abs().max()), 1e-30)
+        grad_err = max(grad_err, rel)
+        if rel > 1e-3:
+            raise AssertionError(f"train reference: grad {n} off by {e} "
+                                 f"({rel} of its max)")
+    gp = dict(gpu_m.named_parameters())
+    param_err = max(float((gp[n].detach().cpu() - p.detach()).abs().max())
+                    for n, p in cpu_m.named_parameters())
+    if param_err > 1e-4:
+        raise AssertionError(f"train reference: parameters after 3 steps "
+                             f"off by {param_err}")
+    launched = {c: _support.launch_counter(c).count - n
+                for c, n in before.items()}
+    if not all(launched.values()):
+        raise AssertionError(f"train reference: kernels not launched on the "
+                             f"card: {launched}")
+    emit({"phase": "train_reference", "model": "llama_tiny(vocab=512, "
+          "layers=2, hidden=256, heads=2, kv_heads=1) f32", "steps": 3,
+          "losses_cpu_card": losses, "grad_max_rel_err": grad_err,
+          "param_max_abs_err": param_err, "launches": launched})
+    del cpu_m, gpu_m, runs
+    release()
+
+
+TRAIN_KERNELS = {"flash_attention_fwd": 1, "flash_attention_dq": 1,
+                 "flash_attention_dkv": 1, "rms_norm": 2}
+
+
+def phase_train(kind, smi):
+    """`train_workload` at Llama-2-7B width (8 layers, batch 4 x 2048): two
+    warm-up steps, then timed steps with the launch counts zeroed just
+    before and read just after. Gates: every loss finite, the first
+    between ln 32000 and 12.4 (random logits of std ~1.3 start near
+    11.2), the last below the first (the batch repeats), and per step
+    exactly one flash forward, dQ and dK/dV per layer, two RMSNorms per
+    layer plus the final one, and no serving kernel."""
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.tools.train_workload import (
+        BATCH, LAYERS, SEQ, SPLIT, TIMED_STEPS, TOKENS, WARMUP_STEPS,
+        timed_steps, train_step, train_workload)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt, ids, labels = train_workload()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses = [train_step(model, opt, ids, labels)
+              for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    steps = TIMED_STEPS
+    _support.reset_launch_counts()
+    timed, walls, splits = timed_steps(model, opt, ids, labels)
+    losses += timed
+    launches = {c: _support.launch_counter(c).count for c in (
+        "ragged_paged_attention", "ragged_paged_attention_q",
+        "quant_matmul", "quant_matmul_int4", *TRAIN_KERNELS)}
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    if not math.log(32000) <= losses[0] <= 12.4:
+        raise AssertionError(f"train: first loss {losses[0]} outside "
+                             f"[ln 32000, 12.4]")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall: {losses}")
+    expect = {c: 0 for c in launches}
+    for c, per_layer in TRAIN_KERNELS.items():
+        expect[c] = (per_layer * LAYERS + (c == "rms_norm")) * steps
+    if launches != expect:
+        raise AssertionError(f"train: kernel launches {launches} != "
+                             f"{expect} over {steps} steps")
+    step_ms = statistics.median(walls)
+    flops = model.flops_per_token(SEQ) * TOKENS
+    split = {k: statistics.median(s[k] for s in splits) for k in SPLIT}
+    emit({"phase": "train",
+          "model": f"llama_7b_shaped(num_layers={LAYERS}) bf16, AdamW "
+                   "multi_precision", "batch": BATCH, "seq": SEQ,
+          "steps_timed": steps, "step_ms_median": step_ms,
+          "step_ms_range": [min(walls), max(walls)], "step_ms": walls,
+          "split_ms_median": split, "tok_s": TOKENS / (step_ms / 1e3),
+          "model_flops_per_step": flops,
+          "mfu": flops / (step_ms / 1e3) / BF16_FLOPS,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "losses": losses, "kernel_launches": launches,
+          "setup_s": setup_s, "device": kind, "nvidia_smi": smi})
+    del model, opt, ids, labels
+    release()
+    return launches
+
+
+def _row(name, source, replaces, launches, case, **extra):
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, **extra, "launches": launches,
             "max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
@@ -542,6 +932,10 @@ def main():
     phase_reference()
     bf16_launches = phase_serve(kind, smi)
     l8, l4 = phase_serve_quant(kind, smi)
+    flash = phase_flash()
+    rms = phase_rms()
+    phase_train_reference()
+    train_launches = phase_train(kind, smi)
     attn_src = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
     gemm_src = "paddle_tpu_torch/csrc/quant_matmul.cu"
     emit({"kernels": [
@@ -557,7 +951,15 @@ def main():
              l8["quant_matmul"], int8["qkv_int8"]),
         _row("quant_matmul_int4", gemm_src,
              "paddle_tpu/ops/pallas/quant_matmul.py:115",
-             l4["quant_matmul_int4"], int4["qkv_int4"])]})
+             l4["quant_matmul_int4"], int4["qkv_int4"]),
+        *[_row(name, FLASH_SRC, f"{FA_PY}:{line}", train_launches[name],
+               flash["train_mha"][name], also_replaces=f"{FA_PY}:{also}")
+          for name, line, also in (("flash_attention_fwd", 49, 424),
+                                   ("flash_attention_dq", 100, 537),
+                                   ("flash_attention_dkv", 149, 594))],
+        _row("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
+             "paddle_tpu/ops/pallas/rms_norm.py:18",
+             train_launches["rms_norm"], rms["bf16"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,12 +1,14 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for NVIDIA
 Hopper.
 
-This slice serves the Llama model through the ragged paged-KV engine:
-`ServingFrontend` -> `Scheduler` -> `LlamaInferenceEngine.ragged_step`,
-whose attention over the paged pool is a hand-written CUDA kernel
-(`csrc/ragged_paged_attention.cu`). Entry points run on the CUDA card
-unless the caller passes `device="cpu"`. The package imports neither jax
-nor paddle_tpu.
+It serves the Llama model through the ragged paged-KV engine
+(`ServingFrontend` -> `Scheduler` -> `LlamaInferenceEngine.ragged_step`)
+and trains it (`loss, logits = model(ids, labels=labels)`,
+`loss.backward()`, `paddle_tpu_torch.optimizer.AdamW.step()`), with
+hand-written CUDA kernels under `csrc/` for the paged attention, the
+weight-only gemms, flash attention and RMSNorm. Entry points run on the
+CUDA card unless the caller passes `device="cpu"`. The package imports
+neither jax nor paddle_tpu.
 """
 from .convert import from_jax_state
 from .inference import LlamaInferenceEngine

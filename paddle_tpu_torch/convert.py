@@ -6,7 +6,7 @@ Linear weights `[in, out]`), so the state exported by
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -18,13 +18,18 @@ __all__ = ["from_jax_state"]
 
 @torch.no_grad()
 def from_jax_state(state: Dict[str, np.ndarray], config: LlamaConfig,
-                   device=None) -> LlamaForCausalLM:
-    """Build a `LlamaForCausalLM` holding `state` (name -> numpy array,
-    e.g. `{k: np.asarray(v) for k, v in state_arrays(jax_model).items()}`).
-    Tied embeddings (no `lm_head.weight`) and GQA follow from `config`.
-    `device=None` means the CUDA card, as everywhere in the port. Every
-    parameter must be present with its exact shape."""
-    model = LlamaForCausalLM(config, device=device)
+                   device=None,
+                   model: Optional[LlamaForCausalLM] = None
+                   ) -> LlamaForCausalLM:
+    """Build a trainable `LlamaForCausalLM` holding `state` (name -> numpy
+    array, e.g. `{k: np.asarray(v) for k, v in
+    state_arrays(jax_model).items()}`), or load `state` into `model` in
+    place (its device and dtype stay) and return it. Tied embeddings (no
+    `lm_head.weight`) and GQA follow from `config`. `device=None` means
+    the CUDA card, as everywhere in the port. Every parameter must be
+    present with its exact shape."""
+    if model is None:
+        model = LlamaForCausalLM(config, device=device)
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(state))
     extra = sorted(set(state) - set(params))

@@ -1,0 +1,52 @@
+"""`scaled_dot_product_attention` in paddle's `[B, S, H, D]` layout,
+routed as `paddle_tpu/nn/functional/attention.py:94-118` and
+`flash_attention.maybe_flash` route it: the flash kernels
+(`ops/kernels/flash_attention.py`) when their `supported()` holds and not
+(causal with Sq != Sk); the plain composite `_sdpa_fn` otherwise. Masks
+are not ported yet: the model attends with `is_causal` alone."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ...ops.kernels import flash_attention as _flash
+
+__all__ = ["scaled_dot_product_attention"]
+
+NEG_INF = -1e30
+
+
+def _sdpa_fn(q, k, v, causal, scale=None):
+    """`attention.py:43-75`: f32 scores, a -1e30 mask (causal aligned to
+    the bottom right), GQA by repeating K/V heads, probabilities cast to
+    q's dtype before the product with V."""
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if k.shape[1] != q.shape[1]:
+        rep = q.shape[1] // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = (q.float() @ k.float().transpose(-1, -2)) * scale
+    sq, skv = q.shape[2], k.shape[2]
+    if causal:
+        keep = torch.ones((sq, skv), dtype=torch.bool,
+                          device=q.device).tril(diagonal=skv - sq)
+        scores = scores.masked_fill(~keep, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return (probs @ v).transpose(1, 2)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 is_causal=False):
+    """q `[B, Sq, H, D]`, k/v `[B, Sk, KVH, D]` -> `[B, Sq, H, D]`."""
+    if attn_mask is not None:
+        raise NotImplementedError("scaled_dot_product_attention: attn_mask "
+                                  "is not ported yet")
+    if _flash.supported(
+            tuple(query.shape), tuple(key.shape), query.dtype) and not (
+            is_causal and query.shape[1] != key.shape[1]):
+        return _flash.flash_attention_bshd(query, key, value,
+                                           causal=is_causal)
+    return _sdpa_fn(query, key, value, is_causal)

@@ -1,0 +1,28 @@
+"""`rms_norm`, routed as `paddle_tpu/nn/functional/norm.py:193-208`
+routes it: the fused kernel (`ops/kernels/rms_norm.py`) when its
+`supported()` holds, else the plain composite `_rms_norm_fn`."""
+from __future__ import annotations
+
+import torch
+
+from ...ops.kernels import rms_norm as _kernel
+
+__all__ = ["rms_norm"]
+
+
+def _rms_norm_fn(x, w, epsilon):
+    """`norm.py:180-187`: f32 math for 16-bit x, a division by `sqrt` (not
+    the kernel's `rsqrt`), rounded to x's dtype before the multiply by w."""
+    xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf / torch.sqrt(var + epsilon)
+    return y.to(x.dtype) * w
+
+
+def rms_norm(x, weight, epsilon=1e-6):
+    """RMSNorm over the last axis of x. A shape the kernel module admits
+    always takes the kernel's path (its plain version on CPU tensors); a
+    CUDA tensor never falls back from it."""
+    if _kernel.supported(tuple(x.shape), x.dtype):
+        return _kernel.rms_norm(x, weight, epsilon)
+    return _rms_norm_fn(x, weight, epsilon)

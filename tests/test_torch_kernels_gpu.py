@@ -339,3 +339,267 @@ def test_quantized_engine_step_on_card_matches_cpu(kv_bits, weight_only,
         a = cpu.ragged_step(tokens, q_lens, kv_lens, tables)
         b = gpu.ragged_step(tokens, q_lens, kv_lens, tables)
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (forward, dQ, dK/dV) and RMSNorm
+# ---------------------------------------------------------------------------
+
+from paddle_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from paddle_tpu_torch.ops.kernels import rms_norm as rn  # noqa: E402
+
+# norm-relative error of the kernels against their plain versions: f32 is
+# summation order only; bf16/f16 round P and dS to 16 bits before their
+# products (the plain versions keep them in f32)
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 4e-3}
+
+FLASH_CASES = {
+    # (B, Sq, Sk, H, KVH, D, causal, kv_lens)
+    "ragged_causal": (2, 100, 100, 4, 4, 64, True, None),
+    "gqa_ragged": (2, 77, 77, 8, 2, 32, False, None),
+    "lens_empty": (3, 64, 64, 4, 2, 128, False, [50, 0, 13]),
+    "causal_lens": (2, 130, 130, 4, 1, 16, True, [130, 67]),
+    "sq_ne_sk": (2, 40, 100, 4, 4, 48, False, None),
+}
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _flash_inputs(dev, dtype, case, seed=0):
+    b, sq, sk, h, kvh, d, causal, lens = FLASH_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, sk, kvh, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, sk, kvh, d), generator=g, device=dev).to(dtype)
+    do = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
+    kl = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    return q, k, v, do, kl, causal
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["f32", "bf16", "f16"])
+def test_flash_kernels_match_plain_versions(dtype, case):
+    dev = _card()
+    q, k, v, do, kl, causal = _flash_inputs(dev, dtype, case)
+    counts = (fa.LAUNCHES_FWD.count, fa.LAUNCHES_DQ.count,
+              fa.LAUNCHES_DKV.count)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, kv_lens=kl)
+    ref_out, ref_lse = fa.flash_attention_fwd_ref(q, k, v, causal,
+                                                  kv_lens=kl)
+    delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    grads = fa.flash_attention_bwd(q, k, v, do, ref_lse, delta, causal,
+                                   kv_lens=kl)
+    refs = fa.flash_attention_bwd_ref(q, k, v, do, ref_lse, delta, causal,
+                                      kv_lens=kl)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_FWD.count, fa.LAUNCHES_DQ.count,
+            fa.LAUNCHES_DKV.count) == tuple(c + 1 for c in counts)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    tol = FLASH_TOL[dtype]
+    assert _rel(out, ref_out) <= tol
+    live = ref_lse > -1e29
+    torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3 if
+                               dtype != torch.float32 else 1e-5, rtol=0)
+    assert bool((lse[~live] == -1e30).all())
+    for name, got, want in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _rel(got, want) <= tol, name
+    if kl is not None and 0 in kl.tolist():
+        i = kl.tolist().index(0)
+        assert bool((out[i] == 0).all()) and bool((grads[0][i] == 0).all())
+        assert bool((grads[1][i] == 0).all()) and bool((grads[2][i] == 0).all())
+
+
+def test_flash_kernels_repeat_bit_for_bit():
+    """No atomics: two backward runs give the same bits."""
+    dev = _card()
+    q, k, v, do, kl, causal = _flash_inputs(dev, torch.bfloat16,
+                                            "gqa_ragged", seed=3)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    a = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    b = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case", ["ragged_causal", "gqa_ragged",
+                                  "causal_lens"])
+def test_flash_autograd_against_float64(case):
+    """Gradcheck-style: the autograd Function's gradients on the card (f32
+    kernels) against autograd through plain f64 attention on the CPU, and
+    a central finite difference along one random direction."""
+    dev = _card()
+    q, k, v, do, kl, causal = _flash_inputs(dev, torch.float32, case, 5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_bshd(*leaves, causal=causal, kv_lens=kl)
+    (out * do).sum().backward()
+
+    def ref(q_, k_, v_):
+        """Attention in f64 on the CPU (empty rows give 0)."""
+        grp = q_.shape[2] // k_.shape[2]
+        qt = q_.transpose(1, 2)
+        kt = k_.transpose(1, 2).repeat_interleave(grp, dim=1)
+        vt = v_.transpose(1, 2).repeat_interleave(grp, dim=1)
+        s = (qt @ kt.transpose(-1, -2)) / qt.shape[-1] ** 0.5
+        live = fa._live(q_.shape[1], k_.shape[1], causal,
+                        None if kl is None else kl.cpu(), "cpu")
+        s = s.masked_fill(~live, -1e30)
+        p = torch.where(live, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+        p = p / p.sum(-1, keepdim=True).clamp_min(1e-300)
+        return (p @ vt).transpose(1, 2)
+
+    cpu = [t.detach().cpu().double().requires_grad_() for t in (q, k, v)]
+    r = ref(*cpu)
+    (r * do.cpu().double()).sum().backward()
+    torch.testing.assert_close(out.detach().cpu().double(), r.detach(),
+                               atol=1e-5, rtol=1e-5)
+    for got, want in zip(leaves, cpu):
+        torch.testing.assert_close(got.grad.cpu().double(), want.grad,
+                                   atol=1e-4, rtol=1e-4)
+    g = torch.Generator().manual_seed(6)
+    dirs = [torch.randn(t.shape, generator=g, dtype=torch.float64)
+            for t in cpu]
+    eps = 1e-4
+    plus = (ref(*[(t + eps * u) for t, u in zip(cpu, dirs)]) *
+            do.cpu().double()).sum()
+    minus = (ref(*[(t - eps * u) for t, u in zip(cpu, dirs)]) *
+             do.cpu().double()).sum()
+    fd = float((plus - minus) / (2 * eps))
+    an = sum(float((t.grad.cpu().double() * u).sum())
+             for t, u in zip(leaves, dirs))
+    assert abs(fd - an) <= 1e-4 * max(1.0, abs(fd))
+
+
+def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
+    dev = _card()
+    q, k, v, do, _kl, _c = _flash_inputs(dev, torch.bfloat16, "gqa_ragged")
+    with pytest.raises(ValueError, match="dtype|is torch"):
+        fa.flash_attention_fwd(q, k.float(), v)
+    with pytest.raises(ValueError, match="group"):
+        fa.flash_attention_fwd(q, k[:, :, :1].expand(-1, -1, 3, -1)
+                               .contiguous(), v[:, :, :1].expand(
+                                   -1, -1, 3, -1).contiguous())
+    for d in (24, 256):
+        x = torch.zeros((1, 16, 2, d), dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention_fwd(q[:, :40], k, v, causal=True)
+    with pytest.raises(ValueError, match="kv_lens"):
+        fa.flash_attention_fwd(q, k, v, kv_lens=torch.tensor(
+            [3, 4], device=dev))                         # int64
+    with pytest.raises(ValueError, match="kv_lens"):
+        fa.flash_attention_fwd(q, k, v, kv_lens=torch.tensor(
+            [3, 4], dtype=torch.int32))                  # on the CPU
+    wide = torch.zeros((2, 77, 8, 40), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(wide[..., 1:33], k, v)    # 2-byte offset
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_attention_fwd(q, k.cpu(), v)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, k, v, do, lse.transpose(1, 2), lse)
+
+
+RMS_SHAPES = [(37, 4096), (5, 3, 100), (2, 256)]
+
+
+@pytest.mark.parametrize("shape", RMS_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+def test_rms_kernel_matches_plain_version(shape, dtype):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = (3 * torch.randn(shape, generator=g, device=dev)).to(dtype)
+    w = (1 + 0.2 * torch.randn(shape[-1:], generator=g, device=dev)) \
+        .to(dtype)
+    before = rn.LAUNCHES.count
+    y = rn.rms_norm(x, w, 1e-6)
+    ref = rn.rms_norm_ref(x.reshape(-1, shape[-1]), w, 1e-6).reshape(shape)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES.count == before + 1 and y.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, rtol=1e-6, atol=1e-6)
+    else:
+        r = ref.float()
+        bits = 7 if dtype == torch.bfloat16 else 10
+        ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(
+            2.0 ** -14))) - bits)
+        assert bool(((y.float() - r).abs() <= ulp).all())
+
+
+def test_rms_kernel_on_strided_rows_and_autograd():
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(8)
+    big = torch.randn((16, 2 * 96), generator=g, device=dev)
+    x = big[:, 96:]                                 # a row stride of 192
+    w = torch.randn((96,), generator=g, device=dev)
+    y = rn.rms_norm(x, w, 1e-5)
+    torch.testing.assert_close(y, rn.rms_norm_ref(x, w, 1e-5), rtol=1e-6,
+                               atol=1e-6)
+    xl = x.clone().requires_grad_()
+    wl = w.clone().requires_grad_()
+    gy = torch.randn(x.shape, generator=g, device=dev)
+    (rn.rms_norm(xl, wl, 1e-5) * gy).sum().backward()
+    xc = x.cpu().double().requires_grad_()
+    wc = w.cpu().double().requires_grad_()
+    ref = xc * torch.rsqrt(xc.pow(2).mean(-1, keepdim=True) + 1e-5) * wc
+    (ref * gy.cpu().double()).sum().backward()
+    torch.testing.assert_close(xl.grad.cpu().double(), xc.grad, atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(wl.grad.cpu().double(), wc.grad, atol=1e-4,
+                               rtol=1e-5)
+
+
+def test_rms_wrapper_refuses_what_the_kernel_does_not_take():
+    dev = _card()
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=dev)
+    for w_dtype in (torch.float16, torch.float32):
+        with pytest.raises(ValueError, match="w must be"):
+            rn.rms_norm_fwd(x, torch.ones(64, dtype=w_dtype, device=dev),
+                            1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.rms_norm_fwd(x, torch.ones(32, dtype=torch.bfloat16, device=dev),
+                        1e-6)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rn.rms_norm_fwd(x, torch.ones(64, dtype=torch.bfloat16), 1e-6)
+    with pytest.raises(ValueError, match="x must be"):
+        rn.rms_norm_fwd(x.double(), torch.ones(64, dtype=torch.float64,
+                                               device=dev), 1e-6)
+
+
+def test_empty_inputs_launch_nothing_and_dkv_writes_zeros():
+    """An empty output launches no kernel and counts none; dK/dV with no
+    query rows (Sq == 0) is not empty: its kernel writes zeros."""
+    dev = _card()
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((2, 0, 4, 32), dtype=dtype, device=dev)
+        k = torch.randn((2, 24, 2, 32), device=dev).to(dtype)
+        v = torch.randn((2, 24, 2, 32), device=dev).to(dtype)
+        lse = torch.zeros((2, 4, 0), device=dev)
+        counts = (fa.LAUNCHES_FWD.count, fa.LAUNCHES_DQ.count,
+                  fa.LAUNCHES_DKV.count)
+        out, lse_out = fa.flash_attention_fwd(q, k, v)
+        dq = fa.flash_attention_dq(q, k, v, q, lse, lse)
+        dk, dv = fa.flash_attention_dkv(q, k, v, q, lse, lse)
+        torch.cuda.synchronize()
+        assert out.shape == q.shape and lse_out.shape == (2, 4, 0)
+        assert dq.shape == q.shape
+        assert bool((dk == 0).all()) and bool((dv == 0).all())
+        assert (fa.LAUNCHES_FWD.count, fa.LAUNCHES_DQ.count,
+                fa.LAUNCHES_DKV.count) == (counts[0], counts[1],
+                                           counts[2] + 1)
+    before = rn.LAUNCHES.count
+    for shape in ((0, 64), (3, 0, 64)):
+        x = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        w = torch.ones(64, dtype=torch.bfloat16, device=dev)
+        assert rn.rms_norm(x, w, 1e-6).shape == shape
+    assert rn.LAUNCHES.count == before

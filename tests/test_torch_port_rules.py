@@ -62,7 +62,10 @@ def test_rule_catches_the_lookups_it_names(tmp_path):
 
 def test_import_loads_neither_package():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.ops.sampling\n"
+            "paddle_tpu_torch.ops.sampling, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.nn.functional, "
+            "paddle_tpu_torch.tools.train_workload, "
+            "paddle_tpu_torch.tools.train_profile\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n")
@@ -91,6 +94,10 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
                                              max_blocks_per_seq=4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         llama_tiny()
+    from paddle_tpu_torch.tools.train_workload import train_workload
+
+    with pytest.raises(RuntimeError, match="device='cpu'|CUDA"):
+        train_workload(device=None)
     eng = LlamaInferenceEngine(_tiny_model(), max_blocks_per_seq=4,
                                device="cpu")
     assert eng.k_cache.device.type == "cpu"
