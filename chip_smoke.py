@@ -2,17 +2,22 @@
 """Smoke run of the PyTorch/CUDA port (`paddle_tpu_torch`) on one NVIDIA
 card: builds the CUDA kernels from `paddle_tpu_torch/csrc/`, holds each
 kernel against its plain PyTorch version at the serving shapes (the
-ragged paged attention over a bf16/f32 pool and over an int8 pool, and
-the int8/fp8 and int4 weight-only gemms), checks the engine on the card
-against its CPU run on a small model in every quantization mode, then
-serves a few requests through `ServingFrontend` at the full width of
-Llama-2-7B (32 layers, random weights from a seed): once in bf16, then
-with an int8 KV pool and int8 weights, and with an int8 KV pool and int4
-weights. Then the training path: the flash attention kernels (forward,
-dQ, dK/dV) and the RMSNorm kernel against their plain versions at the
-training shapes and past the length where the JAX package streams K/V,
-three AdamW steps of a small model on the card against the CPU, and
-`train_workload`'s steps at Llama-2-7B width (8 layers, batch 4 x 2048).
+ragged paged attention over a bf16/f32 pool and over an int8 pool, the
+paged decode and verify attention, the verify also against the ragged
+kernel, and the int8/fp8 and int4 weight-only gemms), checks the engine
+on the card against its CPU run on a small model in every quantization
+mode (ragged steps, prefill, decode and verify), then serves a few
+requests through `ServingFrontend` at the full width of Llama-2-7B (32
+layers, random weights from a seed): once in bf16, then with an int8 KV
+pool and int8 weights, and with an int8 KV pool and int4 weights; runs
+`LlamaInferenceEngine.generate`; and serves speculatively, with the
+n-gram proposer and with a self-draft engine, holding every greedy token
+teacher-forced against the plain engine. Then the training path: the
+flash attention kernels (forward, dQ, dK/dV) and the RMSNorm kernel
+against their plain versions at the training shapes and past the length
+where the JAX package streams K/V, three AdamW steps of a small model on
+the card against the CPU, and `train_workload`'s steps at Llama-2-7B
+width (8 layers, batch 4 x 2048).
 
     python3 chip_smoke.py
 
@@ -234,6 +239,160 @@ def phase_kernel_q():
     return results
 
 
+# per output row, relative to the row's largest |ref| (the rule of the
+# flash forward's check): bf16 2^-6, a few bf16 ulps of that value (both sides sum
+# in f32 and round the output once); f32 1e-5 (summation order). A row
+# with no live key must be exactly 0.
+ROW_REL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+
+
+def _row_check(name, out, ref, dead):
+    """Hold `out` to `ref` row by row (rows over the last axis) and the
+    `dead` rows to exact zeros; returns the largest error and the largest
+    row-relative error."""
+    o, r = out.float(), ref.float()
+    row_err = (o - r).abs().amax(dim=-1)
+    row_mag = r.abs().amax(dim=-1)
+    tol = ROW_REL[out.dtype] * row_mag
+    bad = ~(row_err <= tol)
+    bad[dead] = False
+    if bool(bad.any()):
+        worst = int((row_err - tol).flatten().argmax())
+        raise AssertionError(f"{name}: row {worst} (flat index) off by "
+                             f"{float(row_err.flatten()[worst])}")
+    if bool((out[dead] != 0).any()):
+        raise AssertionError(f"{name}: rows with no live key are not "
+                             "exact zeros")
+    live = ~dead
+    rel = float((row_err[live] / row_mag[live].clamp_min(1e-30)).max())
+    return float(row_err.max()), rel
+
+
+def _paged_inputs(kv_heads, dtype, gen, s=None):
+    """The serve workload's context lengths (`default_rng(0)`, 64-512)
+    plus an empty sequence and one of 3 tokens, over a pool of the
+    serving geometry (block 16, tables of 128 blocks), H 32, D 128; q
+    [B, H, D] (decode, `s` None) or [B, S, H, D]. Also the least bytes
+    and operations of the call."""
+    from paddle_tpu_torch.tools.serve_workload import BS, MAXB, NB
+
+    h, d = 32, 128
+    ctx = [int(n) for n in np.random.default_rng(0).integers(64, 513, 8)]
+    ctx += [0, 3]
+    b = len(ctx)
+    rng = np.random.default_rng(1)
+    perm = rng.permutation(np.arange(1, NB))
+    tables = np.zeros((b, MAXB), np.int32)
+    used = 0
+    for i, n in enumerate(ctx):
+        nblk = -(-n // BS)
+        tables[i, :nblk] = perm[used:used + nblk]
+        used += nblk
+    dev = torch.device("cuda")
+    shape = (b, h, d) if s is None else (b, s, h, d)
+    q = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    kc = torch.randn((NB, kv_heads, BS, d), generator=gen,
+                     device=dev).to(dtype)
+    vc = torch.randn((NB, kv_heads, BS, d), generator=gen,
+                     device=dev).to(dtype)
+    lens = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    args = (q, kc, vc, torch.from_numpy(tables).to(dev), lens)
+    # rows of each sequence and their last visible position
+    sq = 1 if s is None else s
+    last = np.asarray(ctx)[:, None] - sq + np.arange(sq)[None, :]  # [B, S]
+    item = q.element_size()
+    nbytes = (2 * q.numel() * item + sum(ctx) * 2 * kv_heads * d * item
+              + 4 * (b + sum(-(-n // BS) for n in ctx)))
+    flops = 4 * h * d * int(np.clip(last + 1, 0, None).sum())
+    return args, last < 0, nbytes, flops
+
+
+def _paged_cases(verify, cases, flush, gen):
+    """Check and time each case; returns the results and the launches of
+    the checked calls (one per case)."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    fn = pa.paged_attention_verify if verify else pa.paged_attention
+    ref_fn = pa.paged_attention_verify_ref if verify else \
+        pa.paged_attention_ref
+    counter = pa.LAUNCHES_VERIFY if verify else pa.LAUNCHES_DECODE
+    results, checked = {}, 0
+    for name, kvh, dtype, s in cases:
+        args, dead, nbytes, flops = _paged_inputs(kvh, dtype, gen, s)
+        before = counter.count
+        out = fn(*args)
+        checked += counter.count - before
+        ref = ref_fn(*args)
+        torch.cuda.synchronize()
+        dead_t = torch.from_numpy(dead if verify else dead[:, 0]).cuda()
+        err, rel = _row_check(f"{'verify' if verify else 'decode'} {name}",
+                              out, ref, dead_t)
+        res = {"kv_heads": kvh, "dtype": str(dtype).replace("torch.", ""),
+               "S": s, "batch": int(args[0].shape[0]),
+               "row_rel_tol": ROW_REL[dtype], "max_abs_err": err,
+               "row_rel_err": rel, "dead_rows": int(dead.sum()) if verify
+               else int(dead[:, 0].sum())}
+        if verify:
+            # the ragged kernel on the same windows: lane b holds S query
+            # tokens at positions ctx - S .. ctx - 1 (negative: guards)
+            q, kc, vc, tables, lens = args
+            b, sq, h, d = q.shape
+            ql = torch.full((b,), sq, dtype=torch.int32, device="cuda")
+            lane, pos = pa.ragged_metadata(ql, lens, b * sq)
+            rag = pa.paged_attention_ragged(q.reshape(b * sq, h, d), kc, vc,
+                                            tables, lens, lane, pos)
+            torch.cuda.synchronize()
+            res["vs_ragged_max_abs_err"], res["vs_ragged_row_rel_err"] = \
+                _row_check(f"verify {name} vs ragged", out,
+                           rag.reshape(b, sq, h, d), dead_t)
+        res["kernel_ms"] = time_ms(lambda: fn(*args), flush)
+        res["plain_ms"] = time_ms(lambda: ref_fn(*args), flush, reps=10)
+        res["bound_ms"], res["bound_by"] = bound(
+            nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16
+            else F32_FLOPS)
+        res.update(bytes=nbytes, flops=flops, library_ms=None)
+        results[name] = res
+        del args, out, ref
+    if checked != len(cases):
+        raise AssertionError(f"{counter.name}: {checked} launches for "
+                             f"{len(cases)} checked calls")
+    return results, checked
+
+
+def phase_paged():
+    """The decode and verify kernels against their plain versions at the
+    serving shapes (`_paged_inputs`), row by row (`ROW_REL`), and the
+    verify kernel against the ragged kernel on the same windows. No one
+    PyTorch call computes paged attention over a block table, so
+    `library_ms` is null."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+    decode, _ = _paged_cases(False, (
+        ("mha_bf16", 32, torch.bfloat16, None),
+        ("gqa_bf16", 8, torch.bfloat16, None),
+        ("mha_f32", 32, torch.float32, None),
+        ("gqa_f32", 8, torch.float32, None)), flush, gen)
+    emit({"phase": "paged_decode", "kernel": "paged_attention_decode",
+          "shapes": {"H": 32, "D": 128, "BS": 16, "W": 128},
+          "cases": decode})
+    verify, verify_launches = _paged_cases(True, (
+        ("mha_bf16_s5", 32, torch.bfloat16, 5),
+        ("gqa_bf16_s5", 8, torch.bfloat16, 5),
+        ("mha_f32_s5", 32, torch.float32, 5),
+        ("gqa_f32_s5", 8, torch.float32, 5),
+        ("mha_bf16_s64", 32, torch.bfloat16, 64),
+        ("gqa_bf16_s64", 8, torch.bfloat16, 64),
+        ("gqa_f32_s64", 8, torch.float32, 64)), flush, gen)
+    emit({"phase": "paged_verify", "kernel": "paged_attention_verify",
+          "shapes": {"H": 32, "D": 128, "BS": 16, "W": 128},
+          "launches_checked": verify_launches, "cases": verify})
+    del flush
+    release()
+    return decode, verify, verify_launches
+
+
 # M = 40 packed tokens against Llama-2-7B's projections [N, K] and its
 # untied head
 GEMM_SHAPES = {"qkv": (12288, 4096), "o": (4096, 4096),
@@ -343,11 +502,44 @@ REF_MODES = {"kv16": ({}, None),
              "kv8_q8": ({"kv_bits": 8}, 8)}
 
 
+def _legacy_reference(mode, cpu, gpu):
+    """`prefill` (right-padded, with `lens`) and two `decode_step`s on a
+    full-precision pool, then a verify window of S = 5 in every mode, on
+    the card against the CPU: logits within 1e-3. Rows use blocks 20-23,
+    away from the ragged steps' tables."""
+    rng = np.random.default_rng(6)
+    tables = np.zeros((2, 16), np.int32)
+    tables[:, :2] = [[20, 21], [22, 23]]
+    calls = []
+    if cpu.kv_bits == 16:
+        ids = rng.integers(1, 512, (2, 24)).astype(np.int32)
+        lens = np.asarray([24, 17], np.int32)
+        calls.append(("prefill", (ids, tables, lens)))
+        for step in range(2):
+            calls.append(("decode_step", (
+                rng.integers(1, 512, 2).astype(np.int32),
+                lens + 1 + step, tables)))
+    calls.append(("verify_step", (
+        rng.integers(1, 512, (2, 5)).astype(np.int32),
+        np.asarray([31, 24], np.int32), tables)))
+    errs = {}
+    for name, args in calls:
+        a = getattr(cpu, name)(*args)
+        b = getattr(gpu, name)(*args).cpu()
+        err = float((a - b).abs().max())
+        errs[name] = max(errs.get(name, 0.0), err)
+        if not torch.allclose(a, b, atol=1e-3, rtol=1e-3):
+            raise AssertionError(f"{mode}: {name} on the card != CPU run: "
+                                 f"max abs err {err}")
+    return {f"{name}_max_abs_err": e for name, e in errs.items()}
+
+
 def phase_reference():
     """The whole engine step on the card against its CPU run (plain
     versions) on a small f32 model with the serving head_dim, in every
-    quantization mode; then the tie-aware greedy agreement of the int8
-    engine against the full-precision one on the card."""
+    quantization mode: three ragged steps, then `_legacy_reference`'s
+    prefill / decode / verify calls; then the tie-aware greedy agreement
+    of the int8 engine against the full-precision one on the card."""
     from paddle_tpu_torch import LlamaInferenceEngine
     from paddle_tpu_torch.serving.quant import (greedy_agreement,
                                                 quantize_engine)
@@ -399,7 +591,8 @@ def phase_reference():
                 raise AssertionError(f"{mode}: int8 pools {pool_steps} "
                                      "steps apart")
         report[mode] = {"max_abs_err": err, "int8_pool_max_steps":
-                        pool_steps, "scale_max_rel": scale_rel}
+                        pool_steps, "scale_max_rel": scale_rel,
+                        **_legacy_reference(mode, cpu, gpu)}
         del cpu, gpu
 
     # the JAX package's serving_quant gate, on the small model: int8 KV +
@@ -413,25 +606,197 @@ def phase_reference():
     if agree["agreement_tie_aware"] < 0.99:
         raise AssertionError(f"small-model greedy agreement {agree}")
     emit({"phase": "reference", "model": "llama_tiny(vocab=512, layers=2, "
-          "hidden=256, heads=2, kv_heads=1) f32", "steps": 3, "tol": 1e-3,
+          "hidden=256, heads=2, kv_heads=1) f32", "ragged_steps": 3,
+          "legacy": "prefill + 2 decode_steps (kv_bits 16), verify S = 5",
+          "tol": 1e-3,
           "modes": report, "max_abs_err": max(r["max_abs_err"]
                                               for r in report.values()),
           "greedy_agreement_kv8_q8": agree})
     release()
 
 
-def _serve(label, kv_bits, wbits, kind, smi):
-    """Serve the workload once in one mode; the launch counts are zeroed
-    just before the run and read just after it."""
+# the kernels a serve or generate run may launch, by launch counter
+SERVE_KERNELS = ("ragged_paged_attention", "ragged_paged_attention_q",
+                 "paged_attention", "paged_attention_verify",
+                 "quant_matmul", "quant_matmul_int4")
+# the engine's call counters (`serving.*` in the port's monitor)
+ENGINE_CALLS = ("ragged_steps", "verify_steps", "legacy_decode_steps",
+                "prefill_steps")
+
+
+def _engine_calls(monitor):
+    return {c: monitor.get(f"serving.{c}") for c in ENGINE_CALLS}
+
+
+def _teacher_forced(engine, prompt, tokens, cand_rows, step=None):
+    """Score `prompt + tokens[:-1]` teacher-forced through the plain
+    engine's `ragged_step` (one step, or steps of `step` packed slots)
+    and judge each greedy token against it (`_judge`)."""
+    seq = 2_000_000                   # out of any request id space
+    ctx = np.concatenate([np.asarray(prompt, np.int32),
+                          np.asarray(tokens[:-1], np.int32)])
+    n = len(ctx)
+    step = step or n
+    engine.manager.allocate(seq, n)
+    try:
+        tables = engine.manager.block_table_array([seq])
+        parts = []
+        for start in range(0, n, step):
+            m = min(step, n - start)
+            packed = np.zeros((step,), np.int32)
+            packed[:m] = ctx[start:start + m]
+            parts.append(engine.ragged_step(
+                packed, np.array([m], np.int32),
+                np.array([start + m], np.int32), tables)[:m])
+        logits = torch.cat(parts)
+    finally:
+        engine.manager.free(seq)
+    return _judge(logits[len(prompt) - 1:n], tokens, cand_rows)
+
+
+def _judge(ref, tokens, cand_rows):
+    """Hold each greedy token to the reference row's top-1, or to
+    `greedy_agreement`'s tie rule: the reference's margin between its
+    top-1 and the token within twice the position's logit perturbation,
+    max |candidate - reference| over the vocabulary, where the candidate
+    row is the logits the token was picked from (its argmax, checked
+    here). Returns (top-1 matches, tie-aware matches, tokens, largest
+    perturbation)."""
+    ref = ref.double()
+    cand = torch.stack(list(cand_rows)).double()
+    tok = torch.as_tensor(np.asarray(tokens), device=ref.device)
+    if not bool((cand.argmax(-1) == tok).all()):
+        raise AssertionError("a greedy token is not the argmax of the "
+                             "logits it was recorded with")
+    idx = torch.arange(len(tokens), device=ref.device)
+    top = ref.argmax(-1)
+    match = top == tok
+    eps = (cand - ref).abs().amax(-1)
+    tie = ref[idx, top] - ref[idx, tok] <= 2.0 * eps
+    return (int(match.sum()), int((match | tie).sum()), len(tokens),
+            float(eps.max()))
+
+
+def _generate_reference(engine, prompts, out, n_new):
+    """Teacher-forced logits [B, n_new, V] for `generate`'s tokens, with
+    generate's own row counts: the same `prefill` of the prompts (the
+    rows it picked token 0 from), then per new token one `ragged_step`
+    holding one token of every sequence, where generate's `decode_step`
+    ran. Only the attention kernel differs: ragged for decode."""
+    b, s = prompts.shape
+    mgr = engine.manager
+    seqs = [2_000_000 + i for i in range(b)]   # out of any id space
+    for sid in seqs:
+        mgr.allocate(sid, s)
+    try:
+        rows = [engine.prefill(prompts, mgr.block_table_array(seqs))]
+        for j in range(1, n_new):
+            for sid in seqs:
+                mgr.append_token(sid)
+            rows.append(engine.ragged_step(
+                np.ascontiguousarray(out[:, s + j - 1]),
+                np.ones((b,), np.int32), np.full((b,), s + j, np.int32),
+                mgr.block_table_array(seqs)))
+    finally:
+        for sid in seqs:
+            mgr.free(sid)
+    return torch.stack(rows, 1)
+
+
+def _agreement_gate(label, results, min_top1):
+    """Sum `_judge` results; tie-aware agreement must be 1.0 and strict
+    top-1 at least `min_top1`."""
+    m, t, n, eps = (sum(r[0] for r in results), sum(r[1] for r in results),
+                    sum(r[2] for r in results),
+                    max(r[3] for r in results))
+    out = {"tokens_checked": n, "top1": m / n, "tie_aware": t / n,
+           "max_logit_perturbation": eps, "min_top1": min_top1}
+    if out["tie_aware"] < 1.0 or out["top1"] < min_top1:
+        raise AssertionError(f"{label}: teacher-forced agreement {out}")
+    return out
+
+
+def _record_spec(fe):
+    """Record, per request, the verify logits row each committed token
+    was sampled from, and each decode round's drafts with the logits
+    that judged them (device views: no host sync in the timed run)."""
+    sched = fe.scheduler
+    engine = sched.engine
+    proposer = sched.spec.proposer
+    state = {"logits": None, "count": {}, "drafts": {}}
+    rows, rounds = {}, {}
+    verify, commit = engine.verify_step, sched._commit_token
+    propose = proposer.propose
+
+    def propose_rec(seq_id, context, k):
+        out = propose(seq_id, context, k)
+        state["drafts"][seq_id] = list(out)
+        return out
+
+    def verify_rec(*a):
+        state["logits"] = verify(*a)
+        state["count"] = {}
+        return state["logits"]
+
+    def commit_rec(req, tok, slot, t_tok):
+        j = state["count"].get(req.req_id, 0)
+        state["count"][req.req_id] = j + 1
+        lg = state["logits"]
+        rows.setdefault(req.req_id, []).append(lg[slot, j])
+        drafts = state["drafts"].pop(req.req_id, None) if j == 0 else None
+        if drafts is not None:
+            rounds.setdefault(req.req_id, []).append((lg[slot], drafts))
+        return commit(req, tok, slot, t_tok)
+
+    proposer.propose = propose_rec
+    engine.verify_step = verify_rec
+    sched._commit_token = commit_rec
+    return rows, rounds
+
+
+def _greedy_acceptance(rounds):
+    """Accepted / proposed drafts over greedy rounds: a draft is accepted
+    while it equals the argmax of its window row."""
+    accepted = proposed = 0
+    for window, drafts in rounds:
+        top = window[:len(drafts)].argmax(-1).tolist()
+        a = 0
+        while a < len(drafts) and drafts[a] == top[a]:
+            a += 1
+        accepted += a
+        proposed += len(drafts)
+    return accepted, proposed
+
+
+def _weights_gb(*engines):
+    """Device bytes of the engines' weights, each storage counted once."""
+    seen, total = set(), 0
+    for eng in engines:
+        stack = list(eng.params.values())
+        while stack:
+            t = stack.pop()
+            if isinstance(t, (list, tuple)):
+                stack.extend(t)
+            elif isinstance(t, dict):
+                stack.extend(t.values())
+            elif torch.is_tensor(t) and t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                total += t.numel() * t.element_size()
+    return total / 2 ** 30
+
+
+def _serve(label, kv_bits, wbits, kind, smi, spec=None):
+    """Serve the workload once in one mode; the launch and engine-call
+    counts are zeroed just before the run and read just after it. With
+    `spec`, every greedy token is also held teacher-forced to the plain
+    engine (`_teacher_forced`)."""
     from paddle_tpu_torch.framework import monitor
     from paddle_tpu_torch.ops.kernels import _support
-    from paddle_tpu_torch.ops.kernels import paged_attention as pa
-    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
     from paddle_tpu_torch.tools.serve_workload import (LAYERS, NEW_TOKENS,
                                                        serve_workload)
 
     t0 = time.perf_counter()
-    fe, requests = serve_workload(kv_bits=kv_bits, wbits=wbits)
+    fe, requests = serve_workload(kv_bits=kv_bits, wbits=wbits, spec=spec)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     engine = fe.scheduler.engine
@@ -446,20 +811,22 @@ def _serve(label, kv_bits, wbits, kind, smi):
     if gauges != want:
         raise AssertionError(f"{label}: quant gauges {gauges} != "
                              f"quant_info {want}")
+    if spec is not None:
+        rows, rounds = _record_spec(fe)
 
     fe.metrics.reset_window()
     torch.cuda.reset_peak_memory_stats()
     _support.reset_launch_counts()
-    monitor.reset("serving.ragged_steps")
+    for c in ENGINE_CALLS:
+        monitor.reset(f"serving.{c}")
+    monitor.reset("serving.spec_")
     t1 = time.perf_counter()
     handles = [fe.submit(p, **kw) for p, kw in requests]
     steps = fe.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    launches = {c: _support.launch_counter(c).count for c in (
-        "ragged_paged_attention", "ragged_paged_attention_q",
-        "quant_matmul", "quant_matmul_int4")}
-    ragged_steps = monitor.get("serving.ragged_steps")
+    launches = {c: _support.launch_counter(c).count for c in SERVE_KERNELS}
+    calls = _engine_calls(monitor)
 
     # the scheduler checks every lane's logits row by row and fails a lane
     # with a non-finite row (`nan_logits`): all FINISHED = all finite
@@ -472,30 +839,76 @@ def _serve(label, kv_bits, wbits, kind, smi):
     attn = "ragged_paged_attention_q" if kv_bits == 8 else \
         "ragged_paged_attention"
     gemm = {8: "quant_matmul", 4: "quant_matmul_int4"}.get(wbits)
+    steps_main = calls["ragged_steps"] + calls["verify_steps"]
     expect = {c: 0 for c in launches}
-    expect[attn] = LAYERS * ragged_steps
+    expect[attn] = LAYERS * steps_main
+    # the draft engine's decode steps (a self-draft: the same depth)
+    expect["paged_attention"] = LAYERS * calls["legacy_decode_steps"]
     if gemm is not None:
         # four projections per layer and the untied head
-        expect[gemm] = (4 * LAYERS + 1) * ragged_steps
-    if ragged_steps == 0 or launches != expect:
+        expect[gemm] = (4 * LAYERS + 1) * steps_main
+    # plain serving only ragged-steps, speculative serving only verifies,
+    # and only a draft engine decodes (and prefills)
+    want_calls = (calls["ragged_steps"] > 0) == (spec is None) and \
+        (calls["verify_steps"] > 0) == (spec is not None) and \
+        (calls["legacy_decode_steps"] > 0) == (spec == "draft") and \
+        (calls["prefill_steps"] > 0) == (spec == "draft")
+    if not want_calls or launches != expect:
         raise AssertionError(f"{label}: kernel launches {launches} != "
-                             f"{expect} over {ragged_steps} ragged steps")
+                             f"{expect} over engine calls {calls}")
     s = fe.summary()
     tokens_out = sum(len(h.tokens) for h in handles)
-    emit({"phase": label,
-          "model": f"llama_7b_shaped(num_layers={LAYERS}) bf16",
-          "kv_bits": kv_bits, "wbits": wbits or 16,
-          "requests": len(handles),
-          "prompt_lens": [len(p) for p, _ in requests],
-          "tokens_out": tokens_out, "scheduler_steps": steps,
-          "ragged_steps": ragged_steps, "kernel_launches": launches,
-          "wall_s": wall, "tok_s": tokens_out / wall,
-          "ttft_p50_ms": s["serving.ttft_p50_ms"],
-          "tpot_p50_ms": s["serving.tpot_p50_ms"],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "kv_bytes_per_token": info["kv_bytes_per_token"],
-          "setup_s": setup_s, "device": kind, "nvidia_smi": smi,
-          "sample_tokens": handles[0].tokens[:8]})
+    out = {"phase": label,
+           "model": f"llama_7b_shaped(num_layers={LAYERS}) bf16",
+           "kv_bits": kv_bits, "wbits": wbits or 16, "spec": spec,
+           "requests": len(handles),
+           "prompt_lens": [len(p) for p, _ in requests],
+           "tokens_out": tokens_out, "scheduler_steps": steps,
+           "engine_calls": calls, "kernel_launches": launches,
+           "wall_s": wall, "tok_s": tokens_out / wall,
+           "ttft_p50_ms": s["serving.ttft_p50_ms"],
+           "tpot_p50_ms": s["serving.tpot_p50_ms"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "kv_bytes_per_token": info["kv_bytes_per_token"],
+           "setup_s": setup_s, "device": kind, "nvidia_smi": smi,
+           "sample_tokens": handles[0].tokens[:8]}
+    if spec is not None:
+        greedy = [(h, p) for h, (p, kw) in zip(handles, requests)
+                  if not kw.get("temperature")]
+        # the reference steps through the context in packed steps of the
+        # verify's token count (B x (K + 1)), so every gemm runs at the
+        # row count the verify gave it: a bf16 gemm's rounding depends on
+        # its shape, and one step over the whole context puts random
+        # weights' near-ties a rounding apart (PERF.md)
+        vstep = len(fe.scheduler.slots) * (fe.scheduler.spec.num_draft_tokens
+                                           + 1)
+        out["teacher_forced_greedy"] = _agreement_gate(label, [
+            _teacher_forced(engine, p, h.tokens, rows[h.request_id], vstep)
+            for h, p in greedy], 0.99)
+        g_acc, g_prop = _greedy_acceptance(
+            [r for h, _p in greedy for r in rounds.get(h.request_id, [])])
+        out.update(
+            spec_k=fe.scheduler.spec.num_draft_tokens,
+            acceptance_pct=s["serving.spec_acceptance_pct"],
+            greedy_acceptance_pct=100.0 * g_acc / max(g_prop, 1),
+            greedy_proposed=g_prop,
+            tokens_per_lane_step=s["serving.spec_tokens_per_lane_step"],
+            proposed=s["serving.spec_proposed_tokens"],
+            accepted=s["serving.spec_accepted_tokens"])
+        engines = [engine]
+        if spec == "draft":
+            draft = fe.scheduler.spec.proposer.engine
+            engines.append(draft)
+            dm = draft.manager
+            if dm.free_blocks != dm.num_blocks:
+                raise AssertionError(f"{label}: the draft engine still "
+                                     f"holds {dm.num_blocks - dm.free_blocks}"
+                                     " blocks")
+        out["weights_gb"] = _weights_gb(*engines)
+        out["kv_pools_gb"] = sum(
+            (e.k_cache.numel() * e.k_cache.element_size()) * 2 / 2 ** 30
+            for e in engines)
+    emit(out)
     return fe, requests, launches
 
 
@@ -527,6 +940,97 @@ def phase_serve_quant(kind, smi):
     del fe4
     release()
     return l8, l4
+
+
+def phase_generate(kind, smi):
+    """`LlamaInferenceEngine.generate` (`generate_workload`: Llama-2-7B
+    width, 32 layers, bf16, the serve workload's weights; 2 prompts of
+    128 tokens, 16 new greedy tokens). Gates: exactly 32 decode-kernel
+    launches per `decode_step` and none of the other attention kernels;
+    every token teacher-forced against the same prefill and one-token
+    `ragged_step`s on the same context (`_generate_reference`): top-1 >=
+    0.99 and tie-aware 1.0."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.tools.serve_workload import (GEN_NEW, LAYERS,
+                                                       generate_workload)
+
+    t0 = time.perf_counter()
+    engine, prompts, config = generate_workload()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    engine.generate(prompts[:, :16], max_new_tokens=2)      # warm-up
+    rows = []
+    prefill, decode = engine.prefill, engine.decode_step
+
+    def record(fn):
+        def wrapper(*a, **kw):
+            out = fn(*a, **kw)
+            rows.append(out)
+            return out
+        return wrapper
+
+    engine.prefill, engine.decode_step = record(prefill), record(decode)
+    torch.cuda.reset_peak_memory_stats()
+    _support.reset_launch_counts()
+    for c in ENGINE_CALLS:
+        monitor.reset(f"serving.{c}")
+    t1 = time.perf_counter()
+    out = engine.generate(prompts, config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {c: _support.launch_counter(c).count for c in SERVE_KERNELS}
+    calls = _engine_calls(monitor)
+    engine.prefill, engine.decode_step = prefill, decode
+    b, s = prompts.shape
+    if out.shape != (b, s + GEN_NEW) or not (out[:, :s] == prompts).all():
+        raise AssertionError(f"generate: output shape {out.shape}")
+    expect = {c: 0 for c in launches}
+    expect["paged_attention"] = LAYERS * calls["legacy_decode_steps"]
+    if calls != {"ragged_steps": 0, "verify_steps": 0,
+                 "legacy_decode_steps": GEN_NEW, "prefill_steps": 1} \
+            or launches != expect:
+        raise AssertionError(f"generate: kernel launches {launches} != "
+                             f"{expect} over engine calls {calls}")
+    # row j of call j scored token j of every sequence (the last decode
+    # step's pick is discarded, as in the JAX engine)
+    ref = _generate_reference(engine, prompts, out, GEN_NEW)
+    agree = _agreement_gate("generate", [
+        _judge(ref[i], out[i, s:], [r[i] for r in rows[:GEN_NEW]])
+        for i in range(b)], 0.99)
+    emit({"phase": "generate",
+          "model": f"llama_7b_shaped(num_layers={LAYERS}) bf16",
+          "prompts": [b, s], "new_tokens": GEN_NEW, "engine_calls": calls,
+          "kernel_launches": launches, "wall_s": wall,
+          "tok_s": b * GEN_NEW / wall,
+          "ms_per_decode_step": wall * 1e3 / GEN_NEW,
+          "teacher_forced_greedy": agree,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "setup_s": setup_s, "device": kind, "nvidia_smi": smi,
+          "sample_tokens": out[0, s:s + 8].tolist()})
+    # the saved bound methods hold the engine too
+    del engine, prefill, decode, rows
+    release()
+    return launches
+
+
+def phase_serve_spec(kind, smi):
+    """Speculative serving of the repetition trace (`serve_workload(spec=
+    ...)`, K = 4): with `NGramProposer`, then with a self-draft engine.
+    Gates (in `_serve`): every request FINISHED with 32 tokens; exactly
+    32 ragged-kernel launches per verify step, 32 decode-kernel launches
+    per draft `decode_step`, no verify-kernel launch; every greedy token
+    teacher-forced against the plain engine (top-1 >= 0.99, tie-aware
+    1.0)."""
+    fe, _r, ngram = _serve("serve_spec_ngram", 16, None, kind, smi,
+                           spec="ngram")
+    del fe
+    release()
+    fe, _r, draft = _serve("serve_spec_draft", 16, None, kind, smi,
+                           spec="draft")
+    del fe
+    release()
+    return ngram, draft
 
 
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
@@ -879,8 +1383,7 @@ def phase_train(kind, smi):
     timed, walls, splits = timed_steps(model, opt, ids, labels)
     losses += timed
     launches = {c: _support.launch_counter(c).count for c in (
-        "ragged_paged_attention", "ragged_paged_attention_q",
-        "quant_matmul", "quant_matmul_int4", *TRAIN_KERNELS)}
+        *SERVE_KERNELS, *TRAIN_KERNELS)}
     losses = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train: non-finite loss {losses}")
@@ -928,24 +1431,35 @@ def main():
     phase_build()
     attn = phase_kernel()
     attn_q = phase_kernel_q()
+    decode, verify, verify_launches = phase_paged()
     int8, int4 = phase_gemm()
     phase_reference()
     bf16_launches = phase_serve(kind, smi)
     l8, l4 = phase_serve_quant(kind, smi)
+    gen_launches = phase_generate(kind, smi)
+    ngram_launches, draft_launches = phase_serve_spec(kind, smi)
     flash = phase_flash()
     rms = phase_rms()
     phase_train_reference()
     train_launches = phase_train(kind, smi)
     attn_src = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
     gemm_src = "paddle_tpu_torch/csrc/quant_matmul.cu"
+    pa_py = "paddle_tpu/ops/pallas/paged_attention.py"
     emit({"kernels": [
-        _row("ragged_paged_attention", attn_src,
-             "paddle_tpu/ops/pallas/paged_attention.py:278",
-             bf16_launches["ragged_paged_attention"], attn["mha_bf16"]),
-        _row("ragged_paged_attention_q", attn_src,
-             "paddle_tpu/ops/pallas/paged_attention.py:380",
+        _row("ragged_paged_attention", attn_src, f"{pa_py}:278",
+             bf16_launches["ragged_paged_attention"]
+             + ngram_launches["ragged_paged_attention"]
+             + draft_launches["ragged_paged_attention"], attn["mha_bf16"]),
+        _row("ragged_paged_attention_q", attn_src, f"{pa_py}:380",
              l8["ragged_paged_attention_q"]
              + l4["ragged_paged_attention_q"], attn_q["mha_bf16"]),
+        _row("paged_attention_decode", attn_src, f"{pa_py}:38",
+             gen_launches["paged_attention"]
+             + draft_launches["paged_attention"], decode["mha_bf16"]),
+        _row("paged_attention_verify", attn_src, f"{pa_py}:146",
+             verify_launches, verify["mha_bf16_s5"],
+             launches_from="the paged_verify phase (no engine path "
+                           "reaches the verify kernel)"),
         _row("quant_matmul", gemm_src,
              "paddle_tpu/ops/pallas/quant_matmul.py:29",
              l8["quant_matmul"], int8["qkv_int8"]),

@@ -2,8 +2,10 @@
 Hopper.
 
 It serves the Llama model through the ragged paged-KV engine
-(`ServingFrontend` -> `Scheduler` -> `LlamaInferenceEngine.ragged_step`)
-and trains it (`loss, logits = model(ids, labels=labels)`,
+(`ServingFrontend` -> `Scheduler` -> `LlamaInferenceEngine.ragged_step`,
+or `verify_step` with speculative decoding, `serving.SpecDecodeConfig`),
+generates with `LlamaInferenceEngine.generate` (`prefill` +
+`decode_step`), and trains it (`loss, logits = model(ids, labels=labels)`,
 `loss.backward()`, `paddle_tpu_torch.optimizer.AdamW.step()`), with
 hand-written CUDA kernels under `csrc/` for the paged attention, the
 weight-only gemms, flash attention and RMSNorm. Entry points run on the

@@ -1,6 +1,7 @@
-// Ragged paged attention for Hopper (sm_90a), with plain C entry points.
+// Paged attention for Hopper (sm_90a), with plain C entry points.
 //
-// Replaces two TPU kernels of paddle_tpu/ops/pallas/paged_attention.py:
+// Replaces the four TPU kernels of paddle_tpu/ops/pallas/paged_attention.py.
+// The ragged pair, here first:
 //   - `_ragged_kernel` (reached through `_ragged_call` /
 //     `paged_attention_ragged`): entry point `ragged_paged_attention`,
 //     a bf16 or f32 pool;
@@ -46,6 +47,26 @@
 // Known limit: a prefill chunk of n tokens of one lane reads that lane's
 // K/V n times (one CTA per token). Tiling several query tokens of a lane
 // per CTA, then wgmma/TMA, is the way past it.
+//
+// The decode / verify pair, after the ragged kernel below, replaces
+//   - `_decode_kernel` (`_decode_call` / `paged_attention`): entry point
+//     `paged_attention_decode`, one query per sequence;
+//   - `_verify_kernel` (`_verify_call` / `paged_attention_verify`): entry
+//     point `paged_attention_verify`, S queries per sequence (S <= 64).
+// Both run one kernel, `paged_rows_kernel`, over the query rows of a
+// sequence: row (s, g) is query s of head kvh * G + g, at absolute
+// position ctx_len - S + s, and sees keys j <= ctx_len - S + s (decode is
+// S = 1: j < ctx_len). A row's pages past its last visible position are
+// never read. A row with no live key (ctx_len == 0, or ctx_len - S + s <
+// 0) writes exact zeros, as the TPU kernel's l_safe = 1 gives. (The TPU
+// verify kernel gives such a row the mean of the V rows of the blocks it
+// visits; the port defines it as zero, its plain version too.) Same bound
+// as the ragged kernel (bytes: each sequence's K/V read once) and the
+// same page ring, but one CTA per (sequence, kv head, query row): the
+// engine sends few sequences (a draft decodes B = 1, generate B = 2), and
+// a CTA walks its pages serially, so more CTAs of one row each beat CTAs
+// that share a staged page across the rows of a group or window; the
+// group's repeated page reads mostly hit L2 (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -316,6 +337,193 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
   }
 }
 
+// Decode / verify: one CTA per (sequence, kv head, query row); row
+// blockIdx.z of the sequence's S * G rows in (s, g) order is query s of
+// head kvh * G + g.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_rows_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_cache,
+    const T* __restrict__ v_cache, const int* __restrict__ tables,
+    const int* __restrict__ ctx_lens, T* __restrict__ out, int num_queries,
+    int num_heads, int group, int head_dim, int block_size, int table_width,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+    long long v_sh, long long v_ss, float sm_scale) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane_id = tid & 31;
+  const int D = head_dim;
+  const int S = num_queries;
+  const int BS = block_size;
+  const int page = BS * D;
+  const int row_vecs = D / kVec;
+  const int s = blockIdx.z / group;
+  const int head = kvh * group + (blockIdx.z - s * group);
+  // q and out are [B, S, H, D] (decode: S = 1)
+  const long long row = ((long long)(b * S + s) * num_heads + head) * D;
+
+  // shared memory: kStages K and V pages, then the row's f32 q, acc and
+  // probabilities; the running max and sum live in warp 0's registers
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* k_s = reinterpret_cast<T*>(smem);                         // [S][BS][D]
+  T* v_s = k_s + kStages * page;                               // [S][BS][D]
+  float* q_s = reinterpret_cast<float*>(v_s + kStages * page);  // [D]
+  float* acc_s = q_s + D;                                      // [D]
+  float* p_s = acc_s + D;                                      // [BS]
+  __shared__ float alpha_s, l_s;
+
+  // the row's last visible position; pages past it (and past ctx_len's
+  // last page, which holds it) are never read
+  const int lim = max(ctx_lens[b], 0) - S + s;
+  const int nblk = lim >= 0 ? min(lim / BS + 1, table_width) : 0;
+  if (nblk == 0) {
+    for (int d = tid; d < D; d += kThreads) out[row + d] = from_f32<T>(0.f);
+    return;
+  }
+
+  const int* table = tables + (long long)b * table_width;
+  auto issue = [&](int j) {             // page j -> ring slot j % kStages
+    const long long blk = table[j];
+    const T* kb = k_cache + blk * k_sb + kvh * k_sh;
+    const T* vb = v_cache + blk * v_sb + kvh * v_sh;
+    T* kd = k_s + (j % kStages) * page;
+    T* vd = v_s + (j % kStages) * page;
+    for (int i = tid; i < BS * row_vecs; i += kThreads) {
+      const int r = i / row_vecs;
+      const int c = (i - r * row_vecs) * kVec;
+      cp_async16(kd + r * D + c, kb + r * k_ss + c);
+      cp_async16(vd + r * D + c, vb + r * v_ss + c);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nblk) issue(st);
+    cp_async_commit();
+  }
+
+  for (int d = tid; d < D; d += kThreads) {
+    q_s[d] = to_f32(q[row + d]) * sm_scale;
+    acc_s[d] = 0.f;
+  }
+  float m = kNegInf, l = 0.f;           // warp 0's running max and sum
+
+  const int sub = lane_id % kGroup;
+  constexpr int kGroups = kThreads / kGroup;
+  for (int j = 0; j < nblk; ++j) {
+    cp_async_wait_stages();             // page j has landed (this thread)
+    __syncthreads();                    // ... for every thread; and page
+                                        // j - 1's slot is free again
+    if (j + kStages - 1 < nblk) issue(j + kStages - 1);
+    cp_async_commit();
+
+    const T* kp = k_s + (j % kStages) * page;
+    const T* vp = v_s + (j % kStages) * page;
+    // scores: each 8-lane group owns one slot of the page
+    const int base = j * BS;
+    for (int c0 = warp * (32 / kGroup); c0 < BS; c0 += kGroups) {
+      const int slot = c0 + lane_id / kGroup;
+      const bool live = slot < BS;
+      const uint4* kr =
+          reinterpret_cast<const uint4*>(kp + (live ? slot : 0) * D);
+      float sc = 0.f;
+      if (live)
+        for (int c = sub; c < row_vecs; c += kGroup)
+          sc += dot16(q_s + c * kVec, kr[c], T());
+      sc = group_sum(sc);
+      if (live && sub == 0) p_s[slot] = (base + slot <= lim) ? sc : kNegInf;
+    }
+    __syncthreads();
+
+    // online softmax in warp 0; a masked key adds nothing
+    if (warp == 0) {
+      float mx = kNegInf;
+      for (int c = lane_id; c < BS; c += 32) mx = fmaxf(mx, p_s[c]);
+      const float m_new = fmaxf(m, warp_max(mx));
+      float sum = 0.f;
+      for (int c = lane_id; c < BS; c += 32) {
+        const float e = p_s[c] == kNegInf ? 0.f : expf(p_s[c] - m_new);
+        sum += e;
+        p_s[c] = e;
+      }
+      const float alpha = expf(m - m_new);
+      l = l * alpha + warp_sum(sum);
+      m = m_new;
+      if (lane_id == 0) alpha_s = alpha;
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P . V, one thread per d
+    for (int d = tid; d < D; d += kThreads) {
+      float a = acc_s[d] * alpha_s;
+      for (int c = 0; c < BS; ++c) a += p_s[c] * to_f32(vp[c * D + d]);
+      acc_s[d] = a;
+    }
+    // the next iteration's first barrier orders these reads of p_s,
+    // alpha_s and the V page before they are overwritten
+  }
+  if (tid == 0) l_s = l;               // page 0 holds a live key: l > 0
+  __syncthreads();
+
+  for (int d = tid; d < D; d += kThreads)
+    out[row + d] = from_f32<T>(acc_s[d] / l_s);
+}
+
+template <typename T>
+size_t rows_smem_bytes(int head_dim, int block_size) {
+  return 2 * (size_t)kStages * block_size * head_dim * sizeof(T) +
+         (2 * (size_t)head_dim + (size_t)block_size) * sizeof(float);
+}
+
+template <typename T>
+int launch_rows(const void* q, const void* k_cache, const void* v_cache,
+                const int* tables, const int* ctx_lens, void* out, int batch,
+                int num_queries, int num_heads, int num_kv_heads,
+                int head_dim, int block_size, int table_width,
+                long long k_sb, long long k_sh, long long k_ss,
+                long long v_sb, long long v_sh, long long v_ss,
+                float sm_scale, cudaStream_t stream) {
+  const int group = num_heads / num_kv_heads;
+  const size_t smem = rows_smem_bytes<T>(head_dim, block_size);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid(batch, num_kv_heads, num_queries * group);
+  paged_rows_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_cache),
+      static_cast<const T*>(v_cache), tables, ctx_lens, static_cast<T*>(out),
+      num_queries, num_heads, group, head_dim, block_size, table_width, k_sb,
+      k_sh, k_ss, v_sb, v_sh, v_ss, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+int paged_rows(const void* q, const void* k_cache, const void* v_cache,
+               const void* tables, const void* ctx_lens, void* out,
+               int batch, int num_queries, int num_heads, int num_kv_heads,
+               int head_dim, int block_size, int table_width, long long k_sb,
+               long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+               long long v_ss, float sm_scale, int dtype, void* stream) {
+  if (batch == 0 || num_queries == 0) return 0;
+  const int* tb = static_cast<const int*>(tables);
+  const int* cl = static_cast<const int*>(ctx_lens);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_rows<__nv_bfloat16>(
+        q, k_cache, v_cache, tb, cl, out, batch, num_queries, num_heads,
+        num_kv_heads, head_dim, block_size, table_width, k_sb, k_sh, k_ss,
+        v_sb, v_sh, v_ss, sm_scale, st);
+  if (dtype == 1)
+    return launch_rows<float>(
+        q, k_cache, v_cache, tb, cl, out, batch, num_queries, num_heads,
+        num_kv_heads, head_dim, block_size, table_width, k_sb, k_sh, k_ss,
+        v_sb, v_sh, v_ss, sm_scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename KV>
 size_t smem_bytes(int group, int head_dim, int block_size) {
   const bool quant = std::is_same<KV, int8_t>::value;
@@ -420,4 +628,48 @@ extern "C" int ragged_paged_attention_q(
         k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh, vs_sb, vs_sh, sm_scale,
         s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Decode: q and out [B, H, D] (contiguous), one query per sequence at
+// position ctx_lens[b] - 1; pools as the ragged kernel's (bf16 or f32,
+// like q). dtype: 0 = bfloat16, 1 = float32. Returns cudaGetLastError()
+// after the launch (0 = launched, or nothing to launch).
+extern "C" int paged_attention_decode(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* tables, const void* ctx_lens, void* out, int batch,
+    int num_heads, int num_kv_heads, int head_dim, int block_size,
+    int table_width, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, float sm_scale,
+    int dtype, void* stream) {
+  return paged_rows(q, k_cache, v_cache, tables, ctx_lens, out, batch, 1,
+                    num_heads, num_kv_heads, head_dim, block_size,
+                    table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                    sm_scale, dtype, stream);
+}
+
+// Verify: q and out [B, S, H, D] (contiguous); query s of sequence b sits
+// at position ctx_lens[b] - S + s (ctx_lens counts all S). Otherwise as
+// `paged_attention_decode`.
+extern "C" int paged_attention_verify(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* tables, const void* ctx_lens, void* out, int batch,
+    int num_queries, int num_heads, int num_kv_heads, int head_dim,
+    int block_size, int table_width, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    float sm_scale, int dtype, void* stream) {
+  return paged_rows(q, k_cache, v_cache, tables, ctx_lens, out, batch,
+                    num_queries, num_heads, num_kv_heads, head_dim,
+                    block_size, table_width, k_sb, k_sh, k_ss, v_sb, v_sh,
+                    v_ss, sm_scale, dtype, stream);
+}
+
+// The dynamic shared memory (bytes) one decode / verify CTA needs at this
+// head_dim and block_size (dtype as above); -1 for an unknown dtype.
+extern "C" long long paged_rows_smem_bytes(int head_dim, int block_size,
+                                           int dtype) {
+  if (dtype == 0)
+    return (long long)rows_smem_bytes<__nv_bfloat16>(head_dim, block_size);
+  if (dtype == 1)
+    return (long long)rows_smem_bytes<float>(head_dim, block_size);
+  return -1;
 }

@@ -3,10 +3,12 @@
 `reset`.
 
 The serving path bumps `serving.*` counters here. Where the JAX package
-counted jit retraces (`serving.ragged_retraces`), which have no meaning
-in eager PyTorch, the port counts ragged-step calls
-(`serving.ragged_steps`). Kernel launch counts live on the kernel
-wrappers (`ops/kernels/_support.py`), not here.
+counted jit retraces (`serving.{ragged,verify,prefill,decode}_retraces`),
+which have no meaning in eager PyTorch, the port counts the engine's
+calls: `serving.ragged_steps`, `serving.verify_steps`,
+`serving.prefill_steps` and `serving.legacy_decode_steps`. Kernel launch
+counts live on the kernel wrappers (`ops/kernels/_support.py`), not
+here.
 """
 from __future__ import annotations
 

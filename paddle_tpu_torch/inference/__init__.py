@@ -1,5 +1,5 @@
 from .cache import BlockCacheManager, KVCacheExhausted, SequenceTooLong
-from .llama_runner import LlamaInferenceEngine
+from .llama_runner import GenerationConfig, LlamaInferenceEngine
 
 __all__ = ["BlockCacheManager", "KVCacheExhausted", "SequenceTooLong",
-           "LlamaInferenceEngine"]
+           "GenerationConfig", "LlamaInferenceEngine"]

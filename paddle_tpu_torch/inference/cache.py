@@ -133,9 +133,14 @@ class BlockCacheManager:
             self._guard_ids.add(seq_id)
         return blocks
 
+    def append_token(self, seq_id: int) -> None:
+        """Account one generated token; grows the table on a block
+        boundary."""
+        self.append_tokens(seq_id, 1)
+
     def append_tokens(self, seq_id: int, n: int) -> None:
-        """Account `n` new tokens at once (a prefill chunk, or one decoded
-        token), growing the block table across as many block boundaries
+        """Account `n` new tokens at once (a prefill chunk, or a pending
+        token and its drafts), growing the block table across as many block boundaries
         as needed.
 
         All-or-nothing: on `SequenceTooLong`/`KVCacheExhausted` neither the

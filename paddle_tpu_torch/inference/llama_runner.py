@@ -1,28 +1,34 @@
-"""Paged-KV inference engine for the Llama model — the serving
-scheduler's `ragged_step`.
+"""Paged-KV inference engine for the Llama model: the serving
+scheduler's `ragged_step` and `verify_step`, and the legacy `prefill` /
+`decode_step` / `generate` path.
 
-The port of `paddle_tpu/inference/llama_runner.py`'s ragged path, in bf16
-or f32. Where the JAX engine scans one jitted layer body over stacked
-weights, this one loops over the layers in Python. Dense projections go
-to `torch.matmul`; weight-only quantized ones (`weight_only='int8'|'fp8'|
+The port of `paddle_tpu/inference/llama_runner.py`, in bf16 or f32.
+Where the JAX engine scans one jitted layer body over stacked weights,
+this one loops over the layers in Python. Dense projections go to
+`torch.matmul`; weight-only quantized ones (`weight_only='int8'|'fp8'|
 'int4'`, or `serving.quant.quantize_engine` after construction) to the
-hand-written gemm kernels through `nn.quant.dequant_matmul`. The
-attention over the paged pool is the hand-written ragged kernel
-(`ops/kernels/paged_attention.py`), for a full-precision pool
-(`kv_bits=16`) or an int8 pool with per-slot f32 scale planes
-(`kv_bits=8`, quantized on write). Kernels run on the card; CPU tensors
-take their plain versions. The KV pool `[L, num_blocks, kv_heads,
-block_size, head_dim]` (and its scale planes `[L, num_blocks, kv_heads,
-block_size]`) are updated in place (the JAX engine donates them to each
-step instead).
+hand-written gemm kernels through `nn.quant.dequant_matmul`. Attention
+over the paged pool (`ops/kernels/paged_attention.py`):
+- `ragged_step` and `verify_step` (a ragged step whose lanes all hold a
+  window of S tokens): the hand-written ragged kernel, for a
+  full-precision pool (`kv_bits=16`) or an int8 pool with per-slot f32
+  scale planes (`kv_bits=8`, quantized on write);
+- `decode_step`: the hand-written decode kernel;
+- `prefill`: the plain causal composite (`nn.functional.attention.
+  _sdpa_fn`) over the in-flight tokens, as the JAX engine calls it.
+The legacy path needs a full-precision pool; on a `kv_bits=8` engine it
+raises before touching the pool or the block manager. Kernels run on the
+card; CPU tensors take their plain versions. The KV pool `[L,
+num_blocks, kv_heads, block_size, head_dim]` (and its scale planes `[L,
+num_blocks, kv_heads, block_size]`) are updated in place (the JAX engine
+donates them to each step instead).
 
-Not ported yet, raising `NotImplementedError`: the legacy
-`prefill`/`decode_step`/`generate` path, `verify_step`, `copy_kv_block`
-and KV migration.
+Not ported yet, raising `NotImplementedError`: `copy_kv_block` (prefix
+caching) and KV migration (`extract_kv_blocks` / `inject_kv_blocks`).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -30,13 +36,31 @@ import torch.nn.functional as F
 
 from ..framework import monitor
 from ..models.llama import LlamaForCausalLM
+from ..nn.functional.attention import _sdpa_fn
 from ..nn.quant import dequant_matmul, pack_int4, per_channel_quantize
 from ..ops.kernels import paged_attention as pk
 from ..ops.kernels._support import resolve_device
 from . import kv_quant
 from .cache import BlockCacheManager
 
-__all__ = ["LlamaInferenceEngine"]
+__all__ = ["LlamaInferenceEngine", "GenerationConfig"]
+
+
+class GenerationConfig:
+    """Decoding knobs of `LlamaInferenceEngine.generate` (greedy by
+    default)."""
+
+    def __init__(self, max_new_tokens: int = 32, do_sample: bool = False,
+                 temperature: float = 1.0, top_p: float = 1.0,
+                 top_k: int = 0, eos_token_id: Optional[int] = None,
+                 seed: int = 0):
+        self.max_new_tokens = max_new_tokens
+        self.do_sample = do_sample
+        self.temperature = temperature
+        self.top_p = top_p
+        self.top_k = top_k
+        self.eos_token_id = eos_token_id
+        self.seed = seed
 
 
 def _stack_llama_params(model: LlamaForCausalLM, device, dtype=None) -> Dict:
@@ -209,7 +233,7 @@ class LlamaInferenceEngine:
 
     def ragged_step(self, tokens, q_lens, kv_lens, block_tables):
         """ONE step over a packed ragged batch — the serving scheduler's
-        only dispatch.
+        dispatch for its plain (non-speculative) rounds.
 
         tokens [T] int: packed lane-major query tokens; lane i owns slots
         [sum(q_lens[:i]), sum(q_lens[:i]) + q_lens[i]), its token j at
@@ -219,34 +243,162 @@ class LlamaInferenceEngine:
         guard slots past sum(q_lens) are meaningless (their KV writes are
         dropped, their attention output is zero)."""
         monitor.inc("serving.ragged_steps")
-        dev = self.device
-
-        def as_i32(a):
-            return torch.as_tensor(np.asarray(a, np.int32)).to(dev)
-
         with torch.no_grad():
             return _ragged_stack(self.params, self.k_cache, self.v_cache,
                                  self.k_scale, self.v_scale,
-                                 as_i32(tokens), as_i32(q_lens),
-                                 as_i32(kv_lens), as_i32(block_tables),
-                                 self.config)
+                                 self._i32(tokens), self._i32(q_lens),
+                                 self._i32(kv_lens),
+                                 self._i32(block_tables), self.config)
+
+    def _i32(self, a) -> torch.Tensor:
+        """Host ints -> an int32 tensor on the engine's device."""
+        return torch.as_tensor(np.asarray(a, np.int32)).to(self.device)
+
+    def _require_full_kv(self, entry: str):
+        if self.kv_bits != 16:
+            raise RuntimeError(
+                f"{entry} is a legacy full-precision entry point; a "
+                f"kv_bits={self.kv_bits} engine serves through "
+                "ragged_step/verify_step (the scheduler's only dispatches)")
+
+    def prefill(self, input_ids, block_tables, lens=None):
+        """input_ids [B, S] int; returns f32 next-token logits [B, V] on
+        the engine's device.
+
+        `lens` [B] gives the true prompt length per row when `input_ids`
+        is right-padded (to a bucket length); logits are taken at
+        position `lens - 1`. Padded positions do write (garbage) KV into
+        the sequence's own padded block allocation — callers trim via
+        `BlockCacheManager.trim`, and decode overwrites position `lens`
+        onward, so the garbage is never attended to."""
+        self._require_full_kv("prefill")
+        ids = np.asarray(input_ids, np.int32)
+        b, s = ids.shape
+        if lens is None:
+            lens = np.full((b,), s, np.int32)
+        monitor.inc("serving.prefill_steps")
+        with torch.no_grad():
+            return _prefill(self.params, self.k_cache, self.v_cache,
+                            self._i32(ids), self._i32(block_tables),
+                            self._i32(lens), self.config)
+
+    def decode_step(self, tokens, context_lens, block_tables):
+        """tokens [B] int (newest token per sequence, already counted in
+        context_lens); returns f32 logits [B, V] on the engine's device."""
+        self._require_full_kv("decode_step")
+        monitor.inc("serving.legacy_decode_steps")
+        with torch.no_grad():
+            return _decode(self.params, self.k_cache, self.v_cache,
+                           self._i32(tokens), self._i32(context_lens),
+                           self._i32(block_tables), self.config)
+
+    def verify_step(self, tokens, context_lens, block_tables):
+        """Batched multi-token verify pass (speculative decoding), in
+        either KV mode.
+
+        tokens [B, S] int — per row, the pending last committed token
+        followed by S - 1 draft tokens; `context_lens` [B] counts the
+        cache INCLUDING all S of them, so token i is written at position
+        `context_lens - S + i` and attends causally up to itself. A ragged
+        step whose lanes all hold S tokens. Returns f32 logits [B, S, V]
+        on the engine's device: row i is the distribution for the token
+        AFTER tokens[:, i]."""
+        ids = np.asarray(tokens, np.int32)
+        if ids.ndim != 2:
+            raise ValueError(f"verify_step: tokens must be [B, S], got "
+                             f"shape {ids.shape}")
+        b, s = ids.shape
+        lens = np.asarray(context_lens, np.int32)
+        tables = np.asarray(block_tables, np.int32)
+        if lens.shape != (b,) or tables.ndim != 2 or tables.shape[0] != b:
+            raise ValueError(f"verify_step: {b} windows need context_lens "
+                             f"[{b}] and block_tables [{b}, W], got "
+                             f"{lens.shape} and {tables.shape}")
+        monitor.inc("serving.verify_steps")
+        with torch.no_grad():
+            logits = _ragged_stack(
+                self.params, self.k_cache, self.v_cache, self.k_scale,
+                self.v_scale, self._i32(ids.reshape(b * s)),
+                self._i32(np.full((b,), s, np.int32)), self._i32(lens),
+                self._i32(tables), self.config)
+        return logits.reshape(b, s, -1)
+
+    def generate(self, input_ids, generation_config=None, **kw):
+        """Greedy/sampling generation. input_ids: [B, S] (equal-length
+        prompts). Returns np.int32 [B, S + new tokens] (fewer new tokens
+        when every row hit `eos_token_id`)."""
+        # guard BEFORE any allocation: raising from prefill() below
+        # would leave the just-leased blocks held
+        self._require_full_kv("generate")
+        gc = generation_config or GenerationConfig(**kw)
+        ids = np.asarray(input_ids, np.int32)
+        if ids.ndim == 1:
+            ids = ids[None]
+        b, s = ids.shape
+        if b > self.max_batch_size:
+            raise ValueError(f"{b} prompts exceed max_batch_size "
+                             f"{self.max_batch_size}")
+        seq_ids = list(range(b))
+        for sid in seq_ids:
+            self.manager.allocate(sid, s)
+        try:
+            tables = self.manager.block_table_array(seq_ids)
+            logits = self.prefill(ids, tables)
+            rng = np.random.default_rng(gc.seed)
+            out = [ids]
+            done = np.zeros(b, bool)
+            last = self._pick(logits, gc, rng)
+            for _ in range(gc.max_new_tokens):
+                out.append(last[:, None])
+                if gc.eos_token_id is not None:
+                    done |= last == gc.eos_token_id
+                    if done.all():
+                        break
+                for sid in seq_ids:
+                    self.manager.append_token(sid)
+                tables = self.manager.block_table_array(seq_ids)
+                lens = np.asarray([self.manager.seq_len(sid)
+                                   for sid in seq_ids], np.int32)
+                logits = self.decode_step(last, lens, tables)
+                last = self._pick(logits, gc, rng)
+        finally:
+            for sid in seq_ids:
+                self.manager.free(sid)
+        return np.concatenate(out, axis=1)
+
+    @staticmethod
+    def _pick(logits, gc: GenerationConfig, rng) -> np.ndarray:
+        """The JAX engine's host sampler, on f64 numpy logits: greedy
+        argmax, or temperature / top-k / top-p draws from `rng` (a numpy
+        `default_rng`), so seeded draws equal the JAX package's."""
+        logits = logits.cpu().numpy() if torch.is_tensor(logits) \
+            else np.asarray(logits)
+        if not gc.do_sample:
+            return np.argmax(logits, axis=-1).astype(np.int32)
+        x = logits.astype(np.float64) / max(gc.temperature, 1e-6)
+        if gc.top_k:
+            kth = np.partition(x, -gc.top_k, axis=-1)[:, -gc.top_k][:, None]
+            x = np.where(x < kth, -np.inf, x)
+        p = np.exp(x - x.max(axis=-1, keepdims=True))
+        p /= p.sum(axis=-1, keepdims=True)
+        if gc.top_p < 1.0:
+            order = np.argsort(-p, axis=-1)
+            ps = np.take_along_axis(p, order, -1)
+            cum = np.cumsum(ps, axis=-1)
+            keep = cum - ps < gc.top_p   # always keep the top token
+            ps = np.where(keep, ps, 0.0)
+            ps /= ps.sum(axis=-1, keepdims=True)
+            picked = np.stack([rng.choice(ps.shape[1], p=ps[i])
+                               for i in range(ps.shape[0])])
+            return np.take_along_axis(order, picked[:, None], -1)[:, 0] \
+                .astype(np.int32)
+        return np.stack([rng.choice(p.shape[1], p=p[i])
+                         for i in range(p.shape[0])]).astype(np.int32)
 
     def _not_ported(self, entry: str):
         raise NotImplementedError(
-            f"{entry} is not ported yet: this engine serves through "
-            "ragged_step")
-
-    def prefill(self, *args, **kw):
-        self._not_ported("prefill")
-
-    def decode_step(self, *args, **kw):
-        self._not_ported("decode_step")
-
-    def generate(self, *args, **kw):
-        self._not_ported("generate")
-
-    def verify_step(self, *args, **kw):
-        self._not_ported("verify_step")
+            f"{entry} is not ported yet: it waits for the prefix cache "
+            "and KV migration")
 
     def copy_kv_block(self, *args, **kw):
         self._not_ported("copy_kv_block")
@@ -258,56 +410,114 @@ class LlamaInferenceEngine:
         self._not_ported("inject_kv_blocks")
 
 
-def _layer(x, l: int, params, k_cache, v_cache, k_scale, v_scale, cos, sin,
-           tables, kv_lens, tok_lane, tok_pos, write_index, cfg):
-    """One decoder layer over the packed tokens x [T, H]; writes this
-    step's K/V into layer l's pools in place (quantized, with its scales,
-    when the pools are int8)."""
-    t = x.shape[0]
+def _layer(x, l: int, params, cos, sin, attend, cfg):
+    """One decoder layer over tokens x [..., H] (any leading shape).
+    `attend(l, q, k, v)` writes this step's K/V into layer l's pools in
+    place and returns the attention [..., nh, d]."""
+    lead = x.shape[:-1]
     nh, kvh, d = cfg.num_attention_heads, cfg.num_key_value_heads, \
         cfg.head_dim
     h1 = _rms(x, params["ln1"][l], cfg.rms_norm_eps)
     qkv = _mm(h1, params["qkv_w"][l])
-    q = qkv[:, :nh * d].reshape(t, nh, d)
-    k = qkv[:, nh * d:(nh + kvh) * d].reshape(t, kvh, d)
-    v = qkv[:, (nh + kvh) * d:].reshape(t, kvh, d)
+    q = qkv[..., :nh * d].reshape(*lead, nh, d)
+    k = qkv[..., nh * d:(nh + kvh) * d].reshape(*lead, kvh, d)
+    v = qkv[..., (nh + kvh) * d:].reshape(*lead, kvh, d)
     q = _rope_half(q, cos, sin).contiguous()
     k = _rope_half(k, cos, sin)
-    kc, vc = k_cache[l], v_cache[l]
-    ks = vs = None
-    if k_scale is not None:
-        ks, vs = k_scale[l], v_scale[l]
-    pk.write_kv_to_cache_ragged(k, v, kc, vc, tables, tok_lane, tok_pos,
-                                k_scale=ks, v_scale=vs, index=write_index)
-    attn = pk.paged_attention_ragged(q, kc, vc, tables, kv_lens, tok_lane,
-                                     tok_pos, k_scale=ks, v_scale=vs)
-    x = x + _mm(attn.reshape(t, nh * d).to(x.dtype), params["o_w"][l])
+    attn = attend(l, q, k, v)
+    x = x + _mm(attn.reshape(*lead, nh * d).to(x.dtype), params["o_w"][l])
     h2 = _rms(x, params["ln2"][l], cfg.rms_norm_eps)
     g, u = torch.chunk(_mm(h2, params["gate_up_w"][l]), 2, dim=-1)
     act = F.silu(g.float()).to(g.dtype) * u
     return x + _mm(act, params["down_w"][l])
 
 
-def _ragged_stack(params, k_cache, v_cache, k_scale, v_scale, tokens, q_lens,
-                  kv_lens, tables, cfg):
-    """Packed tokens [T] + per-lane (q_len, kv_len) through the decoder
-    stack; returns f32 logits [T, V]."""
-    tok_lane, tok_pos = pk.ragged_metadata(q_lens, kv_lens,
-                                           tokens.shape[0])
-    x = params["embed"][tokens.long()]                          # [T, H]
-    positions = torch.clamp(tok_pos, min=0).long()
-    cos = params["rope_cos"][positions][:, None, :]             # [T, 1, D/2]
-    sin = params["rope_sin"][positions][:, None, :]
-    # where this step's K/V land: the same in every layer
-    write_index = pk.ragged_write_index(tables, tok_lane, tok_pos,
-                                        k_cache.shape[3])
-    for l in range(cfg.num_hidden_layers):
-        x = _layer(x, l, params, k_cache, v_cache, k_scale, v_scale, cos,
-                   sin, tables, kv_lens, tok_lane, tok_pos, write_index, cfg)
+def _rope_at(params, positions):
+    """cos/sin rows at `positions` [...] -> [..., 1, D/2]. A position
+    past the table takes its last row, as JAX's clamping gather does;
+    only the unused tail of a verify window near the length cap gets
+    there (its logits are never read)."""
+    pos = torch.clamp(positions.long(), 0, params["rope_cos"].shape[0] - 1)
+    return params["rope_cos"][pos][..., None, :], \
+        params["rope_sin"][pos][..., None, :]
+
+
+def _logits(params, x, cfg):
+    """Final norm and head: f32 logits [..., V]."""
     x = _rms(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")
     if head is None:
-        logits = torch.matmul(x, params["embed"].to(x.dtype).t())
-    else:
-        logits = _mm(x, head)
-    return logits.float()
+        return torch.matmul(x, params["embed"].to(x.dtype).t()).float()
+    return _mm(x, head).float()
+
+
+def _ragged_stack(params, k_cache, v_cache, k_scale, v_scale, tokens, q_lens,
+                  kv_lens, tables, cfg):
+    """Packed tokens [T] + per-lane (q_len, kv_len) through the decoder
+    stack, writing their K/V (quantized, with its scales, into int8
+    pools); returns f32 logits [T, V]."""
+    tok_lane, tok_pos = pk.ragged_metadata(q_lens, kv_lens,
+                                           tokens.shape[0])
+    x = params["embed"][tokens.long()]                          # [T, H]
+    cos, sin = _rope_at(params, tok_pos)                        # [T, 1, D/2]
+    # where this step's K/V land: the same in every layer
+    write_index = pk.ragged_write_index(tables, tok_lane, tok_pos,
+                                        k_cache.shape[3])
+
+    def attend(l, q, k, v):
+        kc, vc = k_cache[l], v_cache[l]
+        ks = vs = None
+        if k_scale is not None:
+            ks, vs = k_scale[l], v_scale[l]
+        pk.write_kv_to_cache_ragged(k, v, kc, vc, tables, tok_lane, tok_pos,
+                                    k_scale=ks, v_scale=vs,
+                                    index=write_index)
+        return pk.paged_attention_ragged(q, kc, vc, tables, kv_lens,
+                                         tok_lane, tok_pos, k_scale=ks,
+                                         v_scale=vs)
+
+    for l in range(cfg.num_hidden_layers):
+        x = _layer(x, l, params, cos, sin, attend, cfg)
+    return _logits(params, x, cfg)
+
+
+def _prefill(params, k_cache, v_cache, ids, tables, lens, cfg):
+    """`_prefill_fn`: prompts ids [B, S] at positions 0..S-1, their K/V
+    written into each row's table, causal attention over the in-flight
+    tokens only (the plain composite `_sdpa_fn`, K/V heads repeated for
+    GQA, as the JAX engine calls it); f32 logits [B, V] at `lens - 1`."""
+    b, s = ids.shape
+    x = params["embed"][ids.long()]                             # [B, S, H]
+    positions = torch.arange(s, device=ids.device)[None, :].expand(b, s)
+    cos, sin = _rope_at(params, positions)                   # [B, S, 1, D/2]
+    start = torch.zeros((b,), dtype=torch.int32, device=ids.device)
+
+    def attend(l, q, k, v):
+        pk.write_kv_to_cache(k, v, k_cache[l], v_cache[l], tables, start)
+        return _sdpa_fn(q, k, v, True)
+
+    for l in range(cfg.num_hidden_layers):
+        x = _layer(x, l, params, cos, sin, attend, cfg)
+    last = torch.clamp(lens.long() - 1, 0, s - 1)
+    return _logits(params, x[torch.arange(b, device=ids.device), last], cfg)
+
+
+def _decode(params, k_cache, v_cache, tokens, ctx_lens, tables, cfg):
+    """`_decode_fn`: one token per sequence at position ctx_lens - 1, its
+    K/V written there, paged attention over positions < ctx_lens
+    (`paged_attention`: the decode kernel on the card, its plain version
+    on the CPU; JAX's `_layer_body` takes the plain version for inputs
+    its kernel refuses, the port raises on the card); f32 logits
+    [B, V]."""
+    x = params["embed"][tokens.long()]                          # [B, H]
+    start = ctx_lens - 1
+    cos, sin = _rope_at(params, start)                          # [B, 1, D/2]
+
+    def attend(l, q, k, v):
+        kc, vc = k_cache[l], v_cache[l]
+        pk.write_kv_to_cache(k[:, None], v[:, None], kc, vc, tables, start)
+        return pk.paged_attention(q, kc, vc, tables, ctx_lens)
+
+    for l in range(cfg.num_hidden_layers):
+        x = _layer(x, l, params, cos, sin, attend, cfg)
+    return _logits(params, x, cfg)

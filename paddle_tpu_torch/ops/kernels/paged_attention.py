@@ -1,17 +1,24 @@
-"""Ragged paged attention over a packed query buffer, and its KV writer.
+"""Paged attention over the block pool, and its KV writers.
 
-The port of the ragged part of `paddle_tpu/ops/pallas/paged_attention.py`:
-`ragged_metadata` and `write_kv_to_cache_ragged` are plain tensor code;
-`paged_attention_ragged` launches a hand-written Hopper kernel
-(`csrc/ragged_paged_attention.cu`) on CUDA tensors — the bf16/f32-pool
-kernel, or with `k_scale`/`v_scale` the int8-pool kernel — and runs its
-plain PyTorch version, `paged_attention_ragged_ref`, on CPU tensors. There
-is no fallback between the two: a CUDA tensor the kernel does not take
-raises.
+The port of `paddle_tpu/ops/pallas/paged_attention.py`:
+`ragged_metadata`, `write_kv_to_cache_ragged` and `write_kv_to_cache` are
+plain tensor code; three attention functions launch hand-written Hopper
+kernels (`csrc/ragged_paged_attention.cu`) on CUDA tensors and run their
+plain PyTorch versions on CPU tensors:
+- `paged_attention_ragged` (plain: `paged_attention_ragged_ref`), a packed
+  query buffer — the bf16/f32-pool kernel, or with `k_scale`/`v_scale`
+  the int8-pool kernel;
+- `paged_attention` (plain: `paged_attention_ref`), one decode query per
+  sequence;
+- `paged_attention_verify` (plain: `paged_attention_verify_ref`), S
+  causal queries per sequence (the speculative verify window).
+There is no fallback between kernel and plain version: a CUDA tensor the
+kernel does not take raises.
 
-Layouts are the JAX package's: q [T, H, D]; pools [NB, KVH, BS, D];
-int8 pools' scale planes [NB, KVH, BS] f32 (`inference/kv_quant.py`);
-tables [B, W] int32; kv_lens [B]; tok_lane/tok_pos [T] int32.
+Layouts are the JAX package's: q [T, H, D] (ragged), [B, H, D] (decode)
+or [B, S, H, D] (verify); pools [NB, KVH, BS, D]; int8 pools' scale
+planes [NB, KVH, BS] f32 (`inference/kv_quant.py`); tables [B, W] int32;
+kv_lens / context_lens [B]; tok_lane/tok_pos [T] int32.
 """
 from __future__ import annotations
 
@@ -24,15 +31,21 @@ from ...inference import kv_quant
 from . import _support
 
 __all__ = ["ragged_metadata", "ragged_write_index", "write_kv_to_cache_ragged",
-           "paged_attention_ragged", "paged_attention_ragged_ref",
-           "ragged_supported", "LAUNCHES", "LAUNCHES_Q"]
+           "write_kv_to_cache", "paged_attention_ragged",
+           "paged_attention_ragged_ref", "ragged_supported",
+           "paged_attention", "paged_attention_ref", "supported",
+           "paged_attention_verify", "paged_attention_verify_ref",
+           "verify_supported", "LAUNCHES", "LAUNCHES_Q", "LAUNCHES_DECODE",
+           "LAUNCHES_VERIFY"]
 
 NEG_INF = -1e30
 
-# launches of the CUDA kernels (one per call on CUDA tensors): the
-# bf16/f32 pool and the int8 pool
+# launches of the CUDA kernels (one per call on CUDA tensors): the ragged
+# kernel over a bf16/f32 pool and over an int8 pool, decode and verify
 LAUNCHES = _support.launch_counter("ragged_paged_attention")
 LAUNCHES_Q = _support.launch_counter("ragged_paged_attention_q")
+LAUNCHES_DECODE = _support.launch_counter("paged_attention")
+LAUNCHES_VERIFY = _support.launch_counter("paged_attention_verify")
 
 
 def ragged_metadata(q_lens: torch.Tensor, kv_lens: torch.Tensor,
@@ -107,6 +120,47 @@ def write_kv_to_cache_ragged(k, v, k_cache, v_cache, block_tables,
         cache[blk, :, off] = torch.where(any_valid, q, cache[blk, :, off])
         plane[blk, :, off] = torch.where(any_valid, s, plane[blk, :, off])
     return k_cache, v_cache, k_scale, v_scale
+
+
+def write_kv_to_cache(k, v, k_cache, v_cache, block_tables, start_pos):
+    """Scatter new K/V tokens [B, S, KVH, D] IN PLACE: row b's token s
+    lands at position start_pos[b] + s of its block table. Returns
+    (k_cache, v_cache), the same tensors.
+
+    A position outside the table (negative, or pos // BS >= W) writes
+    nothing. JAX's `take_along_axis` fills that gather and its scatter
+    then lands wherever the fill index wraps; the port masks such
+    positions explicitly, as the ragged writer's guard slots, and never
+    relies on a wrap-around. A right-padded prefill writes its padding
+    into the sequence's own padded allocation, as in JAX."""
+    b, s, kv_h, d = k.shape
+    dev = k.device
+    pos = start_pos.to(device=dev, dtype=torch.int32)[:, None] + \
+        torch.arange(s, dtype=torch.int32, device=dev)[None, :]      # [B, S]
+    cap = block_tables.shape[1] * k_cache.shape[2]
+    pos = torch.where((pos >= 0) & (pos < cap), pos,
+                      torch.full_like(pos, -1))
+    lane = torch.arange(b, dtype=torch.int32, device=dev)[:, None] \
+        .expand(b, s)
+    return write_kv_to_cache_ragged(
+        k.reshape(b * s, kv_h, d), v.reshape(b * s, kv_h, d), k_cache,
+        v_cache, block_tables, lane.reshape(-1), pos.reshape(-1))
+
+
+def supported(q_shape, dtype) -> bool:
+    """Inputs the decode kernel takes: q [B, H, D], by the ragged kernel's
+    rule (`ragged_supported`). JAX's gate (`supported`) also takes f16;
+    the port narrows it, and `paged_attention` raises on a CUDA tensor
+    this refuses (the engine routes nothing around it)."""
+    return ragged_supported(q_shape, dtype)
+
+
+def verify_supported(q_shape, dtype) -> bool:
+    """Inputs the verify kernel takes: q [B, S, H, D] with S <= 64 (JAX's
+    `verify_supported`) and D, dtype as `supported` (JAX also takes
+    f16)."""
+    return (len(q_shape) == 4 and q_shape[1] <= 64
+            and supported((q_shape[0], q_shape[2], q_shape[3]), dtype))
 
 
 def ragged_supported(q_shape, dtype) -> bool:
@@ -190,6 +244,99 @@ def paged_attention_ragged(q, k_cache, v_cache, block_tables, kv_lens,
                    tok_pos, sm_scale, k_scale, v_scale)
 
 
+def _window(k_cache, v_cache, block_tables):
+    """Each sequence's K/V window [B, W * BS, KVH, D] in table order."""
+    _nb, kv_h, bs, d = k_cache.shape
+    tables = block_tables.long()
+    b, w = tables.shape
+    k = k_cache[tables].transpose(2, 3).reshape(b, w * bs, kv_h, d)
+    v = v_cache[tables].transpose(2, 3).reshape(b, w * bs, kv_h, d)
+    return k, v
+
+
+def paged_attention_verify_ref(q, k_cache, v_cache, block_tables,
+                               context_lens, sm_scale=None):
+    """Plain PyTorch version of the verify kernel (gather + masked
+    softmax, in f32), ported from `paged_attention_verify_ref`: query s
+    of sequence b attends to positions <= context_lens[b] - S + s. A row
+    with no live position (context_lens[b] - S + s < 0) comes back
+    exactly zero, as from the port's kernel; JAX's reference and its TPU
+    kernel give such a row a mean of V rows instead."""
+    b, s, h, d = q.shape
+    kv_h = k_cache.shape[1]
+    g = h // kv_h
+    if sm_scale is None:
+        sm_scale = 1.0 / float(math.sqrt(d))
+    k, v = _window(k_cache, v_cache, block_tables)
+    qg = q.reshape(b, s, kv_h, g, d).transpose(1, 2)       # [B,KVH,S,G,D]
+    sc = torch.einsum("bhqgd,bshd->bhqgs", qg.float(), k.float()) * sm_scale
+    wpos = torch.arange(k.shape[1], device=q.device)
+    qpos = (context_lens.to(q.device).long()[:, None] - s
+            + torch.arange(s, device=q.device)[None, :])           # [B, S]
+    mask = wpos[None, None, :] <= qpos[:, :, None]                 # [B, S, W]
+    sc = torch.where(mask[:, None, :, None, :], sc,
+                     torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhqgs,bshd->bhqgd", p, v.float())
+    out = torch.where((qpos >= 0)[:, None, :, None, None], out,
+                      torch.zeros_like(out))
+    return out.transpose(1, 2).reshape(b, s, h, d).to(q.dtype)
+
+
+def paged_attention_ref(q, k_cache, v_cache, block_tables, context_lens,
+                        sm_scale=None):
+    """Plain PyTorch version of the decode kernel, ported from
+    `paged_attention_ref`: sequence b's one query attends to positions
+    < context_lens[b]. A sequence with context_lens 0 comes back exactly
+    zero, as from the kernels (the TPU kernel's `l_safe = 1`); JAX's
+    reference averages V there instead. The verify function at S = 1."""
+    return paged_attention_verify_ref(q[:, None], k_cache, v_cache,
+                                      block_tables, context_lens,
+                                      sm_scale)[:, 0]
+
+
+def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
+                    sm_scale=None):
+    """Decode-step paged attention: q [B, H, D], one query per sequence
+    at position context_lens[b] - 1 (context_lens counts the cache
+    INCLUDING it). Returns [B, H, D] in q's dtype. CPU tensors take
+    `paged_attention_ref`; CUDA tensors launch the decode kernel or
+    raise."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_cache, v_cache, block_tables,
+                                   context_lens, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    if not supported(tuple(q.shape), q.dtype):
+        raise ValueError(f"decode kernel takes q [B, H, D] bf16/f32 with "
+                         f"D % 8 == 0 and D <= 256, got {tuple(q.shape)} "
+                         f"{q.dtype}")
+    return _launch_rows(q[:, None], k_cache, v_cache, block_tables,
+                        context_lens, sm_scale, verify=False)[:, 0]
+
+
+def paged_attention_verify(q, k_cache, v_cache, block_tables, context_lens,
+                           sm_scale=None):
+    """Batched multi-token verify attention: q [B, S, H, D], query s of
+    sequence b at position context_lens[b] - S + s attends to positions
+    <= its own (context_lens counts all S new tokens, already written).
+    Returns [B, S, H, D] in q's dtype. CPU tensors take
+    `paged_attention_verify_ref`; CUDA tensors launch the verify kernel
+    or raise."""
+    if q.device.type == "cpu":
+        return paged_attention_verify_ref(q, k_cache, v_cache, block_tables,
+                                          context_lens, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_verify: unsupported device "
+                         f"{q.device}")
+    if not verify_supported(tuple(q.shape), q.dtype):
+        raise ValueError(f"verify kernel takes q [B, S, H, D] bf16/f32 with "
+                         f"S <= 64, D % 8 == 0 and D <= 256, got "
+                         f"{tuple(q.shape)} {q.dtype}")
+    return _launch_rows(q, k_cache, v_cache, block_tables, context_lens,
+                        sm_scale, verify=True)
+
+
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _SMEM_MAX = 232448      # dynamic shared memory one Hopper block may use
 _STAGES = 3             # the kernel's ring of K/V pages (kStages)
@@ -202,26 +349,15 @@ def _smem_bytes(group, head_dim, block_size, itemsize, quant=False):
             + (2 * group * head_dim + group * block_size + 3 * group) * 4)
 
 
-def _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
-           k_scale, v_scale):
-    quant = k_scale is not None or v_scale is not None
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("block_tables", block_tables), ("kv_lens", kv_lens),
-                    ("tok_lane", tok_lane), ("tok_pos", tok_pos)) + \
-            ((("k_scale", k_scale), ("v_scale", v_scale)) if quant else ()):
-        if t is None:
-            raise ValueError(f"an int8 pool needs both scale planes; "
-                             f"{name} is missing")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if not ragged_supported(tuple(q.shape), q.dtype):
-        raise ValueError(f"ragged kernel takes q [T, H, D] bf16/f32 with "
-                         f"D % 8 == 0 and D <= 256, got {tuple(q.shape)} "
-                         f"{q.dtype}")
+def _check_pools(q, k_cache, v_cache, quant=False):
+    """q contiguous; both pools [NB, KVH, BS, D] with 16-byte aligned
+    rows, in q's dtype (int8 with `quant`)."""
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
-    t, h, d = q.shape
+    d = q.shape[-1]
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if c.device != q.device:
+            raise ValueError(f"{name} is on {c.device}, q on {q.device}")
         if quant and c.dtype != torch.int8:
             raise ValueError(f"scale planes go with an int8 pool; {name} "
                              f"is {c.dtype}")
@@ -242,6 +378,29 @@ def _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
             raise ValueError(f"{name} rows must be 16-byte aligned with a "
                              f"unit head_dim stride, got strides "
                              f"{c.stride()}")
+    if q.shape[-2] % k_cache.shape[1]:
+        raise ValueError(f"{q.shape[-2]} query heads not a multiple of "
+                         f"{k_cache.shape[1]} kv heads")
+
+
+def _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
+           k_scale, v_scale):
+    quant = k_scale is not None or v_scale is not None
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
+                    ("block_tables", block_tables), ("kv_lens", kv_lens),
+                    ("tok_lane", tok_lane), ("tok_pos", tok_pos)) + \
+            ((("k_scale", k_scale), ("v_scale", v_scale)) if quant else ()):
+        if t is None:
+            raise ValueError(f"an int8 pool needs both scale planes; "
+                             f"{name} is missing")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if not ragged_supported(tuple(q.shape), q.dtype):
+        raise ValueError(f"ragged kernel takes q [T, H, D] bf16/f32 with "
+                         f"D % 8 == 0 and D <= 256, got {tuple(q.shape)} "
+                         f"{q.dtype}")
+    t, h, d = q.shape
+    _check_pools(q, k_cache, v_cache, quant)
     if quant:
         want = kv_quant.scale_shape(k_cache.shape)
         for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -258,8 +417,6 @@ def _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
                                  f"stride), got shape {tuple(sc.shape)} "
                                  f"strides {sc.stride()}")
     kv_h = k_cache.shape[1]
-    if h % kv_h:
-        raise ValueError(f"{h} query heads not a multiple of {kv_h} kv heads")
     smem = _smem_bytes(h // kv_h, d, k_cache.shape[2],
                        k_cache.element_size(), quant)
     if smem > _SMEM_MAX:
@@ -319,4 +476,62 @@ def _launch(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     (LAUNCHES_Q if quant else LAUNCHES).count += 1
+    return out
+
+
+def _launch_rows(q, k_cache, v_cache, block_tables, context_lens, sm_scale,
+                 verify):
+    """Launch the decode (`verify=False`, q [B, 1, H, D]) or verify kernel
+    on q [B, S, H, D]; returns out [B, S, H, D]. Counts one launch, none
+    for an empty q."""
+    _check_pools(q, k_cache, v_cache)
+    b, s, h, d = q.shape
+    _nb, kv_h, bs, _ = k_cache.shape
+    for name, x, shape in (("block_tables", block_tables, None),
+                           ("context_lens", context_lens, (b,))):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor, "
+                             f"got {x.dtype}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)}, got "
+                             f"{tuple(x.shape)}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"block_tables must be [{b}, W], got "
+                         f"{tuple(block_tables.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / float(math.sqrt(d))
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    lib = _support.load_library("ragged_paged_attention")
+    need = lib.paged_rows_smem_bytes
+    if need.argtypes is None:
+        need.argtypes = [ctypes.c_int] * 3
+        need.restype = ctypes.c_longlong
+    smem = need(d, bs, _DTYPE_CODE[q.dtype])
+    if smem > _SMEM_MAX:
+        raise ValueError(f"block_size {bs} x head_dim {d} pages need {smem} "
+                         f"bytes of shared memory per block, over the "
+                         f"{_SMEM_MAX} a Hopper block may use")
+    fn = lib.paged_attention_verify if verify else lib.paged_attention_decode
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 6 + [i] * (7 if verify else 6) + [ll] * 6 + \
+            [ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+    shape = (b, s, h, kv_h, d, bs, block_tables.shape[1]) if verify \
+        else (b, h, kv_h, d, bs, block_tables.shape[1])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                block_tables.data_ptr(), context_lens.data_ptr(),
+                out.data_ptr(), *shape, *k_cache.stride()[:3],
+                *v_cache.stride()[:3], float(sm_scale),
+                _DTYPE_CODE[q.dtype], stream)
+    name = "paged_attention_verify" if verify else "paged_attention_decode"
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    (LAUNCHES_VERIFY if verify else LAUNCHES_DECODE).count += 1
     return out

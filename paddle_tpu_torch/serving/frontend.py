@@ -72,10 +72,13 @@ class ServingFrontend:
                  default_timeout_s: Optional[float] = None,
                  stall_after: int = 512,
                  prefill_chunk_tokens: int = 32,
+                 spec=None,
                  clock=time.perf_counter):
         """`engine`: an `EngineCore` (e.g. `LlamaInferenceEngine`, whose
         `device=None` means the CUDA card). `prefill_chunk_tokens`:
         per-step pending-prompt token budget for chunked prefill.
+        `spec`: optional `SpecDecodeConfig` enabling speculative decoding
+        (the engine then serves through `verify_step`).
         `stall_after`: `run_until_idle`/`stream` raise `EngineStalled`
         after this many consecutive zero-progress steps. `clock`: time
         source for deadlines and latency stamps."""
@@ -84,7 +87,7 @@ class ServingFrontend:
         self.scheduler = Scheduler(engine, metrics=self.metrics,
                                    max_queue=max_queue,
                                    prefill_chunk_tokens=prefill_chunk_tokens,
-                                   clock=clock)
+                                   spec=spec, clock=clock)
         self.default_timeout_s = default_timeout_s
         self.stall_after = stall_after
 

@@ -1,7 +1,7 @@
 """Serving metrics: request/token counters, TTFT/TPOT latency, queue
-depth, batch occupancy, KV utilization, preemptions (the port's slice of
-`paddle_tpu/serving/metrics.py`: the methods the core serving path
-calls).
+depth, batch occupancy, KV utilization, preemptions and speculative
+acceptance (the port's slice of `paddle_tpu/serving/metrics.py`: the
+methods the core and speculative serving paths call).
 
 Counters go to the port's monitor under the `serving.` prefix; gauges
 and the per-request latency samples stay on the `ServingMetrics`
@@ -24,7 +24,11 @@ _WINDOW = 4096
 _COUNTERS = ("requests_submitted", "requests_rejected", "requests_completed",
              "requests_cancelled", "requests_timed_out", "requests_failed",
              "preemptions", "isolated_faults", "prefill_tokens", "prefills",
-             "decode_steps", "tokens_generated", "ragged_steps")
+             "decode_steps", "tokens_generated", "ragged_steps",
+             "spec_steps", "spec_proposed_tokens", "spec_accepted_tokens")
+# speculative-decoding gauges kept in the monitor, in summary() once a
+# verify round has run
+_SPEC_GAUGES = ("spec_acceptance_pct", "spec_tokens_per_lane_step")
 
 
 def _pct(samples, q: float) -> Optional[float]:
@@ -45,16 +49,25 @@ class ServingMetrics:
         self.ttft_s = deque(maxlen=_WINDOW)
         self.tpot_s = deque(maxlen=_WINDOW)
         self.gauges: Dict[str, float] = {}
+        # per-round acceptance samples (speculative decoding), bounded
+        # like the latency windows
+        self.accept_rate = deque(maxlen=_WINDOW)
         self._occ_sum = 0.0
         self._steps = 0
+        self._spec_steps = 0
+        self._spec_produced = 0
 
     def reset_window(self):
-        """Drop latency samples and the occupancy accumulator (e.g. at a
-        warmup/measurement boundary) without touching the counters."""
+        """Drop latency and acceptance samples and the occupancy and
+        tokens-per-lane-step accumulators (e.g. at a warmup/measurement
+        boundary) without touching the counters."""
         self.ttft_s.clear()
         self.tpot_s.clear()
+        self.accept_rate.clear()
         self._occ_sum = 0.0
         self._steps = 0
+        self._spec_steps = 0
+        self._spec_produced = 0
 
     # ---- request lifecycle ----
     def on_submit(self):
@@ -108,6 +121,29 @@ class ServingMetrics:
         monitor.inc("serving.decode_steps")
         monitor.inc("serving.tokens_generated", tokens)
 
+    def on_spec(self, proposed: int, accepted: int, produced: int,
+                lanes: int):
+        """One speculative verify round: `proposed` draft tokens offered,
+        `accepted` matched the target, `produced` tokens committed
+        (accepted + one bonus/correction per lane) across `lanes` decode
+        lanes. `serving.spec_tokens_per_lane_step` estimates the speedup:
+        plain decoding commits exactly 1 token per lane per step."""
+        monitor.inc("serving.spec_steps")
+        monitor.inc("serving.spec_proposed_tokens", proposed)
+        monitor.inc("serving.spec_accepted_tokens", accepted)
+        self._spec_steps += max(lanes, 1)
+        self._spec_produced += produced
+        if proposed:
+            self.accept_rate.append(accepted / proposed)
+        tot_p = monitor.get("serving.spec_proposed_tokens")
+        tot_a = monitor.get("serving.spec_accepted_tokens")
+        if tot_p:
+            monitor.set_gauge("serving.spec_acceptance_pct",
+                              round(tot_a / tot_p * 100.0, 1))
+        monitor.set_gauge(
+            "serving.spec_tokens_per_lane_step",
+            round(self._spec_produced / max(self._spec_steps, 1), 2))
+
     def on_step(self, occupancy: float, kv_utilization: float,
                 queue_depth: int, decoded: bool = True):
         # occupancy averages over decode steps only
@@ -149,6 +185,9 @@ class ServingMetrics:
     def summary(self) -> Dict[str, object]:
         out: Dict[str, object] = {f"serving.{n}": monitor.get(f"serving.{n}")
                                   for n in _COUNTERS}
+        if monitor.get("serving.spec_steps"):
+            for n in _SPEC_GAUGES:
+                out[f"serving.{n}"] = monitor.get(f"serving.{n}")
         out.update(self.gauges)
         out["serving.ttft_p50_ms"] = _ms(_pct(self.ttft_s, 50))
         out["serving.ttft_p99_ms"] = _ms(_pct(self.ttft_s, 99))

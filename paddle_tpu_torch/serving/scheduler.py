@@ -24,6 +24,16 @@ Policy:
   request is FAILED, `nan_logits`); a typed `EngineStepError` naming
   lanes fails those lanes and rolls the others back to replay next
   round. Any other engine exception propagates.
+- speculative decoding (optional, `spec=SpecDecodeConfig`): each round a
+  proposer drafts up to K tokens per decode lane, and ONE
+  `engine.verify_step` scores every lane's fixed window of K + 1 tokens
+  (pending token + drafts, or the next prompt tokens of a prefilling
+  lane); the longest matching draft prefix plus one bonus/correction
+  token commit, and rejected speculation rolls back with
+  `BlockCacheManager.trim`. A proposer out of pool or past its length
+  cap drafts nothing; any other proposer error rolls the round back and
+  propagates. Greedy and seeded-stochastic streams equal
+  plain decoding's, token for token.
 
 Sampling is `ops/sampling.py` on the logits' device: logits stay on the
 card, and only the [B] token ids and the [T] finite mask cross to the
@@ -46,6 +56,7 @@ from ..ops.sampling import sample_tokens
 from .engine import EngineCore
 from .fault_tolerance import EngineStepError
 from .metrics import ServingMetrics
+from .spec import SpecDecodeConfig
 
 __all__ = ["SamplingParams", "RequestStatus", "Request", "Scheduler"]
 
@@ -119,6 +130,13 @@ class Request:
     def seq_id(self) -> int:
         return self.req_id
 
+    def all_tokens(self) -> np.ndarray:
+        """Prompt + every generated token INCLUDING the pending last one:
+        the stream a speculative proposer continues from."""
+        return np.concatenate([
+            self.prompt, np.asarray(self.generated, np.int32)]).astype(
+                np.int32)
+
     def context_tokens(self) -> np.ndarray:
         """Tokens whose KV must be in cache before the next decode: the
         prompt plus every generated token EXCEPT the pending last one
@@ -146,16 +164,19 @@ class Scheduler:
     def __init__(self, engine: EngineCore,
                  metrics: Optional[ServingMetrics] = None,
                  max_queue: int = 256, prefill_chunk_tokens: int = 32,
+                 spec: Optional[SpecDecodeConfig] = None,
                  clock: Callable[[], float] = time.perf_counter):
         """`prefill_chunk_tokens`: per-step token budget for pending
         prompts; the packed ragged dispatch holds `max_batch_size +
-        prefill_chunk_tokens` token slots."""
+        prefill_chunk_tokens` token slots. `spec`: optional
+        `SpecDecodeConfig`; every round is then one `verify_step`."""
         if prefill_chunk_tokens < 1:
             raise ValueError("prefill_chunk_tokens must be >= 1, got "
                              f"{prefill_chunk_tokens}")
         self.engine = engine
         self.metrics = metrics or ServingMetrics()
         self.max_queue = max_queue
+        self.spec = spec
         self.prefill_chunk_tokens = int(prefill_chunk_tokens)
         self.ragged_tokens = engine.max_batch_size + self.prefill_chunk_tokens
         self._clock = clock
@@ -374,21 +395,39 @@ class Scheduler:
 
     def _grow(self, req: Request, slot: int) -> bool:
         """Account the pending token's cache slot; preempt on exhaustion.
-        Returns False if the request left the batch instead."""
+        Returns False if the request left the batch instead. `_grow_n`
+        with one token, so the plain and speculative paths share one
+        length_cap / kv_capacity / preemption policy."""
+        return self._grow_n(req, slot, 1) == 1
+
+    def _grow_n(self, req: Request, slot: int, want: int) -> int:
+        """Reserve cache slots for the pending token plus `want - 1` draft
+        tokens. Degrades before it preempts: under pool pressure the
+        drafts go first (want -> 1), THEN the preempt / finish policy
+        applies. Returns the slots reserved (0 if the request left the
+        batch)."""
         mgr = self.engine.manager
         while True:
             try:
-                mgr.append_tokens(req.seq_id, 1)
-                return True
+                mgr.append_tokens(req.seq_id, want)
+                return want
             except SequenceTooLong:
+                cap = mgr.max_blocks_per_seq * mgr.block_size \
+                    - mgr.seq_len(req.seq_id)
+                if cap >= 1:
+                    want = min(want, cap)
+                    continue
                 self._finish(req, RequestStatus.FINISHED, "length_cap",
                              slot=slot)
-                return False
+                return 0
             except KVCacheExhausted:
+                if want > 1:
+                    want = 1
+                    continue
                 if not self._preempt_one(exclude=req):
                     self._finish(req, RequestStatus.FINISHED, "kv_capacity",
                                  slot=slot)
-                    return False
+                    return 0
 
     @staticmethod
     def _sampling_arrays(reqs):
@@ -418,6 +457,7 @@ class Scheduler:
         _, slot = max(victims)
         req = self.slots[slot]
         self.engine.manager.free(req.seq_id)
+        self._release_spec(req)
         self.slots[slot] = None
         req.status = RequestStatus.PREEMPTED
         req.num_preemptions += 1
@@ -439,6 +479,8 @@ class Scheduler:
         `engine.ragged_step`. Returns decode tokens committed (prefill
         progress is tracked separately)."""
         self._chunk_progress = 0
+        if self.spec is not None:
+            return self._decode_spec()
         active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
         if not active:
             return 0
@@ -564,6 +606,167 @@ class Scheduler:
             self.metrics.on_decode(produced)
         return produced
 
+    def _decode_spec(self) -> int:
+        """One speculative round: propose -> ONE fixed-shape verify over
+        all lanes -> sampling -> accept the longest matching draft prefix
+        plus the bonus token -> `trim` rollback of rejected slots.
+
+        The verify batch is always [B, K + 1] tokens. A lane with fewer
+        than K drafts reserves only what it holds; the window's surplus
+        KV writes land in guard-padded table entries, never in live
+        blocks. Chunked prefill rides the same dispatch: a prefilling
+        lane's window carries its next (up to K + 1) prompt tokens. A
+        prompt never completes mid-window: the final chunk is held to
+        one token, so the first token samples at window slot 0, whose
+        draw counter (0) is the one plain decoding uses. Returns decode
+        tokens committed."""
+        active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return 0
+        mgr = self.engine.manager
+        K = self.spec.num_draft_tokens
+        S = K + 1
+        proposer = self.spec.proposer
+        lanes = []             # (slot, req, toks, pre_len, prefilling)
+        for i, req in active:
+            if self.slots[i] is not req:
+                continue
+            pre_len = mgr.seq_len(req.seq_id)
+            if req.prefilling:
+                rem = len(req._prefill_ctx) - req._prefill_pos
+                want = min(S, rem)
+                if want == rem and rem > 1:
+                    want = rem - 1      # complete next round, at slot 0
+                got = self._grow_chunk(req, i, want)
+                if got == 0:
+                    continue
+                toks = list(req._prefill_ctx[
+                    req._prefill_pos:req._prefill_pos + got])
+                lanes.append((i, req, toks, pre_len, True))
+                continue
+            try:
+                drafts = list(proposer.propose(
+                    req.seq_id, req.all_tokens(), K))[:K]
+            except (KVCacheExhausted, SequenceTooLong):
+                drafts = []          # proposer pool or length pressure
+            except Exception:
+                # any other proposer error (a draft kernel that fails to
+                # build or launch) leaves the round: the lanes grown so
+                # far roll back and replay it
+                self._rollback(lanes, {r.seq_id: p
+                                       for _i, r, _t, p, _f in lanes})
+                raise
+            got = self._grow_n(req, i, 1 + len(drafts))
+            if got == 0:
+                continue
+            lanes.append((i, req, [req._last] + drafts[:got - 1], pre_len,
+                          False))
+        # growth-path preemptions may have evicted earlier lanes
+        lanes = [ln for ln in lanes if self.slots[ln[0]] is ln[1]]
+        if not lanes:
+            return 0
+        B = len(self.slots)
+        tokens = np.zeros((B, S), np.int32)
+        ctx = np.full((B,), S, np.int32)      # pad lanes write the guard
+        # a lane within S tokens of its length cap has a table full of
+        # real blocks while ctx counts the whole window: trailing guard
+        # columns take the window's positions past the cap
+        width = mgr.max_blocks_per_seq + (S + mgr.block_size - 2) \
+            // mgr.block_size
+        tables = np.full((B, width), self._pad_block, np.int32)
+        lane_reqs: List[Optional[Request]] = [None] * B
+        pre_lens = {}
+        for i, req, toks, pre_len, prefilling in lanes:
+            tokens[i, :len(toks)] = toks
+            # token j sits at position pre_len + j: ctx counts the whole
+            # window even when the lane holds fewer than S real tokens
+            ctx[i] = pre_len + S
+            tables[i, :mgr.max_blocks_per_seq] = mgr.block_table_array(
+                [req.seq_id], pad=self._pad_block)[0]
+            # sampled rows: a decode lane's always, a prefill lane's only
+            # on its completing (one-token) chunk
+            if not prefilling:
+                lane_reqs[i] = req
+            elif req._prefill_pos + len(toks) >= len(req._prefill_ctx) \
+                    and req._last is None:
+                lane_reqs[i] = req
+            pre_lens[req.seq_id] = pre_len
+        try:
+            logits = self.engine.verify_step(tokens, ctx, tables)
+        except EngineStepError as e:
+            if not e.seq_ids:
+                self._rollback(lanes, pre_lens)
+                raise
+            # the engine named the poisoned lanes: fail those, roll the
+            # others back to their pre-round lengths to replay next round
+            for i, req, _t, _p, _f in lanes:
+                if req.seq_id in e.seq_ids:
+                    self._isolated(req, f"engine_fault:{e.phase}", e.phase,
+                                   slot=i)
+                else:
+                    mgr.trim(req.seq_id, pre_lens[req.seq_id])
+            return 0
+        except Exception:
+            self._rollback(lanes, pre_lens)
+            raise
+        finite = torch.isfinite(logits).all(dim=-1).all(dim=-1) \
+            .cpu().numpy()                          # [B] bools to host
+        for i, req, _t, _p, _f in lanes:
+            if not finite[i]:
+                # the garbage KV went into this lane's own blocks (and the
+                # guard); freeing the sequence discards it
+                self._isolated(req, "nan_logits", "verify", slot=i)
+                lane_reqs[i] = None
+        lanes = [ln for ln in lanes if self.slots[ln[0]] is ln[1]]
+        if not lanes:
+            return 0
+        t_tok = self._clock()
+        picked = sample_tokens(logits, *self._sampling_arrays(lane_reqs))
+        produced = proposed = accepted = 0
+        chunk_tokens = decode_lanes = 0
+        for i, req, toks, pre_len, prefilling in lanes:
+            if self.slots[i] is not req:   # cancelled by a stream_cb
+                continue                   # earlier in this very loop
+            if prefilling:
+                got = len(toks)
+                chunk_tokens += got
+                # a completing chunk has got == 1: window slot 0, the
+                # draw counter plain decoding would use
+                self._commit_chunk(req, got, i, t_tok, picked[i, got - 1])
+                continue
+            decode_lanes += 1
+            drafts = toks[1:]
+            a = 0
+            while a < len(drafts) and drafts[a] == int(picked[i, a]):
+                a += 1
+            proposed += len(drafts)
+            accepted += a
+            # the accepted drafts (== the sampled tokens) plus the bonus /
+            # correction token from the first unmatched position
+            for j in range(a + 1):
+                produced += 1
+                self._commit_token(req, int(picked[i, j]), i, t_tok)
+                if req.status.terminal:
+                    break
+            if not req.status.terminal:
+                # roll back rejected speculation: keep pending + accepted
+                mgr.trim(req.seq_id, pre_len + 1 + a)
+        self._chunk_progress = chunk_tokens
+        self.metrics.on_ragged_step(chunk_tokens, decode_lanes)
+        if decode_lanes:
+            self.metrics.on_decode(produced)
+            self.metrics.on_spec(proposed=proposed, accepted=accepted,
+                                 produced=produced, lanes=decode_lanes)
+        return produced
+
+    def _rollback(self, lanes, pre_lens):
+        """Trim every lane still in its slot back to its pre-round length
+        (an exception leaves the round; the lanes replay it)."""
+        mgr = self.engine.manager
+        for i, req, *_rest in lanes:
+            if self.slots[i] is req:
+                mgr.trim(req.seq_id, pre_lens[req.seq_id])
+
     def _commit_chunk(self, req: Request, n: int, slot: int, t_tok: float,
                       first_tok) -> None:
         """Advance a lane's chunked prefill by `n` committed tokens; on
@@ -611,8 +814,20 @@ class Scheduler:
                 slot = self.slots.index(req)
             self.slots[slot] = None
             self.engine.manager.free(req.seq_id)
+        self._release_spec(req)
         req.status = status
         req.finish_reason = reason
         req.t_finish = self._clock()
         self._finish_events += 1
         self.metrics.on_finish(req)
+
+    def _release_spec(self, req: Request):
+        """Drop any speculative-proposer state for a request leaving the
+        batch (finish, cancel, preempt). Idempotent; a failing proposer
+        never raises into the serving path."""
+        if self.spec is None:
+            return
+        try:
+            self.spec.proposer.release(req.seq_id)
+        except Exception:
+            monitor.inc("serving.spec_release_errors")

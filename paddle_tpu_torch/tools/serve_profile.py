@@ -6,14 +6,18 @@ Serves the chip smoke's workload (`serve_workload`: Llama-2-7B width at
 `torch.profiler`, then prints one JSON line:
 device time by kernel name, the device's busy and idle share of the
 profiled window, and the host wall time per scheduler step split into
-the engine's ragged step, the sampler and the rest.
+the engine's step (`ragged_step`, or `verify_step` when speculative),
+the draft engine's `prefill` / `decode_step` (with `--spec draft`), the
+sampler and the rest.
 
     python -m paddle_tpu_torch.tools.serve_profile \
-        [--kv-bits 8] [--wbits 8|4] [--out serve_profile.json]
+        [--kv-bits 8] [--wbits 8|4] [--spec ngram|draft] \
+        [--out serve_profile.json]
 
 `--kv-bits 8` serves from an int8 KV pool and `--wbits` quantizes the
 engine's weights (`serving.quant.quantize_engine`), as the smoke's
-quantized serve phase does.
+quantized serve phase does; `--spec` serves the speculative workload
+(`serve_workload(spec=...)`), as the smoke's `serve_spec_*` phases do.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kv-bits", type=int, choices=(16, 8), default=16)
     ap.add_argument("--wbits", type=int, choices=(8, 4), default=None)
+    ap.add_argument("--spec", choices=("ngram", "draft"), default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -59,12 +64,13 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]
-    fe, requests = serve_workload(kv_bits=args.kv_bits, wbits=args.wbits)
+    fe, requests = serve_workload(kv_bits=args.kv_bits, wbits=args.wbits,
+                                  spec=args.spec)
     engine = fe.scheduler.engine
+    sample_fn = sched_mod.sample_tokens
 
-    # host wall split: wrap the engine step and the sampler
+    # host wall split: wrap the engine steps and the sampler
     host = defaultdict(float)
-    step_fn, sample_fn = engine.ragged_step, sched_mod.sample_tokens
 
     def timed(name, fn):
         def wrapper(*a, **kw):
@@ -74,7 +80,14 @@ def main(argv=None):
             return out
         return wrapper
 
-    engine.ragged_step = timed("ragged_step_enqueue", step_fn)
+    for name in ("ragged_step", "verify_step"):
+        setattr(engine, name, timed(f"{name}_enqueue",
+                                    getattr(engine, name)))
+    if args.spec == "draft":
+        draft = fe.scheduler.spec.proposer.engine
+        for name in ("prefill", "decode_step"):
+            setattr(draft, name, timed(f"draft_{name}_enqueue",
+                                       getattr(draft, name)))
     sched_mod.sample_tokens = timed("sample_tokens", sample_fn)
 
     handles = [fe.submit(p, **kw) for p, kw in requests]
@@ -106,6 +119,7 @@ def main(argv=None):
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "layers": LAYERS, "kv_bits": args.kv_bits, "wbits": args.wbits,
+        "spec": args.spec,
         "steps": steps, "wall_ms": wall * 1e3,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms": busy, "device_busy_share": busy / (wall * 1e3),

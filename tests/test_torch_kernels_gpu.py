@@ -603,3 +603,200 @@ def test_empty_inputs_launch_nothing_and_dkv_writes_zeros():
         w = torch.ones(64, dtype=torch.bfloat16, device=dev)
         assert rn.rms_norm(x, w, 1e-6).shape == shape
     assert rn.LAUNCHES.count == before
+
+
+# ---- the decode and verify kernels ----
+
+def _rows_case(dev, dtype, h, kvh, d, bs, lens, s=None, seed=0):
+    """Pools, one random table per sequence (a spare column), context
+    lengths `lens`, and q [B, H, D] (decode, `s` None) or [B, S, H, D]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = max(-(-max(lens) // bs), 1) + 1
+    nb = len(lens) * w + 1
+    perm = np.random.default_rng(seed).permutation(np.arange(1, nb))
+    tables = torch.from_numpy(
+        perm[:len(lens) * w].reshape(len(lens), w).astype(np.int32)).to(dev)
+    shape = (len(lens), h, d) if s is None else (len(lens), s, h, d)
+    q = torch.randn(shape, generator=g, device=dev).to(dtype)
+    kc = torch.randn((nb, kvh, bs, d), generator=g, device=dev).to(dtype)
+    vc = torch.randn((nb, kvh, bs, d), generator=g, device=dev).to(dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kc, vc, tables, lens
+
+
+# (heads, kv heads, block size, context lengths): ctx 0, on a block
+# boundary, across one
+_ROW_CASES = {"mha_bs4": (4, 4, 4, [0, 8, 13]),
+              "gqa_bs4": (8, 2, 4, [5, 0, 12, 17]),
+              "mha_bs16": (4, 4, 16, [16, 37, 0]),
+              "gqa_bs16": (32, 8, 16, [33, 32, 1, 200])}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 128])
+@pytest.mark.parametrize("case", list(_ROW_CASES))
+def test_decode_kernel_matches_plain_version(case, d, dtype):
+    dev = _card()
+    h, kvh, bs, lens = _ROW_CASES[case]
+    args = _rows_case(dev, dtype, h, kvh, d, bs, lens)
+    before = pa.LAUNCHES_DECODE.count
+    out = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES_DECODE.count == before + 1
+    ref = pa.paged_attention_ref(*args)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    empty = args[-1] == 0
+    assert bool((out[empty] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("s", [1, 5, 64])
+@pytest.mark.parametrize("case", list(_ROW_CASES))
+def test_verify_kernel_matches_plain_version(case, s, dtype):
+    """All S windows, rows with context_lens - S + s < 0 (exact zeros),
+    and S * G up to 256 rows."""
+    dev = _card()
+    h, kvh, bs, lens = _ROW_CASES[case]
+    args = _rows_case(dev, dtype, h, kvh, 32, bs, lens, s=s)
+    before = pa.LAUNCHES_VERIFY.count
+    out = pa.paged_attention_verify(*args)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES_VERIFY.count == before + 1
+    ref = pa.paged_attention_verify_ref(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    last = args[-1][:, None] - s + torch.arange(s, device=dev)[None, :]
+    assert bool((out[last < 0] == 0).all())
+    # the ragged kernel on the same windows
+    b, _s, hh, dd = out.shape
+    lane, pos = pa.ragged_metadata(
+        torch.full((b,), s, dtype=torch.int32, device=dev), args[-1], b * s)
+    rag = pa.paged_attention_ragged(args[0].reshape(b * s, hh, dd),
+                                    *args[1:], lane, pos)
+    torch.testing.assert_close(out.float(), rag.reshape(out.shape).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_decode_verify_layer_slices_and_wide_heads():
+    """Pool slices of a [L, NB, KVH, BS, D] stack, as the engine passes
+    them, and head_dim 256 in f32 (96 KiB of pages per CTA)."""
+    dev = _card()
+    q, kc, vc, tables, lens = _rows_case(dev, torch.float32, 8, 2, 256, 16,
+                                         [40, 9], s=64)
+    sk = torch.stack([torch.zeros_like(kc), kc])
+    sv = torch.stack([torch.zeros_like(vc), vc])
+    out = pa.paged_attention_verify(q, sk[1], sv[1], tables, lens)
+    ref = pa.paged_attention_verify_ref(q, kc, vc, tables, lens)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    out = pa.paged_attention(q[:, 0].contiguous(), sk[1], sv[1], tables,
+                             lens)
+    ref = pa.paged_attention_ref(q[:, 0].contiguous(), kc, vc, tables, lens)
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_decode_verify_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    q, kc, vc, tables, lens = _rows_case(dev, torch.float32, 4, 2, 32, 4,
+                                         [5, 9], s=3)
+    for fn, qq in ((pa.paged_attention, q[:, 0].contiguous()),
+                   (pa.paged_attention_verify, q)):
+        for bad in ((qq, kc, vc, tables.long(), lens),       # int64 table
+                    (qq, kc, vc, tables, lens[:1]),          # lens [1]
+                    (qq, kc.to(torch.bfloat16), vc, tables, lens),
+                    (qq.half(), kc.half(), vc.half(), tables, lens),  # f16
+                    (qq[..., :12].contiguous(), kc[..., :12].contiguous(),
+                     vc[..., :12].contiguous(), tables, lens)):  # D % 8
+            with pytest.raises(ValueError):
+                fn(*bad)
+    with pytest.raises(ValueError):                          # S > 64
+        pa.paged_attention_verify(q.repeat(1, 22, 1, 1)[:, :65].contiguous(),
+                                  kc, vc, tables, lens)
+    # f32 pages of 64 slots x head_dim 256: 384 KiB of shared memory
+    big = _rows_case(dev, torch.float32, 2, 1, 256, 64, [70], s=2)
+    for fn, qq in ((pa.paged_attention, big[0][:, 0].contiguous()),
+                   (pa.paged_attention_verify, big[0])):
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(qq, *big[1:])
+
+
+def test_decode_verify_empty_inputs_launch_nothing():
+    dev = _card()
+    q, kc, vc, tables, lens = _rows_case(dev, torch.float32, 4, 2, 32, 4,
+                                         [5], s=3)
+    before = (pa.LAUNCHES_DECODE.count, pa.LAUNCHES_VERIFY.count)
+    out = pa.paged_attention(q[:0, 0].contiguous(), kc, vc, tables[:0],
+                             lens[:0])
+    assert out.shape == (0, 4, 32)
+    out = pa.paged_attention_verify(q[:, :0].contiguous(), kc, vc, tables,
+                                    lens)
+    assert out.shape == (1, 0, 4, 32)
+    assert (pa.LAUNCHES_DECODE.count, pa.LAUNCHES_VERIFY.count) == before
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_engine_legacy_entry_points_on_card_match_cpu(kv_bits):
+    """`prefill` (right-padded, with `lens`) and `decode_step` (kv_bits
+    16: the decode kernel) and `verify_step` (both KV modes: the ragged
+    kernels) on the card against the engine's CPU run."""
+    dev = _card()
+    from paddle_tpu_torch import LlamaInferenceEngine, llama_tiny
+
+    model = llama_tiny(vocab=128, layers=2, hidden=128, heads=4, seq=64,
+                       num_key_value_heads=2, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    geo = dict(max_batch_size=2, num_blocks=16, block_size=4,
+               max_blocks_per_seq=16, kv_bits=kv_bits)
+    cpu = LlamaInferenceEngine(model, device="cpu", **geo)
+    gpu = LlamaInferenceEngine(model, device=dev, **geo)
+    tables = np.asarray([[1, 2, 3, 4] + [0] * 12, [5, 6, 7] + [0] * 13],
+                        np.int32)
+    rng = np.random.default_rng(3)
+    calls = [("verify_step", (rng.integers(1, 128, (2, 5)).astype(np.int32),
+                              np.asarray([13, 9], np.int32), tables))]
+    if kv_bits == 16:
+        before = pa.LAUNCHES_DECODE.count
+        calls = [("prefill", (rng.integers(1, 128, (2, 8)).astype(np.int32),
+                              tables, np.asarray([8, 5], np.int32))),
+                 ("decode_step", (np.asarray([3, 7], np.int32),
+                                  np.asarray([9, 6], np.int32), tables))] \
+            + calls
+    for name, args in calls:
+        a = getattr(cpu, name)(*args)
+        b = getattr(gpu, name)(*args)
+        assert b.device.type == "cuda"
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+    if kv_bits == 16:
+        assert pa.LAUNCHES_DECODE.count == before + 2      # one per layer
+
+
+def test_f16_engine_decode_raises_on_card():
+    """The decode kernel takes bf16/f32 only (JAX's gate also takes f16):
+    an f16 engine's `decode_step` and `generate` raise on the card
+    instead of running the plain version there, as `ragged_step` and
+    `verify_step` do; nothing is launched."""
+    dev = _card()
+    from paddle_tpu_torch import LlamaInferenceEngine, llama_tiny
+
+    model = llama_tiny(vocab=128, layers=2, hidden=128, heads=4, seq=64,
+                       num_key_value_heads=2, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    eng = LlamaInferenceEngine(model, max_batch_size=2, num_blocks=16,
+                               block_size=4, max_blocks_per_seq=16,
+                               dtype=torch.float16, device=dev)
+    tables = np.asarray([[1, 2, 3, 4] + [0] * 12, [5, 6, 7] + [0] * 13],
+                        np.int32)
+    before = (pa.LAUNCHES_DECODE.count, pa.LAUNCHES.count)
+    with pytest.raises(ValueError, match="decode kernel takes"):
+        eng.decode_step(np.asarray([3, 7], np.int32),
+                        np.asarray([9, 6], np.int32), tables)
+    with pytest.raises(ValueError, match="decode kernel takes"):
+        eng.generate(np.asarray([[5, 6, 7, 8]], np.int32), max_new_tokens=2)
+    with pytest.raises(ValueError, match="ragged kernel takes"):
+        eng.verify_step(np.ones((2, 5), np.int32),
+                        np.asarray([13, 9], np.int32), tables)
+    assert (pa.LAUNCHES_DECODE.count, pa.LAUNCHES.count) == before
+    assert eng.manager.free_blocks == eng.manager.num_blocks

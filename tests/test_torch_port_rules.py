@@ -63,6 +63,7 @@ def test_rule_catches_the_lookups_it_names(tmp_path):
 def test_import_loads_neither_package():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.ops.sampling, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.serving.spec, "
             "paddle_tpu_torch.nn.functional, "
             "paddle_tpu_torch.tools.train_workload, "
             "paddle_tpu_torch.tools.train_profile\n"
