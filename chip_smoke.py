@@ -17,7 +17,14 @@ flash attention kernels (forward, dQ, dK/dV) and the RMSNorm kernel
 against their plain versions at the training shapes and past the length
 where the JAX package streams K/V, three AdamW steps of a small model on
 the card against the CPU, and `train_workload`'s steps at Llama-2-7B
-width (8 layers, batch 4 x 2048).
+width (8 layers, batch 4 x 2048). Last the fused-op surface
+(`incubate.nn.functional`): the RoPE, bias + activation and SwiGLU
+kernels against their plain versions at the training step's 8,192
+tokens, one Llama-2-7B-width decoder layer built from the `incubate`
+functions (forward and backward, both SwiGLU forms) against the model's
+`LlamaDecoderLayer` on the same weights, and `block_multihead_attention`
+prefilling the serve workload's prompts and decoding 32 tokens against a
+dense causal attention.
 
     python3 chip_smoke.py
 
@@ -1417,6 +1424,383 @@ def phase_train(kind, smi):
     return launches
 
 
+# ---- the fused-op surface (incubate.nn.functional) ----
+
+ROPE_SRC = "paddle_tpu_torch/csrc/rope.cu"
+BIAS_ACT_SRC = "paddle_tpu_torch/csrc/bias_act.cu"
+ROPE_PY = "paddle_tpu/ops/pallas/rope.py"
+BA_PY = "paddle_tpu/ops/pallas/bias_act.py"
+# f32 operations per output element (the bias add included), counted from
+# the formulas in `ops/kernels/bias_act.py`; every case is bound by bytes
+ACT_FLOPS = {"identity": 1, "relu": 2, "sigmoid": 5, "silu": 6, "swish": 6,
+             "gelu_tanh": 10, "gelu": 25, "swiglu": 9, "geglu": 28}
+# the one PyTorch call computing each activation WITHOUT the bias (none
+# computes bias + activation, nor a GLU)
+ACT_LIBRARY = {"identity": torch.clone, "relu": torch.nn.functional.relu,
+               "sigmoid": torch.sigmoid, "silu": torch.nn.functional.silu,
+               "swish": torch.nn.functional.silu,
+               "gelu": torch.nn.functional.gelu,
+               "gelu_tanh": lambda x: torch.nn.functional.gelu(
+                   x, approximate="tanh")}
+
+
+def _one_rounding(name, out, ref):
+    """Both sides compute in f32 and round once: f32 within 1e-6 relative,
+    16-bit within one ulp of each element's own magnitude. Returns the
+    largest error and the share of elements that are bit-equal."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    if out.dtype == torch.float32:
+        ok = bool((err <= 1e-6 + 1e-6 * r.abs()).all())
+    else:
+        bits, tiny = (7, 2.0 ** -126) if out.dtype == torch.bfloat16 \
+            else (10, 2.0 ** -14)
+        ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(tiny)))
+                         - bits)
+        ok = bool((err <= ulp).all())
+    if not ok:
+        raise AssertionError(f"{name}: kernel != plain version, max abs err "
+                             f"{float(err.max())}")
+    return float(err.max()), float((out == ref).float().mean())
+
+
+def _fused_case(name, fn, ref_fn, outs_refs, nbytes, flops, flush,
+                library=None):
+    errs = [_one_rounding(name, o, r) for o, r in outs_refs]
+    bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+    return {"max_abs_err": max(e for e, _ in errs),
+            "bit_equal_share": min(b for _, b in errs),
+            "kernel_ms": time_ms(fn, flush),
+            "plain_ms": time_ms(ref_fn, flush, reps=10),
+            "library_ms": None if library is None else time_ms(library,
+                                                               flush),
+            "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_incubate_kernels():
+    """The RoPE, bias + activation and SwiGLU kernels against their plain
+    versions at the training step's 8,192 tokens and Llama-2-7B width
+    (`_one_rounding`'s tolerance): RoPE on q and k [4, 2048, 32, 128] with
+    [2048, 64] tables (bf16 and f32 with f32 tables, f16 with f16 tables,
+    and the conj rotation of the backward); gelu + bias [8192, 11008]
+    (bf16 and f32), the packed swiglu [8192, 22016] -> [8192, 11008], and
+    every act_method at [8192, 4096] bf16; `silu(x) * y` [8192, 11008]
+    (bf16 and f32). `library_ms` is the bias-less activation's one
+    PyTorch call where there is one; nothing computes RoPE or a GLU in
+    one call."""
+    from paddle_tpu_torch.ops.kernels import bias_act as bak
+    from paddle_tpu_torch.ops.kernels import rope as rk
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+    results = {}
+
+    def randn(shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen,
+                                    device="cuda")).to(dtype)
+
+    ang = torch.rand((2048, 64), generator=gen, device="cuda") * 6.0
+    for name, dtype, tab_dtype, conj in (
+            ("rope_bf16", torch.bfloat16, torch.float32, False),
+            ("rope_bf16_conj", torch.bfloat16, torch.float32, True),
+            ("rope_f32", torch.float32, torch.float32, False),
+            ("rope_f16", torch.float16, torch.float16, False)):
+        q = randn((4, 2048, 32, 128), dtype)
+        k = randn((4, 2048, 32, 128), dtype)
+        c, sn = ang.cos().to(tab_dtype), ang.sin().to(tab_dtype)
+        outs = rk._rope(q, k, c, sn, conj)
+        refs = rk.rope_ref(q, k, c, sn, conj)
+        torch.cuda.synchronize()
+        nbytes = 4 * q.numel() * q.element_size() + 2 * c.numel() * \
+            c.element_size()
+        results[name] = _fused_case(
+            name, lambda: rk._rope(q, k, c, sn, conj),
+            lambda: rk.rope_ref(q, k, c, sn, conj), list(zip(outs, refs)),
+            nbytes, 3 * 2 * q.numel(), flush)
+        results[name]["shape"] = [4, 2048, 32, 128]
+        del q, k, outs, refs
+        release()
+
+    ba_cases = [("bias_act_gelu_bf16", "gelu", (8192, 11008),
+                 torch.bfloat16, True),
+                ("bias_act_gelu_f32", "gelu", (8192, 11008), torch.float32,
+                 True),
+                ("bias_act_swiglu_packed_bf16", "swiglu", (8192, 22016),
+                 torch.bfloat16, False)]
+    ba_cases += [(f"bias_act_{act}_4096", act, (8192, 4096), torch.bfloat16,
+                  True) for act in sorted(bak.ACT_CODES)]
+    for name, act, shape, dtype, with_bias in ba_cases:
+        x = randn(shape, dtype, 3.0)
+        b = randn(shape[-1:], dtype) if with_bias else None
+        bz = b if with_bias else torch.zeros(shape[-1:], dtype=dtype,
+                                             device="cuda")
+        out = bak.fused_bias_act(x, b, act)
+        ref = bak.bias_act_ref(x, bz, act)
+        torch.cuda.synchronize()
+        item = x.element_size()
+        nbytes = (x.numel() + out.numel()) * item + bz.numel() * item
+        lib = ACT_LIBRARY.get(act)
+        results[name] = _fused_case(
+            name, lambda: bak.fused_bias_act(x, b, act),
+            lambda: bak.bias_act_ref(x, bz, act), [(out, ref)], nbytes,
+            ACT_FLOPS[act] * out.numel(), flush,
+            library=None if lib is None else (lambda: lib(x)))
+        results[name].update(act_method=act, shape=list(shape),
+                             bias=with_bias)
+        del x, b, bz, out, ref
+        release()
+
+    for name, dtype in (("swiglu_bf16", torch.bfloat16),
+                        ("swiglu_f32", torch.float32)):
+        x = randn((8192, 11008), dtype, 3.0)
+        y = randn((8192, 11008), dtype)
+        out = bak.swiglu(x, y)
+        ref = bak.swiglu_ref(x, y)
+        torch.cuda.synchronize()
+        nbytes = 3 * x.numel() * x.element_size()
+        results[name] = _fused_case(
+            name, lambda: bak.swiglu(x, y), lambda: bak.swiglu_ref(x, y),
+            [(out, ref)], nbytes, 7 * x.numel(), flush)
+        results[name]["shape"] = [8192, 11008]
+        del x, y, out, ref
+        release()
+    del flush
+    release()
+    emit({"phase": "incubate_kernels",
+          "kernels": ["fused_rope", "bias_act", "swiglu"],
+          "library": "the bias-less activation's one call (F.gelu, "
+                     "F.relu, ...); none for RoPE or a GLU",
+          "cases": results})
+    return results
+
+
+INCUBATE_KERNELS = ("fused_rope", "bias_act", "swiglu")
+LAYER_LAUNCHES = {"rms_norm": 2, "fused_rope": 2, "flash_attention_fwd": 1,
+                  "flash_attention_dq": 1, "flash_attention_dkv": 1}
+
+
+def phase_incubate_layer(kind, smi):
+    """`layer_workload`'s decoder layer at Llama-2-7B width (hidden 4096,
+    32 heads of 128, intermediate 11008), bf16, B 4 x S 2048, built from
+    the port's `incubate` functions in both MLP forms, forward and
+    backward, against the port's `LlamaDecoderLayer` on the same weights:
+    the output and the input gradient within 2^-6 norm-relative. Each
+    run's first forward + backward runs with the launch counts zeroed
+    just before and read just after: exactly 2 RMSNorm, 2 RoPE (forward,
+    backward), one flash forward, dQ and dK/dV, and one `swiglu` ("two")
+    or `bias_act` ("packed"), nothing else. Then the three runs are timed
+    in turns. An f32 copy of the model's layer on the same weights says
+    how far each bf16 run is from the exact math (reported, not
+    gated)."""
+    from paddle_tpu_torch.models.llama import LlamaDecoderLayer
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.tools.layer_workload import RUNS, LayerWorkload
+
+    torch.cuda.reset_peak_memory_stats()
+    work = LayerWorkload()
+    counters = (*SERVE_KERNELS, *TRAIN_KERNELS, *INCUBATE_KERNELS)
+    results, launches, outs = {}, {}, {}
+    for run in RUNS:
+        _support.reset_launch_counts()
+        outs[run] = work.step(run)
+        torch.cuda.synchronize()
+        launched = {c: _support.launch_counter(c).count for c in counters}
+        launches[run] = {c: n for c, n in launched.items() if n}
+        if run != "llama_layer":
+            expect = dict(LAYER_LAUNCHES)
+            expect["swiglu" if run == "two" else "bias_act"] = 1
+            if launches[run] != expect:
+                raise AssertionError(f"incubate layer ({run}): launches "
+                                     f"{launches[run]} != {expect}")
+    for run in ("two", "packed"):
+        for i, what in enumerate(("out", "input_grad")):
+            got, want = outs[run][i], outs["llama_layer"][i]
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"incubate layer ({run}): non-finite "
+                                     f"{what}")
+            rel = _norm_rel(got, want)
+            results[f"{run}_{what}_norm_rel_err"] = rel
+            if not rel <= 2.0 ** -6:
+                raise AssertionError(f"incubate layer ({run}): {what} "
+                                     f"{rel} from LlamaDecoderLayer's > "
+                                     f"2^-6")
+    # the f32 layer: how far each bf16 run is from the exact math
+    f32_layer = LlamaDecoderLayer(work.config, device=torch.device("cuda"),
+                                  dtype=torch.float32)
+    f32_layer.load_state_dict({k: v.float() for k, v in
+                               work.llama_layer.state_dict().items()})
+    xf = work.x0.float().requires_grad_()
+    yf = f32_layer(xf)
+    yf.backward(work.dy.float())
+    results["vs_f32_norm_rel_err"] = {
+        run: {"out": _norm_rel(outs[run][0], yf.detach()),
+              "input_grad": _norm_rel(outs[run][1], xf.grad)}
+        for run in RUNS}
+    del outs, f32_layer, xf, yf
+    release()
+    # timing: the runs in turns, CUDA events around one forward + backward
+    times = {run: [] for run in RUNS}
+    for run in RUNS:
+        work.step(run)                                  # warm-up
+    for _ in range(5):
+        for run in RUNS:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            work.step(run)
+            end.record()
+            end.synchronize()
+            times[run].append(start.elapsed_time(end))
+    results["fwd_bwd_ms_median"] = {r: statistics.median(t)
+                                    for r, t in times.items()}
+    results["fwd_bwd_ms"] = times
+    emit({"phase": "incubate_layer",
+          "layer": "Llama-2-7B width (hidden 4096, 32 x 128 heads, "
+                   "intermediate 11008), bf16, B 4 x S 2048, fwd + bwd "
+                   "with weight gradients",
+          "tol_norm_rel": 2.0 ** -6, "launches": launches, **results,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "device": kind, "nvidia_smi": smi})
+    del work
+    release()
+    return {c: launches["two"].get(c, 0) + launches["packed"].get(c, 0)
+            for c in INCUBATE_KERNELS}
+
+
+def _rope_pairs(t, cos, sin):
+    """The adjacent-pair rotation `block_multihead_attention` applies with
+    `use_neox_style=False`, written out here: t [T, heads, D], cos/sin
+    [T, D/2] cast to t's dtype."""
+    c = cos[:, None, :].to(t.dtype)
+    s = sin[:, None, :].to(t.dtype)
+    te, to = t[..., 0::2], t[..., 1::2]
+    return torch.stack([te * c - to * s, to * c + te * s],
+                       dim=-1).reshape(t.shape)
+
+
+def phase_incubate_serve(kind, smi):
+    """`block_multihead_attention` at H 32, D 128 with a bf16 pool in
+    blocks of 64: one prefill call holding the serve workload's 8 prompt
+    lengths (`default_rng(0)`, 64-512), then 32 decode calls with
+    rope_emb (the model's f32 tables), random bf16 qkv from a seed. The
+    launch counts are zeroed before the prefill (it launches no kernel:
+    its attention is the plain composite) and before the decode loop
+    (exactly one decode-kernel launch per call, nothing else). Every
+    output row is held to a dense causal attention over the same rotated
+    tokens, per row within 2^-6 of its largest |out|."""
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    from paddle_tpu_torch.models.llama import LlamaConfig, _rope_cache
+    from paddle_tpu_torch.ops.kernels import _support
+
+    h, d, bs, steps = 32, 128, 64, 32
+    lens = [int(n) for n in np.random.default_rng(0).integers(64, 513, 8)]
+    b = len(lens)
+    nblk = [-(-(n + steps) // bs) for n in lens]
+    w = max(nblk)
+    tables = torch.zeros((b, w), dtype=torch.int32)
+    used = 1
+    for i, n in enumerate(nblk):
+        tables[i, :n] = torch.arange(used, used + n)
+        used += n
+    dev = torch.device("cuda")
+    tables = tables.to(dev)
+    kc = torch.zeros((used, h, bs, d), dtype=torch.bfloat16, device=dev)
+    vc = torch.zeros_like(kc)
+    cos, sin = (torch.from_numpy(t) for t in _rope_cache(LlamaConfig(
+        hidden_size=h * d, num_attention_heads=h,
+        max_position_embeddings=1024)))
+    max_seq = max(lens) + steps
+    rope = torch.stack([cos[:max_seq], sin[:max_seq]])[:, None, :, None] \
+        .expand(2, b, max_seq, 1, d // 2).contiguous().to(dev)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    hd = h * d
+    counters = (*SERVE_KERNELS, *TRAIN_KERNELS, *INCUBATE_KERNELS)
+
+    # per sequence: the rotated K and V of every token, and each call's
+    # output rows and their positions, for the dense reference
+    keys = [[] for _ in range(b)]
+    vals = [[] for _ in range(b)]
+    rows = [[] for _ in range(b)]
+
+    def record(qkv, out, dec, this):
+        off = 0
+        for i in range(b):
+            n = this[i]
+            pos = torch.arange(dec[i], dec[i] + n, device=dev)
+            t = qkv[off:off + n].reshape(n, 3, h, d)
+            c, s_ = rope[0, i, pos, 0], rope[1, i, pos, 0]
+            keys[i].append(_rope_pairs(t[:, 1], c, s_))
+            vals[i].append(t[:, 2])
+            rows[i].append((_rope_pairs(t[:, 0], c, s_), out[off:off + n],
+                            pos))
+            off += n
+
+    zeros = [0] * b
+    qkv = torch.randn((sum(lens), 3 * hd), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    _support.reset_launch_counts()
+    out = IF.block_multihead_attention(
+        qkv, kc, vc, torch.tensor(lens), torch.tensor(zeros),
+        torch.tensor(lens), block_tables=tables, rope_emb=rope,
+        block_size=bs)[0]
+    torch.cuda.synchronize()
+    prefill_launches = {c: _support.launch_counter(c).count
+                        for c in counters}
+    if any(prefill_launches.values()):
+        raise AssertionError(f"incubate serve: the prefill launched "
+                             f"{prefill_launches}")
+    record(qkv, out, zeros, lens)
+    qkvs = [torch.randn((b, 3 * hd), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(steps)]
+    ones = torch.ones(b, dtype=torch.int64)
+    enc0 = torch.zeros(b, dtype=torch.int64)
+    outs = []
+    torch.cuda.synchronize()
+    _support.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        outs.append(IF.block_multihead_attention(
+            qkvs[i], kc, vc, enc0, torch.tensor([n + i for n in lens]),
+            ones, block_tables=tables, rope_emb=rope, block_size=bs)[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {c: _support.launch_counter(c).count for c in counters}
+    expect = {c: steps if c == "paged_attention" else 0 for c in counters}
+    if launched != expect:
+        raise AssertionError(f"incubate serve: decode launches {launched} "
+                             f"!= {expect}")
+    for i in range(steps):
+        record(qkvs[i], outs[i], [n + i for n in lens], [1] * b)
+
+    worst, worst_rel = 0.0, 0.0
+    for i in range(b):
+        k_all = torch.cat(keys[i]).float()                # [N, H, D]
+        v_all = torch.cat(vals[i]).float()
+        for q, o, pos in rows[i]:
+            sc = torch.einsum("thd,nhd->htn", q.float(), k_all) / \
+                math.sqrt(d)
+            keep = torch.arange(k_all.shape[0], device=dev)[None, :] <= \
+                pos[:, None]
+            sc = sc.masked_fill(~keep[None], -1e30)
+            ref = torch.einsum("htn,nhd->thd", torch.softmax(sc, -1), v_all)
+            err, rel = _row_check(f"incubate serve seq {i}",
+                                  o.reshape(-1, h, d), ref.to(o.dtype),
+                                  torch.zeros(ref.shape[:2], dtype=torch.bool,
+                                              device=dev))
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    emit({"phase": "incubate_serve",
+          "geometry": {"heads": h, "head_dim": d, "block_size": bs,
+                       "prompt_lens": lens, "decode_calls": steps,
+                       "dtype": "bfloat16"},
+          "decode_ms_per_call": wall / steps * 1e3,
+          "decode_launches": launched["paged_attention"],
+          "row_rel_tol": ROW_REL[torch.bfloat16], "max_abs_err": worst,
+          "row_rel_err": worst_rel, "device": kind, "nvidia_smi": smi})
+    del kc, vc, keys, vals, rows, outs, qkvs
+    release()
+
+
 def _row(name, source, replaces, launches, case, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, **extra, "launches": launches,
@@ -1442,6 +1826,9 @@ def main():
     rms = phase_rms()
     phase_train_reference()
     train_launches = phase_train(kind, smi)
+    fused = phase_incubate_kernels()
+    layer_launches = phase_incubate_layer(kind, smi)
+    phase_incubate_serve(kind, smi)
     attn_src = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
     gemm_src = "paddle_tpu_torch/csrc/quant_matmul.cu"
     pa_py = "paddle_tpu/ops/pallas/paged_attention.py"
@@ -1473,7 +1860,14 @@ def main():
                                    ("flash_attention_dkv", 149, 594))],
         _row("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
              "paddle_tpu/ops/pallas/rms_norm.py:18",
-             train_launches["rms_norm"], rms["bf16"])]})
+             train_launches["rms_norm"], rms["bf16"]),
+        _row("fused_rope", ROPE_SRC, f"{ROPE_PY}:20",
+             layer_launches["fused_rope"], fused["rope_bf16"]),
+        _row("bias_act", BIAS_ACT_SRC, f"{BA_PY}:57",
+             layer_launches["bias_act"],
+             fused["bias_act_swiglu_packed_bf16"]),
+        _row("swiglu", BIAS_ACT_SRC, f"{BA_PY}:113",
+             layer_launches["swiglu"], fused["swiglu_bf16"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

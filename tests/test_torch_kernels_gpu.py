@@ -800,3 +800,316 @@ def test_f16_engine_decode_raises_on_card():
                         np.asarray([13, 9], np.int32), tables)
     assert (pa.LAUNCHES_DECODE.count, pa.LAUNCHES.count) == before
     assert eng.manager.free_blocks == eng.manager.num_blocks
+
+
+# ---- the fused-op kernels: RoPE, bias + activation, SwiGLU ----
+
+from paddle_tpu_torch.ops.kernels import _support  # noqa: E402
+from paddle_tpu_torch.ops.kernels import bias_act as bak  # noqa: E402
+from paddle_tpu_torch.ops.kernels import rope as rk  # noqa: E402
+
+_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+_DTYPE_IDS = ["f32", "bf16", "f16"]
+
+
+def _assert_one_rounding(got, want):
+    """Both sides compute in f32 and round once: f32 within 1e-6 relative,
+    16-bit within one ulp of each element's own magnitude."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        return
+    w = want.float()
+    bits, tiny = (7, 2.0 ** -126) if got.dtype == torch.bfloat16 \
+        else (10, 2.0 ** -14)
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(tiny)))
+                     - bits)
+    err = (got.float() - w).abs()
+    assert bool((err <= ulp).all()), float((err / ulp).max())
+
+
+@pytest.mark.parametrize("conj", [False, True], ids=["fwd", "conj"])
+@pytest.mark.parametrize("table_f32", [True, False], ids=["f32tab", "qtab"])
+@pytest.mark.parametrize("dtype", _DTYPES, ids=_DTYPE_IDS)
+def test_rope_kernel_matches_plain_version(dtype, table_f32, conj):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(20)
+    for shape in ((2, 17, 3, 64), (3, 5, 2, 6)):     # vector, scalar path
+        b, s, h, d = shape
+        q = torch.randn(shape, generator=g, device=dev).to(dtype)
+        k = torch.randn(shape, generator=g, device=dev).to(dtype)
+        tab = torch.randn((s + 4, d // 2), generator=g, device=dev)
+        cos, sin = tab.cos(), tab.sin()
+        if not table_f32:
+            cos, sin = cos.to(dtype), sin.to(dtype)
+        before = rk.LAUNCHES.count
+        oq, ok = rk._rope(q, k, cos[3:3 + s], sin[3:3 + s], conj)
+        rq, rkk = rk.rope_ref(q, k, cos[3:3 + s], sin[3:3 + s], conj)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES.count == before + 1
+        assert oq.is_contiguous() and ok.is_contiguous()
+        _assert_one_rounding(oq, rq)
+        _assert_one_rounding(ok, rkk)
+
+
+def test_rope_on_qkv_views_and_autograd():
+    """q and k as strided views of one qkv product (and a view 2 bytes off
+    16-byte alignment, the scalar path) give what contiguous copies
+    give; the backward (the conj kernel) is the transposed rotation."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(21)
+    b, s, h, d = 2, 33, 4, 128
+    qkv = torch.randn((b, s, 3, h, d), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    tab = torch.randn((s, d // 2), generator=g, device=dev)
+    cos, sin = tab.cos(), tab.sin()
+    q, k = qkv[:, :, 0], qkv[:, :, 1]
+    assert not q.is_contiguous()
+    oq, ok = rk.fused_rope(q, k, cos, sin)
+    rq, rkk = rk.rope_ref(q.contiguous(), k.contiguous(), cos, sin)
+    _assert_one_rounding(oq, rq)
+    _assert_one_rounding(ok, rkk)
+    wide = torch.randn((b, s, h, d + 1), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    oq2, _ = rk.fused_rope(wide[..., 1:], wide[..., 1:], cos, sin)
+    _assert_one_rounding(oq2, rk.rope_ref(wide[..., 1:].contiguous(),
+                                          wide[..., 1:].contiguous(), cos,
+                                          sin)[0])
+    qf = torch.randn((b, s, h, d), generator=g, device=dev) \
+        .requires_grad_()
+    kf = torch.randn((b, s, h, d), generator=g, device=dev) \
+        .requires_grad_()
+    gq = torch.randn((b, s, h, d), generator=g, device=dev)
+    gk = torch.randn((b, s, h, d), generator=g, device=dev)
+    before = rk.LAUNCHES.count
+    oq, ok = rk.fused_rope(qf, kf, cos, sin, offset=0)
+    ((oq * gq).sum() + (ok * gk).sum()).backward()
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES.count == before + 2            # forward, backward
+    qc = qf.detach().cpu().double().requires_grad_()
+    kc = kf.detach().cpu().double().requires_grad_()
+    rq, rkk = rk.rope_ref(qc, kc, cos.cpu().double(), sin.cpu().double())
+    ((rq * gq.cpu().double()).sum() + (rkk * gk.cpu().double()).sum()) \
+        .backward()
+    torch.testing.assert_close(qf.grad.cpu().double(), qc.grad, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(kf.grad.cpu().double(), kc.grad, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=_DTYPE_IDS)
+@pytest.mark.parametrize("act", sorted(bak.ACT_CODES))
+def test_bias_act_kernel_matches_plain_version(act, dtype):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(22)
+    # (rows, H): the vector path, then widths the vector does not divide
+    for rows, h in ((37, 256), (5, 36), (3, 30)):
+        x = (3 * torch.randn((rows, h), generator=g, device=dev)).to(dtype)
+        x[0, :4] = 0                                  # relu's tie
+        for bias in (None, torch.randn((h,), generator=g, device=dev)
+                     .to(dtype), torch.randn((h,), generator=g,
+                                             device=dev)):
+            b = torch.zeros((h,), dtype=dtype, device=dev) \
+                if bias is None else bias
+            before = bak.LAUNCHES.count
+            y = bak.fused_bias_act(x, bias, act)
+            torch.cuda.synchronize()
+            assert bak.LAUNCHES.count == before + 1
+            _assert_one_rounding(y, bak.bias_act_ref(x, b, act))
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=_DTYPE_IDS)
+def test_swiglu_kernel_on_strided_rows(dtype):
+    """`silu(x) * y` with x and y the two halves of one gate/up product
+    (a row stride of 2H), and 2 bytes off alignment (the scalar path)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(23)
+    for rows, h in ((19, 512), (4, 40)):
+        gu = (2 * torch.randn((rows, 2 * h + 1), generator=g,
+                              device=dev)).to(dtype)
+        for x, y in ((gu[:, :h], gu[:, h:2 * h]),
+                     (gu[:, 1:h + 1], gu[:, h + 1:])):
+            before = bak.LAUNCHES_SWIGLU.count
+            out = bak.swiglu(x, y)
+            torch.cuda.synchronize()
+            assert bak.LAUNCHES_SWIGLU.count == before + 1
+            _assert_one_rounding(out, bak.swiglu_ref(x, y))
+
+
+def test_bias_act_and_swiglu_autograd_on_card_match_cpu():
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randn((6, 64), generator=g, device=dev)
+    b = torch.randn((64,), generator=g, device=dev)
+    gy = torch.randn((6, 32), generator=g, device=dev)
+    for act in ("geglu", "swiglu"):
+        xs = [x.clone().requires_grad_(), x.cpu().requires_grad_()]
+        bs = [b.clone().requires_grad_(), b.cpu().requires_grad_()]
+        for xi, bi in zip(xs, bs):
+            (bak.fused_bias_act(xi, bi, act) * gy.to(xi.device)).sum() \
+                .backward()
+        torch.testing.assert_close(xs[0].grad.cpu(), xs[1].grad, rtol=1e-6,
+                                   atol=1e-6)
+        torch.testing.assert_close(bs[0].grad.cpu(), bs[1].grad, rtol=1e-5,
+                                   atol=1e-5)
+    y = torch.randn((6, 32), generator=g, device=dev)
+    pairs = [(x[:, :32].clone().requires_grad_(), y.clone().requires_grad_()),
+             (x[:, :32].cpu().requires_grad_(), y.cpu().requires_grad_())]
+    for xi, yi in pairs:
+        (bak.swiglu(xi, yi) * gy.to(xi.device)).sum().backward()
+    for a, c in zip(pairs[0], pairs[1]):
+        torch.testing.assert_close(a.grad.cpu(), c.grad, rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_fused_op_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    q = torch.zeros((2, 4, 2, 16), dtype=torch.bfloat16, device=dev)
+    tab = torch.zeros((4, 8), device=dev)
+    with pytest.raises(ValueError, match="q must be"):
+        rk.fused_rope(q.double(), q.double(), tab, tab)
+    with pytest.raises(ValueError, match="k must match"):
+        rk.fused_rope(q, q[:, :, :1], tab, tab)
+    with pytest.raises(ValueError, match="k must match"):
+        rk.fused_rope(q, q.half(), tab, tab)
+    with pytest.raises(ValueError, match="is on"):
+        rk.fused_rope(q, q, tab.cpu(), tab.cpu())
+    with pytest.raises(ValueError, match="rows"):
+        rk.fused_rope(q, q, tab, tab, offset=1)       # offset + S > T
+    x = torch.zeros((4, 32), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="x must be"):
+        bak.fused_bias_act(x.double(), None, "gelu")
+    with pytest.raises(ValueError, match="bias must be"):
+        bak.fused_bias_act(x, torch.zeros(32, dtype=torch.float16,
+                                          device=dev), "gelu")
+    with pytest.raises(ValueError, match="is on"):
+        bak.fused_bias_act(x, torch.zeros(32, dtype=torch.bfloat16), "gelu")
+    with pytest.raises(KeyError, match="unknown act_method"):
+        bak.fused_bias_act(x, None, "tanh")
+    with pytest.raises(ValueError, match="odd width"):
+        bak.fused_bias_act(x[:, :31], None, "swiglu")
+    with pytest.raises(ValueError, match="y must match"):
+        bak.swiglu(x, x.float())
+    with pytest.raises(ValueError, match="x must be"):
+        bak.swiglu(x.double(), x.double())
+
+
+def test_fused_op_empty_inputs_launch_nothing():
+    dev = _card()
+    before = (rk.LAUNCHES.count, bak.LAUNCHES.count,
+              bak.LAUNCHES_SWIGLU.count)
+    q = torch.zeros((2, 0, 3, 16), dtype=torch.bfloat16, device=dev)
+    tab = torch.zeros((4, 8), device=dev)
+    oq, ok = rk.fused_rope(q, q, tab, tab)
+    assert oq.shape == q.shape and ok.shape == q.shape
+    x = torch.zeros((0, 64), dtype=torch.bfloat16, device=dev)
+    assert bak.fused_bias_act(x, None, "swiglu").shape == (0, 32)
+    assert bak.fused_bias_act(x, None, "relu").shape == (0, 64)
+    assert bak.swiglu(x, x).shape == (0, 64)
+    assert (rk.LAUNCHES.count, bak.LAUNCHES.count,
+            bak.LAUNCHES_SWIGLU.count) == before
+
+
+# ---- the fused-op surface (incubate.nn.functional) on the card ----
+
+def test_incubate_surface_on_card_matches_cpu():
+    """A small fused layer's pieces through `incubate.nn.functional` on the
+    card (the kernels) and on the CPU (their plain versions): RMSNorm with
+    a residual, RoPE on views of one qkv product (forward and backward),
+    both SwiGLU forms and `fused_bias_act`; one launch of each kernel per
+    call on the card."""
+    dev = _card()
+    import paddle_tpu_torch.incubate.nn.functional as IF
+
+    g = torch.Generator(device=dev).manual_seed(30)
+    b, s, h, d, hid, inter = 2, 24, 4, 32, 128, 96
+    x = torch.randn((b, s, hid), generator=g, device=dev).bfloat16()
+    res = torch.randn((b, s, hid), generator=g, device=dev).bfloat16()
+    w = (1 + 0.1 * torch.randn((hid,), generator=g, device=dev)).bfloat16()
+    qkv = torch.randn((b, s, 3, h, d), generator=g, device=dev).bfloat16()
+    tab = torch.randn((s + 3, d // 2), generator=g, device=dev)
+    gu = torch.randn((b, s, 2 * inter), generator=g, device=dev).bfloat16()
+    bias = torch.randn((2 * inter,), generator=g, device=dev)
+    gq = torch.randn((b, s, h, d), generator=g, device=dev).bfloat16()
+    outs = {}
+    for where in ("cpu", "cuda"):
+        t = {n: v.to(where) for n, v in dict(
+            x=x, res=res, w=w, qkv=qkv, cos=tab.cos(), sin=tab.sin(), gu=gu,
+            bias=bias, gq=gq).items()}
+        t["qkv"].requires_grad_()
+        before = {n: _support.launch_counter(n).count for n in (
+            "rms_norm", "fused_rope", "swiglu", "bias_act")}
+        y, r = IF.fused_rms_norm(t["x"], t["w"], residual=t["res"])
+        q, k = IF.fused_rotary_position_embedding(
+            t["qkv"][:, :, 0], t["qkv"][:, :, 1], sin=t["sin"], cos=t["cos"],
+            use_neox_rotary_style=False, offset=3)
+        (q.float() * t["gq"].float()).sum().backward()
+        s2 = IF.swiglu(t["gu"][..., :inter], t["gu"][..., inter:])
+        s1 = IF.swiglu(t["gu"])
+        ba = IF.fused_bias_act(t["gu"], t["bias"], act_method="geglu")
+        launched = {n: _support.launch_counter(n).count - c
+                    for n, c in before.items()}
+        outs[where] = (y, r, q, k, t["qkv"].grad, s2, s1, ba)
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert launched == {"rms_norm": 1, "fused_rope": 2, "swiglu": 1,
+                                "bias_act": 2}
+        else:
+            assert not any(launched.values())
+    for cpu, card in zip(outs["cpu"], outs["cuda"]):
+        _assert_one_rounding(card.detach().cpu(), cpu.detach())
+
+
+def test_block_multihead_attention_on_card_matches_cpu():
+    """Prefill then two decode calls through `block_multihead_attention`
+    with a bf16 pool and rope_emb: the decode runs the paged decode
+    kernel (one launch per call) and matches the CPU run."""
+    dev = _card()
+    import paddle_tpu_torch.incubate.nn.functional as IF
+
+    g = torch.Generator().manual_seed(31)
+    h, kvh, d, bs, nb = 8, 2, 64, 16, 32
+    lens = [20, 7, 33]
+    b = len(lens)
+    tables = torch.arange(1, 1 + b * 4, dtype=torch.int32).reshape(b, 4)
+    rope = torch.rand((2, b, 64, 1, d // 2), generator=g) * 2 - 1
+    pools = {"cpu": [torch.zeros((nb, kvh, bs, d), dtype=torch.bfloat16)
+                     for _ in range(2)]}
+    pools["cuda"] = [p.to(dev) for p in pools["cpu"]]
+    width = (h + 2 * kvh) * d
+    steps = [(lens, [0] * b, lens)] + [([0] * b, [n + i for n in lens],
+                                        [1] * b) for i in range(2)]
+    for enc, dec, this in steps:
+        qkv = torch.randn((sum(this), width), generator=g).bfloat16()
+        outs = {}
+        for where in ("cpu", "cuda"):
+            before = _support.launch_counter("paged_attention").count
+            outs[where] = IF.block_multihead_attention(
+                qkv.to(where), *pools[where], torch.tensor(enc),
+                torch.tensor(dec), torch.tensor(this),
+                block_tables=tables.to(where), rope_emb=rope.to(where),
+                block_size=bs, num_heads=h, num_kv_heads=kvh)
+            n = _support.launch_counter("paged_attention").count - before
+            assert n == (int(where == "cuda") if dec[0] else 0)
+        torch.cuda.synchronize()
+        cpu, card = outs["cpu"], outs["cuda"]
+        torch.testing.assert_close(card[0].float().cpu(), cpu[0].float(),
+                                   atol=2e-2, rtol=2e-2)
+        for a, c in zip(card[1:], cpu[1:]):          # qkv_out, both pools
+            _assert_one_rounding(a.cpu(), c)
+
+
+def test_mixed_dtype_fused_rms_norm_weight_raises_on_card():
+    """The RMSNorm kernel takes the weight in x's dtype only (the JAX
+    package's Pallas kernel refuses an f32 weight on 16-bit x as well):
+    `fused_rms_norm` raises before any launch."""
+    dev = _card()
+    import paddle_tpu_torch.incubate.nn.functional as IF
+
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=dev)
+    before = rn.LAUNCHES.count
+    with pytest.raises(ValueError, match="weight must be"):
+        IF.fused_rms_norm(x, torch.ones(64, device=dev))
+    with pytest.raises(ValueError, match="w must be"):
+        rn.rms_norm(x, torch.ones(64, device=dev))
+    assert rn.LAUNCHES.count == before

@@ -65,8 +65,12 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.ops.sampling, paddle_tpu_torch.optimizer, "
             "paddle_tpu_torch.serving.spec, "
             "paddle_tpu_torch.nn.functional, "
+            "paddle_tpu_torch.incubate.nn.functional, "
+            "paddle_tpu_torch.ops.kernels.rope, "
+            "paddle_tpu_torch.ops.kernels.bias_act, "
             "paddle_tpu_torch.tools.train_workload, "
-            "paddle_tpu_torch.tools.train_profile\n"
+            "paddle_tpu_torch.tools.train_profile, "
+            "paddle_tpu_torch.tools.layer_profile\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n")
