@@ -24,7 +24,13 @@ tokens, one Llama-2-7B-width decoder layer built from the `incubate`
 functions (forward and backward, both SwiGLU forms) against the model's
 `LlamaDecoderLayer` on the same weights, and `block_multihead_attention`
 prefilling the serve workload's prompts and decoding 32 tokens against a
-dense causal attention.
+dense causal attention. Last the MoE layer: the dispatch and gather
+kernels bit-equal to their plain versions and the index-op route at the
+workload's shapes (forward and backward), a small layer on the card
+against the CPU on the dense and the expert-parallel routes, and one
+forward + backward of a Mixtral-8x7B-width `MoELayer` (8,192 tokens) on
+the EP route over a one-rank NCCL group with the kernels on and off, and
+on the dense route.
 
     python3 chip_smoke.py
 
@@ -44,6 +50,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed
 
 # published peaks of one H100 SXM (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, float32 FLOP/s outside the tensor cores
@@ -1801,6 +1808,305 @@ def phase_incubate_serve(kind, smi):
     release()
 
 
+MOE_SRC = "paddle_tpu_torch/csrc/fused_moe.cu"
+MOE_PY = "paddle_tpu/ops/pallas/fused_moe.py"
+MOE_KERNELS = ("moe_dispatch", "moe_gather")
+# name -> (rows N = k * T, width H, dtype, capacity C); C = 4096 is the
+# EP capacity of the moe_layer workload (cf 2.0, 8,192 tokens, top-2, 8
+# experts), 1024 that of cf 0.5, which drops about half the rows
+MOE_CASES = {"bf16": (16384, 4096, torch.bfloat16, 4096),
+             "f32": (16384, 4096, torch.float32, 4096),
+             "bf16_h4100": (16384, 4100, torch.bfloat16, 4096),
+             "bf16_cf0.5": (16384, 4096, torch.bfloat16, 1024)}
+MOE_EXPERTS = 8
+
+
+def _moe_routing(n_rows, n_experts, capacity, gen):
+    """Rows to experts uniformly at random, each expert's slots handed
+    out in row order (the EP route's cumsum), rows past its capacity
+    dropped (-1)."""
+    e = torch.randint(0, n_experts, (n_rows,), generator=gen, device="cuda")
+    sel = torch.nn.functional.one_hot(e, n_experts).to(torch.int32)
+    pos = (torch.cumsum(sel, 0, dtype=torch.int32) - 1).gather(
+        1, e[:, None])[:, 0]
+    slot = torch.where(pos < capacity, pos, -1)
+    return e.to(torch.int32), slot.to(torch.int32)
+
+
+def _bit_equal(name, got, want):
+    if not torch.equal(got, want):
+        err = float((got.float() - want.float()).abs().max())
+        raise AssertionError(f"{name}: not bit-equal, max abs err {err}")
+
+
+def phase_moe_kernels():
+    """Both MoE kernels against their plain versions (`moe_dispatch_ref`,
+    `moe_gather_ref`) and the index-op route (`xla_dispatch`,
+    `xla_gather`), forward and backward (each kernel is the other's
+    backward), all bit-equal (`torch.equal`), at the moe_layer workload's
+    shapes (N = 16,384 rows, H 4096, E 8, C 4096, bf16), in f32, at
+    H 4100 (8-byte units) and at capacity factor 0.5 (rows dropped).
+    `library_ms`: for dispatch, `index_put_` of the kept rows into a
+    zeroed [E, C, H]; for gather, `buf.view(E*C, H)[flat]`. The bound
+    counts the kept rows read once, both index vectors, and the output
+    written once."""
+    from paddle_tpu_torch.ops.kernels import fused_moe as fm
+
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+    e_n = MOE_EXPERTS
+    results = {}
+    for name, (n, h, dtype, c) in MOE_CASES.items():
+        e_idx, p_idx = _moe_routing(n, e_n, c, gen)
+        keep = p_idx >= 0
+        kept = int(keep.sum())
+        x = torch.randn((n, h), generator=gen, device="cuda").to(dtype)
+        buf = torch.randn((e_n, c, h), generator=gen, device="cuda").to(dtype)
+        gd = torch.randn((e_n, c, h), generator=gen, device="cuda").to(dtype)
+        gr = torch.randn((n, h), generator=gen, device="cuda").to(dtype)
+        xr = x.clone().requires_grad_()
+        br = buf.clone().requires_grad_()
+        d = fm.moe_dispatch(xr, e_idx, p_idx, e_n, c)
+        r = fm.moe_gather(br, e_idx, p_idx)
+        d.backward(gd)
+        r.backward(gr)
+        torch.cuda.synchronize()
+        _bit_equal(f"moe_dispatch {name}", d,
+                   fm.moe_dispatch_ref(x, e_idx, p_idx, e_n, c))
+        _bit_equal(f"moe_dispatch {name} (index route)", d,
+                   fm.xla_dispatch(x, e_idx, p_idx, e_n, c))
+        _bit_equal(f"moe_gather {name}", r,
+                   fm.moe_gather_ref(buf, e_idx, p_idx))
+        _bit_equal(f"moe_gather {name} (index route)", r,
+                   fm.xla_gather(buf, e_idx, p_idx))
+        _bit_equal(f"moe_dispatch backward {name}", xr.grad,
+                   fm.moe_gather_ref(gd, e_idx, p_idx))
+        _bit_equal(f"moe_gather backward {name}", br.grad,
+                   fm.moe_dispatch_ref(gr, e_idx, p_idx, e_n, c))
+        xi = x.clone().requires_grad_()
+        fm.xla_dispatch(xi, e_idx, p_idx, e_n, c).backward(gd)
+        bi = buf.clone().requires_grad_()
+        fm.xla_gather(bi, e_idx, p_idx).backward(gr)
+        _bit_equal(f"moe_dispatch backward {name} (index route)", xr.grad,
+                   xi.grad)
+        _bit_equal(f"moe_gather backward {name} (index route)", br.grad,
+                   bi.grad)
+        del xr, br, d, r, xi, bi, gd, gr
+        release()
+        item = x.element_size()
+        idx_bytes = 2 * 4 * n
+        ek, pk, xk = e_idx[keep].long(), p_idx[keep].long(), x[keep]
+        flat = e_idx.long() * c + p_idx.clamp(min=0).long()
+        out = {}
+        for kern, nbytes, fn, ref_fn, lib in (
+                ("dispatch", kept * h * item + idx_bytes + e_n * c * h * item,
+                 lambda: fm.moe_dispatch(x, e_idx, p_idx, e_n, c),
+                 lambda: fm.moe_dispatch_ref(x, e_idx, p_idx, e_n, c),
+                 lambda: torch.zeros((e_n, c, h), dtype=dtype,
+                                     device="cuda").index_put_((ek, pk),
+                                                               xk)),
+                ("gather", kept * h * item + idx_bytes + n * h * item,
+                 lambda: fm.moe_gather(buf, e_idx, p_idx),
+                 lambda: fm.moe_gather_ref(buf, e_idx, p_idx),
+                 lambda: buf.view(e_n * c, h)[flat])):
+            bound_ms, bound_by = bound(nbytes, 0, BF16_FLOPS)
+            out[kern] = {"max_abs_err": 0.0, "kernel_ms": time_ms(fn, flush),
+                         "plain_ms": time_ms(ref_fn, flush, reps=10),
+                         "library_ms": time_ms(lib, flush),
+                         "bytes": nbytes, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+        results[name] = {"rows": n, "width": h, "dtype": str(dtype),
+                         "experts": e_n, "capacity": c, "kept_rows": kept,
+                         **out}
+        del x, buf, ek, pk, xk, flat, e_idx, p_idx, keep
+        release()
+    del flush
+    release()
+    emit({"phase": "moe_kernels", "kernels": list(MOE_KERNELS),
+          "check": "bit-equal (torch.equal) to the plain versions and the "
+                   "index route, forward and backward",
+          "library": {"dispatch": "zeros + index_put_ of the kept rows",
+                      "gather": "buf.view(E*C, H)[flat]"},
+          "cases": results})
+    return results
+
+
+def phase_moe_reference(group):
+    """A small MoE layer (d 64, E 8, F 128, top-2, f32, 64 tokens, capacity
+    factor 2) on the card against the same weights on the CPU: the dense
+    route (`MoELayer.forward`) and the EP route (`_ep_moe_fn`, the card
+    through the one-rank group with the kernels on, the CPU with no group
+    and the kernels' plain versions): output, aux loss and every gradient
+    within 1e-4 (cuBLAS and the CPU sum in other orders), and identical
+    routing: the dense dispatch mask, the EP top-k and slots."""
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        MoELayer, moe_layer)
+    from paddle_tpu_torch.ops.kernels import _support
+
+    d, e, f, t, k = 64, 8, 128, 64, 2
+    cpu = MoELayer(d_model=d, num_experts=e, d_hidden=f, top_k=k,
+                   device="cpu", generator=torch.Generator().manual_seed(62))
+    with torch.no_grad():
+        for p in cpu.experts.parameters():          # non-zero biases
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator()
+                                      .manual_seed(63)))
+    card = MoELayer(d_model=d, num_experts=e, d_hidden=f, top_k=k,
+                    device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((t, d), generator=torch.Generator().manual_seed(64))
+    cap = max(1, int(2.0 * t * k / e))
+    results = {}
+
+    def run(layer, route, dev):
+        for p in layer.parameters():
+            p.grad = None
+        xt = x.detach().to(dev).requires_grad_()
+        if route == "dense":
+            y = layer(xt)
+            aux = layer.aux_loss
+        else:
+            ex = layer.experts
+            y, aux = moe_layer._ep_moe_fn(
+                xt, layer.gate.gate_proj.weight, ex.w1, ex.b1, ex.w2, ex.b2,
+                top_k=k, capacity=cap, activation="gelu",
+                group=group if dev == "cuda" else None)
+        (y.sum() + aux).backward()
+        return [y, aux, xt.grad] + [p.grad for p in layer.parameters()]
+
+    flags.set_flags({"FLAGS_fused_moe_kernels": True})
+    try:
+        for route in ("dense", "ep"):
+            _support.reset_launch_counts()
+            got = run(card, route, "cuda")
+            torch.cuda.synchronize()
+            launched = {c: _support.launch_counter(c).count
+                        for c in MOE_KERNELS}
+            want_launches = {c: 2 if route == "ep" else 0
+                             for c in MOE_KERNELS}
+            if launched != want_launches:
+                raise AssertionError(f"moe_reference ({route}): launches "
+                                     f"{launched} != {want_launches}")
+            ref = run(cpu, route, "cpu")
+            errs = [float((a.detach().cpu() - b.detach()).abs().max())
+                    for a, b in zip(got, ref)]
+            if not max(errs) <= 1e-4:
+                raise AssertionError(f"moe_reference ({route}): card vs CPU "
+                                     f"errors {errs} > 1e-4")
+            results[route] = {"max_abs_err": max(errs), "launches": launched}
+    finally:
+        flags.set_flags({"FLAGS_fused_moe_kernels": False})
+    with torch.no_grad():
+        routes = {}
+        for dev, layer in (("cuda", card), ("cpu", cpu)):
+            xd = x.to(dev)
+            probs = layer.gate(xd)
+            dcap = max(1, int(2.0 * t / e)) * k
+            routes[dev] = [moe_layer._dispatch_combine_fn(xd, probs, dcap,
+                                                          k)[1]]
+            r = moe_layer._ep_routing(xd, layer.gate.gate_proj.weight, k,
+                                      cap)
+            routes[dev] += [r[1], r[4]]
+        for what, a, b in zip(("dense dispatch mask", "EP top-k",
+                               "EP slots"), routes["cuda"], routes["cpu"]):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"moe_reference: {what} differs "
+                                     f"between the card and the CPU")
+    emit({"phase": "moe_reference", "config": {"d_model": d, "experts": e,
+                                               "d_hidden": f, "top_k": k,
+                                               "tokens": t, "dtype": "f32",
+                                               "ep_capacity": cap},
+          "tol": 1e-4, "routing": "identical", **results})
+
+
+def phase_moe_layer(kind, smi, group):
+    """`moe_workload`'s layer at Mixtral-8x7B width (H 4096, F 14336, 8
+    experts, top-2, the JAX expert form: stacked tanh-gelu experts with
+    biases), GShardGate, capacity factor 2, 8,192 bf16 tokens; one forward
+    + backward of `y.sum() + aux` in each run: (a) "ep_kernels", the EP
+    route over the one-rank group with the kernels on, (b) "ep_index", the
+    same with the flag off, (c) "dense", `MoELayer.forward`. Each run's
+    first step runs with every launch count zeroed just before and read
+    just after: exactly 2 `moe_dispatch` and 2 `moe_gather` in (a) (the
+    forward's dispatch and gather, and each one's backward), no kernel
+    launch in (b) and (c). (a) and (b) are bit-equal in the output, aux
+    and every gradient (the kernels move the same bytes as the index ops,
+    and nothing else differs); everything is finite. Then the runs are
+    timed in turns (CUDA events, median of 5 after a warm-up)."""
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.tools.moe_workload import (
+        BATCH, CAPACITY_FACTOR, D_HIDDEN, D_MODEL, EXPERTS, RUNS, SEQ,
+        TOKENS, TOP_K, MoEWorkload, expert_flops)
+
+    torch.cuda.reset_peak_memory_stats()
+    work = MoEWorkload(group=group)
+    counters = (*SERVE_KERNELS, *TRAIN_KERNELS, *INCUBATE_KERNELS,
+                *MOE_KERNELS)
+    launches, outs = {}, {}
+    for run in RUNS:
+        _support.reset_launch_counts()
+        outs[run] = work.step(run, keep=True)
+        torch.cuda.synchronize()
+        launched = {c: _support.launch_counter(c).count for c in counters}
+        launches[run] = {c: n for c, n in launched.items() if n}
+        expect = {c: 2 for c in MOE_KERNELS} if run == "ep_kernels" else {}
+        if launches[run] != expect:
+            raise AssertionError(f"moe_layer ({run}): launches "
+                                 f"{launches[run]} != {expect}")
+        for key, v in outs[run].items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"moe_layer ({run}): non-finite {key}")
+        if run == "dense":
+            outs["dense"] = {"y": outs["dense"]["y"],
+                             "aux": outs["dense"]["aux"]}
+    unequal = [key for key in outs["ep_kernels"]
+               if not torch.equal(outs["ep_kernels"][key],
+                                  outs["ep_index"][key])]
+    if unequal:
+        raise AssertionError(f"moe_layer: the kernel route differs from the "
+                             f"index route in {unequal}")
+    results = {
+        "ep_capacity": work.ep_capacity,
+        "dense_capacity": work.dense_capacity,
+        "aux": {run: float(outs[run]["aux"]) for run in RUNS},
+        "dense_vs_ep_norm_rel": _norm_rel(outs["dense"]["y"],
+                                          outs["ep_kernels"]["y"]),
+        "expert_tflop_fwd": expert_flops(work.ep_capacity) / 1e12,
+        "dense_einsum_tflop_fwd_each": 2 * TOKENS * EXPERTS
+        * work.dense_capacity * D_MODEL / 1e12}
+    del outs
+    release()
+    times = {run: [] for run in RUNS}
+    for run in RUNS:
+        work.step(run)                                  # warm-up
+    for _ in range(5):
+        for run in RUNS:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            work.step(run)
+            end.record()
+            end.synchronize()
+            times[run].append(start.elapsed_time(end))
+    results["fwd_bwd_ms_median"] = {r: statistics.median(v)
+                                    for r, v in times.items()}
+    results["fwd_bwd_ms"] = times
+    emit({"phase": "moe_layer",
+          "layer": f"Mixtral-8x7B width (hidden {D_MODEL}, intermediate "
+                   f"{D_HIDDEN}, {EXPERTS} experts, top-{TOP_K}), stacked "
+                   f"tanh-gelu experts with biases, GShardGate, capacity "
+                   f"factor {CAPACITY_FACTOR}, bf16, B {BATCH} x S {SEQ}, "
+                   f"fwd + bwd of y.sum() + aux",
+          "group": "one-rank NCCL" if group is not None else None,
+          "launches": launches, "kernel_vs_index_route": "bit-equal",
+          **results,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "device": kind, "nvidia_smi": smi})
+    del work
+    release()
+    return launches["ep_kernels"]
+
+
 def _row(name, source, replaces, launches, case, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, **extra, "launches": launches,
@@ -1829,6 +2135,13 @@ def main():
     fused = phase_incubate_kernels()
     layer_launches = phase_incubate_layer(kind, smi)
     phase_incubate_serve(kind, smi)
+    from paddle_tpu_torch.tools.moe_workload import one_rank_group
+
+    group = one_rank_group()
+    moe = phase_moe_kernels()
+    phase_moe_reference(group)
+    moe_launches = phase_moe_layer(kind, smi, group)
+    torch.distributed.destroy_process_group()
     attn_src = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
     gemm_src = "paddle_tpu_torch/csrc/quant_matmul.cu"
     pa_py = "paddle_tpu/ops/pallas/paged_attention.py"
@@ -1867,7 +2180,11 @@ def main():
              layer_launches["bias_act"],
              fused["bias_act_swiglu_packed_bf16"]),
         _row("swiglu", BIAS_ACT_SRC, f"{BA_PY}:113",
-             layer_launches["swiglu"], fused["swiglu_bf16"])]})
+             layer_launches["swiglu"], fused["swiglu_bf16"]),
+        _row("moe_dispatch", MOE_SRC, f"{MOE_PY}:40",
+             moe_launches["moe_dispatch"], moe["bf16"]["dispatch"]),
+        _row("moe_gather", MOE_SRC, f"{MOE_PY}:45",
+             moe_launches["moe_gather"], moe["bf16"]["gather"])]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -12,11 +12,11 @@ weight-only gemms, flash attention and RMSNorm. Entry points run on the
 CUDA card unless the caller passes `device="cpu"`. The package imports
 neither jax nor paddle_tpu.
 """
-from .convert import from_jax_state
+from .convert import from_jax_state, moe_from_jax_state
 from .inference import LlamaInferenceEngine
 from .models import LlamaConfig, LlamaForCausalLM, llama_7b_shaped, llama_tiny
 from .serving import RequestHandle, ServingFrontend
 
-__all__ = ["from_jax_state", "LlamaInferenceEngine", "LlamaConfig",
-           "LlamaForCausalLM", "llama_7b_shaped", "llama_tiny",
+__all__ = ["from_jax_state", "moe_from_jax_state", "LlamaInferenceEngine",
+           "LlamaConfig", "LlamaForCausalLM", "llama_7b_shaped", "llama_tiny",
            "RequestHandle", "ServingFrontend"]

@@ -2,7 +2,8 @@
 
 The two packages name and lay out their parameters alike (paddle names,
 Linear weights `[in, out]`), so the state exported by
-`paddle_tpu.jit.state_arrays` as numpy arrays loads as it is.
+`paddle_tpu.jit.state_arrays` as numpy arrays loads as it is: a Llama
+model with `from_jax_state`, an MoE layer with `moe_from_jax_state`.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from .models.llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["from_jax_state"]
+__all__ = ["from_jax_state", "moe_from_jax_state"]
 
 
 @torch.no_grad()
@@ -42,3 +43,33 @@ def from_jax_state(state: Dict[str, np.ndarray], config: LlamaConfig,
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
         p.copy_(torch.tensor(arr))
     return model
+
+
+@torch.no_grad()
+def moe_from_jax_state(state: Dict[str, np.ndarray], layer):
+    """Load `state` (name -> numpy array, as `state_arrays` gives it for a
+    JAX `MoELayer`: `gate.gate_proj.weight` `[d, E]`, `experts.w1`, `b1`,
+    `w2`, `b2`, or an expert list's `expert_{i}.*`) into the port's
+    `MoELayer` in place, and return it. An expert-parallel layer takes its
+    rank's `E / n` slice of each stacked expert tensor. Every parameter
+    must be present with its exact shape."""
+    params = dict(layer.named_parameters())
+    missing = sorted(set(params) - set(state))
+    extra = sorted(set(state) - set(params))
+    if missing or extra:
+        raise KeyError(f"state does not match the layer: missing {missing}, "
+                       f"unexpected {extra}")
+    shard = layer.ep_shard
+    for name, p in params.items():
+        arr = np.asarray(state[name])
+        if shard is not None and name.startswith("experts."):
+            rank, n = shard
+            per = arr.shape[0] // n
+            if arr.shape[0] != per * n:
+                raise ValueError(f"{name}: {arr.shape[0]} experts do not "
+                                 f"split over {n} ranks")
+            arr = arr[rank * per:(rank + 1) * per]
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+        p.copy_(torch.tensor(arr))
+    return layer

@@ -1,9 +1,14 @@
 """`scaled_dot_product_attention` in paddle's `[B, S, H, D]` layout,
 routed as `paddle_tpu/nn/functional/attention.py:94-118` and
-`flash_attention.maybe_flash` route it: the flash kernels
+`flash_attention.maybe_flash` route it (`_route`): the flash kernels
 (`ops/kernels/flash_attention.py`) when their `supported()` holds and not
-(causal with Sq != Sk); the plain composite `_sdpa_fn` otherwise. Masks
-are not ported yet: the model attends with `is_causal` alone."""
+(causal with Sq != Sk); the plain composite `_sdpa_fn` for what the JAX
+rule itself refuses (`jax_supported()`: D > 256, causal with Sq != Sk)
+and for CPU tensors. A CUDA tensor that the JAX rule gives to its kernel
+and the port's kernels do not take (D of 144-256, or D not a multiple of
+16) raises `NotImplementedError`: it never runs the plain attention
+where the JAX package runs its kernel. Masks are not ported yet: the
+model attends with `is_causal` alone."""
 from __future__ import annotations
 
 import math
@@ -38,15 +43,34 @@ def _sdpa_fn(q, k, v, causal, scale=None):
     return (probs @ v).transpose(1, 2)
 
 
+def _route(q_shape, k_shape, dtype, is_causal, device_type) -> str:
+    """"flash" (the kernels; their plain versions on CPU tensors),
+    "plain" (`_sdpa_fn`) or "raise"."""
+    if is_causal and q_shape[1] != k_shape[1]:
+        return "plain"
+    if _flash.supported(q_shape, k_shape, dtype):
+        return "flash"
+    if device_type == "cuda" and _flash.jax_supported(q_shape, k_shape,
+                                                      dtype):
+        return "raise"
+    return "plain"
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  is_causal=False):
     """q `[B, Sq, H, D]`, k/v `[B, Sk, KVH, D]` -> `[B, Sq, H, D]`."""
     if attn_mask is not None:
         raise NotImplementedError("scaled_dot_product_attention: attn_mask "
                                   "is not ported yet")
-    if _flash.supported(
-            tuple(query.shape), tuple(key.shape), query.dtype) and not (
-            is_causal and query.shape[1] != key.shape[1]):
+    route = _route(tuple(query.shape), tuple(key.shape), query.dtype,
+                   is_causal, query.device.type)
+    if route == "flash":
         return _flash.flash_attention_bshd(query, key, value,
                                            causal=is_causal)
+    if route == "raise":
+        raise NotImplementedError(
+            f"scaled_dot_product_attention: head dim {query.shape[-1]} is "
+            f"not taken by the port's flash kernels (D a multiple of 16, at "
+            f"most {_flash.MAX_HEAD_DIM}), and the JAX package runs its "
+            f"kernel there (D <= 256)")
     return _sdpa_fn(query, key, value, is_causal)

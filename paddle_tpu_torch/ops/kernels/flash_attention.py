@@ -31,7 +31,8 @@ from . import _support
 __all__ = ["flash_attention_bshd", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_fwd_ref",
-           "flash_attention_bwd_ref", "supported", "MAX_HEAD_DIM",
+           "flash_attention_bwd_ref", "supported", "jax_supported",
+           "MAX_HEAD_DIM",
            "LAUNCHES_FWD", "LAUNCHES_DQ", "LAUNCHES_DKV"]
 
 NEG_INF = -1e30
@@ -70,6 +71,21 @@ def supported(q_shape, k_shape, dtype) -> bool:
     if d <= 0 or d % 16 or d > MAX_HEAD_DIM:
         return False
     if dtype not in _DTYPE_CODE:
+        return False
+    return _pick_block(sq) >= 8 and _pick_block(sk) >= 8
+
+
+def jax_supported(q_shape, k_shape, dtype) -> bool:
+    """The JAX package's rule itself (`flash_attention.py:378-391`): 4-D,
+    H % KVH == 0, D <= 256, float32/bfloat16/float16, both lengths tiled
+    by a block >= 8. What it admits and `supported()` does not, a CUDA
+    tensor cannot run: `nn.functional.scaled_dot_product_attention`
+    raises there instead of running the plain attention."""
+    if len(q_shape) != 4 or len(k_shape) != 4:
+        return False
+    _b, sq, h, d = q_shape
+    sk, hk = k_shape[1], k_shape[2]
+    if hk == 0 or h % hk != 0 or d > 256 or dtype not in _DTYPE_CODE:
         return False
     return _pick_block(sq) >= 8 and _pick_block(sk) >= 8
 

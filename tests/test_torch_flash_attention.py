@@ -22,6 +22,7 @@ from paddle_tpu.nn.functional import attention as jax_attention
 from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu.core.tensor import Tensor
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.functional import attention
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
 TOL = 1e-5
@@ -135,7 +136,7 @@ def test_backward_plain_version_on_the_same_lse_and_delta():
         np.testing.assert_allclose(a.numpy(), b, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("q_shape,k_shape,dtype,want", [
+SUPPORTED_TABLE = [
     ((2, 64, 4, 128), (2, 64, 4, 128), torch.bfloat16, True),
     ((2, 64, 4, 16), (2, 64, 1, 16), torch.float32, True),
     ((2, 64, 4, 64), (2, 32, 2, 64), torch.float16, True),
@@ -144,7 +145,10 @@ def test_backward_plain_version_on_the_same_lse_and_delta():
     ((2, 60, 4, 32), (2, 60, 4, 32), torch.float32, False),   # no block
     ((2, 64, 4, 32), (2, 64, 3, 32), torch.float32, False),   # H % KVH
     ((2, 64, 4, 32), (2, 64, 4, 32), torch.float64, False),
-])
+]
+
+
+@pytest.mark.parametrize("q_shape,k_shape,dtype,want", SUPPORTED_TABLE)
 def test_supported_narrows_the_jax_rule(q_shape, k_shape, dtype, want):
     """The port admits what the JAX rule admits, narrowed to D a multiple
     of 16 up to 128 (the JAX rule takes D <= 256)."""
@@ -154,6 +158,47 @@ def test_supported_narrows_the_jax_rule(q_shape, k_shape, dtype, want):
     jax_says = jfa.supported(q_shape, k_shape, np_dtype)
     narrowed = q_shape[-1] % 16 != 0 or q_shape[-1] > 128
     assert want == (jax_says and not narrowed)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("q_shape,k_shape,dtype,want", SUPPORTED_TABLE)
+def test_routing_on_each_device(q_shape, k_shape, dtype, want, causal):
+    """Where each shape of the table lands. CPU tensors, as before: the
+    flash route (its plain versions) where `supported()` holds, the plain
+    `_sdpa_fn` elsewhere. CUDA tensors: the kernels where `supported()`
+    holds, a raise where only the JAX rule (`jax_supported`, the copy of
+    `flash_attention.py:378-391`) admits the shape, `_sdpa_fn` where the
+    JAX rule refuses it too; causal with Sq != Sk is `_sdpa_fn` on both,
+    as in JAX."""
+    np_dtype = {torch.bfloat16: jnp.bfloat16, torch.float32: np.float32,
+                torch.float16: np.float16, torch.float64: np.float64}[dtype]
+    jax_says = fa.jax_supported(q_shape, k_shape, dtype)
+    assert jax_says == jfa.supported(q_shape, k_shape, np_dtype)
+    cpu, cuda = (attention._route(q_shape, k_shape, dtype, causal, dev)
+                 for dev in ("cpu", "cuda"))
+    if causal and q_shape[1] != k_shape[1]:
+        assert cpu == cuda == "plain"
+    elif want:
+        assert cpu == cuda == "flash"
+    else:
+        assert cpu == "plain"
+        assert cuda == ("raise" if jax_says else "plain")
+
+
+def test_head_dim_256_on_the_cpu_runs_plain():
+    """D = 256 (admitted by the JAX rule, not by the kernels) on CPU tensors
+    takes the plain `_sdpa_fn`, launching nothing; the card raises there
+    (`tests/test_torch_kernels_gpu.py`)."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 16, 2, 256))
+                                .astype(np.float32)) for _ in range(3))
+    assert attention._route(tuple(q.shape), tuple(k.shape), q.dtype, True,
+                            "cuda") == "raise"
+    before = fa.LAUNCHES_FWD.count
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    assert fa.LAUNCHES_FWD.count == before
+    torch.testing.assert_close(out, attention._sdpa_fn(q, k, v, True),
+                               atol=0, rtol=0)
 
 
 @pytest.fixture

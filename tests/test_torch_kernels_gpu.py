@@ -1113,3 +1113,182 @@ def test_mixed_dtype_fused_rms_norm_weight_raises_on_card():
     with pytest.raises(ValueError, match="w must be"):
         rn.rms_norm(x, torch.ones(64, device=dev))
     assert rn.LAUNCHES.count == before
+
+
+# ---- flash attention never runs plain on the card where JAX has a kernel
+
+def test_head_dim_256_launches_flash_or_raises_never_plain(monkeypatch):
+    """D = 256 bf16 (the JAX rule gives it to its kernel; the port's
+    kernels take D <= 128): `F.scaled_dot_product_attention` on CUDA
+    tensors launches `flash_attention_fwd` or raises, and never runs the
+    plain `_sdpa_fn`."""
+    dev = _card()
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional import attention
+
+    def plain(*a, **k):
+        raise AssertionError("_sdpa_fn ran on CUDA tensors")
+
+    monkeypatch.setattr(attention, "_sdpa_fn", plain)
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, 64, 2, 256), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    before = fa.LAUNCHES_FWD.count
+    try:
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    except NotImplementedError as e:
+        assert "head dim 256" in str(e)
+        assert fa.LAUNCHES_FWD.count == before
+    else:
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES_FWD.count == before + 1
+        assert out.shape == q.shape
+
+
+# ---- MoE dispatch and gather ----
+
+from paddle_tpu_torch.ops.kernels import fused_moe as fmk  # noqa: E402
+
+# (rows N, width H, experts E, capacity C): fits, drops, odd widths
+_MOE_CASES = [(64, 128, 4, 32), (64, 128, 4, 6), (40, 4100, 3, 8),
+              (33, 5, 3, 8), (48, 100, 2, 16)]
+
+
+def _moe_routing(dev, n, e, c, seed=0):
+    rng = np.random.default_rng(seed)
+    e_idx = rng.integers(0, e, n).astype(np.int32)
+    p_idx = np.full(n, -1, np.int32)
+    counts = [0] * e
+    for i in rng.permutation(n):
+        if counts[e_idx[i]] < c:
+            p_idx[i] = counts[e_idx[i]]
+            counts[e_idx[i]] += 1
+    return torch.from_numpy(e_idx).to(dev), torch.from_numpy(p_idx).to(dev)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES, ids=_DTYPE_IDS)
+@pytest.mark.parametrize("case", _MOE_CASES, ids=str)
+def test_moe_kernels_bit_equal_plain_and_index_routes(case, dtype,
+                                                      monkeypatch):
+    """Forward and backward of both kernels against their plain versions
+    and the index-op route, `torch.equal`; CUDA tensors never run the
+    plain versions, and each call launches once."""
+    dev = _card()
+    n, h, e, c = case
+    e_idx, p_idx = _moe_routing(dev, n, e, c)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((n, h), generator=g, device=dev).to(dtype)
+    buf = torch.randn((e, c, h), generator=g, device=dev).to(dtype)
+    refs = {"d": fmk.moe_dispatch_ref(x, e_idx, p_idx, e, c),
+            "g": fmk.moe_gather_ref(buf, e_idx, p_idx)}
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(fmk, "moe_dispatch_ref", plain)
+    monkeypatch.setattr(fmk, "moe_gather_ref", plain)
+    before = (fmk.LAUNCHES_DISPATCH.count, fmk.LAUNCHES_GATHER.count)
+    xr = x.clone().requires_grad_()
+    br = buf.clone().requires_grad_()
+    d = fmk.moe_dispatch(xr, e_idx, p_idx, e, c)
+    r = fmk.moe_gather(br, e_idx, p_idx)
+    gd = torch.randn((e, c, h), generator=g, device=dev).to(dtype)
+    gr = torch.randn((n, h), generator=g, device=dev).to(dtype)
+    d.backward(gd)
+    r.backward(gr)
+    torch.cuda.synchronize()
+    assert (fmk.LAUNCHES_DISPATCH.count, fmk.LAUNCHES_GATHER.count) == \
+        (before[0] + 2, before[1] + 2)
+    assert torch.equal(d, refs["d"])
+    assert torch.equal(d, fmk.xla_dispatch(x, e_idx, p_idx, e, c))
+    assert torch.equal(r, refs["g"])
+    assert torch.equal(r, fmk.xla_gather(buf, e_idx, p_idx))
+    xi = x.clone().requires_grad_()
+    fmk.xla_dispatch(xi, e_idx, p_idx, e, c).backward(gd)
+    bi = buf.clone().requires_grad_()
+    fmk.xla_gather(bi, e_idx, p_idx).backward(gr)
+    assert torch.equal(xr.grad, xi.grad)
+    assert torch.equal(br.grad, bi.grad)
+
+
+def test_moe_kernels_stay_in_bounds_outside_the_contract():
+    """Rows whose expert or slot falls outside [0, E) x [0, C) are neither
+    written by the dispatch nor read by the gather (zeros), and a dropped
+    row gathers exact zeros even where the clipped slot holds NaN (the
+    closed divergence from the JAX kernel's multiply by 0)."""
+    dev = _card()
+    e, c, h = 2, 3, 8
+    e_idx = torch.tensor([0, 1, 5, -1, 0, 1], dtype=torch.int32, device=dev)
+    p_idx = torch.tensor([0, 2, 0, 1, 7, -1], dtype=torch.int32, device=dev)
+    x = torch.arange(6 * h, dtype=torch.float32, device=dev).reshape(6, h) + 1
+    out = fmk.moe_dispatch(x, e_idx, p_idx, e, c)
+    want = torch.zeros((e, c, h), device=dev)
+    want[0, 0], want[1, 2] = x[0], x[1]
+    assert torch.equal(out, want)
+    buf = torch.full((e, c, h), float("nan"), device=dev)
+    buf[0, 0], buf[1, 2] = 1.0, 2.0
+    rows = fmk.moe_gather(buf, e_idx, p_idx)
+    torch.cuda.synchronize()
+    assert torch.equal(rows[:2], buf[[0, 1], [0, 2]])
+    assert torch.equal(rows[2:], torch.zeros((4, h), device=dev))
+
+
+def test_moe_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _card()
+    x = torch.zeros((4, 8), device=dev)
+    e_idx = torch.zeros(4, dtype=torch.int32, device=dev)
+    p_idx = torch.arange(4, dtype=torch.int32, device=dev)
+    before = (fmk.LAUNCHES_DISPATCH.count, fmk.LAUNCHES_GATHER.count)
+    with pytest.raises(ValueError, match="int32"):
+        fmk.moe_dispatch(x, e_idx.long(), p_idx, 1, 4)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fmk.moe_dispatch(x, e_idx.cpu(), p_idx, 1, 4)
+    with pytest.raises(ValueError, match="int32"):
+        fmk.moe_gather(torch.zeros((1, 4, 8), device=dev), e_idx,
+                       p_idx[:3])
+    assert (fmk.LAUNCHES_DISPATCH.count, fmk.LAUNCHES_GATHER.count) == before
+    # nothing to write: no launch
+    empty = fmk.moe_gather(torch.zeros((1, 4, 8), device=dev),
+                           e_idx[:0], p_idx[:0])
+    assert empty.shape == (0, 8)
+    assert torch.equal(fmk.moe_dispatch(x[:0], e_idx[:0], p_idx[:0], 1, 4),
+                       torch.zeros((1, 4, 8), device=dev))
+    assert (fmk.LAUNCHES_DISPATCH.count, fmk.LAUNCHES_GATHER.count) == \
+        (before[0] + 1, before[1])
+
+
+def test_moe_ep_path_on_card_matches_cpu():
+    """`_ep_moe_fn` with no group (an ep axis of one device) and the
+    kernels on: the card against the CPU in f32, output, aux and every
+    gradient within 1e-4 (cuBLAS and the CPU sum in other orders), the
+    same routing, and exactly 2 dispatch and 2 gather launches."""
+    dev = _card()
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+
+    rng = np.random.default_rng(5)
+    shapes = {"x": (64, 32), "gate_w": (32, 8), "w1": (8, 32, 64),
+              "b1": (8, 1, 64), "w2": (8, 64, 32), "b2": (8, 1, 32)}
+    arrs = {k: (0.5 * rng.normal(size=s)).astype(np.float32)
+            for k, s in shapes.items()}
+    outs = {}
+    flags.set_flags({"FLAGS_fused_moe_kernels": True})
+    try:
+        for where in ("cpu", "cuda"):
+            ts = {k: torch.tensor(v, device=where, requires_grad=True)
+                  for k, v in arrs.items()}
+            before = (fmk.LAUNCHES_DISPATCH.count, fmk.LAUNCHES_GATHER.count)
+            y, aux = moe_layer._ep_moe_fn(*ts.values(), top_k=2,
+                                          capacity=12, activation="gelu")
+            (y.sum() + aux).backward()
+            if where == "cuda":
+                torch.cuda.synchronize()
+                assert (fmk.LAUNCHES_DISPATCH.count,
+                        fmk.LAUNCHES_GATHER.count) == (before[0] + 2,
+                                                       before[1] + 2)
+            outs[where] = [y, aux] + [t.grad for t in ts.values()]
+    finally:
+        flags.set_flags({"FLAGS_fused_moe_kernels": False})
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-4,
+                                   rtol=1e-4)

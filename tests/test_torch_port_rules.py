@@ -70,7 +70,12 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.ops.kernels.bias_act, "
             "paddle_tpu_torch.tools.train_workload, "
             "paddle_tpu_torch.tools.train_profile, "
-            "paddle_tpu_torch.tools.layer_profile\n"
+            "paddle_tpu_torch.tools.layer_profile, "
+            "paddle_tpu_torch.framework.flags, "
+            "paddle_tpu_torch.ops.kernels.fused_moe, "
+            "paddle_tpu_torch.incubate.distributed.models.moe, "
+            "paddle_tpu_torch.tools.moe_workload, "
+            "paddle_tpu_torch.tools.moe_profile\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n")
@@ -103,6 +108,12 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
 
     with pytest.raises(RuntimeError, match="device='cpu'|CUDA"):
         train_workload(device=None)
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MoELayer(d_model=8, num_experts=4)
+    assert MoELayer(d_model=8, num_experts=4, device="cpu") \
+        .experts.w1.device.type == "cpu"
     eng = LlamaInferenceEngine(_tiny_model(), max_blocks_per_seq=4,
                                device="cpu")
     assert eng.k_cache.device.type == "cpu"
