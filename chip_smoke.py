@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`paddle_tpu_torch`) on one NVIDIA
-card: builds the CUDA kernels from `paddle_tpu_torch/csrc/`, holds each
+card: builds the CUDA kernels from `paddle_tpu_torch/csrc/` (and fails if
+ptxas spills in a warp-specialised flash kernel), holds each
 kernel against its plain PyTorch version at the serving shapes (the
 ragged paged attention over a bf16/f32 pool and over an int8 pool, the
 paged decode and verify attention, the verify also against the ragged
@@ -14,8 +15,9 @@ pool and int8 weights, and with an int8 KV pool and int4 weights; runs
 n-gram proposer and with a self-draft engine, holding every greedy token
 teacher-forced against the plain engine. Then the training path: the
 flash attention kernels (forward, dQ, dK/dV) and the RMSNorm kernel
-against their plain versions at the training shapes and past the length
-where the JAX package streams K/V, three AdamW steps of a small model on
+against their plain versions at the training shapes, past the length
+where the JAX package streams K/V, over ragged 128-row tiles and at the
+64-column instance, three AdamW steps of a small model on
 the card against the CPU, and `train_workload`'s steps at Llama-2-7B
 width (8 layers, batch 4 x 2048). Last the fused-op surface
 (`incubate.nn.functional`): the RoPE, bias + activation and SwiGLU
@@ -44,6 +46,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import time
@@ -124,11 +127,44 @@ def phase_build():
     t0 = time.perf_counter()
     built = _support.build()
     secs = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in info["log"].splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {name: _ptxas_by_function(info["log"])
              for name, info in built.items()}
     emit({"phase": "build", "seconds": secs, "sources": sorted(built),
           "ptxas": ptxas})
+    # the warp-specialised flash kernels keep every value in registers
+    spilled = [f for f in ptxas.get("flash_attention", {})
+               if "wgmma" in f and " 0 bytes spill stores" not in
+               ptxas["flash_attention"][f].get("spill", "")]
+    if spilled:
+        raise AssertionError(f"ptxas spills in {spilled}")
+
+
+def _ptxas_by_function(log):
+    """`-Xptxas -v` lines by kernel: {"fwd_wgmma_kernel<bf16,128>":
+    {"spill": ..., "registers": ...}} (a short form of each mangled
+    entry name)."""
+    out, cur = {}, None
+    types = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = name = m.group(1)
+            # the mangled kernel name: <length><name>, then its arguments
+            for i in range(len(name)):
+                k = re.match(r"(\d+)(\w+?_kernel)(?:I(13__nv_bfloat16|"
+                             r"6__half)(?:Li(\d+)E)?)?", name[i:])
+                if k and int(k.group(1)) == len(k.group(2)):
+                    args = [types[k.group(3)]] if k.group(3) else []
+                    args += [k.group(4)] if k.group(4) else []
+                    cur = k.group(2) + (f"<{','.join(args)}>" if args
+                                        else "")
+                    break
+            out[cur] = {}
+        elif cur and "spill" in ln:
+            out[cur]["spill"] = ln.strip()
+        elif cur and "registers" in ln:
+            out[cur]["registers"] = ln.split("info    :")[-1].strip()
+    return out
 
 
 def _composition(kv_heads, dtype, gen, quant=False):
@@ -1053,7 +1089,9 @@ FA_PY = "paddle_tpu/ops/pallas/flash_attention.py"
 # (B, S, H, KVH, D, causal, dtype, kv_lens): (a) the training shape, (b)
 # with GQA, (c) f32 causal and not, (d) kv_lens with an empty sequence,
 # (e) past the length where the JAX package streams K/V
-# (2 * Sk * D * 2 bytes = 8.9 MB > 8 MiB)
+# (2 * Sk * D * 2 bytes = 8.9 MB > 8 MiB), (f) several 128-row tiles with
+# a ragged last one (the forward's heaviest-first order), (g) the 64-column
+# instance at the training length
 FLASH_CASES = {
     "train_mha": (4, 2048, 32, 32, 128, True, torch.bfloat16, None),
     "train_gqa": (4, 2048, 32, 8, 128, True, torch.bfloat16, None),
@@ -1062,6 +1100,8 @@ FLASH_CASES = {
     "lens_bf16": (4, 512, 4, 4, 128, False, torch.bfloat16,
                   [512, 259, 0, 17]),
     "stream_17408": (1, 17408, 2, 1, 128, True, torch.bfloat16, None),
+    "edge_bf16": (2, 1000, 8, 2, 128, True, torch.bfloat16, None),
+    "d64_bf16": (4, 2048, 16, 16, 64, True, torch.bfloat16, None),
 }
 # out, per row, relative to the row's largest |out|. bf16: 2^-6, two to
 # four bf16 ulps of that largest value: the kernel rounds P to bf16 for

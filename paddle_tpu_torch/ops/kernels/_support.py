@@ -98,7 +98,8 @@ def build(sources: Optional[Iterable[Path]] = None) -> Dict[str, dict]:
     process per source, all started together. A library whose source
     and flags are unchanged is reused. Returns `{stem: {"path", "log",
     "built"}}`, with nvcc's output (`-Xptxas -v`: registers, shared
-    memory, spills) in `log`; raises on any failed compile."""
+    memory, spills) in `log`, kept beside the library for a reused one;
+    raises on any failed compile."""
     srcs = sorted(CSRC_DIR.glob("*.cu")) if sources is None \
         else [Path(s) for s in sources]
     out: Dict[str, dict] = {}
@@ -108,7 +109,10 @@ def build(sources: Optional[Iterable[Path]] = None) -> Dict[str, dict]:
         for src in srcs:
             lib = _lib_path(src)
             if lib.is_file():
-                out[src.stem] = {"path": lib, "log": "", "built": False}
+                log = lib.with_suffix(".log")
+                out[src.stem] = {"path": lib, "built": False,
+                                 "log": log.read_text() if log.is_file()
+                                 else ""}
                 continue
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -121,6 +125,7 @@ def build(sources: Optional[Iterable[Path]] = None) -> Dict[str, dict]:
             if p.returncode != 0:
                 failed.append(f"{src.name}:\n{log}")
                 continue
+            lib.with_suffix(".log").write_text(log)
             os.replace(tmp, lib)
             out[src.stem] = {"path": lib, "log": log, "built": True}
         if failed:

@@ -47,6 +47,11 @@ def _ids(c):
 
 
 CONFIGS = _configs()
+# S = 192 and D = 96 with GQA: a length the card's 128-row tiles cut
+# unevenly (the JAX blocks cut it into three of 64) and a head width the
+# card pads to 128 columns, causal and not, with and without kv_lens
+EDGE_CONFIGS = [(2, 192, 96, causal, lens) for causal in (False, True)
+                for lens in (False, True)]
 
 
 def _inputs(kvh, s, d, lens, seed=0):
@@ -106,7 +111,7 @@ def _compare(cfg):
         assert (got[2][1] == 0).all() and (got[3][1] == 0).all()
 
 
-@pytest.mark.parametrize("cfg", CONFIGS, ids=_ids)
+@pytest.mark.parametrize("cfg", CONFIGS + EDGE_CONFIGS, ids=_ids)
 def test_matches_pallas_resident(cfg):
     """Rows 5-7: `_fwd_kernel`, `_dq_kernel`, `_dkv_kernel`."""
     _compare(cfg)

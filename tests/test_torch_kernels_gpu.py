@@ -360,6 +360,10 @@ FLASH_CASES = {
     "lens_empty": (3, 64, 64, 4, 2, 128, False, [50, 0, 13]),
     "causal_lens": (2, 130, 130, 4, 1, 16, True, [130, 67]),
     "sq_ne_sk": (2, 40, 100, 4, 4, 48, False, None),
+    # several 128-row tiles with a ragged last one, launched heaviest first
+    "multi_tile_causal": (2, 1000, 1000, 8, 2, 128, True, None),
+    # G = 8, D padded to 128 columns, a kv_lens tail inside a tile
+    "gqa8_d96": (2, 384, 384, 16, 2, 96, True, [384, 201]),
 }
 
 
@@ -418,11 +422,14 @@ def test_flash_kernels_match_plain_versions(dtype, case):
 
 
 def test_flash_kernels_repeat_bit_for_bit():
-    """No atomics: two backward runs give the same bits."""
+    """No atomics: two forward runs and two backward runs give the same
+    bits."""
     dev = _card()
     q, k, v, do, kl, causal = _flash_inputs(dev, torch.bfloat16,
                                             "gqa_ragged", seed=3)
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    out2, lse2 = fa.flash_attention_fwd(q, k, v, causal)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     a = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
     b = fa.flash_attention_bwd(q, k, v, do, lse, delta, causal)
