@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`paddle_tpu_torch`) on one NVIDIA
 card: builds the CUDA kernels from `paddle_tpu_torch/csrc/` (and fails if
-ptxas spills in a warp-specialised flash kernel), holds each
+ptxas spills in a warp-specialised `wgmma` kernel: the flash forward, dQ
+and dK/dV, and the split-K weight-only gemm), holds each
 kernel against its plain PyTorch version at the serving shapes (the
 ragged paged attention over a bf16/f32 pool and over an int8 pool, the
 paged decode and verify attention, the verify also against the ragged
@@ -54,6 +55,10 @@ import time
 import numpy as np
 import torch
 import torch.distributed
+
+# M = 40 packed tokens against Llama-2-7B's projections [N, K] and its
+# untied head (`kernel_compare` times the same shapes)
+from paddle_tpu_torch.tools.kernel_compare import GEMM_M, GEMM_SHAPES
 
 # published peaks of one H100 SXM (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, float32 FLOP/s outside the tensor cores
@@ -129,35 +134,50 @@ def phase_build():
     secs = time.perf_counter() - t0
     ptxas = {name: _ptxas_by_function(info["log"])
              for name, info in built.items()}
+    # the warp-specialised wgmma kernels keep every value in registers
+    wgmma = {f"{src}:{f}": v for src, fns in ptxas.items()
+             for f, v in fns.items() if "wgmma" in f}
+    missing = sorted(set(WGMMA_KERNELS)
+                     - {f.split(":")[1].split("<")[0] for f in wgmma})
+    spilled = [f for f, v in wgmma.items()
+               if " 0 bytes spill stores" not in v.get("spill", "")]
     emit({"phase": "build", "seconds": secs, "sources": sorted(built),
-          "ptxas": ptxas})
-    # the warp-specialised flash kernels keep every value in registers
-    spilled = [f for f in ptxas.get("flash_attention", {})
-               if "wgmma" in f and " 0 bytes spill stores" not in
-               ptxas["flash_attention"][f].get("spill", "")]
+          "spill_checked": sorted(wgmma), "ptxas": ptxas})
+    if missing:
+        raise AssertionError(f"ptxas reported no {missing}")
     if spilled:
         raise AssertionError(f"ptxas spills in {spilled}")
+
+
+# the warp-specialised kernels whose every instance must not spill
+WGMMA_KERNELS = ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel",
+                 "qmm_wgmma_kernel")
 
 
 def _ptxas_by_function(log):
     """`-Xptxas -v` lines by kernel: {"fwd_wgmma_kernel<bf16,128>":
     {"spill": ..., "registers": ...}} (a short form of each mangled
-    entry name)."""
+    entry name and its template arguments)."""
     out, cur = {}, None
     types = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
+    arg = re.compile(r"Li(-?\d+)E|13__nv_bfloat16|6__half")
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             cur = name = m.group(1)
-            # the mangled kernel name: <length><name>, then its arguments
+            # the mangled kernel name: <length><name>, then I, its
+            # arguments (types, or L<type><value>E), E
             for i in range(len(name)):
-                k = re.match(r"(\d+)(\w+?_kernel)(?:I(13__nv_bfloat16|"
-                             r"6__half)(?:Li(\d+)E)?)?", name[i:])
+                k = re.match(r"(\d+)(\w+?_kernel)", name[i:])
                 if k and int(k.group(1)) == len(k.group(2)):
-                    args = [types[k.group(3)]] if k.group(3) else []
-                    args += [k.group(4)] if k.group(4) else []
-                    cur = k.group(2) + (f"<{','.join(args)}>" if args
-                                        else "")
+                    cur, j, args = k.group(2), i + k.end(), []
+                    if name[j:j + 1] == "I":
+                        j += 1
+                        while (a := arg.match(name, j)) is not None:
+                            args.append(a.group(1) or types[a.group(0)])
+                            j = a.end()
+                    if args:
+                        cur += f"<{','.join(args)}>"
                     break
             out[cur] = {}
         elif cur and "spill" in ln:
@@ -443,14 +463,6 @@ def phase_paged():
     return decode, verify, verify_launches
 
 
-# M = 40 packed tokens against Llama-2-7B's projections [N, K] and its
-# untied head
-GEMM_SHAPES = {"qkv": (12288, 4096), "o": (4096, 4096),
-               "gate_up": (22016, 4096), "down": (4096, 11008),
-               "head": (32000, 4096)}
-GEMM_M = 40
-
-
 def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16):
     from paddle_tpu_torch.nn import quant as nq
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
@@ -458,6 +470,7 @@ def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16):
     int4 = fmt == "int4"
     fn = qm.quant_matmul_int4 if int4 else qm.quant_matmul
     ref_fn = qm.quant_matmul_int4_ref if int4 else qm.quant_matmul_ref
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
     for name in shapes:
         n, k = GEMM_SHAPES[name]
@@ -486,6 +499,10 @@ def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16):
         if not err <= tol:
             raise AssertionError(f"{fmt} {name}: kernel != plain version, "
                                  f"max abs err {err} > {tol}")
+        # split-K sums its partials in a fixed order: a repeat is bit-equal
+        again = fn(x, wq, s)
+        if not torch.equal(out, again):
+            raise AssertionError(f"{fmt} {name}: a repeat call differs")
         kernel_ms = time_ms(lambda: fn(x, wq, s), flush)
         plain_ms = time_ms(lambda: ref_fn(x, wq, s), flush, reps=10)
         w16 = deq * s[:, None].to(torch.bfloat16)
@@ -498,14 +515,20 @@ def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16):
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS
                                    if x_dtype == torch.bfloat16 else
                                    F32_FLOPS)
+        split_k = not int4 and x_dtype == torch.bfloat16
         results[f"{name}_{fmt}" + ("" if x_dtype == torch.bfloat16
                                    else "_f32")] = {
             "N": n, "K": k, "M": GEMM_M, "tol": tol,
             "max_abs_err": err, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "weight_bytes": w_bytes, "bytes": nbytes, "flops": flops,
-            "bound_ms": bound_ms, "bound_by": bound_by}
-        del x, wq, s, deq, w16, out, ref
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "splits": qm.gemm_plan(GEMM_M, n, k, sms).splits if split_k
+            else 1,
+            "gb_per_s": nbytes / kernel_ms / 1e6,
+            "bound_fraction": bound_ms / kernel_ms,
+            "repeat_bit_equal": True}
+        del x, wq, s, deq, w16, out, ref, again
     return results
 
 
@@ -2202,7 +2225,8 @@ def main():
                            "reaches the verify kernel)"),
         _row("quant_matmul", gemm_src,
              "paddle_tpu/ops/pallas/quant_matmul.py:29",
-             l8["quant_matmul"], int8["qkv_int8"]),
+             l8["quant_matmul"], int8["qkv_int8"],
+             splits=int8["qkv_int8"]["splits"]),
         _row("quant_matmul_int4", gemm_src,
              "paddle_tpu/ops/pallas/quant_matmul.py:115",
              l4["quant_matmul_int4"], int4["qkv_int4"]),

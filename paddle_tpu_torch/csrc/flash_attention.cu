@@ -32,9 +32,9 @@
 // against 268 MB of q/k/v/out, dK/dV ~275 GFLOP (0.278 ms), dQ ~206 GFLOP
 // (0.209 ms), so their products belong on the tensor cores.
 //
-// bf16/f16 forward and dK/dV: warp-specialised `wgmma` fed by TMA. A CTA is
-// three warpgroups. The producer gives up its registers (`setmaxnreg`) and
-// issues every tile load with `cp.async.bulk.tensor` (4-D tensor maps over
+// bf16/f16: warp-specialised `wgmma` fed by TMA. A CTA is three
+// warpgroups. The producer gives up its registers (`setmaxnreg`) and issues
+// every tile load with `cp.async.bulk.tensor` (4-D tensor maps over
 // (D, H, S, B) with the tensors' own strides, 128-byte swizzle, rows past S
 // zero-filled) into a ring of shared-memory stages behind full / empty
 // mbarriers. Two consumer warpgroups run `wgmma.mma_async` on the stages;
@@ -60,6 +60,17 @@
 //     S_j = Q . K_j^T, so one's softmax runs under the other's products.
 //     out = acc / l_safe is staged in shared memory and stored with TMA,
 //     which drops the rows past Sq.
+//   - dQ: a CTA per (128-row q tile, h, b), each consumer 64 rows. Q and dO
+//     are loaded once, lse and delta once per row into registers; 64-key K
+//     and V tiles stream through four stages. Per key tile a consumer forms
+//     S = Q . K^T and dP = dO . V^T (SS, all K-major: V's rows are keys),
+//     p = 2^(s sl2 - lse sl2) against one column limit per row,
+//     dS = p (dP - delta) rounded to T, and dQ += dS . K (RS, K read
+//     MN-major). The consumers take turns as in the forward: a turn
+//     finishes dS_{j-1} . K_{j-1} (which frees dS's registers and K's
+//     stage) and issues S_j and dP_j. dQ stays in registers over the whole
+//     key loop, is scaled by sm_scale once and leaves through shared
+//     memory and TMA: no atomics, the same bits every run.
 //   - dK/dV: a CTA per (64-key tile, kv head, b); the keys are the M
 //     dimension of every product, and the G query heads of the kv head and
 //     their 64-row q tiles (from the diagonal on, under causal) stream Q,
@@ -75,23 +86,15 @@
 //   - D <= 64 runs on the instance of 64 columns, 64 < D <= 128 on the one
 //     of 128: TMA zero-fills the columns past D, which add nothing to the
 //     products, and its stores drop them.
-// bf16/f16 dQ: `mma.sync` m16n8k16 with f32 accumulation, one CTA of 4
-// warps per (b, h, 64-row q tile), each warp owning 16 rows; K/V tiles of
-// 64 keys stream through a two-stage `cp.async` ring, every operand from
-// shared memory one `ldmatrix` per 16 x 16 slice (rows padded by 16 bytes:
-// free of bank conflicts); the loop stops at the causal diagonal and,
-// under kv_lens, at cdiv(len, 64). wgmma, TMA and warp specialisation are
-// the way to its bound, for a later change.
 // f32 (the parity configurations): an FMA instance of the same three loops
 // with `expf`, 16-row q tiles and 32-key tiles in shared memory.
 // Edge tiles are zero-filled and masked, so any Sq and Sk work; D is a
 // multiple of 16 up to 128.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -152,130 +155,14 @@ __device__ __forceinline__ uint32_t pack2<__half>(float a, float b) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <typename T>
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1);
-template <>
-__device__ __forceinline__ void mma<__nv_bfloat16>(float (&c)[4],
-                                                   const uint32_t (&a)[4],
-                                                   uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma<__half>(float (&c)[4],
-                                            const uint32_t (&a)[4],
-                                            uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the A fragment of a 16 x 16 slice of an accumulator: columns 16 kk ..
-// 16 kk + 15 of C tiles 2 kk and 2 kk + 1, rounded to T
-template <typename T>
-__device__ __forceinline__ void acc_to_a(const float (&c0)[4],
-                                         const float (&c1)[4],
-                                         uint32_t (&a)[4]) {
-  a[0] = pack2<T>(c0[0], c0[1]);
-  a[1] = pack2<T>(c0[2], c0[3]);
-  a[2] = pack2<T>(c1[0], c1[1]);
-  a[3] = pack2<T>(c1[2], c1[3]);
-}
-
-__device__ __forceinline__ void ldsm_x4(const void* p, uint32_t (&r)[4]) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// the A fragment of the 16 x 16 slice at (r0, c0) of a row-major tile
-// (pitch P), in one ldmatrix: matrices (r0, c0), (r0 + 8, c0), (r0, c0 + 8),
-// (r0 + 8, c0 + 8) land in a[0..3]
-template <typename T>
-__device__ __forceinline__ void ldsm_a(const T* s, int P, int r0, int c0,
-                                       uint32_t (&a)[4]) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(s + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + c0 +
-              (lane >> 4) * 8,
-          a);
-}
-
-// B fragments of two n8 tiles where B[k][n] = X[n][k] for a row-major tile
-// X (rows n): r[0..1] for n0 .. n0 + 7, r[2..3] for n0 + 8 .. n0 + 15,
-// k = k0 .. k0 + 15 (the K of Q.K^T, the V of dO.V^T, ...)
-template <typename T>
-__device__ __forceinline__ void ldsm_b(const T* s, int P, int n0, int k0,
-                                       uint32_t (&r)[4]) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(s + (n0 + (lane & 7) + (lane >> 4) * 8) * P + k0 +
-              ((lane >> 3) & 1) * 8,
-          r);
-}
-
-// B fragments of two n8 tiles where B[k][n] = X[k][n] for a row-major tile
-// X (rows k): r[0..1] for columns n0 .. n0 + 7, r[2..3] for n0 + 8 ..
-// n0 + 15, rows k0 .. k0 + 15
-template <typename T>
-__device__ __forceinline__ void load_b_trans(const T* s, int P, int k0,
-                                             int n0, uint32_t (&r)[4]) {
-  const int lane = threadIdx.x & 31;
-  const int mat = lane >> 3;
-  const T* p = s + (k0 + (mat & 1) * 8 + (lane & 7)) * P + n0 + (mat >> 1) * 8;
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 // 2^x in one MUFU instruction (relative error ~2^-22); the 16-bit kernels
 // work in the log2 domain: scores times sm_scale * log2(e), exp(x - y) as
 // ex2(x' - y')
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  // src-size 0 zero-fills the 16 bytes (rows past the sequence's end)
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// rows [row0, row0 + rows) of one head of a [B, S, H, D] tensor (row
-// stride ld, base at the head) into a tile of pitch P; rows >= n are zeros
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, long long ld,
-                                          int row0, int rows, int n, int D,
-                                          int P) {
-  const int chunks = D / 8;
-  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-    const int r = i / chunks;
-    const int c = (i - r * chunks) * 8;
-    const bool ok = row0 + r < n;
-    cp_async16(dst + r * P + c, ok ? src + (long long)(row0 + r) * ld + c : src,
-               ok);
-  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -294,164 +181,17 @@ __device__ __forceinline__ const T* head_ptr(const Params& p, int which,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / f16 dQ on mma.sync
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 64;        // q rows per CTA (dQ)
-constexpr int kBK = 64;        // keys per tile (dQ)
-constexpr int kNt = kMaxD / 8; // n8 tiles of the widest head
-
-// thread (g, tg) of warp w writes its output rows r = row0 + 16 w + g (+8),
-// columns 8 nt + 2 tg (+1), as pairs
-template <typename T>
-__device__ __forceinline__ void store_rows(T* base, long long ld, int row0,
-                                           int n, int D, const float (&o)[kNt][4],
-                                           const float (&mul)[2]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tg = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + warp * 16 + g + 8 * i;
-    if (r >= n) continue;
-    T* dst = base + (long long)r * ld;
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {
-      if (nt * 8 >= D) break;
-      const uint32_t v = pack2<T>(o[nt][2 * i] * mul[i],
-                                  o[nt][2 * i + 1] * mul[i]);
-      *reinterpret_cast<uint32_t*>(dst + nt * 8 + 2 * tg) = v;
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) dq_mma_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int D = p.D, P = D + 8;
-  T* Qs = reinterpret_cast<T*>(smem_raw);        // [kBQ][P]
-  T* Ds = Qs + kBQ * P;                          // dO [kBQ][P]
-  T* Ks = Ds + kBQ * P;                          // [2][kBK][P]
-  T* Vs = Ks + 2 * kBK * P;                      // [2][kBK][P]
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / p.G;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tg = lane & 3;
-  const int kv_valid = valid_keys(p, b);
-  const int n_kb = key_tiles(p, q0, kBQ, kBK, kv_valid);
-  const int rw = q0 + warp * 16 + g;
-  const long long lrow = ((long long)b * p.H + h) * p.Sq;
-  const float sl2 = p.scale * kLog2e;
-  float lse[2], dl[2];                           // lse in the log2 domain
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = rw + 8 * i;
-    lse[i] = r < p.Sq ? p.lse[lrow + r] * kLog2e : 0.f;
-    dl[i] = r < p.Sq ? p.delta[lrow + r] : 0.f;
-  }
-
-  float dq[kNt][4];
-#pragma unroll
-  for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
-
-  if (n_kb > 0) {
-    const T* qb = head_ptr<T>(p, kQ, p.q, b, h);
-    const T* db = head_ptr<T>(p, kIn, p.in, b, h);
-    const T* kb = head_ptr<T>(p, kK, p.k, b, kvh);
-    const T* vb = head_ptr<T>(p, kV, p.v, b, kvh);
-    load_rows(Qs, qb, p.st[kQ][1], q0, kBQ, p.Sq, D, P);
-    load_rows(Ds, db, p.st[kIn][1], q0, kBQ, p.Sq, D, P);
-    load_rows(Ks, kb, p.st[kK][1], 0, kBK, p.Sk, D, P);
-    load_rows(Vs, vb, p.st[kV][1], 0, kBK, p.Sk, D, P);
-    cp_async_commit();
-    for (int j = 0; j < n_kb; ++j) {
-      if (j + 1 < n_kb) {
-        const int st = (j + 1) & 1;
-        load_rows(Ks + st * kBK * P, kb, p.st[kK][1], (j + 1) * kBK, kBK,
-                  p.Sk, D, P);
-        load_rows(Vs + st * kBK * P, vb, p.st[kV][1], (j + 1) * kBK, kBK,
-                  p.Sk, D, P);
-      }
-      cp_async_commit();
-      cp_async_wait_one();
-      __syncthreads();
-      const T* Kt = Ks + (j & 1) * kBK * P;
-      const T* Vt = Vs + (j & 1) * kBK * P;
-
-      float s[8][4], dp[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kMaxD / 16; ++kk) {
-        if (kk * 16 >= D) break;
-        uint32_t aq[4], ad[4];
-        ldsm_a(Qs, P, warp * 16, kk * 16, aq);
-        ldsm_a(Ds, P, warp * 16, kk * 16, ad);
-#pragma unroll
-        for (int nt = 0; nt < 8; nt += 2) {
-          uint32_t bk[4], bv[4];
-          ldsm_b(Kt, P, nt * 8, kk * 16, bk);
-          ldsm_b(Vt, P, nt * 8, kk * 16, bv);
-          mma<T>(s[nt], aq, bk[0], bk[1]);
-          mma<T>(s[nt + 1], aq, bk[2], bk[3]);
-          mma<T>(dp[nt], ad, bv[0], bv[1]);
-          mma<T>(dp[nt + 1], ad, bv[2], bv[3]);
-        }
-      }
-      // ds = p * (dp - delta), p = exp(s - lse) on live columns, else 0;
-      // a tile whose every key is live for every row of this warp skips
-      // the mask
-      const bool full = (j + 1) * kBK <= kv_valid &&
-                        (!p.causal || (j + 1) * kBK - 1 <= q0 + warp * 16);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          float pv = ex2(s[nt][e] * sl2 - lse[i]);
-          if (!full &&
-              !live(p, rw + 8 * i, j * kBK + nt * 8 + 2 * tg + (e & 1),
-                    kv_valid))
-            pv = 0.f;
-          s[nt][e] = pv * (dp[nt][e] - dl[i]);
-        }
-      // dq += ds . K
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        uint32_t a[4];
-        acc_to_a<T>(s[2 * kk], s[2 * kk + 1], a);
-#pragma unroll
-        for (int dd = 0; dd < kMaxD / 16; ++dd) {
-          if (dd * 16 >= D) break;
-          uint32_t r[4];
-          load_b_trans(Kt, P, kk * 16, dd * 16, r);
-          mma<T>(dq[2 * dd], a, r[0], r[1]);
-          mma<T>(dq[2 * dd + 1], a, r[2], r[3]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  const float mul[2] = {p.scale, p.scale};
-  T* out = static_cast<T*>(p.out) + b * p.st[kOut][0] + h * p.st[kOut][2];
-  store_rows<T>(out, p.st[kOut][1], q0, p.Sq, D, dq, mul);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 / f16 forward and dK/dV: warp-specialised wgmma fed by TMA
+// bf16 / f16 forward, dQ and dK/dV: warp-specialised wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
 constexpr int kWg = 128;                 // threads of a warpgroup
 constexpr int kWsThreads = 3 * kWg;      // consumers 0 and 1, producer 2
 constexpr int kTile = 128;               // q rows and keys of a forward tile
-constexpr int kRows = 64;                // forward consumer rows; dK/dV keys
+constexpr int kRows = 64;                // consumer q rows; dQ, dK/dV keys
 constexpr int kQRows = 64;               // q rows of a dK/dV tile
 constexpr int kRowBytes = 128;           // a swizzled row: 64 16-bit values
 constexpr int kFwdStages = 3;            // K/V ring of the forward
+constexpr int kDqStages = 4;             // K/V ring of dQ
 constexpr int kDkvStages = 4;            // Q/dO ring of dK/dV
 constexpr int kProducerRegs = 24;        // 128 x 24 + 256 x 240 = 64512
 constexpr int kConsumerRegs = 240;
@@ -459,48 +199,6 @@ constexpr int kHeadGroup = 8;            // heads launched together
 constexpr int kBarTurn = 1;              // named barriers 1, 2: issue turns
 constexpr int kBarP = 1;                 // 1 .. 4: dK/dV's p^T hand-over
 constexpr int kBarEpi = 5;               // 5, 6: a warpgroup's epilogue
-constexpr uint32_t kSpinLimit = 1u << 26;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-// arrive and expect `bytes` more from TMA before the phase completes
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-// wait until the phase of parity `parity` has completed; a wait that never
-// ends (a fault in the pipeline) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == kSpinLimit) __trap();
-  }
-}
 
 // one box of 64 columns x `rows` rows of head h of a [B, S, H, D] tensor
 // (a 4-D map over (D, H, S, B)); rows past S arrive as zeros
@@ -548,46 +246,6 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// pins the registers of a finished product after its wg_wait, so nothing
-// that reads them moves above the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// a wgmma shared-memory descriptor of a 128-byte-swizzled operand whose
-// 1024-byte swizzle atoms (8 rows of 128 bytes) start at 1024-byte
-// boundaries: start address, leading and stride byte offsets (16-byte
-// units), swizzle mode 1 (128 B). K-major: SBO steps 8 rows (LBO unused).
-// MN-major: LBO steps 64 columns of MN, SBO 8 rows of K.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// K-major operands: rows of 128 B, 8-row groups 1024 B apart
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, 16, 1024);
-}
 // MN-major operands: 8 K-rows of 128 B a group, groups 1024 B apart, and
 // 64-column blocks of MN `block` bytes apart
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr,
@@ -835,12 +493,6 @@ __device__ __forceinline__ float unpack<__half>(uint32_t v, int hi) {
       static_cast<unsigned short>(hi ? v >> 16 : v & 0xffffu)));
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
-}
-
 // the A fragments of a [64 x 16 kk] slice of an accumulator, rounded to T
 template <typename T, int N>
 __device__ __forceinline__ void acc_to_frags(const float (&c)[N / 2],
@@ -916,7 +568,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       mbar_init(k_empty + s, 2 * kWg);
       mbar_init(v_empty + s, 2 * kWg);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -1132,7 +784,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       mbar_init(full + s, 33);   // 32 lanes' copies + the TMA issue
       mbar_init(empty + s, 2 * kWg);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -1288,6 +940,202 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       for (int c = 0; c < kD / 64; ++c)
         tma_store(wg == 0 ? tdv : tdk, tile + c * L::kKvChunk, 64 * c, kvh,
                   k0, b);
+      tma_store_wait();
+    }
+  }
+}
+
+// shared memory of dQ: Q and dO [128][kD] resident, then kDqStages K and V
+// tiles [64][kD]; then the barriers
+template <int kD>
+struct DqSmem {
+  static constexpr int kQChunk = kTile * kRowBytes;
+  static constexpr int kQBytes = kD / 64 * kQChunk;
+  static constexpr int kKvChunk = kRows * kRowBytes;
+  static constexpr int kKvBytes = kD / 64 * kKvChunk;
+  static constexpr int kDo = kQBytes;
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kDqStages * kKvBytes;
+  static constexpr int kBar = kV + kDqStages * kKvBytes;
+  static constexpr int kBytes = kBar + (1 + 4 * kDqStages) * 8 + 1024;
+};
+
+template <typename T, int kD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tdq, const Params p) {
+  using L = DqSmem<kD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Ds = Qs + L::kDo;
+  unsigned char* Ks = Qs + L::kK;
+  unsigned char* Vs = Qs + L::kV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Qs + L::kBar);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kDqStages;
+  uint64_t* k_empty = v_full + kDqStages;
+  uint64_t* v_empty = k_empty + kDqStages;
+
+  // the last q tile (under causal the heaviest) first
+  const int nqt = (p.Sq + kTile - 1) / kTile;
+  int tile, head;
+  launch_order(blockIdx.x, nqt, p.B * p.H, tile, head);
+  const int q0 = (nqt - 1 - tile) * kTile;
+  const int h = head % p.H, b = head / p.H;
+  const int kvh = h / p.G;
+  const int kv_valid = valid_keys(p, b);
+  const int n_kb = key_tiles(p, q0, kTile, kRows, kv_valid);
+  const int wg = threadIdx.x / kWg;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, 2 * kWg);
+      mbar_init(v_empty + s, 2 * kWg);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer: Q and dO once, then one thread keeps the K/V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 2 * kWg && n_kb > 0) {
+      mbar_expect_tx(q_full, 2 * L::kQBytes);
+      for (int c = 0; c < kD / 64; ++c) {
+        tma_load(Qs + c * L::kQChunk, tq, q_full, 64 * c, h, q0, b);
+        tma_load(Ds + c * L::kQChunk, tdo, q_full, 64 * c, h, q0, b);
+      }
+      for (int j = 0; j < n_kb; ++j) {
+        const int st = j % kDqStages;
+        const uint32_t ph = (j / kDqStages) & 1;
+        mbar_wait(k_empty + st, ph ^ 1);
+        mbar_expect_tx(k_full + st, L::kKvBytes);
+        for (int c = 0; c < kD / 64; ++c)
+          tma_load(Ks + st * L::kKvBytes + c * L::kKvChunk, tk, k_full + st,
+                   64 * c, kvh, j * kRows, b);
+        mbar_wait(v_empty + st, ph ^ 1);
+        mbar_expect_tx(v_full + st, L::kKvBytes);
+        for (int c = 0; c < kD / 64; ++c)
+          tma_load(Vs + st * L::kKvBytes + c * L::kKvChunk, tv, v_full + st,
+                   64 * c, kvh, j * kRows, b);
+      }
+    }
+  } else {
+    // a consumer: rows r0 .. r0 + 63 of the q tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int t = threadIdx.x % kWg, lane = t & 31;
+    const int tg = lane & 3;
+    const int r0 = q0 + kRows * wg;
+    const int rw = r0 + (t >> 5) * 16 + (lane >> 2);   // rows rw, rw + 8
+    const float sl2 = p.scale * kLog2e;
+    // lse (in the log2 domain) and delta of this thread's two rows: they
+    // stay the same along the key loop
+    const long long lrow = ((long long)b * p.H + h) * p.Sq;
+    float lse[2], dl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = rw + 8 * i;
+      lse[i] = r < p.Sq ? p.lse[lrow + r] * kLog2e : 0.f;
+      dl[i] = r < p.Sq ? p.delta[lrow + r] : 0.f;
+    }
+    float dq[kD / 2];
+    zero(dq);
+
+    if (n_kb > 0) {
+      const uint32_t qa = smem_addr(Qs) + kRows * wg * kRowBytes;
+      const uint32_t da = smem_addr(Ds) + kRows * wg * kRowBytes;
+      const int me = kBarTurn + wg, other = kBarTurn + 1 - wg;
+      uint32_t ds[kRows / 16][4];          // dS of the last tile, rounded
+      mbar_wait(q_full, 0);
+      if (wg == 1) named_arrive(kBarTurn, 2 * kWg);   // consumer 0 first
+      // dq += dS . K of the tile in stage sk, finished before it returns
+      auto dsk = [&](int sk) {
+        wg_fence();
+        const uint32_t ka = smem_addr(Ks + sk * L::kKvBytes);
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk)
+          wgmma_rs<T, kD>(dq, ds[kk],
+                          mnmajor_desc(ka + kk * 16 * kRowBytes, L::kKvChunk));
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(dq);
+        mbar_arrive(k_empty + sk);
+      };
+      for (int j = 0; j < n_kb; ++j) {
+        const int st = j % kDqStages, sp = (j + kDqStages - 1) % kDqStages;
+        const uint32_t ph = (j / kDqStages) & 1;
+        mbar_wait(k_full + st, ph);
+        mbar_wait(v_full + st, ph);
+        // my turn at the tensor cores: dq += dS_{j-1} . K_{j-1}, which
+        // frees dS's registers, then S = Q . K_j^T and dP = dO . V_j^T
+        named_sync(me, 2 * kWg);
+        if (j > 0) dsk(sp);
+        float s[kRows / 2], dp[kRows / 2];
+        const uint32_t ka = smem_addr(Ks + st * L::kKvBytes);
+        const uint32_t va = smem_addr(Vs + st * L::kKvBytes);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) {
+          const uint32_t oq = (kk / 4) * L::kQChunk + (kk % 4) * 32;
+          const uint32_t ok = (kk / 4) * L::kKvChunk + (kk % 4) * 32;
+          wgmma_ss<T, kRows>(s, kmajor_desc(qa + oq), kmajor_desc(ka + ok),
+                             kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk) {
+          const uint32_t oq = (kk / 4) * L::kQChunk + (kk % 4) * 32;
+          const uint32_t ok = (kk / 4) * L::kKvChunk + (kk % 4) * 32;
+          wgmma_ss<T, kRows>(dp, kmajor_desc(da + oq), kmajor_desc(va + ok),
+                             kk > 0);
+        }
+        wg_commit();
+        // the other consumer's turn (consumer 1 skips its last one, so
+        // the arrivals match the other's waits)
+        if (wg == 0 || j + 1 < n_kb) named_arrive(other, 2 * kWg);
+        wg_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        mbar_arrive(v_empty + st);
+
+        // ds = p (dp - delta), p = 2^(s sl2 - lse) on live columns and 0
+        // elsewhere; only the causal diagonal and the kv_lens / Sk tail
+        // test the mask, against one column limit per row
+        const int c0 = j * kRows;
+        const bool masked = c0 + kRows > kv_valid ||
+                            (p.causal && c0 + kRows - 1 > r0);
+        int lim[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          lim[r] = (p.causal ? min(kv_valid, rw + 8 * r + 1) : kv_valid) -
+                   c0 - 2 * tg;
+#pragma unroll
+        for (int i = 0; i < kRows / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          float pv = ex2(fmaf(s[i], sl2, -lse[r]));
+          if (masked && 8 * (i >> 2) + (i & 1) >= lim[r]) pv = 0.f;
+          s[i] = pv * (dp[i] - dl[r]);
+        }
+        acc_to_frags<T, kRows>(s, ds);
+      }
+      dsk((n_kb - 1) % kDqStages);
+    }
+
+    // dq times sm_scale through this warpgroup's rows of the Q tile
+    const float mul[2] = {p.scale, p.scale};
+    stage_rows<T, kD>(Qs, kTile, kRows * wg, dq, mul);
+    fence_async_smem();
+    named_sync(kBarEpi + wg, kWg);
+    if (t == 0 && r0 < p.Sq) {
+      for (int c = 0; c < kD / 64; ++c)
+        tma_store(tdq, Qs + c * L::kQChunk + kRows * wg * kRowBytes, 64 * c,
+                  h, r0, b);
       tma_store_wait();
     }
   }
@@ -1586,33 +1434,6 @@ int launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// cuTensorMapEncodeTiled, reached through the runtime so that nothing
-// links against the driver library
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion,
-                              CUtensorMapFloatOOBfill);
-
-EncodeFn encode_fn() {
-  static const EncodeFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeFn>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // the 4-D map over (D, H, S, B) of a [B, S, H, D] 16-bit tensor with
 // element strides st = (batch, seq, head): boxes of 64 columns x `rows`
 // rows of one head in the 128-byte swizzle; a box past S or D reads zeros
@@ -1650,7 +1471,7 @@ int launch_ws(K kernel, dim3 grid, int smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-// the forward / dK/dV instance of head width kD (D <= kD, zero-padded)
+// the instance of head width kD (D <= kD, zero-padded)
 template <typename T, int kD>
 int run_ws(Which w, const Params& p, const CUtensorMap* m, cudaStream_t s) {
   if (w == kFwd)
@@ -1658,25 +1479,30 @@ int run_ws(Which w, const Params& p, const CUtensorMap* m, cudaStream_t s) {
                      dim3((p.Sq + kTile - 1) / kTile * p.H * p.B),
                      FwdSmem<kD>::kBytes, s, p, m[kQ], m[kK], m[kV],
                      m[kOut]);
+  if (w == kDq)
+    return launch_ws(dq_wgmma_kernel<T, kD>,
+                     dim3((p.Sq + kTile - 1) / kTile * p.H * p.B),
+                     DqSmem<kD>::kBytes, s, p, m[kQ], m[kK], m[kV], m[kIn],
+                     m[kOut]);
   return launch_ws(dkv_wgmma_kernel<T, kD>,
                    dim3((p.Sk + kRows - 1) / kRows * p.KVH * p.B),
                    DkvSmem<kD>::kBytes, s, p, m[kQ], m[kK], m[kV], m[kIn],
                    m[kOut], m[kOut2]);
 }
 
-// forward and dK/dV: the tensor maps, then the instance for D
+// the tensor maps, then the instance for D
 template <typename T>
 int run_hopper(Which w, const Params& p, int dtype, cudaStream_t s) {
+  const bool dkv = w == kDkv;
   const void* ptr[6] = {p.q, p.k, p.v, p.in, p.out, p.out2};
-  const int heads[6] = {p.H, p.KVH, p.KVH, p.H, w == kFwd ? p.H : p.KVH,
-                        p.KVH};
-  const int seq[6] = {p.Sq, p.Sk, p.Sk, p.Sq, w == kFwd ? p.Sq : p.Sk, p.Sk};
-  // boxes: a 128-row tile for the resident / streamed 128-row operands,
-  // 64 rows for the 64-row ones and for the stores of one warpgroup
+  const int heads[6] = {p.H, p.KVH, p.KVH, p.H, dkv ? p.KVH : p.H, p.KVH};
+  const int seq[6] = {p.Sq, p.Sk, p.Sk, p.Sq, dkv ? p.Sk : p.Sq, p.Sk};
+  // boxes: 128 rows for the forward's Q, K and V and dQ's Q and dO, 64
+  // rows for every other operand and for the stores of one warpgroup
+  const int q_rows = dkv ? kQRows : kTile;
   const int kv_rows = w == kFwd ? kTile : kRows;
-  const int rows[6] = {w == kFwd ? kTile : kQRows, kv_rows, kv_rows, kQRows,
-                       kRows, kRows};
-  const int n = w == kFwd ? kOut + 1 : kOut2 + 1;
+  const int rows[6] = {q_rows, kv_rows, kv_rows, q_rows, kRows, kRows};
+  const int n = dkv ? kOut2 + 1 : kOut + 1;
   CUtensorMap m[6];
   for (int i = 0; i < n; ++i) {
     if (w == kFwd && i == kIn) continue;
@@ -1688,13 +1514,6 @@ int run_hopper(Which w, const Params& p, int dtype, cudaStream_t s) {
     if (err != 0) return err;
   }
   return p.D <= 64 ? run_ws<T, 64>(w, p, m, s) : run_ws<T, 128>(w, p, m, s);
-}
-
-template <typename T>
-int run_mma(const Params& p, cudaStream_t s) {
-  const size_t P = p.D + 8;
-  return launch(dq_mma_kernel<T>, dim3((p.Sq + kBQ - 1) / kBQ, p.H, p.B),
-                (2 * kBQ + 4 * kBK) * P * sizeof(T), s, p);
 }
 
 int run_f32(Which w, const Params& p, cudaStream_t s) {
@@ -1751,13 +1570,11 @@ int run(Which w, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return w == kDq ? run_mma<__nv_bfloat16>(p, s)
-                      : run_hopper<__nv_bfloat16>(w, p, dtype, s);
+      return run_hopper<__nv_bfloat16>(w, p, dtype, s);
     case 1:
       return run_f32(w, p, s);
     case 2:
-      return w == kDq ? run_mma<__half>(p, s)
-                      : run_hopper<__half>(w, p, dtype, s);
+      return run_hopper<__half>(w, p, dtype, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

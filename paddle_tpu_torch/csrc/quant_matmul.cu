@@ -18,60 +18,51 @@
 // Bound on an H100 at the serving shapes: bytes. The serving step packs
 // M = 40 tokens against a weight read once: 2 * M flops per weight byte
 // (int8) is far below the ~295 flop/byte ridge, so the floor is streaming
-// the weight from device memory once. The design:
-//   - CTAs tile N (64 output columns each) and each CTA loops over all of
-//     K, so every weight byte is read exactly once; M is covered by one
-//     CTA row of up to 64 rows (more rows take more CTA rows);
-//   - a 4-stage cp.async ring stages the x [BM, 64] tile(s) and the
-//     w [64 columns, 64 bytes] tile per K step, with edge rows zero-filled
-//     (any M >= 1, N >= 1);
-//   - each of the 4 warps owns 16 output columns and multiplies on the
-//     tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate); the
-//     weight bytes are converted to bf16 in registers as the B fragments
-//     are built, so the 16-bit weight never exists in memory;
-//   - int4: a packed 64-byte K tile pairs its low nibbles with x columns
-//     [kk, kk + 64) and its high nibbles with [K/2 + kk, ...): both x
-//     slices are staged and each byte pair feeds two products, so the
-//     weight is never repacked.
+// the weight from device memory once, at 3.35 TB/s.
+//
+// 8-bit weights with bf16 x (`qmm_wgmma_kernel`): split-K `wgmma` fed by
+// TMA, reduced inside a thread-block cluster.
+//   - A CTA owns 128 weight rows (output columns), the tokens' rows of one
+//     m tile and one of S slices of K. Its weight tiles (128 rows x 128
+//     bytes) and the matching x tiles (tokens x 128 columns) stream through
+//     four stages of shared memory by `cp.async.bulk.tensor` (2-D maps over
+//     the tensors as they lie, 128-byte swizzle, zeros past every edge),
+//     issued by one producer warp behind full / empty mbarriers: 64 KB of
+//     weight in flight per CTA, two CTAs per SM up to 40 tokens.
+//   - The weight is wgmma's A operand, 64 rows per consumer warpgroup
+//     (two of them): each thread reads its fragments' bytes from the
+//     swizzled tile (conflict-free: the swizzle phase of its rows is its
+//     group id) and converts them exactly to bf16 in registers (int8
+//     through the f32 magic number 2^23, e4m3 / e5m2 through f16) for an
+//     RS `wgmma` whose N is the tokens (M rounded up to 8, at most 64; more
+//     tokens take more m tiles) and whose B is x's tile, K-major as it lies.
+//   - The S CTAs of one 128-column tile form a cluster (S <= 8, chosen on
+//     the host by `gemm_plan` in ops/kernels/quant_matmul.py so that the
+//     launch puts about two CTAs on each SM). Each leaves its f32 partial
+//     tile in its shared memory; after a cluster barrier rank r sums its
+//     1/S share of the tile over the S CTAs' shared memory in rank order,
+//     applies the scale and writes the output once: one launch, no
+//     workspace, no atomics, the same bits every run, and a bf16 output
+//     equal to the f32 output rounded.
+// int4 weights with bf16 x (`qmm_int4_kernel`): CTAs tile N (64 output
+// columns each) and loop over all of K; a 4-stage cp.async ring stages the
+// packed w [64 columns, 64 bytes] tile and both x slices it pairs with
+// (columns [kk, kk + 64) for the low nibbles, [K/2 + kk, ...) for the high
+// ones), and each of 4 warps multiplies 16 output columns with mma.sync
+// m16n8k16, the nibbles converted to bf16 as the B fragments are built, so
+// the weight is never repacked.
 // With f32 x (reference and parity configurations) a plain tiled f32 FMA
-// kernel does the same arithmetic. wgmma, TMA and split-K for the small-N
-// shapes are the way to the bound; this first kernel does without them.
+// kernel does the same arithmetic.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 enum WFmt { kInt8 = 0, kE4M3 = 1, kE5M2 = 2, kInt4 = 3 };
-
-constexpr int kThreads = 128;     // 4 warps x 16 output columns
-constexpr int kBN = 64;           // output columns per CTA
-constexpr int kBK = 64;           // weight bytes per row per stage
-constexpr int kStages = 4;        // cp.async ring depth
-constexpr int kWPitch = kBK + 16; // weight tile row pitch (bytes)
-constexpr int kXPitch = kBK + 8;  // x tile row pitch (bf16 elements)
-
-__host__ __device__ constexpr int stage_bytes(int fmt, int mt) {
-  return kBN * kWPitch + (fmt == kInt4 ? 2 : 1) * mt * 16 * kXPitch * 2;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  // src-size 0 zero-fills the 16 bytes (edge rows and columns)
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_stages() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-}
 
 __device__ __forceinline__ int sext4(int v) { return (v ^ 8) - 8; }
 
@@ -112,6 +103,384 @@ __device__ __forceinline__ uint32_t pack_bf16(float2 f) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ void store_out(void* out, long long i, float v,
+                                          int out_f32) {
+  if (out_f32)
+    static_cast<float*>(out)[i] = v;
+  else
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
+}
+
+// ---------------------------------------------------------------------------
+// 8-bit weights, bf16 x: split-K wgmma fed by TMA, reduced in a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 128;
+constexpr int kQmmThreads = 2 * kWgThreads + 32;   // 2 consumers, 1 producer
+constexpr int kQmmRows = 128;         // weight rows (output columns) a CTA
+constexpr int kQmmK = 128;            // weight bytes (k values) a stage
+constexpr int kQmmStages = 4;
+constexpr int kQmmMaxSplits = 8;      // the portable cluster size
+constexpr int kQmmPitch = kQmmRows + 4;   // the partial tile's f32 rows
+
+// shared memory for MT tokens: kQmmStages stages of a weight tile
+// [128 rows][128 B] and two x tiles [MT rows][64 bf16] (128-byte swizzle,
+// 1024-byte aligned), then the barriers; the f32 partial tile
+// [MT][kQmmPitch] reuses the stages once they are drained
+template <int MT>
+struct QmmSmem {
+  static constexpr int kW = kQmmRows * kQmmK;
+  static constexpr int kXChunk = MT * 128;
+  static constexpr int kStage = kW + 2 * kXChunk;
+  static constexpr int kBar = kQmmStages * kStage;
+  static constexpr int kBytes = kBar + 2 * kQmmStages * 8 + 1024;
+  static_assert(MT % 8 == 0 && MT * kQmmPitch * 4 <= kBar, "");
+};
+
+// four stored 8-bit weights (bytes 0..3 of v), exactly, as two bf16 pairs:
+// lo = (byte 0, byte 1), hi = (byte 2, byte 3). Each value is first an f32
+// whose low 16 bits are zero (at most 8 significant bits, in bf16's
+// exponent range), so its high half is its bf16.
+template <int FMT>
+__device__ __forceinline__ void cvt4(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  // e4m3 / e5m2 through f16 (exact) to f32
+  const float2 a = cvt2<FMT>(v & 0xffffu), b = cvt2<FMT>(v >> 16);
+  lo = __byte_perm(__float_as_uint(a.x), __float_as_uint(a.y), 0x7632);
+  hi = __byte_perm(__float_as_uint(b.x), __float_as_uint(b.y), 0x7632);
+}
+template <>
+__device__ __forceinline__ void cvt4<kInt8>(uint32_t v, uint32_t& lo,
+                                            uint32_t& hi) {
+  // the f32 with bits 0x4B0000uu is 2^23 + uu; uu = byte ^ 0x80 is the
+  // signed byte + 128, so subtracting 2^23 + 128 leaves the byte's value
+  const uint32_t u = v ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) -
+           8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+__device__ __forceinline__ uint32_t ld2(const unsigned char* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// D[64 x N] += A . B on one warpgroup in f32, A (bf16) in registers in
+// mma.sync's m16n8k16 A layout (warp w owns rows 16 w .. 16 w + 15), B
+// (bf16) K-major in shared memory; d[4 j + e] is row g + 8 (e >> 1),
+// column 8 j + 2 tg + (e & 1)
+template <int N>
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[N / 2],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<8>(
+    float (&d)[4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16\n"
+      "{"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<16>(
+    float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<24>(
+    float (&d)[12], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<32>(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<40>(
+    float (&d)[20], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<48>(
+    float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<56>(
+    float (&d)[28], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27"
+      "}, {%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<64>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster; shared-memory writes before it
+// are visible to the cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the f32 at this CTA's shared-memory address `addr`, read from CTA `rank`
+// of the cluster
+__device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// tile t of (N / 128 column tiles) x (M / MT token tiles) is cluster t of
+// the grid; its rank r sums weight tiles [r per, min(nk, (r + 1) per))
+template <int FMT, int MT>
+__global__ void __launch_bounds__(kQmmThreads, 2) qmm_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tw,
+    const __grid_constant__ CUtensorMap tx, const float* __restrict__ scale,
+    void* __restrict__ out, int M, int N, int nk, int per, long long ldo,
+    int out_f32) {
+  using L = QmmSmem<MT>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + kQmmStages;
+  const int splits = cluster_size(), rank = cluster_rank();
+  const int tile = blockIdx.x / splits;
+  const int n_tiles = (N + kQmmRows - 1) / kQmmRows;
+  const int n0 = (tile % n_tiles) * kQmmRows, m0 = (tile / n_tiles) * MT;
+  const int c0 = rank * per, nc = min(nk, c0 + per) - c0;
+  const int tid = threadIdx.x, wg = tid / kWgThreads;
+  // the scale of the column this thread writes in the epilogue, loaded
+  // under the main loop
+  const int col = tid % kQmmRows;
+  const float sc = n0 + col < N ? scale[n0 + col] : 0.f;
+
+  if (tid == 0) {
+    for (int s = 0; s < kQmmStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2 * kWgThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  float acc[MT / 2];
+  zero(acc);
+  if (wg == 2) {
+    // the producer warp: one thread keeps the ring full
+    if (tid == 2 * kWgThreads) {
+      for (int j = 0; j < nc; ++j) {
+        const int st = j % kQmmStages;
+        mbar_wait(empty + st, ((j / kQmmStages) & 1) ^ 1);
+        unsigned char* stage = sm + st * L::kStage;
+        const int k0 = (c0 + j) * kQmmK;
+        mbar_expect_tx(full + st, L::kStage);
+        tma_load_2d(stage, tw, full + st, k0, n0);
+        tma_load_2d(stage + L::kW, tx, full + st, k0, m0);
+        tma_load_2d(stage + L::kW + L::kXChunk, tx, full + st, k0 + 64, m0);
+      }
+    }
+    __syncwarp();
+  } else {
+    // a consumer warpgroup: weight rows 64 wg .. 64 wg + 63 of the tile.
+    // Thread (g, tg) of warp w builds the A fragments of rows
+    // r = 64 wg + 16 w + g and r + 8, whose swizzle phase (r & 7) is g:
+    // bytes 16 s + 2 tg, +1 and 16 s + 2 tg + 8, +9 for k step s
+    const int t = tid % kWgThreads, lane = t & 31;
+    const int g = lane >> 2, tg = lane & 3;
+    const int r = 64 * wg + 16 * (t >> 5) + g;
+    for (int j = 0; j < nc; ++j) {
+      const int st = j % kQmmStages;
+      mbar_wait(full + st, (j / kQmmStages) & 1);
+      const unsigned char* stage = sm + st * L::kStage;
+      const unsigned char* w0 = stage + r * kQmmK + 2 * tg;
+      const unsigned char* w1 = w0 + 8 * kQmmK;
+      uint32_t a[kQmmK / 16][4];
+#pragma unroll
+      for (int s = 0; s < kQmmK / 16; ++s) {
+        const int o = (s ^ g) << 4;
+        cvt4<FMT>(ld2(w0 + o) | ld2(w0 + o + 8) << 16, a[s][0], a[s][2]);
+        cvt4<FMT>(ld2(w1 + o) | ld2(w1 + o + 8) << 16, a[s][1], a[s][3]);
+      }
+      // x's tile: step s reads columns 16 s .. 16 s + 15, in the half
+      // tile s / 4 at byte 32 (s % 4) of its 128-byte rows
+      const uint32_t xa = smem_addr(stage + L::kW);
+      wg_fence();
+#pragma unroll
+      for (int s = 0; s < kQmmK / 16; ++s)
+        wgmma_rs_kmajor<MT>(
+            acc, a[s],
+            kmajor_desc(xa + (s >> 2) * L::kXChunk + (s & 3) * 32));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(empty + st);
+    }
+  }
+
+  // every stage is drained: the partial tile [MT tokens][kQmmPitch] goes
+  // over them (the accumulators transposed; conflict-free writes)
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(sm);
+  if (wg < 2) {
+    const int t = tid % kWgThreads, lane = t & 31;
+    const int r = 64 * wg + 16 * (t >> 5) + (lane >> 2);
+    const int tok = 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < MT / 2; ++i)
+      part[(8 * (i >> 2) + tok + (i & 1)) * kQmmPitch + r +
+           8 * ((i >> 1) & 1)] = acc[i];
+  }
+  cluster_sync();
+  // this rank's rows of the tile (m = rank, rank + splits, ...), summed
+  // over the cluster in rank order; consumer thread t owns column t % 128
+  if (wg < 2 && n0 + col < N) {
+    const int mv = min(MT, M - m0);
+    for (int m = rank + splits * (tid / kQmmRows); m < mv; m += 2 * splits) {
+      const uint32_t addr = smem_addr(part + m * kQmmPitch + col);
+      float v = 0.f;
+      for (int q = 0; q < splits; ++q) v += ld_cluster(addr, q);
+      store_out(out, (long long)(m0 + m) * ldo + n0 + col, v * sc, out_f32);
+    }
+  }
+  // no CTA leaves while another still reads its shared memory
+  cluster_sync();
+}
+
+// ---------------------------------------------------------------------------
+// int4 weights, bf16 x: mma.sync over all of K per CTA
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 128;     // 4 warps x 16 output columns
+constexpr int kBN = 64;           // output columns per CTA
+constexpr int kBK = 64;           // weight bytes per row per stage
+constexpr int kStages = 4;        // cp.async ring depth
+constexpr int kWPitch = kBK + 16; // weight tile row pitch (bytes)
+constexpr int kXPitch = kBK + 8;  // x tile row pitch (bf16 elements)
+
+// a stage: the packed weight tile and the two x slices its nibbles pair with
+__host__ __device__ constexpr int stage_bytes(int mt) {
+  return kBN * kWPitch + 2 * mt * 16 * kXPitch * 2;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  // src-size 0 zero-fills the 16 bytes (edge rows and columns)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_stages() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+}
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -132,14 +501,13 @@ __device__ __forceinline__ void load_a(const __nv_bfloat16* xs, int r, int c,
   a[3] = *reinterpret_cast<const uint32_t*>(xs + (r + 8) * kXPitch + c + 8);
 }
 
-template <int FMT, int MT>
+template <int MT>
 __device__ __forceinline__ void load_stage(unsigned char* st,
                                            const __nv_bfloat16* x,
                                            const uint8_t* w, int m0, int n0,
                                            int kb, int M, int N, int KW,
                                            long long ldx, long long ldw) {
   constexpr int BM = MT * 16;
-  constexpr int NX = FMT == kInt4 ? 2 : 1;
   const int tid = threadIdx.x;
   // weight tile: kBN rows of kBK bytes, in 16-byte chunks
   constexpr int kWChunks = kBK / 16;
@@ -152,12 +520,12 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
     cp_async16(st + r * kWPitch + c, ok ? w + (long long)n * ldw + k : w,
                ok);
   }
-  // x tile(s): BM rows of kBK columns, 8 bf16 per chunk; the int4 high
-  // tile reads the same columns shifted by K / 2 = KW
+  // x tiles: BM rows of kBK columns, 8 bf16 per chunk; the high tile
+  // reads the same columns shifted by K / 2 = KW
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + kBN * kWPitch);
   constexpr int kXChunks = kBK / 8;
 #pragma unroll
-  for (int t = 0; t < NX; ++t) {
+  for (int t = 0; t < 2; ++t) {
     for (int i = tid; i < BM * kXChunks; i += kThreads) {
       const int r = i / kXChunks;
       const int c = (i - r * kXChunks) * 8;
@@ -170,7 +538,7 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
   }
 }
 
-template <int FMT, int MT>
+template <int MT>
 __device__ __forceinline__ void compute_stage(const unsigned char* st,
                                               float (&acc)[MT][2][4]) {
   constexpr int BM = MT * 16;
@@ -183,7 +551,8 @@ __device__ __forceinline__ void compute_stage(const unsigned char* st,
 #pragma unroll
   for (int ks = 0; ks < kBK; ks += 16) {
     // B fragments of the warp's two n8 tiles: thread (g, tg) holds
-    // B[k][n] = w[n][k] for n = g, k = 2 tg, 2 tg + 1 and the same + 8
+    // B[k][n] = w[n][k] for n = g, k = 2 tg, 2 tg + 1 and the same + 8;
+    // low nibbles: K's first half, high nibbles: its second half
     uint32_t b[2][2], bh[2][2];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
@@ -191,20 +560,14 @@ __device__ __forceinline__ void compute_stage(const unsigned char* st,
           st + (warp * 16 + nt * 8 + g) * kWPitch + ks + 2 * tg;
       const unsigned p0 = *reinterpret_cast<const uint16_t*>(wr);
       const unsigned p1 = *reinterpret_cast<const uint16_t*>(wr + 8);
-      if constexpr (FMT == kInt4) {
-        // low nibbles: K first half; high nibbles: K second half
-        b[nt][0] = pack_bf16(make_float2(sext4(p0 & 0xF),
-                                         sext4((p0 >> 8) & 0xF)));
-        b[nt][1] = pack_bf16(make_float2(sext4(p1 & 0xF),
-                                         sext4((p1 >> 8) & 0xF)));
-        bh[nt][0] = pack_bf16(make_float2(sext4((p0 >> 4) & 0xF),
-                                          sext4((p0 >> 12) & 0xF)));
-        bh[nt][1] = pack_bf16(make_float2(sext4((p1 >> 4) & 0xF),
-                                          sext4((p1 >> 12) & 0xF)));
-      } else {
-        b[nt][0] = pack_bf16(cvt2<FMT>(p0));
-        b[nt][1] = pack_bf16(cvt2<FMT>(p1));
-      }
+      b[nt][0] = pack_bf16(make_float2(sext4(p0 & 0xF),
+                                       sext4((p0 >> 8) & 0xF)));
+      b[nt][1] = pack_bf16(make_float2(sext4(p1 & 0xF),
+                                       sext4((p1 >> 8) & 0xF)));
+      bh[nt][0] = pack_bf16(make_float2(sext4((p0 >> 4) & 0xF),
+                                        sext4((p0 >> 12) & 0xF)));
+      bh[nt][1] = pack_bf16(make_float2(sext4((p1 >> 4) & 0xF),
+                                        sext4((p1 >> 12) & 0xF)));
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -212,33 +575,22 @@ __device__ __forceinline__ void compute_stage(const unsigned char* st,
       load_a(xs, mt * 16 + g, ks + 2 * tg, a);
       mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
       mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
-      if constexpr (FMT == kInt4) {
-        load_a(xs + BM * kXPitch, mt * 16 + g, ks + 2 * tg, a);
-        mma_bf16(acc[mt][0], a, bh[0][0], bh[0][1]);
-        mma_bf16(acc[mt][1], a, bh[1][0], bh[1][1]);
-      }
+      load_a(xs + BM * kXPitch, mt * 16 + g, ks + 2 * tg, a);
+      mma_bf16(acc[mt][0], a, bh[0][0], bh[0][1]);
+      mma_bf16(acc[mt][1], a, bh[1][0], bh[1][1]);
     }
   }
 }
 
-__device__ __forceinline__ void store_out(void* out, long long i, float v,
-                                          int out_f32) {
-  if (out_f32)
-    static_cast<float*>(out)[i] = v;
-  else
-    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
-}
-
-// bf16 x on the tensor cores. KW = weight bytes per row (K, or K / 2 for
-// int4); MT = 16-row m tiles per CTA
-template <int FMT, int MT>
-__global__ void __launch_bounds__(kThreads) qmm_bf16_kernel(
+// KW = weight bytes per row (K / 2); MT = 16-row m tiles per CTA
+template <int MT>
+__global__ void __launch_bounds__(kThreads) qmm_int4_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
     const float* __restrict__ scale, void* __restrict__ out, int M, int N,
     int KW, long long ldx, long long ldw, long long ldo, int out_f32) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int BM = MT * 16;
-  constexpr int kStage = stage_bytes(FMT, MT);
+  constexpr int kStage = stage_bytes(MT);
   const int n0 = blockIdx.x * kBN;
   const int m0 = blockIdx.y * BM;
   float acc[MT][2][4];
@@ -255,8 +607,8 @@ __global__ void __launch_bounds__(kThreads) qmm_bf16_kernel(
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk)
-      load_stage<FMT, MT>(smem + s * kStage, x, w, m0, n0, s * kBK, M, N,
-                          KW, ldx, ldw);
+      load_stage<MT>(smem + s * kStage, x, w, m0, n0, s * kBK, M, N, KW, ldx,
+                     ldw);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -264,10 +616,10 @@ __global__ void __launch_bounds__(kThreads) qmm_bf16_kernel(
     __syncthreads();              // ... for all; tile kt - 1's slot is free
     const int nxt = kt + kStages - 1;
     if (nxt < nk)
-      load_stage<FMT, MT>(smem + (nxt % kStages) * kStage, x, w, m0, n0,
-                          nxt * kBK, M, N, KW, ldx, ldw);
+      load_stage<MT>(smem + (nxt % kStages) * kStage, x, w, m0, n0,
+                     nxt * kBK, M, N, KW, ldx, ldw);
     cp_async_commit();
-    compute_stage<FMT, MT>(smem + (kt % kStages) * kStage, acc);
+    compute_stage<MT>(smem + (kt % kStages) * kStage, acc);
   }
 
   // epilogue: thread (g, tg) holds rows g, g + 8 and columns 2 tg, 2 tg + 1
@@ -297,7 +649,10 @@ __global__ void __launch_bounds__(kThreads) qmm_bf16_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
 // f32 x: a plain tiled FMA kernel, 16 rows x 64 columns per CTA
+// ---------------------------------------------------------------------------
+
 constexpr int kFM = 16;
 constexpr int kFN = 64;
 constexpr int kFK = 32;
@@ -349,19 +704,86 @@ __global__ void __launch_bounds__(kFThreads) qmm_f32_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+// the 2-D map over a row-major [rows, cols] tensor of `elem`-byte values
+// with row stride `ld` values: boxes of box_cols x box_rows in the 128-byte
+// swizzle, zeros past every edge
+int make_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                int elem, int cols, int rows, long long ld, int box_cols,
+                int box_rows) {
+  const EncodeFn enc = encode_fn();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = enc(map, type, 2, const_cast<void*>(ptr), dims, strides,
+                         box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// `splits` is the host's plan: 1 <= splits <= kQmmMaxSplits, and every
+// split holds at least one of the nk weight tiles
 template <int FMT, int MT>
-int launch_bf16(const void* x, const void* w, const float* scale, void* out,
+int launch_wgmma(const void* x, const void* w, const float* scale, void* out,
+                 int M, int N, int K, long long ldx, long long ldw,
+                 long long ldo, int out_f32, int splits,
+                 cudaStream_t stream) {
+  using L = QmmSmem<MT>;
+  const int nk = (K + kQmmK - 1) / kQmmK;
+  if (nk < 1 || splits < 1 || splits > kQmmMaxSplits || splits > nk)
+    return (int)cudaErrorInvalidValue;
+  const int per = (nk + splits - 1) / splits;
+  if ((nk + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
+  CUtensorMap tw, tx;
+  int err = make_map_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, ldw,
+                        kQmmK, kQmmRows);
+  if (err != 0) return err;
+  err = make_map_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, M, ldx,
+                    64, MT);
+  if (err != 0) return err;
+  const auto kernel = qmm_wgmma_kernel<FMT, MT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (N + kQmmRows - 1) / kQmmRows * ((M + MT - 1) / MT);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * splits);
+  cfg.blockDim = dim3(kQmmThreads);
+  cfg.dynamicSmemBytes = L::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, tw, tx, scale, out, M, N, nk, per,
+                         ldo, out_f32);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int MT>
+int launch_int4(const void* x, const void* w, const float* scale, void* out,
                 int M, int N, int KW, long long ldx, long long ldw,
                 long long ldo, int out_f32, cudaStream_t stream) {
-  constexpr int smem = kStages * stage_bytes(FMT, MT);
+  constexpr int smem = kStages * stage_bytes(MT);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        qmm_bf16_kernel<FMT, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        qmm_int4_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((N + kBN - 1) / kBN, (M + MT * 16 - 1) / (MT * 16));
-  qmm_bf16_kernel<FMT, MT><<<grid, kThreads, smem, stream>>>(
+  qmm_int4_kernel<MT><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
       scale, out, M, N, KW, ldx, ldw, ldo, out_f32);
   return (int)cudaGetLastError();
@@ -370,7 +792,8 @@ int launch_bf16(const void* x, const void* w, const float* scale, void* out,
 template <int FMT>
 int dispatch(const void* x, const void* w, const void* scale, void* out,
              int M, int N, int KW, long long ldx, long long ldw,
-             long long ldo, int x_dtype, int out_dtype, void* stream) {
+             long long ldo, int x_dtype, int out_dtype, int splits,
+             void* stream) {
   if (M == 0 || N == 0) return 0;
   const float* sc = static_cast<const float*>(scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -384,19 +807,40 @@ int dispatch(const void* x, const void* w, const void* scale, void* out,
     return (int)cudaGetLastError();
   }
   if (x_dtype != 0) return (int)cudaErrorInvalidValue;
-  switch (M >= 64 ? 4 : (M + 15) / 16) {
-    case 1:
-      return launch_bf16<FMT, 1>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
-                                 out_f32, s);
-    case 2:
-      return launch_bf16<FMT, 2>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
-                                 out_f32, s);
-    case 3:
-      return launch_bf16<FMT, 3>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
-                                 out_f32, s);
-    default:
-      return launch_bf16<FMT, 4>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
-                                 out_f32, s);
+  if constexpr (FMT == kInt4) {
+    switch (M >= 64 ? 4 : (M + 15) / 16) {
+      case 1:
+        return launch_int4<1>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
+                              out_f32, s);
+      case 2:
+        return launch_int4<2>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
+                              out_f32, s);
+      case 3:
+        return launch_int4<3>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
+                              out_f32, s);
+      default:
+        return launch_int4<4>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
+                              out_f32, s);
+    }
+  } else {
+    // tokens a CTA: M rounded up to 8, at most 64
+#define QMM_CASE(MT)                                                        \
+  case MT / 8:                                                              \
+    return launch_wgmma<FMT, MT>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,    \
+                                 out_f32, splits, s);
+    switch ((min(M, 64) + 7) / 8) {
+      QMM_CASE(8)
+      QMM_CASE(16)
+      QMM_CASE(24)
+      QMM_CASE(32)
+      QMM_CASE(40)
+      QMM_CASE(48)
+      QMM_CASE(56)
+      QMM_CASE(64)
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+#undef QMM_CASE
   }
 }
 
@@ -404,23 +848,26 @@ int dispatch(const void* x, const void* w, const void* scale, void* out,
 
 // x [M, K] (x_dtype 0 = bfloat16, 1 = float32; row stride ldx, unit column
 // stride, rows 16-byte aligned), w [N, K] 8-bit (w_fmt 0 = int8,
-// 1 = float8_e4m3fn, 2 = float8_e5m2; row stride ldw), scale [N] f32,
-// out [M, N] (out_dtype 0 = bfloat16, 1 = float32; row stride ldo).
-// K % 16 == 0. Returns cudaGetLastError() after the launch (0 = launched).
+// 1 = float8_e4m3fn, 2 = float8_e5m2; row stride ldw, rows 16-byte
+// aligned), scale [N] f32, out [M, N] (out_dtype 0 = bfloat16,
+// 1 = float32; row stride ldo). K > 0, K % 16 == 0. splits: the K split of
+// the bf16 kernel (`gemm_plan`); f32 x ignores it. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int quant_matmul(const void* x, const void* w, const void* scale,
                             void* out, int M, int N, int K, long long ldx,
                             long long ldw, long long ldo, int x_dtype,
-                            int w_fmt, int out_dtype, void* stream) {
+                            int w_fmt, int out_dtype, int splits,
+                            void* stream) {
   switch (w_fmt) {
     case kInt8:
       return dispatch<kInt8>(x, w, scale, out, M, N, K, ldx, ldw, ldo,
-                             x_dtype, out_dtype, stream);
+                             x_dtype, out_dtype, splits, stream);
     case kE4M3:
       return dispatch<kE4M3>(x, w, scale, out, M, N, K, ldx, ldw, ldo,
-                             x_dtype, out_dtype, stream);
+                             x_dtype, out_dtype, splits, stream);
     case kE5M2:
       return dispatch<kE5M2>(x, w, scale, out, M, N, K, ldx, ldw, ldo,
-                             x_dtype, out_dtype, stream);
+                             x_dtype, out_dtype, splits, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -434,5 +881,5 @@ extern "C" int quant_matmul_int4(const void* x, const void* w,
                                  long long ldo, int x_dtype, int out_dtype,
                                  void* stream) {
   return dispatch<kInt4>(x, w, scale, out, M, N, K / 2, ldx, ldw, ldo,
-                         x_dtype, out_dtype, stream);
+                         x_dtype, out_dtype, 1, stream);
 }

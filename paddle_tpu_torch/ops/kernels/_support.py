@@ -86,7 +86,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers (`csrc/*.cuh`) are part of every source's key
+    headers = b"".join(p.read_bytes()
+                       for p in sorted(src.parent.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers
+                       + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
 
 

@@ -11,17 +11,26 @@ Both compute `out = (x @ cvt(w).T) * scale` with the Pallas kernels'
 arithmetic: every weight converted to x's dtype, products accumulated in
 f32, the `[N]` scale applied once after the accumulation, the result
 cast to `out_dtype` (x's dtype by default).
+
+With bf16 x and 8-bit weights the kernel splits K over the CTAs of a
+thread-block cluster; `gemm_plan` chooses the split on the host from the
+shape and the card's SM count alone (never from `out_dtype`), and the
+cluster sums its partial tiles in a fixed order, so a call gives the same
+bits every time.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _support
 
 __all__ = ["quant_matmul", "quant_matmul_ref", "quant_matmul_int4",
-           "quant_matmul_int4_ref", "LAUNCHES", "LAUNCHES_INT4"]
+           "quant_matmul_int4_ref", "gemm_plan", "GemmPlan", "LAUNCHES",
+           "LAUNCHES_INT4"]
 
 # launches of the CUDA kernels (one per call on CUDA tensors)
 LAUNCHES = _support.launch_counter("quant_matmul")
@@ -29,6 +38,70 @@ LAUNCHES_INT4 = _support.launch_counter("quant_matmul_int4")
 
 _W_FMT = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+
+# `qmm_wgmma_kernel`'s tiling (csrc/quant_matmul.cu): a CTA owns 128
+# weight rows (output columns) and up to 64 tokens, and streams weight
+# tiles of 128 bytes of K through 4 stages; the CTAs of one column tile
+# form a cluster of at most 8 (the portable cluster size). Up to 40 tokens
+# two CTAs share an SM.
+PLAN_ROWS = 128
+PLAN_K_TILE = 128
+PLAN_MAX_TOKENS = 64
+PLAN_STAGES = 4
+PLAN_MAX_SPLITS = 8
+# a launch of at most 7/4 CTAs an SM: one wave at two CTAs an SM, short of
+# the 256 CTAs at which 8 splits of 32 column tiles measured slower than 7
+PLAN_MAX_CTAS_PER_SM = (7, 4)
+SMEM_PER_BLOCK = 232448           # an H100's opt-in shared memory a CTA
+SMEM_PER_SM = 233472              # ... and an SM's, 1 KB a CTA reserved
+
+
+class GemmPlan(NamedTuple):
+    tokens: int          # tokens a CTA (wgmma's N): M rounded up to 8
+    m_tiles: int
+    n_tiles: int
+    k_tiles: int         # weight tiles of PLAN_K_TILE bytes along K
+    splits: int          # CTAs of a cluster, each one slice of K
+    k_tiles_per_split: int
+    ctas: int
+    smem_bytes: int      # dynamic shared memory a CTA
+    partial_bytes: int   # the f32 partial tile, over the drained stages
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_plan(m: int, n: int, k: int, sms: int) -> GemmPlan:
+    """The K split of the bf16 8-bit kernel for `x [m, k] @ w[n, k].T`
+    on a card of `sms` SMs. Tiles that cover more than half the SMs are
+    not split: a split only adds the cluster's reduction. Fewer tiles
+    take the most splits (at most 8, at most one per weight tile) that
+    keep the launch within 7/4 CTAs an SM. Every split is a whole number
+    of weight tiles (the last one ragged only where K is) and none is
+    empty. A pure function of the shape and the SM count."""
+    tokens = min(PLAN_MAX_TOKENS, _cdiv(max(m, 1), 8) * 8)
+    m_tiles, n_tiles = _cdiv(m, tokens), _cdiv(n, PLAN_ROWS)
+    k_tiles = max(1, _cdiv(k, PLAN_K_TILE))
+    tiles = max(m_tiles * n_tiles, 1)
+    num, den = PLAN_MAX_CTAS_PER_SM
+    splits = 1
+    if 2 * tiles <= sms:
+        splits = max(1, min(PLAN_MAX_SPLITS, k_tiles,
+                            num * sms // (den * tiles)))
+    per = _cdiv(k_tiles, splits)
+    splits = _cdiv(k_tiles, per)
+    stage = PLAN_ROWS * PLAN_K_TILE + 2 * tokens * 128
+    return GemmPlan(tokens, m_tiles, n_tiles, k_tiles, splits, per,
+                    m_tiles * n_tiles * splits,
+                    PLAN_STAGES * stage + 2 * PLAN_STAGES * 8 + 1024,
+                    tokens * (PLAN_ROWS + 4) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def quant_matmul_ref(x2d, wq, scale, out_dtype=None):
@@ -91,15 +164,15 @@ def _check(x2d, wq, scale, out_dtype, int4):
             raise ValueError(f"{name}: wq must be int8 [N, K/2] packed with "
                              f"K % 32 == 0, got {tuple(wq.shape)} "
                              f"{wq.dtype} against K = {k}")
-    elif wq.dtype not in _W_FMT or kw != k or k % 16:
+    elif wq.dtype not in _W_FMT or kw != k or k % 16 or k == 0:
         raise ValueError(f"{name}: wq must be int8/float8 [N, K] with "
-                         f"K % 16 == 0, got {tuple(wq.shape)} {wq.dtype} "
-                         f"against K = {k}")
+                         f"K % 16 == 0 and K > 0, got {tuple(wq.shape)} "
+                         f"{wq.dtype} against K = {k}")
     if scale.dtype != torch.float32 or scale.shape != (n,) \
             or not scale.is_contiguous():
         raise ValueError(f"{name}: scale must be a contiguous f32 [{n}], "
                          f"got {tuple(scale.shape)} {scale.dtype}")
-    # 16-byte rows: the kernel stages x and wq with 16-byte copies
+    # 16-byte rows: the kernels read x and wq by TMA or 16-byte copies
     if x2d.stride(1) != 1 or (x2d.stride(0) * x2d.element_size()) % 16 \
             or x2d.data_ptr() % 16:
         raise ValueError(f"{name}: x rows must be 16-byte aligned with a "
@@ -115,25 +188,36 @@ def _lib(int4):
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p] * 4 + [i] * 3 + [ll] * 3 + \
-            ([i, i] if int4 else [i, i, i]) + [p]
+            ([i, i] if int4 else [i, i, i, i]) + [p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _kernel_args(x2d, wq, scale, out, int4, sms):
+    """The C entry point's arguments but the stream: pointers, shape,
+    strides, dtype codes and (8-bit weights) the split of `gemm_plan`."""
+    m, k = x2d.shape
+    n = wq.shape[0]
+    if int4:
+        codes = (_DTYPE_CODE[x2d.dtype], _DTYPE_CODE[out.dtype])
+    else:
+        codes = (_DTYPE_CODE[x2d.dtype], _W_FMT[wq.dtype],
+                 _DTYPE_CODE[out.dtype], gemm_plan(m, n, k, sms).splits)
+    return (x2d.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, n, k, x2d.stride(0), wq.stride(0), out.stride(0), *codes)
 
 
 def _launch(x2d, wq, scale, out_dtype, int4):
     out_dtype = out_dtype or x2d.dtype
     _check(x2d, wq, scale, out_dtype, int4)
-    m, k = x2d.shape
-    n = wq.shape[0]
-    out = torch.empty((m, n), dtype=out_dtype, device=x2d.device)
+    out = torch.empty((x2d.shape[0], wq.shape[0]), dtype=out_dtype,
+                      device=x2d.device)
     fn = _lib(int4)
-    codes = (_DTYPE_CODE[x2d.dtype], _DTYPE_CODE[out_dtype]) if int4 else \
-        (_DTYPE_CODE[x2d.dtype], _W_FMT[wq.dtype], _DTYPE_CODE[out_dtype])
     with torch.cuda.device(x2d.device):
+        args = _kernel_args(x2d, wq, scale, out, int4,
+                            _sm_count(torch.cuda.current_device()))
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        rc = fn(x2d.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), m, n, k, x2d.stride(0), wq.stride(0),
-                out.stride(0), *codes, stream)
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{'quant_matmul_int4' if int4 else 'quant_matmul'}"
                            f" launch failed: CUDA error {rc}")

@@ -1,0 +1,246 @@
+"""Time the flash attention kernels and the int8 weight-only gemm of two
+checkouts on one card, in turns.
+
+    python -m paddle_tpu_torch.tools.kernel_compare --parent DIR \\
+        [--out kernel_compare.json]
+    python -m paddle_tpu_torch.tools.kernel_compare --sweep-splits \\
+        [--out split_sweep.json]
+
+`DIR` is another checkout of the repository (e.g. `git archive` of the
+parent commit unpacked under `build/`). Four processes run one after
+another: the other checkout, this one, this one, the other. Each imports
+`paddle_tpu_torch` from its own tree (so it builds that tree's kernels
+into that tree's `build/`), times `flash_attention_fwd`,
+`flash_attention_dq` and `flash_attention_dkv` on the same seeded inputs
+at each shape of `SHAPES`, and `quant_matmul` (int8 weights, bf16 x,
+M = 40) at each shape of `GEMM_SHAPES` (median device time of one call
+with a cold L2, as `chip_smoke.py` times; the gemm also after an L2
+left clean), and prints one JSON line. `--sweep-splits` times this
+tree's gemm at every K split the kernel takes (1 .. 8) beside the one
+`gemm_plan` picks. The script prints the card's
+name and power limit, then one JSON object with every run, and writes it
+to `--out` when given. Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# (B, S, H, KVH, D, causal): the training shape, with GQA, past the JAX
+# package's K/V streaming switch, several ragged tiles, the 64-column
+# instance
+SHAPES = {
+    "train_mha": (4, 2048, 32, 32, 128, True),
+    "train_gqa": (4, 2048, 32, 8, 128, True),
+    "stream_17408": (1, 17408, 2, 1, 128, True),
+    "edge_bf16": (2, 1000, 8, 2, 128, True),
+    "d64_bf16": (4, 2048, 16, 16, 64, True),
+}
+KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+           "flash_attention_dkv")
+# the gemm's device time after a write that leaves L2 full of dirty lines
+# (`chip_smoke.time_ms`) and after a read that leaves it clean, and the
+# host's time to enqueue one call (the serving step is host-bound)
+GEMM_KERNELS = ("quant_matmul", "quant_matmul_clean_l2",
+                "quant_matmul_host_us")
+# M = 40 packed tokens against Llama-2-7B's projections [N, K] and its
+# untied head (the serving step's weight-only gemms)
+GEMM_SHAPES = {"qkv": (12288, 4096), "o": (4096, 4096),
+               "gate_up": (22016, 4096), "down": (4096, 11008),
+               "head": (32000, 4096)}
+GEMM_M = 40
+
+
+def _time_ms(fn, flush, reps=30, clean=None):
+    """`chip_smoke.time_ms`, copied: a worker imports nothing from its
+    tree but the kernel wrappers both trees have. With `clean` (a 256 MB
+    tensor) the write that evicts L2 is followed by a read of `clean`, so
+    the call finds L2 holding clean lines instead of the write's dirty
+    ones, which it would otherwise write back while it runs."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        if clean is not None:
+            clean.max()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _gemm_inputs(n, k, dev):
+    """Seeded int8 weights [n, k] with their scales and bf16 x [40, k]."""
+    import torch
+    from paddle_tpu_torch.nn import quant as nq
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    w = torch.randn((n, k), generator=g, device=dev) * 0.02
+    x = torch.randn((GEMM_M, k), generator=g, device=dev).to(torch.bfloat16)
+    q, s = nq.per_channel_quantize(w, "weight_only_int8")
+    return x, q, s
+
+
+def worker():
+    """One timing run of the `paddle_tpu_torch` on `sys.path`."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    out = {"tree": str(Path(fa.__file__).resolve().parents[3])}
+    for name, (b, s, h, kvh, d, causal) in SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(10)
+        q, k, v, do = (torch.randn((b, s, n, d), generator=g, device=dev)
+                       .to(torch.bfloat16) for n in (h, kvh, kvh, h))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        args = (q, k, v, do, lse, delta, causal)
+        out[name] = {
+            "flash_attention_fwd": _time_ms(
+                lambda: fa.flash_attention_fwd(q, k, v, causal), flush),
+            "flash_attention_dq": _time_ms(
+                lambda: fa.flash_attention_dq(*args), flush),
+            "flash_attention_dkv": _time_ms(
+                lambda: fa.flash_attention_dkv(*args), flush)}
+        del q, k, v, do, o, lse, delta, args
+        torch.cuda.empty_cache()
+    clean = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
+    for name, (n, k) in GEMM_SHAPES.items():
+        x, wq, s = _gemm_inputs(n, k, dev)
+
+        def call():
+            return qm.quant_matmul(x, wq, s)
+        call()                      # the first call builds the library
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        out[f"gemm_{name}"] = dict(zip(GEMM_KERNELS, (
+            _time_ms(call, flush), _time_ms(call, flush, clean=clean),
+            host_us)))
+        del x, wq, s
+    print(json.dumps(out), flush=True)
+
+
+def sweep_splits():
+    """This tree's int8 gemm at every K split (one launch each through
+    the C entry point) at each of `GEMM_SHAPES`."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    clean = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
+    fn = qm._lib(False)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    res = {}
+    for name, (n, k) in GEMM_SHAPES.items():
+        x, wq, s = _gemm_inputs(n, k, dev)
+        out = torch.empty((GEMM_M, n), dtype=torch.bfloat16, device=dev)
+        plan = qm.gemm_plan(GEMM_M, n, k, sms)
+        want = qm.quant_matmul_ref(x, wq, s)
+        base = qm._kernel_args(x, wq, s, out, False, sms)[:-1]
+        ms = {}
+        for splits in range(1, min(qm.PLAN_MAX_SPLITS, plan.k_tiles) + 1):
+            per = -(-plan.k_tiles // splits)
+            if -(-plan.k_tiles // per) != splits:
+                continue            # the kernel refuses an empty split
+
+            def call(splits=splits):
+                rc = fn(*base, splits, stream)
+                if rc != 0:
+                    raise RuntimeError(f"quant_matmul: CUDA error {rc}")
+            call()
+            torch.cuda.synchronize()
+            err = float((out.float() - want.float()).abs().max())
+            if not err <= 2.0 ** -7 * float(want.float().abs().max()):
+                raise AssertionError(f"{name} splits {splits}: err {err}")
+            ms[splits] = [_time_ms(call, flush),
+                          _time_ms(call, flush, clean=clean)]
+        res[name] = {"N": n, "K": k, "planned": plan.splits,
+                     "ctas_per_split": plan.m_tiles * plan.n_tiles,
+                     "ms_dirty_clean_l2": ms}
+        del x, wq, s, out, want
+    return {"sms": sms, "gemm": res}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", default=None,
+                    help="another checkout of the repository")
+    ap.add_argument("--sweep-splits", action="store_true")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    a = ap.parse_args(argv)
+    if a.worker:
+        worker()
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_compare needs a CUDA card", file=sys.stderr)
+        return 1
+    if a.parent is None and not a.sweep_splits:
+        ap.error("give --parent DIR or --sweep-splits")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    if a.sweep_splits:
+        result["sweep"] = sweep_splits()
+    else:
+        here = Path(__file__).resolve().parents[2]
+        other = Path(a.parent).resolve()
+        runs = []
+        for label, tree in (("parent", other), ("change", here),
+                            ("change", here), ("parent", other)):
+            env = dict(os.environ, PYTHONPATH=str(tree))
+            r = subprocess.run([sys.executable, __file__, "--worker"],
+                               cwd=tree, env=env, capture_output=True,
+                               text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"the {label} worker failed:\n{r.stderr}")
+            run = json.loads(r.stdout.strip().splitlines()[-1])
+            run["label"] = label
+            runs.append(run)
+            print(json.dumps(run), flush=True)
+        cases = [(name, k) for name in SHAPES for k in KERNELS] + \
+            [(f"gemm_{name}", k) for name in GEMM_SHAPES
+             for k in GEMM_KERNELS]
+        summary = {}
+        for name, k in cases:
+            summary.setdefault(name, {})[k] = {
+                lab: [r[name][k] for r in runs if r["label"] == lab]
+                for lab in ("parent", "change")}
+        result.update(order=[r["label"] for r in runs], ms=summary)
+    text = json.dumps(result)
+    if a.out:
+        Path(a.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(a.out).write_text(text + "\n")
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

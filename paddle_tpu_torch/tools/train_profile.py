@@ -32,7 +32,7 @@ from .train_workload import (BATCH, LAYERS, SEQ, SPLIT, TOKENS,
 BF16_PEAK = 989e12
 PROFILED_STEPS = 2
 
-_CLASSES = (("flash_attention", ("fwd_wgmma_kernel", "dq_mma_kernel",
+_CLASSES = (("flash_attention", ("fwd_wgmma_kernel", "dq_wgmma_kernel",
                                  "dkv_wgmma_kernel")),
             ("rms_norm", ("rms_norm_kernel",)),
             ("matmul", ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")))

@@ -275,12 +275,15 @@ _GEMM_TOL = dict(atol=1e-3, rtol=1e-4)
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("fmt", ["int8", "e4m3", "e5m2", "int4"])
 @pytest.mark.parametrize("m,n,k", [(1, 8, 32), (17, 100, 96),
-                                   (40, 130, 4096), (70, 64, 224)])
+                                   (40, 130, 4096), (70, 64, 224),
+                                   (40, 4096, 11008), (3, 4096, 4096),
+                                   (257, 12288, 4096)])
 def test_gemm_kernels_match_plain_versions(fmt, x_dtype, m, n, k):
     """Ragged M and N (edge-masked tiles), K short of, at and past one
-    64-byte K tile; f32 output against the plain version, and the bf16
-    output equal to the f32 output rounded (one accumulation, one
-    rounding)."""
+    64-byte K tile; K split over a cluster of 8 (the `down` shape, and 3
+    tokens), and five token tiles; f32 output against the plain version,
+    and the bf16 output equal to the f32 output rounded (one
+    accumulation, one rounding)."""
     dev = _card()
     x, wq, s = _gemm_case(dev, m, n, k, fmt, x_dtype)
     int4 = fmt == "int4"
@@ -296,6 +299,24 @@ def test_gemm_kernels_match_plain_versions(fmt, x_dtype, m, n, k):
     ref = ref_fn(x, wq, s, out_dtype=torch.float32)
     torch.testing.assert_close(out32, ref, **_GEMM_TOL)
     torch.testing.assert_close(out, out32.to(x_dtype), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "e4m3", "e5m2", "int4"])
+def test_gemm_repeat_bit_for_bit(fmt):
+    """No atomics: the split-K partials are summed in a fixed order, so
+    two calls give the same bits, in both output dtypes."""
+    dev = _card()
+    m, n, k = 40, 4096, 11008
+    x, wq, s = _gemm_case(dev, m, n, k, fmt, torch.bfloat16, seed=4)
+    fn = qm.quant_matmul_int4 if fmt == "int4" else qm.quant_matmul
+    if fmt != "int4":
+        assert qm.gemm_plan(m, n, k, torch.cuda.get_device_properties(
+            dev).multi_processor_count).splits > 1
+    for out_dtype in (torch.float32, torch.bfloat16):
+        a = fn(x, wq, s, out_dtype=out_dtype)
+        b = fn(x, wq, s, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
 
 
 def test_gemm_wrappers_refuse_what_the_kernels_do_not_take():
@@ -364,6 +385,9 @@ FLASH_CASES = {
     "multi_tile_causal": (2, 1000, 1000, 8, 2, 128, True, None),
     # G = 8, D padded to 128 columns, a kv_lens tail inside a tile
     "gqa8_d96": (2, 384, 384, 16, 2, 96, True, [384, 201]),
+    # Sq not a multiple of the 128-row q tile, an empty sequence (its dq
+    # exactly 0), D padded to 128 columns
+    "ragged_empty_d80": (3, 200, 200, 8, 4, 80, True, [200, 0, 77]),
 }
 
 
