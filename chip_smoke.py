@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (`paddle_tpu_torch`) on one NVIDIA
 card: builds the CUDA kernels from `paddle_tpu_torch/csrc/` (and fails if
 ptxas spills in a warp-specialised `wgmma` kernel: the flash forward, dQ
-and dK/dV, and the split-K weight-only gemm), holds each
+and dK/dV, and the split-K weight-only gemm in every weight format and
+token tile), holds each
 kernel against its plain PyTorch version at the serving shapes (the
 ragged paged attention over a bf16/f32 pool and over an int8 pool, the
 paged decode and verify attention, the verify also against the ragged
@@ -138,7 +139,8 @@ def phase_build():
     wgmma = {f"{src}:{f}": v for src, fns in ptxas.items()
              for f, v in fns.items() if "wgmma" in f}
     missing = sorted(set(WGMMA_KERNELS)
-                     - {f.split(":")[1].split("<")[0] for f in wgmma})
+                     - {f.split(":")[1].split("<")[0] for f in wgmma}) + \
+        sorted(set(QMM_INSTANCES) - {f.split(":")[1] for f in wgmma})
     spilled = [f for f, v in wgmma.items()
                if " 0 bytes spill stores" not in v.get("spill", "")]
     emit({"phase": "build", "seconds": secs, "sources": sorted(built),
@@ -152,6 +154,10 @@ def phase_build():
 # the warp-specialised kernels whose every instance must not spill
 WGMMA_KERNELS = ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel",
                  "qmm_wgmma_kernel")
+# the gemm's instances: every weight format (int8, e4m3, e5m2, int4) at
+# every token tile
+QMM_INSTANCES = tuple(f"qmm_wgmma_kernel<{fmt},{mt}>" for fmt in range(4)
+                      for mt in range(8, 65, 8))
 
 
 def _ptxas_by_function(log):
@@ -515,7 +521,7 @@ def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16):
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS
                                    if x_dtype == torch.bfloat16 else
                                    F32_FLOPS)
-        split_k = not int4 and x_dtype == torch.bfloat16
+        split_k = x_dtype == torch.bfloat16
         results[f"{name}_{fmt}" + ("" if x_dtype == torch.bfloat16
                                    else "_f32")] = {
             "N": n, "K": k, "M": GEMM_M, "tol": tol,
@@ -523,8 +529,8 @@ def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16):
             "plain_ms": plain_ms, "library_ms": library_ms,
             "weight_bytes": w_bytes, "bytes": nbytes, "flops": flops,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "splits": qm.gemm_plan(GEMM_M, n, k, sms).splits if split_k
-            else 1,
+            "splits": qm.gemm_plan(GEMM_M, n, k, sms, int4).splits
+            if split_k else 1,
             "gb_per_s": nbytes / kernel_ms / 1e6,
             "bound_fraction": bound_ms / kernel_ms,
             "repeat_bit_equal": True}
@@ -1310,18 +1316,21 @@ def phase_flash():
 
 def phase_rms():
     """The RMSNorm kernel at [8192, 4096] (the training step's rows) in
-    bf16 and f32 against `rms_norm_ref`: bf16 within one bf16 ulp of the
-    output's largest magnitude, f32 within 1e-6 relative; `library_ms` is
-    `F.rms_norm`."""
+    bf16 and f32, and at [8192, 8192] (Llama-2-70B's width) in bf16,
+    against `rms_norm_ref`: bf16 within one bf16 ulp of the output's
+    largest magnitude, f32 within 1e-6 relative, a repeat bit-equal;
+    `library_ms` is `F.rms_norm`."""
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
 
     gen = torch.Generator(device="cuda").manual_seed(12)
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
     results = {}
-    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        x = (2 * torch.randn((8192, 4096), generator=gen,
+    for name, dtype, h in (("bf16", torch.bfloat16, 4096),
+                           ("f32", torch.float32, 4096),
+                           ("h8192_bf16", torch.bfloat16, 8192)):
+        x = (2 * torch.randn((8192, h), generator=gen,
                              device="cuda")).to(dtype)
-        w = (1 + 0.1 * torch.randn((4096,), generator=gen,
+        w = (1 + 0.1 * torch.randn((h,), generator=gen,
                                    device="cuda")).to(dtype)
         y = rn.rms_norm_fwd(x, w, 1e-6)
         ref = rn.rms_norm_ref(x, w, 1e-6)
@@ -1340,19 +1349,22 @@ def phase_rms():
         if not ok:
             raise AssertionError(f"rms_norm {name}: kernel != plain "
                                  f"version, max abs err {err}")
+        # a row's sum runs in a fixed order: a repeat is bit-equal
+        if not torch.equal(y, rn.rms_norm_fwd(x, w, 1e-6)):
+            raise AssertionError(f"rms_norm {name}: a repeat call differs")
         nbytes = 2 * x.numel() * x.element_size() + w.numel() * \
             w.element_size()
         flops = 4 * x.numel()
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS
                                    if dtype == torch.bfloat16 else F32_FLOPS)
         results[name] = {
-            "shape": [8192, 4096], "max_abs_err": err,
+            "shape": [8192, h], "max_abs_err": err,
             "kernel_ms": time_ms(lambda: rn.rms_norm_fwd(x, w, 1e-6), flush),
             "plain_ms": time_ms(lambda: rn.rms_norm_ref(x, w, 1e-6), flush),
             "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(
-                x, (4096,), w, 1e-6), flush),
+                x, (h,), w, 1e-6), flush),
             "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "repeat_bit_equal": True}
         del x, w, y, ref
     del flush
     release()
@@ -2229,7 +2241,8 @@ def main():
              splits=int8["qkv_int8"]["splits"]),
         _row("quant_matmul_int4", gemm_src,
              "paddle_tpu/ops/pallas/quant_matmul.py:115",
-             l4["quant_matmul_int4"], int4["qkv_int4"]),
+             l4["quant_matmul_int4"], int4["qkv_int4"],
+             splits=int4["qkv_int4"]["splits"]),
         *[_row(name, FLASH_SRC, f"{FA_PY}:{line}", train_launches[name],
                flash["train_mha"][name], also_replaces=f"{FA_PY}:{also}")
           for name, line, also in (("flash_attention_fwd", 49, 424),

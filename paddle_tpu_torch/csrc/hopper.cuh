@@ -71,6 +71,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap& map,
       : "memory");
 }
 
+// one box of a 3-D tensor map at (x0, y0, z0), as tma_load_2d
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap& map,
+                                            uint64_t* bar, int x0, int y0,
+                                            int z0) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_addr(bar)), "r"(x0),
+      "r"(y0), "r"(z0)
+      : "memory");
+}
+
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }

@@ -17,25 +17,37 @@
 //
 // Bound on an H100 at the serving shapes: bytes. The serving step packs
 // M = 40 tokens against a weight read once: 2 * M flops per weight byte
-// (int8) is far below the ~295 flop/byte ridge, so the floor is streaming
-// the weight from device memory once, at 3.35 TB/s.
+// (int8; 4 * M for int4) is below the ~295 flop/byte ridge, so the floor
+// is streaming the weight from device memory once, at 3.35 TB/s.
 //
-// 8-bit weights with bf16 x (`qmm_wgmma_kernel`): split-K `wgmma` fed by
-// TMA, reduced inside a thread-block cluster.
+// Every weight format with bf16 x (`qmm_wgmma_kernel`): split-K `wgmma`
+// fed by TMA, reduced inside a thread-block cluster.
 //   - A CTA owns 128 weight rows (output columns), the tokens' rows of one
 //     m tile and one of S slices of K. Its weight tiles (128 rows x 128
-//     bytes) and the matching x tiles (tokens x 128 columns) stream through
-//     four stages of shared memory by `cp.async.bulk.tensor` (2-D maps over
-//     the tensors as they lie, 128-byte swizzle, zeros past every edge),
-//     issued by one producer warp behind full / empty mbarriers: 64 KB of
-//     weight in flight per CTA, two CTAs per SM up to 40 tokens.
+//     bytes) and the matching x tiles stream through the stages of shared
+//     memory by `cp.async.bulk.tensor` (128-byte swizzle, zeros past every
+//     edge), issued by one producer warp behind full / empty mbarriers.
+//     8-bit: four stages, each a weight tile (128 k values) and x's two
+//     64-column boxes (2-D maps over the tensors as they lie). int4: three
+//     stages, each a tile of 128 packed bytes (256 k values: byte c holds
+//     k column k0 + c in its low nibble and K / 2 + k0 + c in its high one)
+//     and four x boxes, columns [k0, k0 + 128) and [K / 2 + k0, ...), read
+//     through a 3-D map over x viewed as [M, 2, K / 2], so that each half
+//     is clipped (zero-filled) at K / 2 by the hardware. Two CTAs share an
+//     SM up to 40 tokens in both: 64 KB (8-bit) or 48 KB (int4) of weight
+//     in flight per CTA.
 //   - The weight is wgmma's A operand, 64 rows per consumer warpgroup
 //     (two of them): each thread reads its fragments' bytes from the
 //     swizzled tile (conflict-free: the swizzle phase of its rows is its
 //     group id) and converts them exactly to bf16 in registers (int8
-//     through the f32 magic number 2^23, e4m3 / e5m2 through f16) for an
-//     RS `wgmma` whose N is the tokens (M rounded up to 8, at most 64; more
-//     tokens take more m tiles) and whose B is x's tile, K-major as it lies.
+//     through the f32 magic number 2^23, e4m3 / e5m2 through f16, int4 by
+//     one byte permute and one logic op per bf16 pair: the nibble n, xored
+//     with 8 into the mantissa of bf16 128, is 128 + (n ^ 8), and one
+//     bf16x2 fma subtracts 136) for an RS `wgmma` whose N is the tokens (M
+//     rounded up to 8, at most 64; more tokens take more m tiles) and
+//     whose B is x's tile, K-major as it lies. int4 converts and multiplies
+//     a tile in two halves, so its fragments take the registers the 8-bit
+//     formats' do.
 //   - The S CTAs of one 128-column tile form a cluster (S <= 8, chosen on
 //     the host by `gemm_plan` in ops/kernels/quant_matmul.py so that the
 //     launch puts about two CTAs on each SM). Each leaves its f32 partial
@@ -44,13 +56,6 @@
 //     applies the scale and writes the output once: one launch, no
 //     workspace, no atomics, the same bits every run, and a bf16 output
 //     equal to the f32 output rounded.
-// int4 weights with bf16 x (`qmm_int4_kernel`): CTAs tile N (64 output
-// columns each) and loop over all of K; a 4-stage cp.async ring stages the
-// packed w [64 columns, 64 bytes] tile and both x slices it pairs with
-// (columns [kk, kk + 64) for the low nibbles, [K/2 + kk, ...) for the high
-// ones), and each of 4 warps multiplies 16 output columns with mma.sync
-// m16n8k16, the nibbles converted to bf16 as the B fragments are built, so
-// the weight is never repacked.
 // With f32 x (reference and parity configurations) a plain tiled f32 FMA
 // kernel does the same arithmetic.
 
@@ -98,11 +103,6 @@ __device__ __forceinline__ float wval(const uint8_t* row, int k, int KW) {
   }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float2 f) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(f.x, f.y);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ void store_out(void* out, long long i, float v,
                                           int out_f32) {
   if (out_f32)
@@ -112,28 +112,32 @@ __device__ __forceinline__ void store_out(void* out, long long i, float v,
 }
 
 // ---------------------------------------------------------------------------
-// 8-bit weights, bf16 x: split-K wgmma fed by TMA, reduced in a cluster
+// bf16 x: split-K wgmma fed by TMA, reduced in a cluster
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 128;
 constexpr int kQmmThreads = 2 * kWgThreads + 32;   // 2 consumers, 1 producer
 constexpr int kQmmRows = 128;         // weight rows (output columns) a CTA
-constexpr int kQmmK = 128;            // weight bytes (k values) a stage
-constexpr int kQmmStages = 4;
+constexpr int kQmmK = 128;            // weight bytes a stage
 constexpr int kQmmMaxSplits = 8;      // the portable cluster size
 constexpr int kQmmPitch = kQmmRows + 4;   // the partial tile's f32 rows
 
-// shared memory for MT tokens: kQmmStages stages of a weight tile
-// [128 rows][128 B] and two x tiles [MT rows][64 bf16] (128-byte swizzle,
-// 1024-byte aligned), then the barriers; the f32 partial tile
-// [MT][kQmmPitch] reuses the stages once they are drained
-template <int MT>
+// shared memory for format FMT and MT tokens: kStages stages of a weight
+// tile [128 rows][128 B] and kXBoxes x boxes [MT rows][64 bf16] (128-byte
+// swizzle, 1024-byte aligned), then the barriers; the f32 partial tile
+// [MT][kQmmPitch] reuses the stages once they are drained. A stage holds
+// 128 k values of an 8-bit weight and 256 of an int4 one, so int4 stages
+// carry twice x's columns, and one stage fewer keeps two CTAs an SM up to
+// 40 tokens.
+template <int FMT, int MT>
 struct QmmSmem {
+  static constexpr int kStages = FMT == kInt4 ? 3 : 4;
+  static constexpr int kXBoxes = FMT == kInt4 ? 4 : 2;
   static constexpr int kW = kQmmRows * kQmmK;
   static constexpr int kXChunk = MT * 128;
-  static constexpr int kStage = kW + 2 * kXChunk;
-  static constexpr int kBar = kQmmStages * kStage;
-  static constexpr int kBytes = kBar + 2 * kQmmStages * 8 + 1024;
+  static constexpr int kStage = kW + kXBoxes * kXChunk;
+  static constexpr int kBar = kStages * kStage;
+  static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;
   static_assert(MT % 8 == 0 && MT * kQmmPitch * 4 <= kBar, "");
 };
 
@@ -161,6 +165,42 @@ __device__ __forceinline__ void cvt4<kInt8>(uint32_t v, uint32_t& lo,
            8388736.f;
   lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
   hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// four stored int4 bytes (bytes b0..b3 of v), exactly, as four bf16
+// pairs: lo01 = the low nibbles of (b0, b1), lo23 of (b2, b3), hi01 and
+// hi23 their high nibbles. A nibble n in the low bits of a 16-bit lane,
+// xored with 8 and or-ed into bf16 128 (0x4300; the ulp there is 1), is
+// the bf16 128 + (n ^ 8); subtracting 136 leaves (n ^ 8) - 8, the signed
+// nibble.
+__device__ __forceinline__ uint32_t nib_bf16x2(uint32_t t) {
+  uint32_t d;
+  const uint32_t v = (t & 0x000F000Fu) ^ 0x43084308u;
+  // v * 1 + (-136), both lanes; exact
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d)
+      : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return d;
+}
+__device__ __forceinline__ void cvt_int4(uint32_t v, uint32_t& lo01,
+                                         uint32_t& lo23, uint32_t& hi01,
+                                         uint32_t& hi23) {
+  const uint32_t p01 = __byte_perm(v, 0, 0x4140);   // b0, 0, b1, 0
+  const uint32_t p23 = __byte_perm(v, 0, 0x4342);   // b2, 0, b3, 0
+  lo01 = nib_bf16x2(p01);
+  lo23 = nib_bf16x2(p23);
+  hi01 = nib_bf16x2(p01 >> 4);
+  hi23 = nib_bf16x2(p23 >> 4);
+}
+
+// keeps wgmma's A registers unchanged until its wg_wait: the compiler does
+// not know that an asynchronous product still reads them
+template <int N>
+__device__ __forceinline__ void pin_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
 __device__ __forceinline__ uint32_t ld2(const unsigned char* p) {
@@ -341,12 +381,13 @@ __global__ void __launch_bounds__(kQmmThreads, 2) qmm_wgmma_kernel(
     const __grid_constant__ CUtensorMap tx, const float* __restrict__ scale,
     void* __restrict__ out, int M, int N, int nk, int per, long long ldo,
     int out_f32) {
-  using L = QmmSmem<MT>;
+  using L = QmmSmem<FMT, MT>;
+  constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
-  uint64_t* empty = full + kQmmStages;
+  uint64_t* empty = full + kStages;
   const int splits = cluster_size(), rank = cluster_rank();
   const int tile = blockIdx.x / splits;
   const int n_tiles = (N + kQmmRows - 1) / kQmmRows;
@@ -359,7 +400,7 @@ __global__ void __launch_bounds__(kQmmThreads, 2) qmm_wgmma_kernel(
   const float sc = n0 + col < N ? scale[n0 + col] : 0.f;
 
   if (tid == 0) {
-    for (int s = 0; s < kQmmStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, 2 * kWgThreads);
     }
@@ -373,14 +414,24 @@ __global__ void __launch_bounds__(kQmmThreads, 2) qmm_wgmma_kernel(
     // the producer warp: one thread keeps the ring full
     if (tid == 2 * kWgThreads) {
       for (int j = 0; j < nc; ++j) {
-        const int st = j % kQmmStages;
-        mbar_wait(empty + st, ((j / kQmmStages) & 1) ^ 1);
+        const int st = j % kStages;
+        mbar_wait(empty + st, ((j / kStages) & 1) ^ 1);
         unsigned char* stage = sm + st * L::kStage;
         const int k0 = (c0 + j) * kQmmK;
         mbar_expect_tx(full + st, L::kStage);
         tma_load_2d(stage, tw, full + st, k0, n0);
-        tma_load_2d(stage + L::kW, tx, full + st, k0, m0);
-        tma_load_2d(stage + L::kW + L::kXChunk, tx, full + st, k0 + 64, m0);
+        if constexpr (FMT == kInt4) {
+          // x boxes: columns k0, k0 + 64 of the low half, then the same of
+          // the high half (the 3-D map's middle coordinate)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            tma_load_3d(stage + L::kW + b * L::kXChunk, tx, full + st,
+                        k0 + 64 * (b & 1), b >> 1, m0);
+        } else {
+          tma_load_2d(stage + L::kW, tx, full + st, k0, m0);
+          tma_load_2d(stage + L::kW + L::kXChunk, tx, full + st, k0 + 64,
+                      m0);
+        }
       }
     }
     __syncwarp();
@@ -388,35 +439,66 @@ __global__ void __launch_bounds__(kQmmThreads, 2) qmm_wgmma_kernel(
     // a consumer warpgroup: weight rows 64 wg .. 64 wg + 63 of the tile.
     // Thread (g, tg) of warp w builds the A fragments of rows
     // r = 64 wg + 16 w + g and r + 8, whose swizzle phase (r & 7) is g:
-    // bytes 16 s + 2 tg, +1 and 16 s + 2 tg + 8, +9 for k step s
+    // bytes 16 s + 2 tg, +1 and 16 s + 2 tg + 8, +9 for byte step s
     const int t = tid % kWgThreads, lane = t & 31;
     const int g = lane >> 2, tg = lane & 3;
     const int r = 64 * wg + 16 * (t >> 5) + g;
     for (int j = 0; j < nc; ++j) {
-      const int st = j % kQmmStages;
-      mbar_wait(full + st, (j / kQmmStages) & 1);
+      const int st = j % kStages;
+      mbar_wait(full + st, (j / kStages) & 1);
       const unsigned char* stage = sm + st * L::kStage;
       const unsigned char* w0 = stage + r * kQmmK + 2 * tg;
       const unsigned char* w1 = w0 + 8 * kQmmK;
-      uint32_t a[kQmmK / 16][4];
-#pragma unroll
-      for (int s = 0; s < kQmmK / 16; ++s) {
-        const int o = (s ^ g) << 4;
-        cvt4<FMT>(ld2(w0 + o) | ld2(w0 + o + 8) << 16, a[s][0], a[s][2]);
-        cvt4<FMT>(ld2(w1 + o) | ld2(w1 + o + 8) << 16, a[s][1], a[s][3]);
-      }
-      // x's tile: step s reads columns 16 s .. 16 s + 15, in the half
-      // tile s / 4 at byte 32 (s % 4) of its 128-byte rows
+      // x's tile: byte step s reads columns 16 s .. 16 s + 15 (of each
+      // half, int4), in box s / 4 at byte 32 (s % 4) of its 128-byte rows
       const uint32_t xa = smem_addr(stage + L::kW);
-      wg_fence();
+      if constexpr (FMT == kInt4) {
+        // two halves of four byte steps; a step's low nibbles multiply
+        // the low half's box h, its high nibbles the high half's box 2 + h
 #pragma unroll
-      for (int s = 0; s < kQmmK / 16; ++s)
-        wgmma_rs_kmajor<MT>(
-            acc, a[s],
-            kmajor_desc(xa + (s >> 2) * L::kXChunk + (s & 3) * 32));
-      wg_commit();
-      wg_wait<0>();
-      fence_regs(acc);
+        for (int h = 0; h < 2; ++h) {
+          uint32_t lo[4][4], hi[4][4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int o = ((4 * h + q) ^ g) << 4;
+            cvt_int4(ld2(w0 + o) | ld2(w0 + o + 8) << 16, lo[q][0],
+                     lo[q][2], hi[q][0], hi[q][2]);
+            cvt_int4(ld2(w1 + o) | ld2(w1 + o + 8) << 16, lo[q][1],
+                     lo[q][3], hi[q][1], hi[q][3]);
+          }
+          wg_fence();
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            wgmma_rs_kmajor<MT>(
+                acc, lo[q], kmajor_desc(xa + h * L::kXChunk + q * 32));
+            wgmma_rs_kmajor<MT>(
+                acc, hi[q],
+                kmajor_desc(xa + (2 + h) * L::kXChunk + q * 32));
+          }
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(acc);
+          pin_regs(lo);
+          pin_regs(hi);
+        }
+      } else {
+        uint32_t a[kQmmK / 16][4];
+#pragma unroll
+        for (int s = 0; s < kQmmK / 16; ++s) {
+          const int o = (s ^ g) << 4;
+          cvt4<FMT>(ld2(w0 + o) | ld2(w0 + o + 8) << 16, a[s][0], a[s][2]);
+          cvt4<FMT>(ld2(w1 + o) | ld2(w1 + o + 8) << 16, a[s][1], a[s][3]);
+        }
+        wg_fence();
+#pragma unroll
+        for (int s = 0; s < kQmmK / 16; ++s)
+          wgmma_rs_kmajor<MT>(
+              acc, a[s],
+              kmajor_desc(xa + (s >> 2) * L::kXChunk + (s & 3) * 32));
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(acc);
+      }
       mbar_arrive(empty + st);
     }
   }
@@ -448,205 +530,6 @@ __global__ void __launch_bounds__(kQmmThreads, 2) qmm_wgmma_kernel(
   }
   // no CTA leaves while another still reads its shared memory
   cluster_sync();
-}
-
-// ---------------------------------------------------------------------------
-// int4 weights, bf16 x: mma.sync over all of K per CTA
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 128;     // 4 warps x 16 output columns
-constexpr int kBN = 64;           // output columns per CTA
-constexpr int kBK = 64;           // weight bytes per row per stage
-constexpr int kStages = 4;        // cp.async ring depth
-constexpr int kWPitch = kBK + 16; // weight tile row pitch (bytes)
-constexpr int kXPitch = kBK + 8;  // x tile row pitch (bf16 elements)
-
-// a stage: the packed weight tile and the two x slices its nibbles pair with
-__host__ __device__ constexpr int stage_bytes(int mt) {
-  return kBN * kWPitch + 2 * mt * 16 * kXPitch * 2;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  // src-size 0 zero-fills the 16 bytes (edge rows and columns)
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_stages() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of m16n8k16 (row-major 16 x 16 bf16 at row r0, column c0 of
-// an x tile): thread (g = lane / 4, tg = lane % 4) holds rows g and g + 8,
-// columns 2 tg, 2 tg + 1 and the same + 8
-__device__ __forceinline__ void load_a(const __nv_bfloat16* xs, int r, int c,
-                                       uint32_t (&a)[4]) {
-  a[0] = *reinterpret_cast<const uint32_t*>(xs + r * kXPitch + c);
-  a[1] = *reinterpret_cast<const uint32_t*>(xs + (r + 8) * kXPitch + c);
-  a[2] = *reinterpret_cast<const uint32_t*>(xs + r * kXPitch + c + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(xs + (r + 8) * kXPitch + c + 8);
-}
-
-template <int MT>
-__device__ __forceinline__ void load_stage(unsigned char* st,
-                                           const __nv_bfloat16* x,
-                                           const uint8_t* w, int m0, int n0,
-                                           int kb, int M, int N, int KW,
-                                           long long ldx, long long ldw) {
-  constexpr int BM = MT * 16;
-  const int tid = threadIdx.x;
-  // weight tile: kBN rows of kBK bytes, in 16-byte chunks
-  constexpr int kWChunks = kBK / 16;
-  for (int i = tid; i < kBN * kWChunks; i += kThreads) {
-    const int r = i / kWChunks;
-    const int c = (i - r * kWChunks) * 16;
-    const int n = n0 + r;
-    const int k = kb + c;
-    const bool ok = n < N && k < KW;
-    cp_async16(st + r * kWPitch + c, ok ? w + (long long)n * ldw + k : w,
-               ok);
-  }
-  // x tiles: BM rows of kBK columns, 8 bf16 per chunk; the high tile
-  // reads the same columns shifted by K / 2 = KW
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + kBN * kWPitch);
-  constexpr int kXChunks = kBK / 8;
-#pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    for (int i = tid; i < BM * kXChunks; i += kThreads) {
-      const int r = i / kXChunks;
-      const int c = (i - r * kXChunks) * 8;
-      const int m = m0 + r;
-      const int k = kb + c;
-      const bool ok = m < M && k < KW;
-      cp_async16(xs + (t * BM + r) * kXPitch + c,
-                 ok ? x + (long long)m * ldx + t * KW + k : x, ok);
-    }
-  }
-}
-
-template <int MT>
-__device__ __forceinline__ void compute_stage(const unsigned char* st,
-                                              float (&acc)[MT][2][4]) {
-  constexpr int BM = MT * 16;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
-  const __nv_bfloat16* xs =
-      reinterpret_cast<const __nv_bfloat16*>(st + kBN * kWPitch);
-#pragma unroll
-  for (int ks = 0; ks < kBK; ks += 16) {
-    // B fragments of the warp's two n8 tiles: thread (g, tg) holds
-    // B[k][n] = w[n][k] for n = g, k = 2 tg, 2 tg + 1 and the same + 8;
-    // low nibbles: K's first half, high nibbles: its second half
-    uint32_t b[2][2], bh[2][2];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const unsigned char* wr =
-          st + (warp * 16 + nt * 8 + g) * kWPitch + ks + 2 * tg;
-      const unsigned p0 = *reinterpret_cast<const uint16_t*>(wr);
-      const unsigned p1 = *reinterpret_cast<const uint16_t*>(wr + 8);
-      b[nt][0] = pack_bf16(make_float2(sext4(p0 & 0xF),
-                                       sext4((p0 >> 8) & 0xF)));
-      b[nt][1] = pack_bf16(make_float2(sext4(p1 & 0xF),
-                                       sext4((p1 >> 8) & 0xF)));
-      bh[nt][0] = pack_bf16(make_float2(sext4((p0 >> 4) & 0xF),
-                                        sext4((p0 >> 12) & 0xF)));
-      bh[nt][1] = pack_bf16(make_float2(sext4((p1 >> 4) & 0xF),
-                                        sext4((p1 >> 12) & 0xF)));
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      uint32_t a[4];
-      load_a(xs, mt * 16 + g, ks + 2 * tg, a);
-      mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
-      mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
-      load_a(xs + BM * kXPitch, mt * 16 + g, ks + 2 * tg, a);
-      mma_bf16(acc[mt][0], a, bh[0][0], bh[0][1]);
-      mma_bf16(acc[mt][1], a, bh[1][0], bh[1][1]);
-    }
-  }
-}
-
-// KW = weight bytes per row (K / 2); MT = 16-row m tiles per CTA
-template <int MT>
-__global__ void __launch_bounds__(kThreads) qmm_int4_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-    const float* __restrict__ scale, void* __restrict__ out, int M, int N,
-    int KW, long long ldx, long long ldw, long long ldo, int out_f32) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int BM = MT * 16;
-  constexpr int kStage = stage_bytes(MT);
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * BM;
-  float acc[MT][2][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  const int nk = (KW + kBK - 1) / kBK;
-  // one commit group per ring slot, empty past the last tile, so the
-  // wait count stays uniform
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk)
-      load_stage<MT>(smem + s * kStage, x, w, m0, n0, s * kBK, M, N, KW, ldx,
-                     ldw);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait_stages();       // tile kt has landed (this thread)
-    __syncthreads();              // ... for all; tile kt - 1's slot is free
-    const int nxt = kt + kStages - 1;
-    if (nxt < nk)
-      load_stage<MT>(smem + (nxt % kStages) * kStage, x, w, m0, n0,
-                     nxt * kBK, M, N, KW, ldx, ldw);
-    cp_async_commit();
-    compute_stage<MT>(smem + (kt % kStages) * kStage, acc);
-  }
-
-  // epilogue: thread (g, tg) holds rows g, g + 8 and columns 2 tg, 2 tg + 1
-  // of each (m tile, n8 tile); the scale is applied once, here
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int n = n0 + warp * 16 + nt * 8 + 2 * tg + e;
-      if (n >= N) continue;
-      const float sc = scale[n];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + mt * 16 + g + 8 * h;
-          if (m < M)
-            store_out(out, (long long)m * ldo + n, acc[mt][nt][2 * h + e] * sc,
-                      out_f32);
-        }
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -708,45 +591,60 @@ __global__ void __launch_bounds__(kFThreads) qmm_f32_kernel(
 // launches
 // ---------------------------------------------------------------------------
 
-// the 2-D map over a row-major [rows, cols] tensor of `elem`-byte values
-// with row stride `ld` values: boxes of box_cols x box_rows in the 128-byte
-// swizzle, zeros past every edge
-int make_map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
-                int elem, int cols, int rows, long long ld, int box_cols,
-                int box_rows) {
+// a tensor map of `rank` dimensions (dims[0] contiguous; strides in bytes
+// of dimensions 1 ..) over `elem`-byte values: boxes of `box` in the
+// 128-byte swizzle, zeros past every edge
+int make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+             int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+             const cuuint32_t* box) {
   const EncodeFn enc = encode_fn();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = enc(map, type, 2, const_cast<void*>(ptr), dims, strides,
-                         box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = enc(map, type, rank, const_cast<void*>(ptr), dims,
+                         strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// `splits` is the host's plan: 1 <= splits <= kQmmMaxSplits, and every
-// split holds at least one of the nk weight tiles
+// KW: weight bytes a row (K for 8-bit weights, K / 2 for int4). `splits`
+// is the host's plan: 1 <= splits <= kQmmMaxSplits, and every split holds
+// at least one of the nk weight tiles
 template <int FMT, int MT>
 int launch_wgmma(const void* x, const void* w, const float* scale, void* out,
-                 int M, int N, int K, long long ldx, long long ldw,
+                 int M, int N, int KW, long long ldx, long long ldw,
                  long long ldo, int out_f32, int splits,
                  cudaStream_t stream) {
-  using L = QmmSmem<MT>;
-  const int nk = (K + kQmmK - 1) / kQmmK;
+  using L = QmmSmem<FMT, MT>;
+  const int nk = (KW + kQmmK - 1) / kQmmK;
   if (nk < 1 || splits < 1 || splits > kQmmMaxSplits || splits > nk)
     return (int)cudaErrorInvalidValue;
   const int per = (nk + splits - 1) / splits;
   if ((nk + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
   CUtensorMap tw, tx;
-  int err = make_map_2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, ldw,
-                        kQmmK, kQmmRows);
+  const cuuint64_t wdims[2] = {(cuuint64_t)KW, (cuuint64_t)N};
+  const cuuint64_t wstrides[1] = {(cuuint64_t)ldw};
+  const cuuint32_t wbox[2] = {kQmmK, kQmmRows};
+  int err = make_map(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, wdims,
+                     wstrides, wbox);
   if (err != 0) return err;
-  err = make_map_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, K, M, ldx,
-                    64, MT);
+  // x [M, K] bf16 in boxes of 64 columns x MT rows
+  if constexpr (FMT == kInt4) {
+    // viewed as [M, 2, K / 2] (a half of KW values, 2 KW bytes apart), so
+    // a box never crosses from one half to the other
+    const cuuint64_t dims[3] = {(cuuint64_t)KW, 2, (cuuint64_t)M};
+    const cuuint64_t strides[2] = {(cuuint64_t)KW * 2, (cuuint64_t)ldx * 2};
+    const cuuint32_t box[3] = {64, 1, (cuuint32_t)MT};
+    err = make_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, dims, strides,
+                   box);
+  } else {
+    const cuuint64_t dims[2] = {(cuuint64_t)KW, (cuuint64_t)M};
+    const cuuint64_t strides[1] = {(cuuint64_t)ldx * 2};
+    const cuuint32_t box[2] = {64, (cuuint32_t)MT};
+    err = make_map(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dims, strides,
+                   box);
+  }
   if (err != 0) return err;
   const auto kernel = qmm_wgmma_kernel<FMT, MT>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -771,24 +669,7 @@ int launch_wgmma(const void* x, const void* w, const float* scale, void* out,
   return (int)cudaGetLastError();
 }
 
-template <int MT>
-int launch_int4(const void* x, const void* w, const float* scale, void* out,
-                int M, int N, int KW, long long ldx, long long ldw,
-                long long ldo, int out_f32, cudaStream_t stream) {
-  constexpr int smem = kStages * stage_bytes(MT);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        qmm_int4_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((N + kBN - 1) / kBN, (M + MT * 16 - 1) / (MT * 16));
-  qmm_int4_kernel<MT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
-      scale, out, M, N, KW, ldx, ldw, ldo, out_f32);
-  return (int)cudaGetLastError();
-}
-
+// KW: weight bytes a row, as launch_wgmma
 template <int FMT>
 int dispatch(const void* x, const void* w, const void* scale, void* out,
              int M, int N, int KW, long long ldx, long long ldw,
@@ -807,41 +688,24 @@ int dispatch(const void* x, const void* w, const void* scale, void* out,
     return (int)cudaGetLastError();
   }
   if (x_dtype != 0) return (int)cudaErrorInvalidValue;
-  if constexpr (FMT == kInt4) {
-    switch (M >= 64 ? 4 : (M + 15) / 16) {
-      case 1:
-        return launch_int4<1>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
-                              out_f32, s);
-      case 2:
-        return launch_int4<2>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
-                              out_f32, s);
-      case 3:
-        return launch_int4<3>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
-                              out_f32, s);
-      default:
-        return launch_int4<4>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,
-                              out_f32, s);
-    }
-  } else {
-    // tokens a CTA: M rounded up to 8, at most 64
+  // tokens a CTA: M rounded up to 8, at most 64
 #define QMM_CASE(MT)                                                        \
   case MT / 8:                                                              \
     return launch_wgmma<FMT, MT>(x, w, sc, out, M, N, KW, ldx, ldw, ldo,    \
                                  out_f32, splits, s);
-    switch ((min(M, 64) + 7) / 8) {
-      QMM_CASE(8)
-      QMM_CASE(16)
-      QMM_CASE(24)
-      QMM_CASE(32)
-      QMM_CASE(40)
-      QMM_CASE(48)
-      QMM_CASE(56)
-      QMM_CASE(64)
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-#undef QMM_CASE
+  switch ((min(M, 64) + 7) / 8) {
+    QMM_CASE(8)
+    QMM_CASE(16)
+    QMM_CASE(24)
+    QMM_CASE(32)
+    QMM_CASE(40)
+    QMM_CASE(48)
+    QMM_CASE(56)
+    QMM_CASE(64)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
+#undef QMM_CASE
 }
 
 }  // namespace
@@ -874,12 +738,14 @@ extern "C" int quant_matmul(const void* x, const void* w, const void* scale,
 }
 
 // As quant_matmul with w [N, K / 2] split-half packed int4 bytes (row
-// stride ldw); K is x's full width, K % 32 == 0.
+// stride ldw); K is x's full width, K % 32 == 0; splits: the int4 plan of
+// `gemm_plan` (its weight tiles hold 256 k values).
 extern "C" int quant_matmul_int4(const void* x, const void* w,
                                  const void* scale, void* out, int M, int N,
                                  int K, long long ldx, long long ldw,
                                  long long ldo, int x_dtype, int out_dtype,
-                                 void* stream) {
+                                 int splits, void* stream) {
+  if (K % 32 != 0) return (int)cudaErrorInvalidValue;
   return dispatch<kInt4>(x, w, scale, out, M, N, K / 2, ldx, ldw, ldo,
-                         x_dtype, out_dtype, 1, stream);
+                         x_dtype, out_dtype, splits, stream);
 }

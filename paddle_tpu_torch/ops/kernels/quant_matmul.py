@@ -12,11 +12,11 @@ arithmetic: every weight converted to x's dtype, products accumulated in
 f32, the `[N]` scale applied once after the accumulation, the result
 cast to `out_dtype` (x's dtype by default).
 
-With bf16 x and 8-bit weights the kernel splits K over the CTAs of a
-thread-block cluster; `gemm_plan` chooses the split on the host from the
-shape and the card's SM count alone (never from `out_dtype`), and the
-cluster sums its partial tiles in a fixed order, so a call gives the same
-bits every time.
+With bf16 x every weight format runs one kernel design, which splits K
+over the CTAs of a thread-block cluster; `gemm_plan` chooses the split on
+the host from the shape, the format's weight tile and the card's SM
+count alone (never from `out_dtype`), and the cluster sums its partial
+tiles in a fixed order, so a call gives the same bits every time.
 """
 from __future__ import annotations
 
@@ -41,16 +41,20 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # `qmm_wgmma_kernel`'s tiling (csrc/quant_matmul.cu): a CTA owns 128
 # weight rows (output columns) and up to 64 tokens, and streams weight
-# tiles of 128 bytes of K through 4 stages; the CTAs of one column tile
-# form a cluster of at most 8 (the portable cluster size). Up to 40 tokens
-# two CTAs share an SM.
+# tiles of 128 bytes of K (128 k values of an 8-bit weight through 4
+# stages; 256 of a packed int4 one, with twice x's columns, through 3);
+# the CTAs of one column tile form a cluster of at most 8 (the portable
+# cluster size). Up to 40 tokens two CTAs share an SM.
 PLAN_ROWS = 128
 PLAN_K_TILE = 128
+PLAN_K_TILE_INT4 = 256
 PLAN_MAX_TOKENS = 64
 PLAN_STAGES = 4
+PLAN_STAGES_INT4 = 3
 PLAN_MAX_SPLITS = 8
 # a launch of at most 7/4 CTAs an SM: one wave at two CTAs an SM, short of
 # the 256 CTAs at which 8 splits of 32 column tiles measured slower than 7
+# (int8 and int4 alike: `kernel_compare --sweep-splits`)
 PLAN_MAX_CTAS_PER_SM = (7, 4)
 SMEM_PER_BLOCK = 232448           # an H100's opt-in shared memory a CTA
 SMEM_PER_SM = 233472              # ... and an SM's, 1 KB a CTA reserved
@@ -60,7 +64,8 @@ class GemmPlan(NamedTuple):
     tokens: int          # tokens a CTA (wgmma's N): M rounded up to 8
     m_tiles: int
     n_tiles: int
-    k_tiles: int         # weight tiles of PLAN_K_TILE bytes along K
+    k_tiles: int         # weight tiles (PLAN_K_TILE / PLAN_K_TILE_INT4
+                         # k values) along K
     splits: int          # CTAs of a cluster, each one slice of K
     k_tiles_per_split: int
     ctas: int
@@ -73,17 +78,23 @@ def _cdiv(a, b):
 
 
 @functools.lru_cache(maxsize=4096)
-def gemm_plan(m: int, n: int, k: int, sms: int) -> GemmPlan:
-    """The K split of the bf16 8-bit kernel for `x [m, k] @ w[n, k].T`
-    on a card of `sms` SMs. Tiles that cover more than half the SMs are
-    not split: a split only adds the cluster's reduction. Fewer tiles
-    take the most splits (at most 8, at most one per weight tile) that
-    keep the launch within 7/4 CTAs an SM. Every split is a whole number
-    of weight tiles (the last one ragged only where K is) and none is
-    empty. A pure function of the shape and the SM count."""
+def gemm_plan(m: int, n: int, k: int, sms: int,
+              int4: bool = False) -> GemmPlan:
+    """The K split of the bf16 kernel for `x [m, k] @ w[n, k].T` on a
+    card of `sms` SMs, for 8-bit weights or (`int4`) packed int4 ones.
+    Tiles that cover more than half the SMs are not split: a split only
+    adds the cluster's reduction. Fewer tiles take the most splits (at
+    most 8, at most one per weight tile) that keep the launch within
+    `PLAN_MAX_CTAS_PER_SM` CTAs an SM. Every split is a whole
+    number of weight tiles (the last one ragged only where K is) and none
+    is empty. A pure function of the shape, the format and the SM
+    count."""
+    k_tile = PLAN_K_TILE_INT4 if int4 else PLAN_K_TILE
+    stages = PLAN_STAGES_INT4 if int4 else PLAN_STAGES
+    x_boxes = 4 if int4 else 2        # x's 64-column boxes a stage
     tokens = min(PLAN_MAX_TOKENS, _cdiv(max(m, 1), 8) * 8)
     m_tiles, n_tiles = _cdiv(m, tokens), _cdiv(n, PLAN_ROWS)
-    k_tiles = max(1, _cdiv(k, PLAN_K_TILE))
+    k_tiles = max(1, _cdiv(k, k_tile))
     tiles = max(m_tiles * n_tiles, 1)
     num, den = PLAN_MAX_CTAS_PER_SM
     splits = 1
@@ -92,10 +103,10 @@ def gemm_plan(m: int, n: int, k: int, sms: int) -> GemmPlan:
                             num * sms // (den * tiles)))
     per = _cdiv(k_tiles, splits)
     splits = _cdiv(k_tiles, per)
-    stage = PLAN_ROWS * PLAN_K_TILE + 2 * tokens * 128
+    stage = PLAN_ROWS * 128 + x_boxes * tokens * 128
     return GemmPlan(tokens, m_tiles, n_tiles, k_tiles, splits, per,
                     m_tiles * n_tiles * splits,
-                    PLAN_STAGES * stage + 2 * PLAN_STAGES * 8 + 1024,
+                    stages * stage + 2 * stages * 8 + 1024,
                     tokens * (PLAN_ROWS + 4) * 4)
 
 
@@ -135,7 +146,7 @@ def quant_matmul_int4(x2d, wq_packed, scale, out_dtype=None):
     """`x2d [M, K] @ dequant(wq_packed [N, K/2], scale [N]).T -> [M, N]`
     with split-half packed int4 weights (`nn.quant.pack_int4`). CPU
     tensors take the plain version; CUDA tensors launch the kernel (K a
-    multiple of 32) or raise."""
+    positive multiple of 32) or raise."""
     if x2d.device.type == "cpu":
         return quant_matmul_int4_ref(x2d, wq_packed, scale, out_dtype)
     return _launch(x2d, wq_packed, scale, out_dtype, int4=True)
@@ -160,9 +171,9 @@ def _check(x2d, wq, scale, out_dtype, int4):
         raise ValueError(f"{name}: wq must be 2-D, got {tuple(wq.shape)}")
     n, kw = wq.shape
     if int4:
-        if wq.dtype != torch.int8 or 2 * kw != k or k % 32:
+        if wq.dtype != torch.int8 or 2 * kw != k or k % 32 or k == 0:
             raise ValueError(f"{name}: wq must be int8 [N, K/2] packed with "
-                             f"K % 32 == 0, got {tuple(wq.shape)} "
+                             f"K % 32 == 0 and K > 0, got {tuple(wq.shape)} "
                              f"{wq.dtype} against K = {k}")
     elif wq.dtype not in _W_FMT or kw != k or k % 16 or k == 0:
         raise ValueError(f"{name}: wq must be int8/float8 [N, K] with "
@@ -188,23 +199,25 @@ def _lib(int4):
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p] * 4 + [i] * 3 + [ll] * 3 + \
-            ([i, i] if int4 else [i, i, i, i]) + [p]
+            ([i, i, i] if int4 else [i, i, i, i]) + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _kernel_args(x2d, wq, scale, out, int4, sms):
     """The C entry point's arguments but the stream: pointers, shape,
-    strides, dtype codes and (8-bit weights) the split of `gemm_plan`."""
+    strides, dtype codes (and the 8-bit format) and, last, the split of
+    `gemm_plan` for the weight's format."""
     m, k = x2d.shape
     n = wq.shape[0]
     if int4:
         codes = (_DTYPE_CODE[x2d.dtype], _DTYPE_CODE[out.dtype])
     else:
         codes = (_DTYPE_CODE[x2d.dtype], _W_FMT[wq.dtype],
-                 _DTYPE_CODE[out.dtype], gemm_plan(m, n, k, sms).splits)
+                 _DTYPE_CODE[out.dtype])
     return (x2d.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            m, n, k, x2d.stride(0), wq.stride(0), out.stride(0), *codes)
+            m, n, k, x2d.stride(0), wq.stride(0), out.stride(0), *codes,
+            gemm_plan(m, n, k, sms, int4).splits)
 
 
 def _launch(x2d, wq, scale, out_dtype, int4):

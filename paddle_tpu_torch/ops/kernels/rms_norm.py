@@ -18,18 +18,46 @@ serving engine's `_rms` rounds after it, and the composite
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _support
 
 __all__ = ["rms_norm", "rms_norm_ref", "rms_norm_bwd_ref", "supported",
-           "LAUNCHES"]
+           "rms_plan", "RmsPlan", "REGISTER_INSTANCES", "LAUNCHES"]
 
 # launches of the CUDA kernel (one per forward on CUDA tensors)
 LAUNCHES = _support.launch_counter("rms_norm")
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+
+# the kernel's register instances (csrc/rms_norm.cu `RMS_CASE`): (threads
+# a row, 16-byte vectors a thread). Each takes the rows that fill more than
+# half its vectors: 257 to 2048 vectors a row in all (H 2056 to 16384 in
+# 16-bit types, 1028 to 8192 in f32), the widths the model's norms have.
+REGISTER_INSTANCES = ((128, 4), (256, 4), (256, 8))
+
+
+class RmsPlan(NamedTuple):
+    tpr: int    # threads a row of the register instance; 0: the general one
+    vpt: int    # 16-byte vectors a thread (register instance), else 0
+    vec: int    # the general instance reads 16-byte vectors (1) or scalars
+
+
+def rms_plan(h: int, itemsize: int, aligned: bool) -> RmsPlan:
+    """The kernel instance for rows of `h` values of `itemsize` bytes;
+    `aligned`: x's rows, w and y start on 16-byte boundaries. A row of
+    whole 16-byte vectors takes the register instance whose vectors it
+    fills more than half; every other row (narrower, wider, unaligned,
+    or not whole vectors) takes the general instance."""
+    per = 16 // itemsize
+    whole = aligned and h % per == 0
+    if whole:
+        for tpr, vpt in REGISTER_INSTANCES:
+            if tpr * vpt // 2 < h // per <= tpr * vpt:
+                return RmsPlan(tpr, vpt, 1)
+    return RmsPlan(0, 0, int(whole))
 
 
 def supported(shape, dtype) -> bool:
@@ -80,7 +108,8 @@ def _lib():
     fn = _support.load_library("rms_norm").rms_norm
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, i, i, ll, ll, ctypes.c_float, i, i, p]
+        fn.argtypes = [p, p, p, i, i, ll, ll, ctypes.c_float, i, i, i, i,
+                       p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -92,13 +121,16 @@ def _launch(x2d, w, eps):
     if y.numel() == 0:              # nothing to write: no launch, no count
         return y
     item = x2d.element_size()
-    vec = int(h % (16 // item) == 0 and x2d.data_ptr() % 16 == 0
-              and (x2d.stride(0) * item) % 16 == 0)
+    # both instances read x, and the register one also w, as 16-byte
+    # vectors; y is new, so aligned
+    plan = rms_plan(h, item, x2d.data_ptr() % 16 == 0
+                    and (x2d.stride(0) * item) % 16 == 0
+                    and w.data_ptr() % 16 == 0)
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         rc = _lib()(x2d.data_ptr(), w.data_ptr(), y.data_ptr(), rows, h,
                     x2d.stride(0), y.stride(0), float(eps),
-                    _DTYPE_CODE[x2d.dtype], vec, stream)
+                    _DTYPE_CODE[x2d.dtype], *plan, stream)
     if rc != 0:
         raise RuntimeError(f"rms_norm launch failed: CUDA error {rc}")
     LAUNCHES.count += 1

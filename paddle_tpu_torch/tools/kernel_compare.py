@@ -1,5 +1,5 @@
-"""Time the flash attention kernels and the int8 weight-only gemm of two
-checkouts on one card, in turns.
+"""Time the flash attention kernels, the weight-only gemms and the
+RMSNorm forward of two checkouts on one card, in turns.
 
     python -m paddle_tpu_torch.tools.kernel_compare --parent DIR \\
         [--out kernel_compare.json]
@@ -12,12 +12,13 @@ another: the other checkout, this one, this one, the other. Each imports
 `paddle_tpu_torch` from its own tree (so it builds that tree's kernels
 into that tree's `build/`), times `flash_attention_fwd`,
 `flash_attention_dq` and `flash_attention_dkv` on the same seeded inputs
-at each shape of `SHAPES`, and `quant_matmul` (int8 weights, bf16 x,
-M = 40) at each shape of `GEMM_SHAPES` (median device time of one call
-with a cold L2, as `chip_smoke.py` times; the gemm also after an L2
-left clean), and prints one JSON line. `--sweep-splits` times this
-tree's gemm at every K split the kernel takes (1 .. 8) beside the one
-`gemm_plan` picks. The script prints the card's
+at each shape of `SHAPES`, `quant_matmul` (int8 weights) and
+`quant_matmul_int4` (bf16 x, M = 40) at each shape of `GEMM_SHAPES`, and
+`rms_norm_fwd` at each case of `RMS_CASES` (median device time of one
+call with a cold L2, as `chip_smoke.py` times; the gemms and RMSNorm also
+after an L2 left clean), and prints one JSON line. `--sweep-splits` times
+this tree's int8 and int4 gemms at every K split the kernel takes
+(1 .. 8) beside the one `gemm_plan` picks. The script prints the card's
 name and power limit, then one JSON object with every run, and writes it
 to `--out` when given. Needs a CUDA card.
 """
@@ -55,6 +56,14 @@ GEMM_SHAPES = {"qkv": (12288, 4096), "o": (4096, 4096),
                "gate_up": (22016, 4096), "down": (4096, 11008),
                "head": (32000, 4096)}
 GEMM_M = 40
+# the int8 and int4 weight-only gemms, by the prefix of their cases
+GEMM_FORMATS = {"gemm": "int8", "gemm4": "int4"}
+# RMSNorm forward: the training step's rows [8192, 4096] in bf16 and f32,
+# and Llama-2-70B's width in bf16
+RMS_CASES = {"rms_bf16": ((8192, 4096), "bfloat16"),
+             "rms_f32": ((8192, 4096), "float32"),
+             "rms_h8192_bf16": ((8192, 8192), "bfloat16")}
+RMS_KERNELS = ("rms_norm", "rms_norm_clean_l2")
 
 
 def _time_ms(fn, flush, reps=30, clean=None):
@@ -83,16 +92,17 @@ def _time_ms(fn, flush, reps=30, clean=None):
     return statistics.median(times)
 
 
-def _gemm_inputs(n, k, dev):
-    """Seeded int8 weights [n, k] with their scales and bf16 x [40, k]."""
+def _gemm_inputs(n, k, dev, fmt="int8"):
+    """Seeded weights [n, k] quantized to `fmt` (int4: packed [n, k / 2])
+    with their scales, and bf16 x [40, k]."""
     import torch
     from paddle_tpu_torch.nn import quant as nq
 
     g = torch.Generator(device=dev).manual_seed(2)
     w = torch.randn((n, k), generator=g, device=dev) * 0.02
     x = torch.randn((GEMM_M, k), generator=g, device=dev).to(torch.bfloat16)
-    q, s = nq.per_channel_quantize(w, "weight_only_int8")
-    return x, q, s
+    q, s = nq.per_channel_quantize(w, f"weight_only_{fmt}")
+    return x, nq.pack_int4(q) if fmt == "int4" else q, s
 
 
 def worker():
@@ -122,28 +132,44 @@ def worker():
         del q, k, v, do, o, lse, delta, args
         torch.cuda.empty_cache()
     clean = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
-    for name, (n, k) in GEMM_SHAPES.items():
-        x, wq, s = _gemm_inputs(n, k, dev)
+    for prefix, fmt in GEMM_FORMATS.items():
+        fn = qm.quant_matmul_int4 if fmt == "int4" else qm.quant_matmul
+        for name, (n, k) in GEMM_SHAPES.items():
+            x, wq, s = _gemm_inputs(n, k, dev, fmt)
+
+            def call():
+                return fn(x, wq, s)
+            call()                  # the first call builds the library
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                call()
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            out[f"{prefix}_{name}"] = dict(zip(GEMM_KERNELS, (
+                _time_ms(call, flush), _time_ms(call, flush, clean=clean),
+                host_us)))
+            del x, wq, s
+    from paddle_tpu_torch.ops.kernels import rms_norm as rn
+
+    for name, (shape, dtype) in RMS_CASES.items():
+        g = torch.Generator(device=dev).manual_seed(12)
+        x = (2 * torch.randn(shape, generator=g, device=dev)) \
+            .to(getattr(torch, dtype))
+        w = (1 + 0.1 * torch.randn(shape[-1:], generator=g, device=dev)) \
+            .to(x.dtype)
 
         def call():
-            return qm.quant_matmul(x, wq, s)
-        call()                      # the first call builds the library
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(200):
-            call()
-        host_us = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
-        out[f"gemm_{name}"] = dict(zip(GEMM_KERNELS, (
-            _time_ms(call, flush), _time_ms(call, flush, clean=clean),
-            host_us)))
-        del x, wq, s
+            return rn.rms_norm_fwd(x, w, 1e-6)
+        out[name] = dict(zip(RMS_KERNELS, (
+            _time_ms(call, flush), _time_ms(call, flush, clean=clean))))
+        del x, w
     print(json.dumps(out), flush=True)
 
 
 def sweep_splits():
-    """This tree's int8 gemm at every K split (one launch each through
-    the C entry point) at each of `GEMM_SHAPES`."""
+    """This tree's int8 and int4 gemms at every K split (one launch each
+    through the C entry point) at each of `GEMM_SHAPES`."""
     import torch
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
 
@@ -151,36 +177,42 @@ def sweep_splits():
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     clean = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
-    fn = qm._lib(False)
     stream = torch.cuda.current_stream(dev).cuda_stream
     res = {}
-    for name, (n, k) in GEMM_SHAPES.items():
-        x, wq, s = _gemm_inputs(n, k, dev)
-        out = torch.empty((GEMM_M, n), dtype=torch.bfloat16, device=dev)
-        plan = qm.gemm_plan(GEMM_M, n, k, sms)
-        want = qm.quant_matmul_ref(x, wq, s)
-        base = qm._kernel_args(x, wq, s, out, False, sms)[:-1]
-        ms = {}
-        for splits in range(1, min(qm.PLAN_MAX_SPLITS, plan.k_tiles) + 1):
-            per = -(-plan.k_tiles // splits)
-            if -(-plan.k_tiles // per) != splits:
-                continue            # the kernel refuses an empty split
+    for prefix, fmt in GEMM_FORMATS.items():
+        int4 = fmt == "int4"
+        fn = qm._lib(int4)
+        ref_fn = qm.quant_matmul_int4_ref if int4 else qm.quant_matmul_ref
+        for name, (n, k) in GEMM_SHAPES.items():
+            x, wq, s = _gemm_inputs(n, k, dev, fmt)
+            out = torch.empty((GEMM_M, n), dtype=torch.bfloat16, device=dev)
+            plan = qm.gemm_plan(GEMM_M, n, k, sms, int4)
+            want = ref_fn(x, wq, s)
+            base = qm._kernel_args(x, wq, s, out, int4, sms)[:-1]
+            ms = {}
+            for splits in range(1, min(qm.PLAN_MAX_SPLITS,
+                                       plan.k_tiles) + 1):
+                per = -(-plan.k_tiles // splits)
+                if -(-plan.k_tiles // per) != splits:
+                    continue        # the kernel refuses an empty split
 
-            def call(splits=splits):
-                rc = fn(*base, splits, stream)
-                if rc != 0:
-                    raise RuntimeError(f"quant_matmul: CUDA error {rc}")
-            call()
-            torch.cuda.synchronize()
-            err = float((out.float() - want.float()).abs().max())
-            if not err <= 2.0 ** -7 * float(want.float().abs().max()):
-                raise AssertionError(f"{name} splits {splits}: err {err}")
-            ms[splits] = [_time_ms(call, flush),
-                          _time_ms(call, flush, clean=clean)]
-        res[name] = {"N": n, "K": k, "planned": plan.splits,
-                     "ctas_per_split": plan.m_tiles * plan.n_tiles,
-                     "ms_dirty_clean_l2": ms}
-        del x, wq, s, out, want
+                def call(splits=splits):
+                    rc = fn(*base, splits, stream)
+                    if rc != 0:
+                        raise RuntimeError(f"{fmt} gemm: CUDA error {rc}")
+                call()
+                torch.cuda.synchronize()
+                err = float((out.float() - want.float()).abs().max())
+                if not err <= 2.0 ** -7 * float(want.float().abs().max()):
+                    raise AssertionError(f"{fmt} {name} splits {splits}: "
+                                         f"err {err}")
+                ms[splits] = [_time_ms(call, flush),
+                              _time_ms(call, flush, clean=clean)]
+            res[f"{prefix}_{name}"] = {
+                "N": n, "K": k, "format": fmt, "planned": plan.splits,
+                "ctas_per_split": plan.m_tiles * plan.n_tiles,
+                "ms_dirty_clean_l2": ms}
+            del x, wq, s, out, want
     return {"sms": sms, "gemm": res}
 
 
@@ -226,8 +258,9 @@ def main(argv=None):
             runs.append(run)
             print(json.dumps(run), flush=True)
         cases = [(name, k) for name in SHAPES for k in KERNELS] + \
-            [(f"gemm_{name}", k) for name in GEMM_SHAPES
-             for k in GEMM_KERNELS]
+            [(f"{prefix}_{name}", k) for prefix in GEMM_FORMATS
+             for name in GEMM_SHAPES for k in GEMM_KERNELS] + \
+            [(name, k) for name in RMS_CASES for k in RMS_KERNELS]
         summary = {}
         for name, k in cases:
             summary.setdefault(name, {})[k] = {

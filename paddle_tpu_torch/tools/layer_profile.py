@@ -33,7 +33,7 @@ _CLASSES = (("fused_rope", ("rope_kernel",)),
             ("bias_act / swiglu", ("bias_act_kernel",)),
             ("flash_attention", ("fwd_wgmma_kernel", "dq_wgmma_kernel",
                                  "dkv_wgmma_kernel")),
-            ("rms_norm", ("rms_norm_kernel",)),
+            ("rms_norm", ("rms_norm_kernel", "rms_norm_regs_kernel")),
             ("matmul", ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")))
 
 

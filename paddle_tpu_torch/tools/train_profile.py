@@ -34,7 +34,7 @@ PROFILED_STEPS = 2
 
 _CLASSES = (("flash_attention", ("fwd_wgmma_kernel", "dq_wgmma_kernel",
                                  "dkv_wgmma_kernel")),
-            ("rms_norm", ("rms_norm_kernel",)),
+            ("rms_norm", ("rms_norm_kernel", "rms_norm_regs_kernel")),
             ("matmul", ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")))
 
 

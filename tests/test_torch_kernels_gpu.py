@@ -277,12 +277,13 @@ _GEMM_TOL = dict(atol=1e-3, rtol=1e-4)
 @pytest.mark.parametrize("m,n,k", [(1, 8, 32), (17, 100, 96),
                                    (40, 130, 4096), (70, 64, 224),
                                    (40, 4096, 11008), (3, 4096, 4096),
-                                   (257, 12288, 4096)])
+                                   (257, 12288, 4096), (40, 4096, 4000)])
 def test_gemm_kernels_match_plain_versions(fmt, x_dtype, m, n, k):
     """Ragged M and N (edge-masked tiles), K short of, at and past one
-    64-byte K tile; K split over a cluster of 8 (the `down` shape, and 3
-    tokens), and five token tiles; f32 output against the plain version,
-    and the bf16 output equal to the f32 output rounded (one
+    weight tile (int4: K / 2 short of one tile at K 32 and 224, and not a
+    multiple of it at K 4000); K split over a cluster (the `down` shape,
+    3 tokens, K 4000), and five token tiles; f32 output against the plain
+    version, and the bf16 output equal to the f32 output rounded (one
     accumulation, one rounding)."""
     dev = _card()
     x, wq, s = _gemm_case(dev, m, n, k, fmt, x_dtype)
@@ -309,9 +310,8 @@ def test_gemm_repeat_bit_for_bit(fmt):
     m, n, k = 40, 4096, 11008
     x, wq, s = _gemm_case(dev, m, n, k, fmt, torch.bfloat16, seed=4)
     fn = qm.quant_matmul_int4 if fmt == "int4" else qm.quant_matmul
-    if fmt != "int4":
-        assert qm.gemm_plan(m, n, k, torch.cuda.get_device_properties(
-            dev).multi_processor_count).splits > 1
+    assert qm.gemm_plan(m, n, k, torch.cuda.get_device_properties(
+        dev).multi_processor_count, fmt == "int4").splits > 1
     for out_dtype in (torch.float32, torch.bfloat16):
         a = fn(x, wq, s, out_dtype=out_dtype)
         b = fn(x, wq, s, out_dtype=out_dtype)
@@ -331,6 +331,9 @@ def test_gemm_wrappers_refuse_what_the_kernels_do_not_take():
     x4, w4, s4 = _gemm_case(dev, 4, 16, 48, "int4", torch.bfloat16)
     with pytest.raises(ValueError, match="K % 32"):
         qm.quant_matmul_int4(x4, w4, s4)
+    # K 0: a tensor map needs a non-empty K, in either format
+    with pytest.raises(ValueError, match="K > 0"):
+        qm.quant_matmul_int4(x4[:, :0], w4[:, :0], s4)
 
 
 @pytest.mark.parametrize("kv_bits,weight_only,wbits", [
@@ -540,7 +543,11 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take():
         fa.flash_attention_bwd(q, k, v, do, lse.transpose(1, 2), lse)
 
 
-RMS_SHAPES = [(37, 4096), (5, 3, 100), (2, 256)]
+# the register instance at every thread count (H 256, 4096, 5120, 8192,
+# 16384 in 16-bit types) and the general one (H 100, 4100, f32 16384), a
+# single row
+RMS_SHAPES = [(37, 4096), (5, 3, 100), (2, 256), (9, 5120), (6, 8192),
+              (7, 4100), (3, 16384), (1, 4096)]
 
 
 @pytest.mark.parametrize("shape", RMS_SHAPES, ids=str)
@@ -557,11 +564,18 @@ def test_rms_kernel_matches_plain_version(shape, dtype):
     ref = rn.rms_norm_ref(x.reshape(-1, shape[-1]), w, 1e-6).reshape(shape)
     torch.cuda.synchronize()
     assert rn.LAUNCHES.count == before + 1 and y.dtype == dtype
-    if dtype == torch.float32:
+    _assert_rms_close(y, ref)
+    # the row's sum runs in a fixed order: a repeat is bit-equal
+    assert torch.equal(y, rn.rms_norm(x, w, 1e-6))
+
+
+def _assert_rms_close(y, ref):
+    """f32 within 1e-6; 16-bit within one ulp of the plain version."""
+    if y.dtype == torch.float32:
         torch.testing.assert_close(y, ref, rtol=1e-6, atol=1e-6)
     else:
         r = ref.float()
-        bits = 7 if dtype == torch.bfloat16 else 10
+        bits = 7 if y.dtype == torch.bfloat16 else 10
         ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(
             2.0 ** -14))) - bits)
         assert bool(((y.float() - r).abs() <= ulp).all())
@@ -576,6 +590,29 @@ def test_rms_kernel_on_strided_rows_and_autograd():
     y = rn.rms_norm(x, w, 1e-5)
     torch.testing.assert_close(y, rn.rms_norm_ref(x, w, 1e-5), rtol=1e-6,
                                atol=1e-6)
+    # 16-bit rows 2 bytes off a 16-byte boundary (the general instance)
+    # and rows of a wider stride that stay aligned (the register
+    # instance); a repeat is bit-equal
+    for dtype in (torch.bfloat16, torch.float16):
+        wide = (2 * torch.randn((5, 4096 + 16), generator=g, device=dev)) \
+            .to(dtype)
+        w16 = (1 + 0.2 * torch.randn((4096,), generator=g, device=dev)) \
+            .to(dtype)
+        for off in (1, 8):
+            xs = wide[:, off:off + 4096]
+            ys = rn.rms_norm(xs, w16, 1e-6)
+            _assert_rms_close(ys, rn.rms_norm_ref(xs, w16, 1e-6))
+            assert torch.equal(ys, rn.rms_norm(xs, w16, 1e-6))
+        # aligned rows against a w 2 bytes off a 16-byte boundary: the
+        # register instance reads w as 16-byte vectors, so the general
+        # one takes it
+        wbuf = (1 + 0.2 * torch.randn((4096 + 8,), generator=g,
+                                      device=dev)).to(dtype)
+        wo = wbuf[1:1 + 4096]
+        xa = wide[:, 8:8 + 4096]
+        yo = rn.rms_norm(xa, wo, 1e-6)
+        _assert_rms_close(yo, rn.rms_norm_ref(xa, wo, 1e-6))
+        assert torch.equal(yo, rn.rms_norm(xa, wo, 1e-6))
     xl = x.clone().requires_grad_()
     wl = w.clone().requires_grad_()
     gy = torch.randn(x.shape, generator=g, device=dev)

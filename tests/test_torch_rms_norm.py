@@ -129,3 +129,67 @@ def test_functional_routes_as_the_jax_package(shape, dtype, _interpret):
     assert rn.supported(shape, tdt) == (len(shape) >= 2)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-6,
                                atol=1e-6)
+
+
+# every row width the kernel's wrapper can be given, in each dtype and
+# alignment: 1 .. 20,000 and the Llama widths past it
+PLAN_WIDTHS = list(range(1, 20001)) + [28672, 32768, 65536]
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
+def test_plan_maps_every_row_to_an_instance_that_takes_it(dtype, aligned):
+    """`rms_plan` (the host rule that picks the kernel's instance) gives
+    every (H, dtype, alignment) an instance of `csrc/rms_norm.cu`: a
+    register instance only for aligned rows of whole 16-byte vectors that
+    fill more than half its vectors (257 to 2048 a row, the instances
+    covering that span without a gap); the general instance for every
+    other row, reading 16-byte vectors only where the row takes them."""
+    item = torch.empty((), dtype=dtype).element_size()
+    per = 16 // item
+    spans = sorted((t * v // 2, t * v) for t, v in rn.REGISTER_INSTANCES)
+    assert spans[0][0] == 256 and spans[-1][1] == 2048
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    for h in PLAN_WIDTHS:
+        p = rn.rms_plan(h, item, aligned)
+        whole = aligned and h % per == 0
+        if p.tpr:
+            nv = h // per
+            assert whole and (p.tpr, p.vpt) in rn.REGISTER_INSTANCES
+            # the threads cover the row, and with half the vectors a
+            # thread they would not (the fewest vectors that cover it)
+            assert p.tpr * p.vpt >= nv > p.tpr * p.vpt // 2
+            assert p.vec == 1
+        else:
+            assert (p.tpr, p.vpt) == (0, 0)
+            assert not whole or not 256 < h // per <= 2048
+            assert p.vec == int(whole)
+
+
+def test_register_instances_are_the_sources():
+    """The host's `REGISTER_INSTANCES` are exactly the instances the C
+    entry point dispatches to (`RMS_CASE` in `csrc/rms_norm.cu`), so a
+    plan never names one the library lacks."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(rn.__file__).resolve().parents[2] / "csrc"
+           / "rms_norm.cu").read_text()
+    cases = re.findall(r"^\s*RMS_CASE\((\d+), (\d+)\)\s*$", src, re.M)
+    assert sorted((int(t), int(v)) for t, v in cases) == \
+        sorted(rn.REGISTER_INSTANCES)
+
+
+@pytest.mark.parametrize("h,dtype,plan", [
+    (4096, torch.bfloat16, (128, 4, 1)), (8192, torch.bfloat16, (256, 4, 1)),
+    (5120, torch.bfloat16, (256, 4, 1)), (16384, torch.bfloat16, (256, 8, 1)),
+    (4096, torch.float32, (256, 4, 1)), (8192, torch.float32, (256, 8, 1)),
+    (16384, torch.float32, (0, 0, 1)), (4100, torch.bfloat16, (0, 0, 0)),
+    (256, torch.float16, (0, 0, 1)), (2048, torch.bfloat16, (0, 0, 1))])
+def test_plan_at_the_model_widths(h, dtype, plan):
+    """Llama-2-7B to 70B widths take the register instance in 16-bit
+    types up to H 16384 and in f32 up to H 8192; narrower rows take the
+    general instance."""
+    item = torch.empty((), dtype=dtype).element_size()
+    assert tuple(rn.rms_plan(h, item, True)) == plan
