@@ -3,11 +3,14 @@
 card: builds the CUDA kernels from `paddle_tpu_torch/csrc/` (and fails if
 ptxas spills in a warp-specialised `wgmma` kernel: the flash forward, dQ
 and dK/dV, and the split-K weight-only gemm in every weight format and
-token tile), holds each
+token tile; or in an instance of the split ragged kernel), holds each
 kernel against its plain PyTorch version at the serving shapes (the
-ragged paged attention over a bf16/f32 pool and over an int8 pool, the
-paged decode and verify attention, the verify also against the ragged
-kernel, and the int8/fp8 and int4 weight-only gemms), checks the engine
+ragged paged attention over a bf16/f32 pool and over an int8 pool, at
+the serving step, the steady decode step and a 32-token chunk at kv_len
+512, each in the instance `ragged_plan` picks, and in the general
+instance over 8-slot pages; the paged decode and verify attention, the
+verify also against the ragged kernel, and the int8/fp8 and int4
+weight-only gemms), checks the engine
 on the card against its CPU run on a small model in every quantization
 mode (ragged steps, prefill, decode and verify), then serves a few
 requests through `ServingFrontend` at the full width of Llama-2-7B (32
@@ -135,12 +138,15 @@ def phase_build():
     secs = time.perf_counter() - t0
     ptxas = {name: _ptxas_by_function(info["log"])
              for name, info in built.items()}
-    # the warp-specialised wgmma kernels keep every value in registers
+    # the warp-specialised wgmma kernels and the split ragged kernel keep
+    # every value in registers
     wgmma = {f"{src}:{f}": v for src, fns in ptxas.items()
-             for f, v in fns.items() if "wgmma" in f}
+             for f, v in fns.items()
+             if "wgmma" in f or f.startswith("ragged_split_kernel")}
     missing = sorted(set(WGMMA_KERNELS)
                      - {f.split(":")[1].split("<")[0] for f in wgmma}) + \
-        sorted(set(QMM_INSTANCES) - {f.split(":")[1] for f in wgmma})
+        sorted(set(QMM_INSTANCES + RAGGED_SPLIT_INSTANCES)
+               - {f.split(":")[1] for f in wgmma})
     spilled = [f for f, v in wgmma.items()
                if " 0 bytes spill stores" not in v.get("spill", "")]
     emit({"phase": "build", "seconds": secs, "sources": sorted(built),
@@ -158,6 +164,10 @@ WGMMA_KERNELS = ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkv_wgmma_kernel",
 # every token tile
 QMM_INSTANCES = tuple(f"qmm_wgmma_kernel<{fmt},{mt}>" for fmt in range(4)
                       for mt in range(8, 65, 8))
+# the split ragged kernel's instances: (pool type, head_dim)
+RAGGED_SPLIT_INSTANCES = ("ragged_split_kernel<bf16,128>",
+                          "ragged_split_kernel<bf16,64>",
+                          "ragged_split_kernel<int8,128>")
 
 
 def _ptxas_by_function(log):
@@ -165,8 +175,8 @@ def _ptxas_by_function(log):
     {"spill": ..., "registers": ...}} (a short form of each mangled
     entry name and its template arguments)."""
     out, cur = {}, None
-    types = {"13__nv_bfloat16": "bf16", "6__half": "f16"}
-    arg = re.compile(r"Li(-?\d+)E|13__nv_bfloat16|6__half")
+    types = {"13__nv_bfloat16": "bf16", "6__half": "f16", "a": "int8"}
+    arg = re.compile(r"Li(-?\d+)E|13__nv_bfloat16|6__half|a")
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
@@ -193,62 +203,63 @@ def _ptxas_by_function(log):
     return out
 
 
-def _composition(kv_heads, dtype, gen, quant=False):
-    """The serving batch at T = 8 + 32 packed slots: six decode lanes at
-    kv_len ~512, an empty lane in the middle, a 32-token prefill chunk
-    crossing two block boundaries, and two guard slots. `quant`: int8
-    pools and their scale planes, from `quantize_kv` of random K/V."""
-    from paddle_tpu_torch.inference import kv_quant
-    from paddle_tpu_torch.ops.kernels import paged_attention as pa
-    from paddle_tpu_torch.tools.serve_workload import B, BS, CHUNK, MAXB, NB
+def _composition(kv_heads, dtype, gen, quant=False, name="serve", bs=16):
+    """A ragged batch of `kernel_compare.RAGGED_COMPOSITIONS` at T = 8 +
+    32 packed slots and Llama-2-7B width (`serve`: six decode lanes at
+    kv_len ~512, an empty lane, a 32-token prefill chunk crossing two
+    block boundaries, two guard slots; `decode8`: the steady decode step;
+    `prefill512`: a 32-token chunk at kv_len 512 beside 7 decode lanes).
+    `quant`: int8 pools and their scale planes, from `quantize_kv` of
+    random K/V; `bs`: slots a page."""
+    from paddle_tpu_torch.tools.kernel_compare import (RAGGED_COMPOSITIONS,
+                                                       ragged_inputs)
 
-    T = B + CHUNK
-    h, d = 32, 128
-    q_lens = [1, 1, 1, 0, 1, 1, 32, 1]
-    kv_lens = [512, 509, 530, 0, 498, 520, 72, 515]
-    rng = np.random.default_rng(0)
-    perm = rng.permutation(np.arange(1, NB))       # block 0: the guard
-    tables = np.zeros((B, MAXB), np.int32)
-    used = 0
-    for i, n in enumerate(kv_lens):
-        nblk = -(-n // BS)
-        tables[i, :nblk] = perm[used:used + nblk]
-        used += nblk
-    dev = torch.device("cuda")
-    q = torch.randn((T, h, d), generator=gen, device=dev).to(dtype)
-    kc = torch.randn((NB, kv_heads, BS, d), generator=gen, device=dev)
-    vc = torch.randn((NB, kv_heads, BS, d), generator=gen, device=dev)
-    scales = {}
-    if quant:
-        kc, ks = kv_quant.quantize_kv(kc)
-        vc, vs = kv_quant.quantize_kv(vc)
-        scales = dict(k_scale=ks, v_scale=vs)
-    else:
-        kc, vc = kc.to(dtype), vc.to(dtype)
-    ql = torch.tensor(q_lens, dtype=torch.int32, device=dev)
-    kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
-    lane, pos = pa.ragged_metadata(ql, kl, T)
-    args = (q, kc, vc, torch.from_numpy(tables).to(dev), kl, lane, pos)
+    args, scales, pos = ragged_inputs(name, kv_heads, quant, dtype, gen, bs)
+    if bs != 16:
+        # the same tokens in 8-slot pages: the block table is twice as wide
+        assert args[3].shape[1] == 16 // bs * 128
+    q, kc = args[0], args[1]
+    t, h, d = q.shape
+    q_lens, kv_lens = RAGGED_COMPOSITIONS[name]
     # the least work: each lane's K/V (and, int8, its scales) read once,
-    # q read and out written once; 4 * H * D flops per (token, attended
-    # position)
+    # q read and out written once, the metadata read once; 4 * H * D flops
+    # per (token, attended position)
     pos_h = pos.cpu().numpy()
     item = q.element_size()
     per_pos = kv_heads * (d * kc.element_size() + (4 if quant else 0)) * 2
-    meta_bytes = 4 * (2 * T + B + sum(-(-n // BS) for n in kv_lens))
-    nbytes = 2 * T * h * d * item + sum(kv_lens) * per_pos + meta_bytes
+    meta_bytes = 4 * (2 * t + len(kv_lens)
+                      + sum(-(-n // bs) for n in kv_lens))
+    nbytes = 2 * t * h * d * item + sum(kv_lens) * per_pos + meta_bytes
     flops = 4 * h * d * int((pos_h[pos_h >= 0] + 1).sum())
     return args, scales, pos_h, nbytes, flops
 
 
+def _instance(args, quant):
+    """The instance `ragged_plan` picks for these inputs on this card."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    p = pa._plan(args[0], args[1], args[3], quant)
+    if p.splits == 0:
+        return {"instance": "general"}
+    return {"instance": "split", "splits": p.splits,
+            "tile_tokens": p.tile_tokens, "slots": p.slots,
+            "smem_bytes": p.smem_bytes}
+
+
 def _attention_cases(quant, cases):
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.tools.kernel_compare import RAGGED_COMPOSITIONS
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
     results = {}
-    for name, kvh, dtype, tol in cases:
-        args, sc, pos, nbytes, flops = _composition(kvh, dtype, gen, quant)
+    for name, kvh, dtype, tol, comp, bs, instance in cases:
+        args, sc, pos, nbytes, flops = _composition(kvh, dtype, gen, quant,
+                                                    comp, bs)
+        plan = _instance(args, quant)
+        if plan["instance"] != instance:
+            raise AssertionError(f"{name}: ragged_plan picked {plan}, "
+                                 f"expected the {instance} instance")
         out = pa.paged_attention_ragged(*args, **sc)
         ref = pa.paged_attention_ragged_ref(*args, **sc)
         torch.cuda.synchronize()
@@ -258,7 +269,9 @@ def _attention_cases(quant, cases):
             raise AssertionError(f"{name}: kernel != plain version, max "
                                  f"abs err {err} (atol=rtol={tol})")
         guard = torch.from_numpy(pos < 0).cuda()
-        if int(guard.sum()) != 2 or bool((out[guard] != 0).any()):
+        n_guard = args[0].shape[0] - sum(RAGGED_COMPOSITIONS[comp][0])
+        if int(guard.sum()) != n_guard or n_guard == 0 or \
+                bool((out[guard] != 0).any()):
             raise AssertionError(f"{name}: guard rows are not exact zeros")
         kernel_ms = time_ms(lambda: pa.paged_attention_ragged(*args, **sc),
                             flush)
@@ -268,29 +281,44 @@ def _attention_cases(quant, cases):
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS
                                    if dtype == torch.bfloat16 else F32_FLOPS)
         results[name] = {
+            "composition": comp, "block_size": bs, **plan,
             "kv_heads": kvh, "dtype": str(dtype).replace("torch.", ""),
-            "tol": tol, "max_abs_err": err, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "tol": tol, "max_abs_err": err, "guard_rows": n_guard,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+        del args, sc, out, ref
     return results
 
 
 def _attention_shapes():
-    from paddle_tpu_torch.tools.serve_workload import B, BS, CHUNK, MAXB, NB
+    from paddle_tpu_torch.tools.kernel_compare import RAGGED_GEOMETRY
+    from paddle_tpu_torch.tools.serve_workload import B
 
-    return {"T": B + CHUNK, "H": 32, "D": 128, "BS": BS, "B": B, "W": MAXB,
-            "NB": NB}
+    return dict(RAGGED_GEOMETRY, B=B)
+
+
+# (name, kv heads, dtype, tolerance, composition, block size, the instance
+# ragged_plan must pick): the serving composition in MHA, GQA and f32, the
+# steady decode step and a 32-token chunk at kv_len 512 at full width, and
+# the serving composition over 8-slot pages (the general instance). bf16:
+# a few times the largest error seen (9.8e-4), below the ~5e-3 a decode
+# lane's output moves if its mask is one position off; f32 1e-4.
+ATTENTION_CASES = (
+    ("mha_bf16", 32, torch.bfloat16, 4e-3, "serve", 16, "split"),
+    ("gqa_bf16", 8, torch.bfloat16, 4e-3, "serve", 16, "split"),
+    ("mha_f32", 32, torch.float32, 1e-4, "serve", 16, "general"),
+    ("decode8_bf16", 32, torch.bfloat16, 4e-3, "decode8", 16, "split"),
+    ("prefill512_bf16", 32, torch.bfloat16, 4e-3, "prefill512", 16,
+     "split"),
+    ("mha_bf16_bs8", 32, torch.bfloat16, 4e-3, "serve", 8, "general"),
+)
 
 
 def phase_kernel():
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
-    # bf16: a few times the largest error seen (9.8e-4), below the ~5e-3 a
-    # decode lane's output moves if its mask is one position off
-    results = _attention_cases(False, (
-        ("mha_bf16", 32, torch.bfloat16, 4e-3),
-        ("gqa_bf16", 8, torch.bfloat16, 4e-3),
-        ("mha_f32", 32, torch.float32, 1e-4)))
+    results = _attention_cases(False, ATTENTION_CASES)
     emit({"phase": "kernel", "kernel": "ragged_paged_attention",
           "shapes": _attention_shapes(), "launches": pa.LAUNCHES.count,
           "cases": results})
@@ -305,10 +333,7 @@ def phase_kernel_q():
     # order and where the scale multiplies, so a bf16 output may round
     # one ulp apart (3.9e-3 at |out| in [0.5, 1) has been seen on an
     # H100); atol = rtol = 4e-3 admits one ulp at any magnitude
-    results = _attention_cases(True, (
-        ("mha_bf16", 32, torch.bfloat16, 4e-3),
-        ("gqa_bf16", 8, torch.bfloat16, 4e-3),
-        ("mha_f32", 32, torch.float32, 1e-4)))
+    results = _attention_cases(True, ATTENTION_CASES)
     emit({"phase": "kernel", "kernel": "ragged_paged_attention_q",
           "shapes": dict(_attention_shapes(), pool="int8 + f32 scales"),
           "launches": pa.LAUNCHES_Q.count, "cases": results})
@@ -2224,10 +2249,14 @@ def main():
         _row("ragged_paged_attention", attn_src, f"{pa_py}:278",
              bf16_launches["ragged_paged_attention"]
              + ngram_launches["ragged_paged_attention"]
-             + draft_launches["ragged_paged_attention"], attn["mha_bf16"]),
+             + draft_launches["ragged_paged_attention"], attn["mha_bf16"],
+             instance=attn["mha_bf16"]["instance"],
+             splits=attn["mha_bf16"]["splits"]),
         _row("ragged_paged_attention_q", attn_src, f"{pa_py}:380",
              l8["ragged_paged_attention_q"]
-             + l4["ragged_paged_attention_q"], attn_q["mha_bf16"]),
+             + l4["ragged_paged_attention_q"], attn_q["mha_bf16"],
+             instance=attn_q["mha_bf16"]["instance"],
+             splits=attn_q["mha_bf16"]["splits"]),
         _row("paged_attention_decode", attn_src, f"{pa_py}:38",
              gen_launches["paged_attention"]
              + draft_launches["paged_attention"], decode["mha_bf16"]),

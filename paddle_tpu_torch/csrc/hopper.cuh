@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the warp-specialised kernels of
-// `flash_attention.cu` and `quant_matmul.cu`: mbarriers, TMA tensor maps and
-// loads, named barriers and `wgmma`'s fences and shared-memory descriptors.
+// Hopper (sm_90a) building blocks shared by the kernels of
+// `flash_attention.cu`, `quant_matmul.cu` and `ragged_paged_attention.cu`:
+// mbarriers, TMA tensor maps and loads, bulk copies, thread-block cluster
+// barriers and distributed shared memory, named barriers and `wgmma`'s
+// fences and shared-memory descriptors.
 // Each source includes this header into its own anonymous namespace, so
 // every shared library keeps its own copy.
 
@@ -81,6 +83,81 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap& map,
       "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_addr(bar)), "r"(x0),
       "r"(y0), "r"(z0)
       : "memory");
+}
+
+// one box of a 4-D tensor map at (x0, y0, z0, w0), as tma_load_2d
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap& map,
+                                            uint64_t* bar, int x0, int y0,
+                                            int z0, int w0) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_addr(bar)), "r"(x0),
+      "r"(y0), "r"(z0), "r"(w0)
+      : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared (both 16-byte aligned, bytes a
+// multiple of 16), completing on `bar` like a TMA box
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// orders this thread's earlier shared-memory accesses (generic proxy)
+// before the asynchronous copies it issues next
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every CTA of the cluster; shared-memory writes before it
+// are visible to the cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the f32 at this CTA's shared-memory address `addr`, read from CTA `rank`
+// of the cluster
+__device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// the f32x4 at this CTA's shared-memory address `addr` (16-byte aligned),
+// read from CTA `rank` of the cluster
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void named_sync(int id, int n) {

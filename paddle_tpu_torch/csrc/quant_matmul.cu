@@ -342,37 +342,6 @@ __device__ __forceinline__ void wgmma_rs_kmajor<64>(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return r;
-}
-// every thread of every CTA of the cluster; shared-memory writes before it
-// are visible to the cluster after it
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-// the f32 at this CTA's shared-memory address `addr`, read from CTA `rank`
-// of the cluster
-__device__ __forceinline__ float ld_cluster(uint32_t addr, uint32_t rank) {
-  uint32_t remote;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(addr), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
-               : "=f"(v)
-               : "r"(remote)
-               : "memory");
-  return v;
-}
-
 // tile t of (N / 128 column tiles) x (M / MT token tiles) is cluster t of
 // the grid; its rank r sums weight tiles [r per, min(nk, (r + 1) per))
 template <int FMT, int MT>

@@ -29,7 +29,51 @@
 // token against the 2 * KVH * D * itemsize bytes it must read (plus 8 *
 // KVH bytes of scales for int8), far below the ~295 flop/byte ridge, so
 // the kernel's floor is reading each lane's K/V once; the int8 pool halves
-// it. The design aims at that floor:
+// it. Two instances, chosen on the host by `ragged_plan`
+// (ops/kernels/paged_attention.py):
+//
+// The split instance (`ragged_split_kernel`: bf16 q, D 128, or D 64 over
+// a bf16 pool, 16-slot pages, at most 64 query heads a kv head) works on
+// tiles, not tokens:
+//   - a tile is up to M consecutive packed tokens of one lane (M * G <=
+//     16 * splits rows); the tiles are found on the card from tok_lane /
+//     tok_pos / kv_lens (nothing is read on the host), and a tile reads
+//     each page of its lane's cache once however many tokens it holds:
+//     the pages up to its last token's, cut at the kv_len gate;
+//   - a row's pages form four streams (page j in stream j % 4), each taken
+//     in page order by one warp with f32 (m, l, acc), and the four are
+//     combined in stream order. That order is the same whatever the tile,
+//     the split or the batch around the row, so a token's result is the
+//     same bits in every packing and every run (no atomics): a decode, a
+//     verify window and a prefill chunk over the same cache agree exactly,
+//     which greedy decoding on the engine relies on (a last-bit change
+//     grows to a different token over 32 layers; PERF.md);
+//   - a thread-block cluster of `splits` (1, 2 or 4) CTAs takes one
+//     (tile, kv head): rank r the streams r (mod splits), its four
+//     consumer warps `splits` groups of 16 rows x 4 / splits streams; the
+//     stream partials are read over distributed shared memory;
+//   - in a CTA one producer warp streams pages (K and V, and an int8
+//     pool's two 64-byte scale rows with them) by TMA (a 4-D tensor map
+//     over the pool's own strides, 128-byte swizzle) and bulk copies into
+//     an 8-stage mbarrier ring;
+//   - S = Q K^T and O += P V run on tensor cores, mma.sync m16n8k16 in
+//     bf16 with f32 accumulation, for every tile (a decode row uses one
+//     row of the 16); int8 pages are converted to bf16 in registers,
+//     exactly; the K scale multiplies the score's column and the V scale
+//     folds into P, as in the general instance; P is rounded to bf16 for
+//     its product, within the kernel tolerances;
+//   - the online softmax is in base 2 on f32 scores; a key past a row's
+//     position, or a row of no query, is -inf and weighs exactly 0.
+// `ragged_plan` takes the largest split that keeps its CTAs within two an
+// SM at the most tiles the buffer can hold: at 8 lanes of Llama-2-7B (32
+// kv heads) that is 1 (each further split adds a wave of CTAs that each
+// pay the CTA's fixed latency), at 8 kv heads 2 (PERF.md). The decode
+// wrapper launches this instance too for bf16 at these shapes (null
+// tok_lane / tok_pos: slot t is lane t's query at kv_len - 1).
+//
+// The general instance (`ragged_paged_attention_kernel`, every other
+// shape `ragged_supported` admits: f32, other head_dims or page sizes,
+// more heads a group, unaligned q):
 //   - one CTA per (packed token, kv head); the G query heads of the group
 //     share every K/V page staged in shared memory, so K/V are never
 //     repeated across the group (native GQA);
@@ -43,10 +87,8 @@
 //   - scores: 8-lane groups each own one (query head, slot) pair and read
 //     K rows as 16-byte vectors (8 bf16, 4 f32 or 16 int8 values),
 //     reducing with shuffles; the online softmax runs one warp per query
-//     head; running max and sum stay in f32.
-// Known limit: a prefill chunk of n tokens of one lane reads that lane's
-// K/V n times (one CTA per token). Tiling several query tokens of a lane
-// per CTA, then wgmma/TMA, is the way past it.
+//     head; running max and sum stay in f32; a prefill chunk of n tokens
+//     of one lane reads that lane's K/V n times (one CTA per token).
 //
 // The decode / verify pair, after the ragged kernel below, replaces
 //   - `_decode_kernel` (`_decode_call` / `paged_attention`): entry point
@@ -73,6 +115,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -337,6 +381,673 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The split instance (`ragged_split_kernel`): bf16 q, D 64 or 128 (an int8
+// pool D 128), block size 16, at most 64 rows a tile (G <= 64)
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitWarps = 4;                         // consumer warps
+constexpr int kSplitThreads = 32 * (kSplitWarps + 1);  // + the producer
+constexpr int kSplitBS = 16;                           // slots a page
+constexpr int kBox = 2048;                 // a TMA box: 16 slots x 128 B
+constexpr int kBarConsumers = 1;           // named barrier of the consumers
+constexpr int kBarTile = 2;                // the tile's description is out
+
+template <typename KV, int D>
+struct SplitSmem {
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr int kPage = kSplitBS * D * (int)sizeof(KV);  // K or V
+  static constexpr int kBoxes = kPage / kBox;       // boxes a page
+  static constexpr int kBoxCols = kBox / kSplitBS / (int)sizeof(KV);
+  static constexpr int kStage = 2 * kPage;
+  // a multiple of the page lanes (1, 2 or 4): stage s then always feeds
+  // the same warps, which take its pages in order, so a warp never waits
+  // on the phase of a page that another warp has yet to release
+  static constexpr int kStages = 8;
+  // a consumer warp's f32 partial: 16 rows of D values (the pitch keeps
+  // its fragments' vector stores conflict-free), then its rows' m and l
+  static constexpr int kPitch = D + (kQuant ? 4 : 8);
+  static constexpr int kPart = kSplitWarps * 16 * kPitch * 4;
+  static constexpr int kML = kSplitWarps * 16 * 2 * 4;
+  static constexpr int kRing = kStages * kStage;
+  // the partials overlay the ring once every page is consumed
+  static constexpr int kRegion = kRing > kPart + kML ? kRing : kPart + kML;
+  static constexpr int kScales = kRegion;            // [S][2][16] f32
+  static constexpr int kBar =
+      kScales + (kQuant ? kStages * 2 * kSplitBS * 4 : 0);
+  // each consumer lane's q segments: 16 rows x 4 lanes x D / 32 chunks
+  static constexpr int kQ = kBar + 2 * kStages * 8;
+  static constexpr int kBytes = kQ + kSplitWarps * 16 * 4 * (D / 32) * 16 +
+                                1024;
+  static constexpr uint32_t kTx =
+      2 * kPage + (kQuant ? 2 * kSplitBS * 4 : 0);    // bytes a stage
+  static_assert(kPage % kBox == 0 && kRegion % 16 == 0 &&
+                    kStages % kSplitWarps == 0, "");
+};
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w));
+}
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// byte t of u (stored int8 values xor 0x80) as an f32, exactly: the f32
+// with bits 0x4B0000uu is 2^23 + uu, and uu is the signed byte + 128
+__device__ __forceinline__ float i8f(uint32_t u, int t) {
+  return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + t)) -
+         8388736.f;
+}
+// the bf16 pair (byte t of a, byte t of b), exactly: each f32 above has
+// at most 8 significant bits and a zero low half, so its high half is its
+// bf16
+__device__ __forceinline__ uint32_t i8_pair(uint32_t a, uint32_t b, int t) {
+  return __byte_perm(__float_as_uint(i8f(a, t)), __float_as_uint(i8f(b, t)),
+                     0x7632);
+}
+
+// the four stored int8 values of v as two bf16 pairs: lo = (byte 0,
+// byte 1), hi = (byte 2, byte 3)
+__device__ __forceinline__ void i8_quad(uint32_t v, uint32_t& lo,
+                                        uint32_t& hi) {
+  const uint32_t x = v ^ 0x80808080u;
+  lo = __byte_perm(__float_as_uint(i8f(x, 0)), __float_as_uint(i8f(x, 1)),
+                   0x7632);
+  hi = __byte_perm(__float_as_uint(i8f(x, 2)), __float_as_uint(i8f(x, 3)),
+                   0x7632);
+}
+
+// The lane's fragments. A page lies in shared memory as TMA wrote it:
+// kBoxes boxes of 16 rows (slots) x 128 bytes, 16-byte chunk c of row r at
+// chunk c ^ (r & 7) (the 128-byte swizzle).
+//
+// S = Q K^T: mma.sync m16n8k16 contracts over k, and lane (g, q) =
+// (lane / 4, lane % 4) holds k = 2q, 2q + 1, 2q + 8, 2q + 9 in A (q rows
+// g, g + 8) and in B (key g of the n tile). Which head_dim column a k index
+// stands for is free as long as A and B agree, so k step s of lane q takes
+// the columns seg(q)[4s .. 4s + 3] of the lane's own segment: in bf16 the
+// 16 columns 64 b + 16 q .. + 15 of each box b, in int8 the 32 columns
+// 32 q .. + 31 of the one box; both are chunks 2q and 2q + 1 of a row, and
+// chunks 2q ^ r, (2q + 1) ^ r of keys r = 0 .. 7 are distinct, so the
+// 16-byte loads are conflict-free. A segment is read as words of two
+// columns; k step s takes words 2s (k = 2q, 2q + 1) and 2s + 1 (k = 2q + 8,
+// 2q + 9).
+template <typename KV>
+__device__ __forceinline__ int seg_col(int q, int word) {
+  if constexpr (std::is_same<KV, int8_t>::value)
+    return 32 * q + 2 * word;
+  else
+    return 64 * (word / 8) + 16 * q + 2 * (word % 8);
+}
+
+// Stores the accumulators of a warp's rows g and g + 8 (registers 2h, 2h +
+// 1 are row g + 8h), those below `live`, at its f32 partial ([16][kPitch]).
+// bf16: n tile j is columns 8j .. 8j + 7 (ldmatrix.trans gives V's B
+// fragments), the lane's columns 8j + 2q, + 1: float2 stores. int8 (no
+// ldmatrix for bytes): lane (g, q) reads the words V[key][32 grp + 4g ..
+// + 3] of keys 2q, 2q + 1, 2q + 8, 2q + 9 and feeds their byte t to n tile
+// 4 grp + t, whose column for lane g is 32 grp + 4g + t; so the lane's
+// columns are 32 grp + 8q + 4e + t (register e, n tile 4 grp + t): float4
+// stores over t. Both conflict-free at the chosen pitch.
+template <typename KV, int D, int kPitch>
+__device__ __forceinline__ void part_store(const float (&acc)[D / 8][4],
+                                           float* part, int g, int q,
+                                           int live) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (g + 8 * h >= live) continue;
+    float* row = part + (g + 8 * h) * kPitch;
+    if constexpr (std::is_same<KV, int8_t>::value) {
+#pragma unroll
+      for (int grp = 0; grp < D / 32; ++grp)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          *reinterpret_cast<float4*>(row + 32 * grp + 8 * q + 4 * e) =
+              make_float4(acc[4 * grp][2 * h + e], acc[4 * grp + 1][2 * h + e],
+                          acc[4 * grp + 2][2 * h + e],
+                          acc[4 * grp + 3][2 * h + e]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(row + 8 * j + 2 * q) =
+            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  }
+}
+
+__device__ __forceinline__ void fma4(float4& a, const float4& x, float w) {
+  a.x += x.x * w;
+  a.y += x.y * w;
+  a.z += x.z * w;
+  a.w += x.w * w;
+}
+
+// 4 output columns of row r: a / l in bf16
+__device__ __forceinline__ void store_row4(__nv_bfloat16* o, float4 a,
+                                           float l) {
+  const float den = l == 0.f ? 1.f : l;
+  uint2 v;
+  v.x = pack_bf16(a.x / den, a.y / den);
+  v.y = pack_bf16(a.z / den, a.w / den);
+  *reinterpret_cast<uint2*>(o) = v;
+}
+
+// Tiles: a tile is up to M consecutive packed tokens of one lane at
+// consecutive positions. Slot t leads one where such a run starts and
+// where kv_len - pos is a multiple of M: a lane's tokens end at kv_len - 1,
+// so its last tile is full and the short one, if any, comes first.
+// Grid: `slots` clusters of `splits` CTAs along x for each kv head along
+// y. Cluster ci of kv head kvh takes tiles ci, ci + slots, ... (in slot
+// order) and its rank r the pages r, r + splits, ... of each. Rank 0 of
+// cluster ci also zeroes the guard slots t = ci (mod slots). Null tok_lane
+// and tok_pos mean decode: slot t is lane t's one query, at kv_len - 1.
+template <typename KV, int D>
+__global__ void __launch_bounds__(kSplitThreads, 2) ragged_split_kernel(
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __nv_bfloat16* __restrict__ q, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
+    const int* __restrict__ kv_lens, const int* __restrict__ tok_lane,
+    const int* __restrict__ tok_pos, __nv_bfloat16* __restrict__ out,
+    int num_tokens, int num_heads, int group, int table_width,
+    long long ks_sb, long long ks_sh, long long vs_sb, long long vs_sh,
+    float scale_log2, int tile_tokens) {
+  using L = SplitSmem<KV, D>;
+  constexpr bool kQuant = L::kQuant;
+  constexpr int S = L::kStages;
+  constexpr int P = L::kPitch;
+  constexpr int kQChunks = D / 32;       // 16-byte chunks of a q segment
+  constexpr int kVec = 8;                          // bf16 a 16-byte vector
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + S;
+  float* part = reinterpret_cast<float*>(sm);       // [4][16][P]
+  float* m_part = part + kSplitWarps * 16 * P;      // [4][16]
+  float* l_part = m_part + kSplitWarps * 16;        // [4][16]
+  float* scl = reinterpret_cast<float*>(sm + L::kScales);
+  __shared__ int tile[6];   // slot, tokens, pos, lane, pages, tiles
+
+  const int C = cluster_size(), rank = cluster_rank();
+  const int ci = blockIdx.x / C, slots = gridDim.x / C;
+  const int kvh = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qq = lane & 3;
+  const int G = group, M = tile_tokens, T = num_tokens, W = table_width;
+  auto out_row = [&](int t, int head) {
+    return out + ((long long)t * num_heads + (long long)kvh * G + head) * D;
+  };
+
+  for (int it = 0;; ++it) {
+    if (warp == kSplitWarps) {
+      // the producer warp starts alone: one pass over the packed slots,
+      // 32 at a time, finds the tile leaders in
+      // slot order (this cluster's is the (ci + it * slots)-th), its run of
+      // followers, the leaders' count; and, first time round, the guard
+      // slots t = ci (mod slots) are zeroed by rank 0
+      const int target = ci + it * slots;
+      int found = -1, total = 0, m = 0, p0 = 0, ln = 0, len = 0;
+      bool counting = false;             // the tile runs into this chunk
+      for (int c0 = 0; c0 < T; c0 += 32) {
+        const int t = c0 + lane;
+        int p = -1, pp = -1, l = 0, lp = -1, n = 0;
+        if (t < T && tok_pos == nullptr) {
+          l = t;                         // decode: slot t is lane t's query
+          p = kv_lens[t] - 1;
+        } else if (t < T) {
+          p = tok_pos[t];
+          l = tok_lane[t];
+          if (t > 0) {
+            pp = tok_pos[t - 1];
+            lp = tok_lane[t - 1];
+          }
+        }
+        if (p >= 0) n = kv_lens[l];
+        bool lead = false;
+        if (p >= 0) {
+          const bool cont = pp >= 0 && pp == p - 1 && lp == l;
+          int r = (n - p) % M;
+          lead = !cont || (r < 0 ? r + M : r) == 0;
+        }
+        const unsigned lm = __ballot_sync(0xffffffffu, lead);
+        const unsigned fm = __ballot_sync(0xffffffffu, p >= 0 && !lead);
+        if (counting) {                  // followers from bit 0 on
+          const int run = __ffs(~fm) - 1;
+          m += run < 0 ? 32 : run;
+          counting = run < 0;
+        }
+        if (found < 0 && target < total + __popc(lm)) {
+          unsigned mask = lm;
+          for (int i = total; i < target; ++i) mask &= mask - 1;
+          const int b = __ffs(mask) - 1;
+          found = c0 + b;
+          p0 = __shfl_sync(0xffffffffu, p, b);
+          ln = __shfl_sync(0xffffffffu, l, b);
+          len = __shfl_sync(0xffffffffu, n, b);
+          // followers: the set bits right after the leader
+          const unsigned after = b == 31 ? 0u : fm >> (b + 1);
+          const int run = __ffs(~after) - 1;
+          m = 1 + (run < 0 || run > 30 - b ? 31 - b : run);
+          counting = run < 0 || run > 30 - b;
+        }
+        total += __popc(lm);
+        if (it == 0 && rank == 0 && t < T && p < 0 && t % slots == ci) {
+          uint4* o = reinterpret_cast<uint4*>(out_row(t, 0));
+          for (int i = 0; i < G * D / kVec; ++i) o[i] = make_uint4(0, 0, 0, 0);
+        }
+      }
+      // pages up to the last token's, cut at the kv_len gate (j * BS <
+      // kv_len) and at the table's width, as the JAX kernel's grid
+      int np = 0;
+      if (found >= 0 && len > 0)
+        np = min(min((p0 + m - 1) / kSplitBS + 1,
+                     (len + kSplitBS - 1) / kSplitBS), W);
+      if (lane == 0) {
+        tile[0] = found;
+        tile[1] = m;
+        tile[2] = p0;
+        tile[3] = ln;
+        tile[4] = np;
+        tile[5] = total;
+        // the tile's ring barriers (the last tile's are idle: the cluster
+        // has passed its last barrier); a page's consumers: its row groups
+        if (np > 0) {
+          const int rows = m * G;
+          for (int s = 0; s < S; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, (rows + 15) / 16);   // live row groups
+          }
+          mbar_init_fence();
+        }
+      }
+      __syncwarp();
+      named_arrive(kBarTile, kSplitThreads);     // `tile` is written
+    } else {
+      named_sync(kBarTile, kSplitThreads);
+    }
+    const int t0 = tile[0], m = tile[1], p0 = tile[2], ln = tile[3],
+              np = tile[4];
+    const bool last = ci + (it + 1) * slots >= tile[5];
+    if (t0 < 0) break;                   // no tile left (the whole cluster)
+    const int R = m * G;                 // row i: token i / G, head i % G
+    if (np == 0) {                       // kv_len 0: exact zeros
+      if (rank == 0)
+        for (int i = tid; i < R * D / kVec; i += kSplitThreads)
+          reinterpret_cast<uint4*>(out_row(t0 + i / (G * D / kVec),
+                                           (i / (D / kVec)) % G))
+              [i % (D / kVec)] = make_uint4(0, 0, 0, 0);
+      if (last) break;
+      continue;
+    }
+    // A row's pages form four streams, page j in stream j % 4, each
+    // taken in page order by one warp and the four combined in stream
+    // order: a row's result does not depend on its tile, the cluster's
+    // size or the batch around it. Rank r of the C (1, 2 or 4) CTAs takes
+    // the streams s = r (mod C), pages r, r + C, ...; its 4 consumer warps
+    // are C groups of 16 rows (M * G <= 16 C) x PL = 4 / C streams, page k
+    // of the rank in stream k % PL.
+    const int RG = C, PL = kSplitWarps / C;
+    const int live = (R + 15) / 16;      // row groups with rows
+    const int nl = np > rank ? (np - 1 - rank) / C + 1 : 0;
+
+    if (warp == kSplitWarps) {
+      // the producer warp: lane 0 keeps the ring full; the warp reads the
+      // block table 32 entries at a time
+      const int* trow = tables + (long long)ln * W + rank;
+      if (lane == 0) fence_proxy_async();
+      for (int c0 = 0; c0 < nl; c0 += 32) {
+        const int blk_l = c0 + lane < nl ? trow[C * (c0 + lane)] : 0;
+        const int cnt = min(32, nl - c0);
+        for (int j = 0; j < cnt; ++j) {
+          const int blk = __shfl_sync(0xffffffffu, blk_l, j);
+          const int k = c0 + j, st = k % S;
+          if (lane == 0) {
+            mbar_wait(empty + st, ((k / S) & 1) ^ 1);
+            mbar_expect_tx(full + st, L::kTx);
+            unsigned char* dst = sm + st * L::kStage;
+#pragma unroll
+            for (int b = 0; b < L::kBoxes; ++b) {
+              tma_load_4d(dst + b * kBox, tk, full + st, b * L::kBoxCols, 0,
+                          kvh, blk);
+              tma_load_4d(dst + L::kPage + b * kBox, tv, full + st,
+                          b * L::kBoxCols, 0, kvh, blk);
+            }
+            if constexpr (kQuant) {
+              float* sd = scl + st * 2 * kSplitBS;
+              bulk_load(sd, k_scale + blk * ks_sb + kvh * ks_sh,
+                        kSplitBS * 4, full + st);
+              bulk_load(sd + kSplitBS, v_scale + blk * vs_sb + kvh * vs_sh,
+                        kSplitBS * 4, full + st);
+            }
+          }
+        }
+      }
+    } else {
+      // a consumer warp: rows 16 rg .. 16 rg + 15 of the tile (the lane
+      // holds rows g and g + 8), pages pl, pl + PL, ... of this rank
+      const int rg = warp / PL, pl = warp % PL;
+      // the lane's q segments of rows g and g + 8 go to its own area of
+      // shared memory and come back a 16-byte chunk per two k steps (not
+      // kept in registers: the accumulators need them)
+      const uint32_t qarea = smem_addr(sm + L::kQ) + warp * 16 * 4 * 16 *
+                                 kQChunks;
+      auto q_chunk = [&](int row, int cc) {   // chunks rotated: no conflict
+        return qarea + ((row * 4 + qq) * kQChunks +
+                        (cc + (qq >> 1) * (kQChunks / 2) + row) %
+                            kQChunks) * 16;
+      };
+      int rpos[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 16 * rg + g + 8 * h;
+        const bool live = i < R;
+        rpos[h] = live ? p0 + i / G : -1;        // -1: every key masked
+        const __nv_bfloat16* qr =
+            q + ((long long)(live ? t0 + i / G : 0) * num_heads +
+                 (long long)kvh * G + (live ? i % G : 0)) * D;
+#pragma unroll
+        for (int cc = 0; cc < kQChunks; ++cc) {
+          uint4 v = make_uint4(0, 0, 0, 0);
+          if (live)
+            v = *reinterpret_cast<const uint4*>(qr + seg_col<KV>(qq, 4 * cc));
+          sts128(q_chunk(g + 8 * h, cc), v);
+        }
+      }
+      __syncwarp();
+      float acc[D / 8][4];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+      for (int k = pl; rg < live && k < nl; k += PL) {
+        const int st = k % S;
+        mbar_wait(full + st, (k / S) & 1);
+        const uint32_t kst = smem_addr(sm + st * L::kStage);
+        const uint32_t vst = kst + L::kPage;
+        const float* ksc = scl + st * 2 * kSplitBS;
+        // S = Q K^T over two n tiles of 8 keys, k steps 2c and 2c + 1 at
+        // a time: A from the lane's q chunk c of rows g, g + 8 (words 4c ..
+        // 4c + 3), B from its K row's words of the same columns
+        float s[2][4] = {};
+#pragma unroll 1   // unrolled, ptxas hoists loads past its registers
+        for (int c = 0; c < kQChunks; ++c) {
+          const uint4 qa = lds128(q_chunk(g, c)), qb = lds128(q_chunk(g + 8, c));
+          const uint32_t a0[4] = {qa.x, qb.x, qa.y, qb.y};
+          const uint32_t a1[4] = {qa.z, qb.z, qa.w, qb.w};
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int key = 8 * nt + g;
+            if constexpr (kQuant) {
+              // 32 int8 columns a lane (chunks 2q, 2q + 1): k steps 2c,
+              // 2c + 1 take bytes 8c .. 8c + 7 of them
+              const int ch = 2 * qq + (c >> 1);
+              const uint2 w = lds64(kst + key * 128 +
+                                    ((ch ^ (key & 7)) << 4) + 8 * (c & 1));
+              uint32_t lo, hi;
+              i8_quad(w.x, lo, hi);
+              mma_bf16(s[nt], a0, lo, hi);
+              i8_quad(w.y, lo, hi);
+              mma_bf16(s[nt], a1, lo, hi);
+            } else {
+              // 16 bf16 columns a lane in each box (chunks 2q, 2q + 1)
+              const int ch = 2 * qq + (c & 1);
+              const uint4 w = lds128(kst + (c >> 1) * kBox + key * 128 +
+                                     ((ch ^ (key & 7)) << 4));
+              mma_bf16(s[nt], a0, w.x, w.y);
+              mma_bf16(s[nt], a1, w.z, w.w);
+            }
+          }
+        }
+        // scale (and, int8, the slot's K scale), mask keys past the row's
+        // position, online softmax in base 2
+        const int kb = (rank + C * k) * kSplitBS;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = 8 * nt + 2 * qq + e;
+              float v = s[nt][2 * h + e] * scale_log2;
+              if constexpr (kQuant) v *= ksc[key];
+              v = kb + key <= rpos[h] ? v : -INFINITY;
+              s[nt][2 * h + e] = v;
+              mx = fmaxf(mx, v);
+            }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m_run[h], mx);
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;
+          const float alpha = exp2f(m_run[h] - m_use);
+          m_run[h] = m_new;
+          float sum = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float x = exp2f(s[nt][2 * h + e] - m_use);
+              sum += x;
+              // int8: the slot's V scale folds into the probability
+              s[nt][2 * h + e] =
+                  kQuant ? x * ksc[kSplitBS + 8 * nt + 2 * qq + e] : x;
+            }
+          l_run[h] = l_run[h] * alpha + sum;     // this lane's columns
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            acc[j][2 * h] *= alpha;
+            acc[j][2 * h + 1] *= alpha;
+          }
+        }
+        // P as the A fragment of P V: keys 2q, 2q + 1 | 2q + 8, 2q + 9
+        const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                                pack_bf16(s[0][2], s[0][3]),
+                                pack_bf16(s[1][0], s[1][1]),
+                                pack_bf16(s[1][2], s[1][3])};
+        // O += P V
+        if constexpr (kQuant) {
+#pragma unroll
+          for (int grp = 0; grp < D / 32; ++grp) {
+            const int chunk = 2 * grp + (g >> 2);
+            uint32_t w[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = 2 * qq + (e & 1) + 8 * (e >> 1);
+              w[e] = lds32(vst + key * 128 + ((chunk ^ (key & 7)) << 4) +
+                           4 * (g & 3)) ^
+                     0x80808080u;
+            }
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              const uint32_t b0 = i8_pair(w[0], w[1], t);
+              const uint32_t b1 = i8_pair(w[2], w[3], t);
+              mma_bf16(acc[4 * grp + t], pa, b0, b1);
+            }
+          }
+        } else {
+          const int mi = lane >> 3;
+          const int key = (mi & 1) * 8 + (lane & 7);
+#pragma unroll
+          for (int cp = 0; cp < D / 16; ++cp) {
+            const int chunk = 2 * cp + (mi >> 1);
+            uint32_t r[4];
+            ldsm_x4_trans(r, vst + (chunk >> 3) * kBox + key * 128 +
+                                 (((chunk & 7) ^ (key & 7)) << 4));
+            mma_bf16(acc[2 * cp], pa, r[0], r[1]);
+            mma_bf16(acc[2 * cp + 1], pa, r[2], r[3]);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + st);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {              // l of the row: the quad
+        l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 1);
+        l_run[h] += __shfl_xor_sync(0xffffffffu, l_run[h], 2);
+      }
+      // every page is consumed: the live rows' partials overlay the ring
+      named_sync(kBarConsumers, 32 * kSplitWarps);
+      if (qq == 0)
+        for (int h = 0; h < 2; ++h) {
+          m_part[warp * 16 + g + 8 * h] = m_run[h];
+          l_part[warp * 16 + g + 8 * h] = l_run[h];
+        }
+      part_store<KV, D, P>(acc, part + warp * 16 * P, g, qq, R - 16 * rg);
+    }
+    // every stream's partial is out (C > 1: in every CTA of the cluster)
+    if (C == 1) {
+      if (warp < kSplitWarps) named_sync(kBarConsumers, 32 * kSplitWarps);
+    } else {
+      cluster_sync();
+    }
+    // the tile's output: one thread a (row, 4 columns), rank r taking
+    // vectors r * 128 + tid, then every C * 128-th; the row's four stream
+    // partials (stream s in rank s % C, warp row group x PL + s / C),
+    // rescaled to their common max and summed in stream order
+    if (warp < kSplitWarps)
+      for (int v = rank * 128 + tid; v < R * (D / 4); v += C * 128) {
+        const int i = v / (D / 4), c4 = (v % (D / 4)) * 4;
+        float ms[kSplitWarps], mx = -INFINITY;
+        int at[kSplitWarps];
+#pragma unroll
+        for (int s = 0; s < kSplitWarps; ++s) {
+          at[s] = ((i >> 4) * PL + s / C) * 16 + (i & 15);
+          ms[s] = C == 1 ? m_part[at[s]]
+                         : ld_cluster(smem_addr(m_part + at[s]), s % C);
+          mx = fmaxf(mx, ms[s]);                 // a live row: finite
+        }
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+        float l = 0.f;
+#pragma unroll
+        for (int s = 0; s < kSplitWarps; ++s) {
+          const float w = exp2f(ms[s] - mx);
+          const float* pa = part + at[s] * P + c4;
+          if (C == 1) {
+            l += l_part[at[s]] * w;
+            fma4(a, *reinterpret_cast<const float4*>(pa), w);
+          } else {
+            l += ld_cluster(smem_addr(l_part + at[s]), s % C) * w;
+            fma4(a, ld_cluster_v4(smem_addr(pa), s % C), w);
+          }
+        }
+        store_row4(out_row(t0 + i / G, i % G) + c4, a, l);
+      }
+    // no CTA leaves, or refills its ring, while another reads its partials
+    if (C > 1)
+      cluster_sync();
+    else if (!last)
+      __syncthreads();
+    if (last) break;
+  }
+}
+
+template <typename KV, int D>
+int launch_split(const void* q, const void* k_cache, const void* v_cache,
+                 const float* k_scale, const float* v_scale,
+                 const int* tables, const int* kv_lens, const int* tok_lane,
+                 const int* tok_pos, void* out, int num_tokens,
+                 int num_heads, int num_kv_heads, int table_width,
+                 int num_blocks, long long k_sb, long long k_sh,
+                 long long k_ss, long long v_sb, long long v_sh,
+                 long long v_ss, long long ks_sb, long long ks_sh,
+                 long long vs_sb, long long vs_sh, float sm_scale,
+                 int splits, int slots, int tile_tokens,
+                 cudaStream_t stream) {
+  using L = SplitSmem<KV, D>;
+  const EncodeFn enc = encode_fn();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  // the pool as a 4-D tensor (D, BS, KVH, NB) with its own strides; a box
+  // is 128 bytes of 16 slots of one (block, kv head)
+  CUtensorMap maps[2];
+  const void* pools[2] = {k_cache, v_cache};
+  const long long st[2][3] = {{k_ss, k_sh, k_sb}, {v_ss, v_sh, v_sb}};
+  for (int i = 0; i < 2; ++i) {
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)kSplitBS,
+                                (cuuint64_t)num_kv_heads,
+                                (cuuint64_t)num_blocks};
+    const cuuint64_t strides[3] = {(cuuint64_t)st[i][0] * sizeof(KV),
+                                   (cuuint64_t)st[i][1] * sizeof(KV),
+                                   (cuuint64_t)st[i][2] * sizeof(KV)};
+    const cuuint32_t box[4] = {(cuuint32_t)L::kBoxCols, kSplitBS, 1, 1};
+    const cuuint32_t step[4] = {1, 1, 1, 1};
+    const CUresult r = enc(
+        &maps[i],
+        L::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+        4, const_cast<void*>(pools[i]), dims, strides, box, step,
+        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  }
+  const auto kernel = ragged_split_kernel<KV, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(slots * splits, num_kv_heads);
+  cfg.blockDim = dim3(kSplitThreads);
+  cfg.dynamicSmemBytes = L::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(
+      &cfg, kernel, maps[0], maps[1],
+      static_cast<const __nv_bfloat16*>(q), k_scale, v_scale, tables,
+      kv_lens, tok_lane, tok_pos, static_cast<__nv_bfloat16*>(out),
+      num_tokens, num_heads, num_heads / num_kv_heads, table_width, ks_sb,
+      ks_sh, vs_sb, vs_sh, sm_scale * 1.4426950408889634f, tile_tokens);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // Decode / verify: one CTA per (sequence, kv head, query row); row
 // blockIdx.z of the sequence's S * G rows in (s, g) order is query s of
 // head kvh * G + g.
@@ -560,10 +1271,72 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
   return (int)cudaGetLastError();
 }
 
+// either instance of the ragged kernel over a pool in q's dtype or (kQuant)
+// an int8 pool; splits == 0 takes the general one
+template <bool kQuant>
+int dispatch(const void* q, const void* k_cache, const void* v_cache,
+             const float* k_scale, const float* v_scale, const void* tables,
+             const void* kv_lens, const void* tok_lane, const void* tok_pos,
+             void* out, int num_tokens, int num_heads, int num_kv_heads,
+             int head_dim, int block_size, int table_width, long long k_sb,
+             long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+             long long v_ss, long long ks_sb, long long ks_sh,
+             long long vs_sb, long long vs_sh, float sm_scale, int dtype,
+             int num_blocks, int splits, int slots, int tile_tokens,
+             void* stream) {
+  if (num_tokens == 0) return 0;
+  const int* tb = static_cast<const int*>(tables);
+  const int* kl = static_cast<const int*>(kv_lens);
+  const int* ln = static_cast<const int*>(tok_lane);
+  const int* ps = static_cast<const int*>(tok_pos);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (splits > 0) {
+    if (dtype != 0 || block_size != kSplitBS ||
+        (splits != 1 && splits != 2 && splits != 4) || slots < 1 ||
+        tile_tokens < 1 ||
+        tile_tokens * (num_heads / num_kv_heads) > 16 * splits)
+      return (int)cudaErrorInvalidValue;
+#define SPLIT_CASE(KVT, DD)                                                 \
+  return launch_split<KVT, DD>(q, k_cache, v_cache, k_scale, v_scale, tb,   \
+                               kl, ln, ps, out, num_tokens, num_heads,      \
+                               num_kv_heads, table_width, num_blocks, k_sb, \
+                               k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh,  \
+                               vs_sb, vs_sh, sm_scale, splits, slots,       \
+                               tile_tokens, s);
+    if constexpr (kQuant) {
+      if (head_dim == 128) SPLIT_CASE(int8_t, 128)
+    } else {
+      if (head_dim == 128) SPLIT_CASE(__nv_bfloat16, 128)
+      if (head_dim == 64) SPLIT_CASE(__nv_bfloat16, 64)
+    }
+#undef SPLIT_CASE
+    return (int)cudaErrorInvalidValue;
+  }
+  using KB = typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type;
+  using KF = typename std::conditional<kQuant, int8_t, float>::type;
+  if (dtype == 0)
+    return launch<__nv_bfloat16, KB>(
+        q, k_cache, v_cache, k_scale, v_scale, tb, kl, ln, ps, out,
+        num_tokens, num_heads, num_kv_heads, head_dim, block_size,
+        table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh, vs_sb,
+        vs_sh, sm_scale, s);
+  if (dtype == 1)
+    return launch<float, KF>(
+        q, k_cache, v_cache, k_scale, v_scale, tb, kl, ln, ps, out,
+        num_tokens, num_heads, num_kv_heads, head_dim, block_size,
+        table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh, vs_sb,
+        vs_sh, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype (of q, out and the pool): 0 = bfloat16, 1 = float32. Strides are
-// in elements; the last (head_dim) stride of both pools is 1. Returns
+// in elements; the last (head_dim) stride of both pools is 1. The
+// instance and its geometry come from `ragged_plan`
+// (ops/kernels/paged_attention.py): splits == 0 is the general instance;
+// splits > 0 the split one, `slots` clusters of `splits` CTAs a kv head,
+// tiles of up to `tile_tokens` tokens (num_blocks: the pool's NB). Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int ragged_paged_attention(
     const void* q, const void* k_cache, const void* v_cache,
@@ -572,32 +1345,20 @@ extern "C" int ragged_paged_attention(
     int num_kv_heads, int head_dim, int block_size, int table_width,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, float sm_scale, int dtype,
-    void* stream) {
-  if (num_tokens == 0) return 0;
-  const int* tb = static_cast<const int*>(tables);
-  const int* kl = static_cast<const int*>(kv_lens);
-  const int* ln = static_cast<const int*>(tok_lane);
-  const int* ps = static_cast<const int*>(tok_pos);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k_cache, v_cache, nullptr, nullptr, tb, kl, ln, ps, out,
-        num_tokens, num_heads, num_kv_heads, head_dim, block_size,
-        table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, 0, 0, 0, 0,
-        sm_scale, s);
-  if (dtype == 1)
-    return launch<float, float>(
-        q, k_cache, v_cache, nullptr, nullptr, tb, kl, ln, ps, out,
-        num_tokens, num_heads, num_kv_heads, head_dim, block_size,
-        table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, 0, 0, 0, 0,
-        sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+    int num_blocks, int splits, int slots, int tile_tokens, void* stream) {
+  return dispatch<false>(q, k_cache, v_cache, nullptr, nullptr, tables,
+                        kv_lens, tok_lane, tok_pos, out, num_tokens,
+                        num_heads, num_kv_heads, head_dim, block_size,
+                        table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, 0,
+                        0, 0, 0, sm_scale, dtype, num_blocks, splits, slots,
+                        tile_tokens, stream);
 }
 
 // The int8 pool: k_cache/v_cache int8 [NB, KVH, BS, D] (strides in
 // elements, head_dim stride 1), k_scale/v_scale f32 [NB, KVH, BS] (block
 // and head strides in elements, slot stride 1, rows 16-byte aligned).
-// dtype is q's and out's: 0 = bfloat16, 1 = float32.
+// dtype is q's and out's: 0 = bfloat16, 1 = float32; the rest as
+// `ragged_paged_attention`.
 extern "C" int ragged_paged_attention_q(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* tables,
@@ -606,28 +1367,23 @@ extern "C" int ragged_paged_attention_q(
     int head_dim, int block_size, int table_width, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb,
-    long long vs_sh, float sm_scale, int dtype, void* stream) {
-  if (num_tokens == 0) return 0;
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int* tb = static_cast<const int*>(tables);
-  const int* kl = static_cast<const int*>(kv_lens);
-  const int* ln = static_cast<const int*>(tok_lane);
-  const int* ps = static_cast<const int*>(tok_pos);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<__nv_bfloat16, int8_t>(
-        q, k_cache, v_cache, ks, vs, tb, kl, ln, ps, out, num_tokens,
-        num_heads, num_kv_heads, head_dim, block_size, table_width, k_sb,
-        k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh, vs_sb, vs_sh, sm_scale,
-        s);
-  if (dtype == 1)
-    return launch<float, int8_t>(
-        q, k_cache, v_cache, ks, vs, tb, kl, ln, ps, out, num_tokens,
-        num_heads, num_kv_heads, head_dim, block_size, table_width, k_sb,
-        k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh, vs_sb, vs_sh, sm_scale,
-        s);
-  return (int)cudaErrorInvalidValue;
+    long long vs_sh, float sm_scale, int dtype, int num_blocks, int splits,
+    int slots, int tile_tokens, void* stream) {
+  return dispatch<true>(
+      q, k_cache, v_cache, static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), tables, kv_lens, tok_lane, tok_pos,
+      out, num_tokens, num_heads, num_kv_heads, head_dim, block_size,
+      table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh, vs_sb,
+      vs_sh, sm_scale, dtype, num_blocks, splits, slots, tile_tokens, stream);
+}
+
+// The dynamic shared memory (bytes) a CTA of the split instance takes at
+// this head_dim (quant: an int8 pool); -1 for one it does not have.
+extern "C" long long ragged_split_smem_bytes(int head_dim, int quant) {
+  if (quant) return head_dim == 128 ? SplitSmem<int8_t, 128>::kBytes : -1;
+  if (head_dim == 128) return SplitSmem<__nv_bfloat16, 128>::kBytes;
+  if (head_dim == 64) return SplitSmem<__nv_bfloat16, 64>::kBytes;
+  return -1;
 }
 
 // Decode: q and out [B, H, D] (contiguous), one query per sequence at

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 import torch
 
 __all__ = ["resolve_device", "launch_counter", "reset_launch_counts",
-           "build", "load_library", "CSRC_DIR", "BUILD_DIR"]
+           "build", "load_library", "sm_count", "CSRC_DIR", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"
@@ -142,3 +142,9 @@ def load_library(stem: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<stem>.cu`'s shared library."""
     info = build([CSRC_DIR / f"{stem}.cu"])[stem]
     return ctypes.CDLL(str(info["path"]))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device `index` (the kernels' launch plans take it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

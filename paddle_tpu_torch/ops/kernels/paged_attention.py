@@ -7,7 +7,9 @@ kernels (`csrc/ragged_paged_attention.cu`) on CUDA tensors and run their
 plain PyTorch versions on CPU tensors:
 - `paged_attention_ragged` (plain: `paged_attention_ragged_ref`), a packed
   query buffer — the bf16/f32-pool kernel, or with `k_scale`/`v_scale`
-  the int8-pool kernel;
+  the int8-pool kernel, each in the instance `ragged_plan` picks from the
+  shapes (the split instance for bf16 q at the serving shapes, else the
+  general one); one launch a call, nothing read back to the host;
 - `paged_attention` (plain: `paged_attention_ref`), one decode query per
   sequence;
 - `paged_attention_verify` (plain: `paged_attention_verify_ref`), S
@@ -23,7 +25,9 @@ kv_lens / context_lens [B]; tok_lane/tok_pos [T] int32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -32,7 +36,8 @@ from . import _support
 
 __all__ = ["ragged_metadata", "ragged_write_index", "write_kv_to_cache_ragged",
            "write_kv_to_cache", "paged_attention_ragged",
-           "paged_attention_ragged_ref", "ragged_supported",
+           "paged_attention_ragged_ref", "ragged_supported", "ragged_plan",
+           "RaggedPlan",
            "paged_attention", "paged_attention_ref", "supported",
            "paged_attention_verify", "paged_attention_verify_ref",
            "verify_supported", "LAUNCHES", "LAUNCHES_Q", "LAUNCHES_DECODE",
@@ -171,6 +176,95 @@ def ragged_supported(q_shape, dtype) -> bool:
             and dtype in (torch.bfloat16, torch.float32))
 
 
+class RaggedPlan(NamedTuple):
+    splits: int       # CTAs of a cluster (1, 2 or 4), each 4 / splits of
+                      # a tile's page streams; 0: the general instance
+    tile_tokens: int  # tokens a tile at most (rows: tokens x G <= 16 x
+                      # splits)
+    slots: int        # clusters a kv head: the most tiles T packed tokens
+                      # of `lanes` lanes make
+    stages: int       # pages in flight a CTA
+    smem_bytes: int   # dynamic shared memory a CTA
+    ctas: int
+
+
+# the split instance (`ragged_split_kernel` in csrc/ragged_paged_attention.cu)
+PLAN_BLOCK_SIZE = 16          # slots a page (a TMA box of 16 rows)
+PLAN_MAX_ROWS = 64            # rows a tile: four warps of 16
+PLAN_WARPS = 4                # consumer warps a CTA, and a row's page streams
+PLAN_SPLITS = (1, 2, 4)       # cluster sizes: each CTA whole streams
+# the split instance's CTAs an SM holds (at most 168 registers a thread, 5
+# warps): a launch takes the largest split whose CTAs, at the most tiles
+# the packed buffer can hold, stay within that many an SM; more splits only
+# add waves of CTAs, each paying the CTA's fixed latency (PERF.md)
+PLAN_CTAS_PER_SM = 2
+
+
+def _split_smem(head_dim: int, int8: bool):
+    """(stages, bytes) of the split instance's CTA (`SplitSmem`): the page
+    ring, the f32 partials laid over it, the int8 pool's scale rows, the
+    mbarriers, the consumer lanes' q segments and 1 KB of alignment."""
+    itemsize = 1 if int8 else 2
+    stages = 8
+    ring = stages * 2 * PLAN_BLOCK_SIZE * head_dim * itemsize    # K + V
+    pitch = head_dim + (4 if int8 else 8)
+    part = PLAN_WARPS * 16 * (pitch + 2) * 4    # partials, their m and l
+    scales = stages * 2 * PLAN_BLOCK_SIZE * 4 if int8 else 0
+    q_areas = PLAN_WARPS * 16 * 2 * head_dim      # each lane's q segments
+    return stages, (max(ring, part) + scales + 2 * stages * 8 + q_areas
+                    + 1024)
+
+
+@functools.lru_cache(maxsize=4096)
+def ragged_plan(tokens: int, heads: int, kv_heads: int, head_dim: int,
+                block_size: int, table_width: int, lanes: int, dtype,
+                int8: bool, sms: int, aligned: bool = True,
+                splits: int = 0) -> RaggedPlan:
+    """The ragged kernel's instance and geometry for q [tokens, heads,
+    head_dim] over pools of `kv_heads` heads, `block_size` slots a page
+    and tables [lanes, table_width], in `dtype` (or an `int8` pool), on a
+    card of `sms` SMs (`aligned`: q starts on a 16-byte boundary). A pure
+    function of the shapes.
+
+    Aligned bf16 q with head_dim 128 (64 too for a bf16 pool), 16-slot
+    pages and at most 64 query heads a kv head take the split instance: a
+    cluster of `splits` CTAs (1, 2 or 4) a tile of `tile_tokens` = 16 x
+    splits // G tokens of a lane (every lane's tokens are at most
+    ceil(q_len / tile_tokens) tiles, so `slots` = min(T, B) + (T - B) //
+    tile_tokens clusters a kv head hold any packing in one pass). The rule
+    takes the largest split whose slots x kv_heads x splits CTAs stay
+    within PLAN_CTAS_PER_SM an SM, else the smallest that holds a token's
+    G rows (Llama-2-7B's 32 kv heads at 8 lanes: 1; 8 kv heads: 2);
+    `splits` forces one (the split sweep). A row's result does not depend
+    on the split. Every other shape takes the general instance (one CTA
+    per packed token and kv head)."""
+    group = heads // kv_heads if kv_heads and heads % kv_heads == 0 else 0
+    split = (aligned and dtype == torch.bfloat16
+             and block_size == PLAN_BLOCK_SIZE
+             and (head_dim == 128 or (head_dim == 64 and not int8))
+             and 0 < group <= PLAN_MAX_ROWS and tokens > 0)
+    if not split:
+        itemsize = 1 if int8 else dtype.itemsize
+        return RaggedPlan(0, 1, tokens, _STAGES,
+                          _smem_bytes(max(group, 1), head_dim, block_size,
+                                      itemsize, int8), tokens * kv_heads)
+    best = None
+    for c in PLAN_SPLITS:
+        if group > 16 * c or (splits and c != splits):
+            continue
+        tile = 16 * c // group
+        slots = max(1, min(tokens, min(tokens, lanes)
+                           + max(0, tokens - lanes) // tile))
+        if best is None or slots * kv_heads * c <= PLAN_CTAS_PER_SM * sms:
+            best = (c, tile, slots)
+    if best is None:
+        raise ValueError(f"no split of {PLAN_SPLITS} holds {group} heads "
+                         f"a kv head in {splits} x 16 rows")
+    c, tile, slots = best
+    stages, smem = _split_smem(head_dim, int8)
+    return RaggedPlan(c, tile, slots, stages, smem, slots * kv_heads * c)
+
+
 # above this many packed tokens the ref tiles its per-token window
 # gather, as the JAX reference does: an untiled T x window gather is
 # O(T * max_seq) memory
@@ -300,8 +394,10 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
     """Decode-step paged attention: q [B, H, D], one query per sequence
     at position context_lens[b] - 1 (context_lens counts the cache
     INCLUDING it). Returns [B, H, D] in q's dtype. CPU tensors take
-    `paged_attention_ref`; CUDA tensors launch the decode kernel or
-    raise."""
+    `paged_attention_ref`; CUDA tensors launch a kernel or raise: bf16 at
+    the shapes `ragged_plan` gives the split instance launch the ragged
+    kernel's split instance with one query a lane, everything else the
+    decode kernel."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_cache, v_cache, block_tables,
                                    context_lens, sm_scale)
@@ -311,6 +407,12 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
         raise ValueError(f"decode kernel takes q [B, H, D] bf16/f32 with "
                          f"D % 8 == 0 and D <= 256, got {tuple(q.shape)} "
                          f"{q.dtype}")
+    if q.is_contiguous() and 0 < q.shape[0] == block_tables.shape[0] and \
+            _plan(q, k_cache, block_tables, False).splits:
+        # the ragged kernel's split instance, one query a lane: decode and
+        # ragged steps then share one arithmetic, bit for bit
+        return _launch(q, k_cache, v_cache, block_tables, context_lens,
+                       None, None, sm_scale, None, None)
     return _launch_rows(q[:, None], k_cache, v_cache, block_tables,
                         context_lens, sm_scale, verify=False)[:, 0]
 
@@ -386,9 +488,11 @@ def _check_pools(q, k_cache, v_cache, quant=False):
 def _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
            k_scale, v_scale):
     quant = k_scale is not None or v_scale is not None
+    toks = (("tok_lane", tok_lane), ("tok_pos", tok_pos)) \
+        if tok_pos is not None else ()
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("block_tables", block_tables), ("kv_lens", kv_lens),
-                    ("tok_lane", tok_lane), ("tok_pos", tok_pos)) + \
+                    ("block_tables", block_tables), ("kv_lens", kv_lens)) + \
+            toks + \
             ((("k_scale", k_scale), ("v_scale", v_scale)) if quant else ()):
         if t is None:
             raise ValueError(f"an int8 pool needs both scale planes; "
@@ -416,21 +520,14 @@ def _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
                                  f"(block_size % 4 == 0, unit slot "
                                  f"stride), got shape {tuple(sc.shape)} "
                                  f"strides {sc.stride()}")
-    kv_h = k_cache.shape[1]
-    smem = _smem_bytes(h // kv_h, d, k_cache.shape[2],
-                       k_cache.element_size(), quant)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"ragged kernel needs {smem} bytes of shared "
-                         f"memory per block, over the {_SMEM_MAX} a Hopper "
-                         "block may use")
     if block_tables.dim() != 2 or not block_tables.is_contiguous():
         raise ValueError("block_tables must be a contiguous [B, W] tensor")
-    for name, x, n in (("kv_lens", kv_lens, block_tables.shape[0]),
-                       ("tok_lane", tok_lane, t), ("tok_pos", tok_pos, t)):
+    for name, x, n in (("kv_lens", kv_lens, block_tables.shape[0]),) + \
+            tuple((name, x, t) for name, x in toks):
         if x.dim() != 1 or x.shape[0] != n or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [{n}] tensor")
-    for name, x in (("block_tables", block_tables), ("kv_lens", kv_lens),
-                    ("tok_lane", tok_lane), ("tok_pos", tok_pos)):
+    for name, x in (("block_tables", block_tables), ("kv_lens", kv_lens)) \
+            + toks:
         if x.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {x.dtype}")
     return quant
@@ -443,19 +540,43 @@ def _lib(quant):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         nptr, nstride = (10, 10) if quant else (8, 6)
         fn.argtypes = [p] * nptr + [i] * 6 + [ll] * nstride + \
-            [ctypes.c_float, i, p]
+            [ctypes.c_float] + [i] * 5 + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _plan(q, k_cache, block_tables, quant):
+    """`ragged_plan` for these inputs on q's card; raises where the plan
+    takes the general instance and its CTA would not fit."""
+    t, h, d = q.shape
+    _nb, kv_h, bs, _ = k_cache.shape
+    plan = ragged_plan(t, h, kv_h, d, bs, block_tables.shape[1],
+                       block_tables.shape[0], q.dtype, quant,
+                       _support.sm_count(q.device.index
+                                         if q.device.index is not None
+                                         else torch.cuda.current_device()),
+                       q.data_ptr() % 16 == 0)
+    if plan.smem_bytes > _SMEM_MAX:
+        raise ValueError(f"ragged kernel needs {plan.smem_bytes} bytes of "
+                         f"shared memory per block, over the {_SMEM_MAX} a "
+                         "Hopper block may use")
+    return plan
+
+
 def _launch(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
             sm_scale, k_scale, v_scale):
+    """One launch of the ragged kernel in the instance `_plan` picks.
+    tok_lane = tok_pos = None is a decode call (q [B, H, D], query b of
+    lane b at kv_lens[b] - 1; the split instance only), counted as a
+    decode launch."""
+    decode = tok_pos is None
     quant = _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane,
                    tok_pos, k_scale, v_scale)
     t, h, d = q.shape
-    _nb, kv_h, bs, _ = k_cache.shape
+    nb, kv_h, bs, _ = k_cache.shape
     if sm_scale is None:
         sm_scale = 1.0 / float(math.sqrt(d))
+    plan = _plan(q, k_cache, block_tables, quant)
     out = torch.empty_like(q)
     fn = _lib(quant)
     if quant:
@@ -469,13 +590,16 @@ def _launch(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*ptrs, block_tables.data_ptr(), kv_lens.data_ptr(),
-                tok_lane.data_ptr(), tok_pos.data_ptr(), out.data_ptr(),
+                None if decode else tok_lane.data_ptr(),
+                None if decode else tok_pos.data_ptr(), out.data_ptr(),
                 t, h, kv_h, d, bs, block_tables.shape[1], *strides,
-                float(sm_scale), _DTYPE_CODE[q.dtype], stream)
+                float(sm_scale), _DTYPE_CODE[q.dtype], nb, plan.splits,
+                plan.slots, plan.tile_tokens, stream)
     name = "ragged_paged_attention_q" if quant else "ragged_paged_attention"
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    (LAUNCHES_Q if quant else LAUNCHES).count += 1
+    (LAUNCHES_DECODE if decode else LAUNCHES_Q if quant else
+     LAUNCHES).count += 1
     return out
 
 

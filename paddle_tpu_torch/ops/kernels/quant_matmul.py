@@ -110,11 +110,6 @@ def gemm_plan(m: int, n: int, k: int, sms: int,
                     tokens * (PLAN_ROWS + 4) * 4)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def quant_matmul_ref(x2d, wq, scale, out_dtype=None):
     """Plain version of `quant_matmul`: `x2d [M, K]` (bf16/f32) against
     `wq [N, K]` int8 / float8_e4m3fn / float8_e5m2 and `scale [N]` f32
@@ -228,7 +223,7 @@ def _launch(x2d, wq, scale, out_dtype, int4):
     fn = _lib(int4)
     with torch.cuda.device(x2d.device):
         args = _kernel_args(x2d, wq, scale, out, int4,
-                            _sm_count(torch.cuda.current_device()))
+                            _support.sm_count(torch.cuda.current_device()))
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:

@@ -1,5 +1,6 @@
-"""Time the flash attention kernels, the weight-only gemms and the
-RMSNorm forward of two checkouts on one card, in turns.
+"""Time the flash attention kernels, the weight-only gemms, the RMSNorm
+forward and the ragged paged attention of two checkouts on one card, in
+turns.
 
     python -m paddle_tpu_torch.tools.kernel_compare --parent DIR \\
         [--out kernel_compare.json]
@@ -14,13 +15,16 @@ into that tree's `build/`), times `flash_attention_fwd`,
 `flash_attention_dq` and `flash_attention_dkv` on the same seeded inputs
 at each shape of `SHAPES`, `quant_matmul` (int8 weights) and
 `quant_matmul_int4` (bf16 x, M = 40) at each shape of `GEMM_SHAPES`, and
-`rms_norm_fwd` at each case of `RMS_CASES` (median device time of one
-call with a cold L2, as `chip_smoke.py` times; the gemms and RMSNorm also
-after an L2 left clean), and prints one JSON line. `--sweep-splits` times
-this tree's int8 and int4 gemms at every K split the kernel takes
-(1 .. 8) beside the one `gemm_plan` picks. The script prints the card's
-name and power limit, then one JSON object with every run, and writes it
-to `--out` when given. Needs a CUDA card.
+`rms_norm_fwd` at each case of `RMS_CASES`, and `paged_attention_ragged`
+at each composition of `RAGGED_COMPOSITIONS` over a bf16 pool and an int8
+pool (median device time of one call with a cold L2, as `chip_smoke.py`
+times; the gemms, RMSNorm and the ragged kernels also after an L2 left
+clean), and prints one JSON line. `--sweep-splits` times this tree's int8
+and int4 gemms at every K split the kernel takes (1 .. 8) beside the one
+`gemm_plan` picks, and its ragged kernel at every cluster size (1, 2, 4)
+beside the one `ragged_plan` picks, with 32 and 8 kv heads. The script
+prints the card's name and power limit, then one JSON object with every
+run, and writes it to `--out` when given. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -64,6 +68,65 @@ RMS_CASES = {"rms_bf16": ((8192, 4096), "bfloat16"),
              "rms_f32": ((8192, 4096), "float32"),
              "rms_h8192_bf16": ((8192, 8192), "bfloat16")}
 RMS_KERNELS = ("rms_norm", "rms_norm_clean_l2")
+# the ragged kernels at the serving geometry (tools/serve_workload.py: 8
+# lanes, T = 8 + 32 packed slots, pages of 16, 128 a table, a pool of 1024
+# blocks) at Llama-2-7B width (32 heads of 128): (q_lens, kv_lens) of the
+# serving step (`serve`: six decode lanes at ~512, an empty lane, a
+# 32-token chunk at kv_len 72, two guard slots), the steady decode step
+# (`decode8`: 8 decode lanes at 512-544, 32 guard slots) and a 32-token
+# chunk at kv_len 512 beside 7 decode lanes (`prefill512`, one guard)
+RAGGED_COMPOSITIONS = {
+    "serve": ([1, 1, 1, 0, 1, 1, 32, 1],
+              [512, 509, 530, 0, 498, 520, 72, 515]),
+    "decode8": ([1] * 8, [512, 520, 530, 544, 515, 525, 538, 541]),
+    "prefill512": ([1, 1, 1, 32, 1, 1, 1, 1],
+                   [520, 530, 512, 512, 540, 515, 525, 544]),
+}
+RAGGED_GEOMETRY = dict(T=40, H=32, D=128, BS=16, W=128, NB=1024)
+RAGGED_KERNELS = ("ragged", "ragged_clean_l2")
+
+
+def ragged_inputs(name, kv_heads, quant, dtype, gen, bs=16):
+    """The composition `name` on the card: (args, scales, tok_pos) for
+    `paged_attention_ragged`. Block 0 is the guard block; each lane's
+    pages are distinct blocks in a seeded order. `quant`: int8 pools and
+    their scale planes from `quantize_kv` of the same random K/V. `bs`:
+    slots a page (the serving pool's 16, or another for the general
+    instance; the pool holds the same tokens)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference import kv_quant
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    q_lens, kv_lens = RAGGED_COMPOSITIONS[name]
+    geo = RAGGED_GEOMETRY
+    scale = 16 // bs
+    nb, w = geo["NB"] * scale, geo["W"] * scale
+    rng = np.random.default_rng(0)
+    perm = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((len(q_lens), w), np.int32)
+    used = 0
+    for i, n in enumerate(kv_lens):
+        k = -(-n // bs)
+        tables[i, :k] = perm[used:used + k]
+        used += k
+    dev = torch.device("cuda")
+    q = torch.randn((geo["T"], geo["H"], geo["D"]), generator=gen,
+                    device=dev).to(dtype)
+    kc = torch.randn((nb, kv_heads, bs, geo["D"]), generator=gen, device=dev)
+    vc = torch.randn((nb, kv_heads, bs, geo["D"]), generator=gen, device=dev)
+    scales = {}
+    if quant:
+        kc, ks = kv_quant.quantize_kv(kc)
+        vc, vs = kv_quant.quantize_kv(vc)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        kc, vc = kc.to(dtype), vc.to(dtype)
+    ql = torch.tensor(q_lens, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    lane, pos = pa.ragged_metadata(ql, kl, geo["T"])
+    return (q, kc, vc, torch.from_numpy(tables).to(dev), kl, lane, pos), \
+        scales, pos
 
 
 def _time_ms(fn, flush, reps=30, clean=None):
@@ -164,6 +227,19 @@ def worker():
         out[name] = dict(zip(RMS_KERNELS, (
             _time_ms(call, flush), _time_ms(call, flush, clean=clean))))
         del x, w
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    for name in RAGGED_COMPOSITIONS:
+        for pool in ("bf16", "int8"):
+            g = torch.Generator(device=dev).manual_seed(13)
+            args, sc, _pos = ragged_inputs(name, 32, pool == "int8",
+                                           torch.bfloat16, g)
+
+            def call():
+                return pa.paged_attention_ragged(*args, **sc)
+            out[f"ragged_{pool}_{name}"] = dict(zip(RAGGED_KERNELS, (
+                _time_ms(call, flush), _time_ms(call, flush, clean=clean))))
+            del args, sc
     print(json.dumps(out), flush=True)
 
 
@@ -213,7 +289,63 @@ def sweep_splits():
                 "ctas_per_split": plan.m_tiles * plan.n_tiles,
                 "ms_dirty_clean_l2": ms}
             del x, wq, s, out, want
-    return {"sms": sms, "gemm": res}
+    return {"sms": sms, "gemm": res, "ragged": sweep_ragged(flush, clean)}
+
+
+def sweep_ragged(flush, clean):
+    """This tree's ragged kernels (bf16 q, a bf16 and an int8 pool) at
+    every cluster size the split instance takes (its tile follows it), at
+    each composition with 32 (Llama-2-7B) and 8 kv heads; every split
+    checked against the plain version first."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    sms = _support.sm_count(torch.cuda.current_device())
+    res = {}
+    planned = pa._plan
+
+    def forced(splits):
+        def plan(q, k_cache, block_tables, quant):
+            t, h, d = q.shape
+            return pa.ragged_plan(t, h, k_cache.shape[1], d,
+                                  k_cache.shape[2], block_tables.shape[1],
+                                  block_tables.shape[0], q.dtype, quant, sms,
+                                  splits=splits)
+        return plan
+    try:
+        for kvh in (32, 8):
+            for name in RAGGED_COMPOSITIONS:
+                for pool in ("bf16", "int8"):
+                    g = torch.Generator(device=dev).manual_seed(13)
+                    args, sc, _pos = ragged_inputs(name, kvh, pool == "int8",
+                                                   torch.bfloat16, g)
+                    plan = planned(args[0], args[1], args[3], pool == "int8")
+                    want = pa.paged_attention_ragged_ref(*args, **sc).float()
+                    ms = {}
+                    for splits in pa.PLAN_SPLITS:
+                        pa._plan = forced(splits)
+                        err = float((pa.paged_attention_ragged(*args, **sc)
+                                     .float() - want).abs().max())
+                        if not err <= 4e-3 * (1 + float(want.abs().max())):
+                            raise AssertionError(f"ragged {name} {pool} "
+                                                 f"kvh {kvh} splits {splits}"
+                                                 f": err {err}")
+
+                        def call():
+                            return pa.paged_attention_ragged(*args, **sc)
+                        ms[splits] = [_time_ms(call, flush),
+                                      _time_ms(call, flush, clean=clean)]
+                    pa._plan = planned
+                    res[f"ragged_{pool}_{name}_kvh{kvh}"] = {
+                        "planned": plan.splits, "tile_tokens":
+                        plan.tile_tokens, "slots": plan.slots,
+                        "ms_dirty_clean_l2": ms}
+                    del args, sc, want
+    finally:
+        pa._plan = planned
+    return res
 
 
 def main(argv=None):
@@ -260,7 +392,9 @@ def main(argv=None):
         cases = [(name, k) for name in SHAPES for k in KERNELS] + \
             [(f"{prefix}_{name}", k) for prefix in GEMM_FORMATS
              for name in GEMM_SHAPES for k in GEMM_KERNELS] + \
-            [(name, k) for name in RMS_CASES for k in RMS_KERNELS]
+            [(name, k) for name in RMS_CASES for k in RMS_KERNELS] + \
+            [(f"ragged_{pool}_{name}", k) for name in RAGGED_COMPOSITIONS
+             for pool in ("bf16", "int8") for k in RAGGED_KERNELS]
         summary = {}
         for name, k in cases:
             summary.setdefault(name, {})[k] = {

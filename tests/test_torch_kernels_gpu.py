@@ -250,6 +250,180 @@ def test_int8_write_on_card_matches_cpu():
         torch.testing.assert_close(g.cpu(), w, atol=0, rtol=0)
 
 
+# ---- the split instance of the ragged kernels (bf16 q, BS 16) ----
+
+# (heads, kv heads, head_dim, q_lens, kv_lens): tiles across lanes at
+# q_len 1, 5, 16, 17, 33 and 64 (one or two tiles of a lane, a full and a
+# short one, up to 64 rows), kv_len at the edges of a page and of the
+# cluster's split (1, 15, 16, 17, 2048), G 1, 4 and 8, an empty lane in
+# the middle; T leaves guard slots after the last lane
+SPLIT_CASES = {
+    "tiles_mha": (4, 4, 128, [1, 5, 16, 0, 17, 33, 64],
+                  [40, 21, 16, 0, 50, 100, 64]),
+    "edges_gqa4": (16, 4, 128, [1, 1, 1, 1, 0, 1, 5],
+                   [1, 15, 16, 17, 0, 2048, 33]),
+    "tiles_gqa8": (16, 2, 128, [17, 1, 0, 9, 8], [17, 300, 0, 40, 2048]),
+    "d64_mha": (8, 8, 64, [1, 33, 0, 2], [130, 70, 0, 17]),
+}
+
+
+def _split_case(dev, name, quant, seed=0):
+    """Seeded inputs of SPLIT_CASES[name] with 3 guard slots; the pool
+    (NB just over the pages the lanes use) in bf16 or, `quant`, int8 with
+    its scale planes."""
+    h, kvh, d, q_lens, kv_lens = SPLIT_CASES[name]
+    bs, t = 16, sum(q_lens) + 3
+    w = max(-(-n // bs) for n in kv_lens) + 1
+    nb = sum(-(-n // bs) for n in kv_lens) + 2
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((len(q_lens), w), np.int32)
+    used = 0
+    for i, n in enumerate(kv_lens):
+        k = -(-n // bs)
+        tables[i, :k] = perm[used:used + k]
+        used += k
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((t, h, d), generator=g, device=dev).to(torch.bfloat16)
+    kc = torch.randn((nb, kvh, bs, d), generator=g, device=dev)
+    vc = torch.randn((nb, kvh, bs, d), generator=g, device=dev)
+    sc = {}
+    if quant:
+        kc, ks = kv_quant.quantize_kv(kc)
+        vc, vs = kv_quant.quantize_kv(vc)
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+    ql = torch.tensor(q_lens, dtype=torch.int32, device=dev)
+    kl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    lane, pos = pa.ragged_metadata(ql, kl, t)
+    return (q, kc, vc, torch.from_numpy(tables).to(dev), kl, lane, pos), sc
+
+
+def _general_plan(q, k_cache, block_tables, quant):
+    """`_plan` forced to the general instance."""
+    t, h, d = q.shape
+    kvh, bs = k_cache.shape[1], k_cache.shape[2]
+    return pa.RaggedPlan(0, 1, t, 3, pa._smem_bytes(
+        h // kvh, d, bs, k_cache.element_size(), quant), t * kvh)
+
+
+@pytest.mark.parametrize("instance", ["split", "general"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_instance_matches_plain_version(name, quant, instance,
+                                              monkeypatch):
+    dev = _card()
+    args, sc = _split_case(dev, name, quant)
+    q, kc = args[0], args[1]
+    plan = pa._plan(q, kc, args[3], quant)
+    want_split = not (quant and q.shape[-1] == 64)   # int8 D 64: general
+    assert (plan.splits > 0) == want_split
+    if instance == "general":
+        monkeypatch.setattr(pa, "_plan", _general_plan)
+    counter = pa.LAUNCHES_Q if quant else pa.LAUNCHES
+    before = counter.count
+    out = pa.paged_attention_ragged(*args, **sc)
+    again = pa.paged_attention_ragged(*args, **sc)
+    torch.cuda.synchronize()
+    assert counter.count == before + 2
+    ref = pa.paged_attention_ragged_ref(*args, **sc)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+    # guard slots and the empty lane: exact zeros; repeats: the same bits
+    guard = args[-1] < 0
+    assert int(guard.sum()) == 3
+    assert bool((out[guard] == 0).all())
+    assert torch.equal(out, again)
+
+
+def _forced(splits):
+    """`_plan` with the cluster size forced (its tile follows it)."""
+    from paddle_tpu_torch.ops.kernels import _support
+
+    def plan(q, k_cache, block_tables, quant):
+        t, h, d = q.shape
+        return pa.ragged_plan(t, h, k_cache.shape[1], d, k_cache.shape[2],
+                              block_tables.shape[1], block_tables.shape[0],
+                              q.dtype, quant,
+                              _support.sm_count(q.device.index or 0),
+                              splits=splits)
+    return plan
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name", ["tiles_mha", "tiles_gqa8"])
+def test_split_instance_is_batch_invariant(name, quant, monkeypatch):
+    """A token's rows are the same bits in every packing: with the batch
+    around it, with its lane alone, and at every cluster size (whose tile
+    size follows it)."""
+    dev = _card()
+    args, sc = _split_case(dev, name, quant)
+    q, kc, vc, tables, kl, lane, pos = args
+    want = pa.paged_attention_ragged(*args, **sc)
+    g = q.shape[1] // kc.shape[1]
+    for splits in pa.PLAN_SPLITS:
+        if g > 16 * splits:
+            continue
+        monkeypatch.setattr(pa, "_plan", _forced(splits))
+        assert torch.equal(pa.paged_attention_ragged(*args, **sc), want)
+        # each lane alone: its own tokens, one lane in the table
+        for b in range(tables.shape[0]):
+            rows = (lane == b) & (pos >= 0)
+            n = int(rows.sum())
+            if n == 0:
+                continue
+            one = pa.paged_attention_ragged(
+                q[rows].contiguous(), kc, vc, tables[b:b + 1].contiguous(),
+                kl[b:b + 1].contiguous(),
+                torch.zeros(n, dtype=torch.int32, device=dev),
+                pos[rows].contiguous(), **sc)
+            assert torch.equal(one, want[rows])
+
+
+def test_decode_takes_the_split_instance_bit_equal_to_ragged():
+    """bf16 decode at the split instance's shapes launches it, one query a
+    lane, counted as a decode launch: the same bits as a ragged step over
+    the same lanes, within the plain version's tolerance; an empty lane
+    gives zeros."""
+    dev = _card()
+    args, _ = _split_case(dev, "edges_gqa4", False)
+    q, kc, vc, tables, kl = args[:5]
+    qd = q[:kl.shape[0]].contiguous()                # one query a lane
+    before = (pa.LAUNCHES.count, pa.LAUNCHES_DECODE.count)
+    out = pa.paged_attention(qd, kc, vc, tables, kl)
+    torch.cuda.synchronize()
+    assert (pa.LAUNCHES.count, pa.LAUNCHES_DECODE.count) == \
+        (before[0], before[1] + 1)
+    # slot b holds lane b's query at kv_len - 1 (a guard where kv_len 0)
+    ln = torch.arange(kl.shape[0], dtype=torch.int32, device=dev)
+    rag = pa.paged_attention_ragged(qd, kc, vc, tables, kl, ln, kl - 1)
+    assert torch.equal(out, rag)
+    assert bool((out[kl == 0] == 0).all())
+    ref = pa.paged_attention_ref(qd, kc, vc, tables, kl)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+def test_split_plan_matches_the_kernels_shared_memory():
+    """`ragged_plan`'s shared memory is the library's `SplitSmem`."""
+    _card()
+    import ctypes
+    from paddle_tpu_torch.ops.kernels import _support
+
+    fn = _support.load_library("ragged_paged_attention") \
+        .ragged_split_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    for d, quant in ((128, False), (64, False), (128, True)):
+        plan = pa.ragged_plan(40, 32, 32, d, 16, 128, 8, torch.bfloat16,
+                              quant, 132)
+        assert plan.splits > 0 and fn(d, int(quant)) == plan.smem_bytes
+
+
 # ---- the weight-only gemms ----
 
 def _gemm_case(dev, m, n, k, fmt, x_dtype, seed=0):
