@@ -8,8 +8,10 @@ kernel against its plain PyTorch version at the serving shapes (the
 ragged paged attention over a bf16/f32 pool and over an int8 pool, at
 the serving step, the steady decode step and a 32-token chunk at kv_len
 512, each in the instance `ragged_plan` picks, and in the general
-instance over 8-slot pages; the paged decode and verify attention, the
-verify also against the ragged kernel, and the int8/fp8 and int4
+instance over 8-slot pages; the paged decode and verify attention in 16-
+and 64-slot pages, bf16 on the split instance, bit-equal to the ragged
+kernel on the same windows and to 16-slot pages, and the decode / verify
+kernel at f32, head_dim 96 and 8-slot pages; and the int8/fp8 and int4
 weight-only gemms), checks the engine
 on the card against its CPU run on a small model in every quantization
 mode (ragged steps, prefill, decode and verify), then serves a few
@@ -369,73 +371,72 @@ def _row_check(name, out, ref, dead):
     return float(row_err.max()), rel
 
 
-def _paged_inputs(kv_heads, dtype, gen, s=None):
-    """The serve workload's context lengths (`default_rng(0)`, 64-512)
-    plus an empty sequence and one of 3 tokens, over a pool of the
-    serving geometry (block 16, tables of 128 blocks), H 32, D 128; q
-    [B, H, D] (decode, `s` None) or [B, S, H, D]. Also the least bytes
-    and operations of the call."""
-    from paddle_tpu_torch.tools.serve_workload import BS, MAXB, NB
+def _paged_inputs(kv_heads, dtype, gen, s=None, bs=16, d=128):
+    """`kernel_compare.paged_inputs`: the serve workload's context lengths
+    (`default_rng(0)`, 64-512) plus an empty sequence and one of 3
+    tokens, over the serving pool's slots in pages of `bs` (tables of 2048
+    slots), H 32; q [B, H, D] (decode, `s` None) or [B, S, H, D]. Also
+    the dead rows and the least bytes and operations of the call."""
+    from paddle_tpu_torch.tools.kernel_compare import paged_inputs
 
-    h, d = 32, 128
-    ctx = [int(n) for n in np.random.default_rng(0).integers(64, 513, 8)]
-    ctx += [0, 3]
-    b = len(ctx)
-    rng = np.random.default_rng(1)
-    perm = rng.permutation(np.arange(1, NB))
-    tables = np.zeros((b, MAXB), np.int32)
-    used = 0
-    for i, n in enumerate(ctx):
-        nblk = -(-n // BS)
-        tables[i, :nblk] = perm[used:used + nblk]
-        used += nblk
-    dev = torch.device("cuda")
-    shape = (b, h, d) if s is None else (b, s, h, d)
-    q = torch.randn(shape, generator=gen, device=dev).to(dtype)
-    kc = torch.randn((NB, kv_heads, BS, d), generator=gen,
-                     device=dev).to(dtype)
-    vc = torch.randn((NB, kv_heads, BS, d), generator=gen,
-                     device=dev).to(dtype)
-    lens = torch.tensor(ctx, dtype=torch.int32, device=dev)
-    args = (q, kc, vc, torch.from_numpy(tables).to(dev), lens)
+    args, ctx = paged_inputs(kv_heads, dtype, gen, s, bs, d)
+    q = args[0]
+    h, b = q.shape[-2], len(ctx)
     # rows of each sequence and their last visible position
     sq = 1 if s is None else s
     last = np.asarray(ctx)[:, None] - sq + np.arange(sq)[None, :]  # [B, S]
     item = q.element_size()
     nbytes = (2 * q.numel() * item + sum(ctx) * 2 * kv_heads * d * item
-              + 4 * (b + sum(-(-n // BS) for n in ctx)))
+              + 4 * (b + sum(-(-n // bs) for n in ctx)))
     flops = 4 * h * d * int(np.clip(last + 1, 0, None).sum())
     return args, last < 0, nbytes, flops
 
 
 def _paged_cases(verify, cases, flush, gen):
-    """Check and time each case; returns the results and the launches of
-    the checked calls (one per case)."""
+    """Check and time each case, asserting the instance it takes (the
+    split instance in window mode, or the decode / verify kernel); a case
+    over pages of 16 k slots on the split instance also gives the bits of
+    the same keys in 16-slot pages. Returns the results and the launches
+    of the checked calls (one per case)."""
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.tools.kernel_compare import as_16_slot_pages
 
     fn = pa.paged_attention_verify if verify else pa.paged_attention
     ref_fn = pa.paged_attention_verify_ref if verify else \
         pa.paged_attention_ref
     counter = pa.LAUNCHES_VERIFY if verify else pa.LAUNCHES_DECODE
     results, checked = {}, 0
-    for name, kvh, dtype, s in cases:
-        args, dead, nbytes, flops = _paged_inputs(kvh, dtype, gen, s)
+    for name, kvh, dtype, s, bs, d, instance in cases:
+        label = f"{'verify' if verify else 'decode'} {name}"
+        args, dead, nbytes, flops = _paged_inputs(kvh, dtype, gen, s, bs, d)
+        split = pa._window_split(args[0], args[1], args[3])
+        if split != (instance == "split"):
+            raise AssertionError(f"{label}: takes the "
+                                 f"{'split' if split else 'general'} "
+                                 f"instance, expected the {instance} one")
         before = counter.count
         out = fn(*args)
         checked += counter.count - before
         ref = ref_fn(*args)
         torch.cuda.synchronize()
         dead_t = torch.from_numpy(dead if verify else dead[:, 0]).cuda()
-        err, rel = _row_check(f"{'verify' if verify else 'decode'} {name}",
-                              out, ref, dead_t)
+        err, rel = _row_check(label, out, ref, dead_t)
         res = {"kv_heads": kvh, "dtype": str(dtype).replace("torch.", ""),
-               "S": s, "batch": int(args[0].shape[0]),
+               "S": s, "block_size": bs, "head_dim": d,
+               "instance": instance, "batch": int(args[0].shape[0]),
                "row_rel_tol": ROW_REL[dtype], "max_abs_err": err,
                "row_rel_err": rel, "dead_rows": int(dead.sum()) if verify
                else int(dead[:, 0].sum())}
+        if split and bs != 16:
+            same = fn(args[0], *as_16_slot_pages(*args[1:4]), args[4])
+            res["bits_of_16_slot_pages"] = bool(torch.equal(out, same))
+            if not res["bits_of_16_slot_pages"]:
+                raise AssertionError(f"{label}: {bs}-slot pages differ "
+                                     "from the same keys in 16-slot pages")
         if verify:
             # the ragged kernel on the same windows: lane b holds S query
-            # tokens at positions ctx - S .. ctx - 1 (negative: guards)
+            # tokens at positions ctx - S .. ctx - 1 (negative: guards);
+            # on the split instance the same bits
             q, kc, vc, tables, lens = args
             b, sq, h, d = q.shape
             ql = torch.full((b,), sq, dtype=torch.int32, device="cuda")
@@ -444,8 +445,11 @@ def _paged_cases(verify, cases, flush, gen):
                                             tables, lens, lane, pos)
             torch.cuda.synchronize()
             res["vs_ragged_max_abs_err"], res["vs_ragged_row_rel_err"] = \
-                _row_check(f"verify {name} vs ragged", out,
+                _row_check(f"{label} vs ragged", out,
                            rag.reshape(b, sq, h, d), dead_t)
+            if split and res["vs_ragged_max_abs_err"] != 0.0:
+                raise AssertionError(f"{label}: not the ragged kernel's "
+                                     "bits on the same windows")
         res["kernel_ms"] = time_ms(lambda: fn(*args), flush)
         res["plain_ms"] = time_ms(lambda: ref_fn(*args), flush, reps=10)
         res["bound_ms"], res["bound_by"] = bound(
@@ -460,34 +464,49 @@ def _paged_cases(verify, cases, flush, gen):
     return results, checked
 
 
-def phase_paged():
-    """The decode and verify kernels against their plain versions at the
-    serving shapes (`_paged_inputs`), row by row (`ROW_REL`), and the
-    verify kernel against the ragged kernel on the same windows. No one
-    PyTorch call computes paged attention over a block table, so
-    `library_ms` is null."""
-    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+# (name, kv heads, dtype, S (None: decode), slots a page, head_dim, the
+# instance): bf16 at the split shapes in 16- and 64-slot pages (64:
+# `block_multihead_attention`'s default), and what the split instance
+# refuses (f32, head_dim 96, 8-slot pages) on the decode / verify kernel
+_BF16, _F32 = torch.bfloat16, torch.float32
+DECODE_CASES = (
+    ("mha_bf16", 32, _BF16, None, 16, 128, "split"),
+    ("gqa_bf16", 8, _BF16, None, 16, 128, "split"),
+    ("mha_f32", 32, _F32, None, 16, 128, "general"),
+    ("gqa_f32", 8, _F32, None, 16, 128, "general"),
+    ("mha_bf16_bs64", 32, _BF16, None, 64, 128, "split"),
+    ("gqa_bf16_bs64", 8, _BF16, None, 64, 128, "split"),
+    ("mha_bf16_d96", 32, _BF16, None, 16, 96, "general"),
+    ("mha_bf16_bs8", 32, _BF16, None, 8, 128, "general"))
+VERIFY_CASES = (
+    ("mha_bf16_s5", 32, _BF16, 5, 16, 128, "split"),
+    ("gqa_bf16_s5", 8, _BF16, 5, 16, 128, "split"),
+    ("mha_f32_s5", 32, _F32, 5, 16, 128, "general"),
+    ("gqa_f32_s5", 8, _F32, 5, 16, 128, "general"),
+    ("mha_bf16_s64", 32, _BF16, 64, 16, 128, "split"),
+    ("gqa_bf16_s64", 8, _BF16, 64, 16, 128, "split"),
+    ("gqa_f32_s64", 8, _F32, 64, 16, 128, "general"),
+    ("mha_bf16_s5_bs64", 32, _BF16, 5, 64, 128, "split"),
+    ("gqa_bf16_s64_bs64", 8, _BF16, 64, 64, 128, "split"),
+    ("mha_bf16_s5_d96", 32, _BF16, 5, 16, 96, "general"),
+    ("mha_bf16_s5_bs8", 32, _BF16, 5, 8, 128, "general"))
 
+
+def phase_paged():
+    """The decode and verify calls against their plain versions at the
+    serving shapes (`_paged_inputs`), row by row (`ROW_REL`), each in the
+    instance it must take, and verify against the ragged kernel on the
+    same windows (bit-equal on the split instance). No one PyTorch call
+    computes paged attention over a block table, so `library_ms` is
+    null."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
-    decode, _ = _paged_cases(False, (
-        ("mha_bf16", 32, torch.bfloat16, None),
-        ("gqa_bf16", 8, torch.bfloat16, None),
-        ("mha_f32", 32, torch.float32, None),
-        ("gqa_f32", 8, torch.float32, None)), flush, gen)
+    decode, _ = _paged_cases(False, DECODE_CASES, flush, gen)
     emit({"phase": "paged_decode", "kernel": "paged_attention_decode",
-          "shapes": {"H": 32, "D": 128, "BS": 16, "W": 128},
-          "cases": decode})
-    verify, verify_launches = _paged_cases(True, (
-        ("mha_bf16_s5", 32, torch.bfloat16, 5),
-        ("gqa_bf16_s5", 8, torch.bfloat16, 5),
-        ("mha_f32_s5", 32, torch.float32, 5),
-        ("gqa_f32_s5", 8, torch.float32, 5),
-        ("mha_bf16_s64", 32, torch.bfloat16, 64),
-        ("gqa_bf16_s64", 8, torch.bfloat16, 64),
-        ("gqa_f32_s64", 8, torch.float32, 64)), flush, gen)
+          "shapes": {"H": 32, "D": 128, "slots": 2048}, "cases": decode})
+    verify, verify_launches = _paged_cases(True, VERIFY_CASES, flush, gen)
     emit({"phase": "paged_verify", "kernel": "paged_attention_verify",
-          "shapes": {"H": 32, "D": 128, "BS": 16, "W": 128},
+          "shapes": {"H": 32, "D": 128, "slots": 2048},
           "launches_checked": verify_launches, "cases": verify})
     del flush
     release()
@@ -1793,12 +1812,16 @@ def phase_incubate_serve(kind, smi):
     rope_emb (the model's f32 tables), random bf16 qkv from a seed. The
     launch counts are zeroed before the prefill (it launches no kernel:
     its attention is the plain composite) and before the decode loop
-    (exactly one decode-kernel launch per call, nothing else). Every
-    output row is held to a dense causal attention over the same rotated
-    tokens, per row within 2^-6 of its largest |out|."""
+    (exactly one decode-kernel launch per call, nothing else: the split
+    instance in window mode at these 64-slot pages). Every output row is
+    held to a dense causal attention over the same rotated tokens, per row
+    within 2^-6 of its largest |out|. Then the decode kernel is timed on
+    its own at the last call's lengths, beside the wall time per call.
+    Returns the decode launches."""
     import paddle_tpu_torch.incubate.nn.functional as IF
     from paddle_tpu_torch.models.llama import LlamaConfig, _rope_cache
     from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
     h, d, bs, steps = 32, 128, 64, 32
     lens = [int(n) for n in np.random.default_rng(0).integers(64, 513, 8)]
@@ -1896,16 +1919,29 @@ def phase_incubate_serve(kind, smi):
                                   torch.zeros(ref.shape[:2], dtype=torch.bool,
                                               device=dev))
             worst, worst_rel = max(worst, err), max(worst_rel, rel)
+    # the decode kernel alone on this pool, at the last call's lengths
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    ctx = torch.tensor([n + steps for n in lens], dtype=torch.int32,
+                       device=dev)
+    if not pa._window_split(q, kc, tables):
+        raise AssertionError("incubate serve: decode does not take the "
+                             "split instance")
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    kernel_ms = time_ms(lambda: pa.paged_attention(q, kc, vc, tables, ctx),
+                        flush)
+    del flush
     emit({"phase": "incubate_serve",
           "geometry": {"heads": h, "head_dim": d, "block_size": bs,
                        "prompt_lens": lens, "decode_calls": steps,
                        "dtype": "bfloat16"},
           "decode_ms_per_call": wall / steps * 1e3,
+          "decode_kernel_ms": kernel_ms, "decode_instance": "split",
           "decode_launches": launched["paged_attention"],
           "row_rel_tol": ROW_REL[torch.bfloat16], "max_abs_err": worst,
           "row_rel_err": worst_rel, "device": kind, "nvidia_smi": smi})
     del kc, vc, keys, vals, rows, outs, qkvs
     release()
+    return launched["paged_attention"]
 
 
 MOE_SRC = "paddle_tpu_torch/csrc/fused_moe.cu"
@@ -2234,7 +2270,7 @@ def main():
     train_launches = phase_train(kind, smi)
     fused = phase_incubate_kernels()
     layer_launches = phase_incubate_layer(kind, smi)
-    phase_incubate_serve(kind, smi)
+    incubate_decode_launches = phase_incubate_serve(kind, smi)
     from paddle_tpu_torch.tools.moe_workload import one_rank_group
 
     group = one_rank_group()
@@ -2259,9 +2295,13 @@ def main():
              splits=attn_q["mha_bf16"]["splits"]),
         _row("paged_attention_decode", attn_src, f"{pa_py}:38",
              gen_launches["paged_attention"]
-             + draft_launches["paged_attention"], decode["mha_bf16"]),
+             + draft_launches["paged_attention"] + incubate_decode_launches,
+             decode["mha_bf16"], instance=decode["mha_bf16"]["instance"],
+             general_instance_ms=decode["mha_f32"]["kernel_ms"]),
         _row("paged_attention_verify", attn_src, f"{pa_py}:146",
              verify_launches, verify["mha_bf16_s5"],
+             instance=verify["mha_bf16_s5"]["instance"],
+             general_instance_ms=verify["mha_f32_s5"]["kernel_ms"],
              launches_from="the paged_verify phase (no engine path "
                            "reaches the verify kernel)"),
         _row("quant_matmul", gemm_src,

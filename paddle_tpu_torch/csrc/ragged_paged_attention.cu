@@ -33,15 +33,19 @@
 // (ops/kernels/paged_attention.py):
 //
 // The split instance (`ragged_split_kernel`: bf16 q, D 128, or D 64 over
-// a bf16 pool, 16-slot pages, at most 64 query heads a kv head) works on
-// tiles, not tokens:
+// a bf16 pool, pages of any multiple of 16 slots, at most 64 query heads a
+// kv head) works on tiles, not tokens, and on sub-pages of 16 slots: a page
+// of BS = 16 k slots is k sub-pages, sub-page i of a lane being rows 16 (i
+// mod k) .. + 15 of block table[i / k], so a pool of 64-slot pages and one
+// of 16-slot pages holding the same keys give the same bits:
 //   - a tile is up to M consecutive packed tokens of one lane (M * G <=
 //     16 * splits rows); the tiles are found on the card from tok_lane /
 //     tok_pos / kv_lens (nothing is read on the host), and a tile reads
-//     each page of its lane's cache once however many tokens it holds:
-//     the pages up to its last token's, cut at the kv_len gate;
-//   - a row's pages form four streams (page j in stream j % 4), each taken
-//     in page order by one warp with f32 (m, l, acc), and the four are
+//     each sub-page of its lane's cache once however many tokens it holds:
+//     those up to its last token's, cut at the kv_len gate (in pages);
+//   - a row's sub-pages form four streams (sub-page j in stream j % 4),
+//     each taken
+//     in order by one warp with f32 (m, l, acc), and the four are
 //     combined in stream order. That order is the same whatever the tile,
 //     the split or the batch around the row, so a token's result is the
 //     same bits in every packing and every run (no atomics): a decode, a
@@ -52,10 +56,10 @@
 //     (tile, kv head): rank r the streams r (mod splits), its four
 //     consumer warps `splits` groups of 16 rows x 4 / splits streams; the
 //     stream partials are read over distributed shared memory;
-//   - in a CTA one producer warp streams pages (K and V, and an int8
+//   - in a CTA one producer warp streams sub-pages (K and V, and an int8
 //     pool's two 64-byte scale rows with them) by TMA (a 4-D tensor map
-//     over the pool's own strides, 128-byte swizzle) and bulk copies into
-//     an 8-stage mbarrier ring;
+//     over the pool's own strides, a box of 16 slots, 128-byte swizzle)
+//     and bulk copies into an 8-stage mbarrier ring;
 //   - S = Q K^T and O += P V run on tensor cores, mma.sync m16n8k16 in
 //     bf16 with f32 accumulation, for every tile (a decode row uses one
 //     row of the 16); int8 pages are converted to bf16 in registers,
@@ -67,13 +71,18 @@
 // `ragged_plan` takes the largest split that keeps its CTAs within two an
 // SM at the most tiles the buffer can hold: at 8 lanes of Llama-2-7B (32
 // kv heads) that is 1 (each further split adds a wave of CTAs that each
-// pay the CTA's fixed latency), at 8 kv heads 2 (PERF.md). The decode
-// wrapper launches this instance too for bf16 at these shapes (null
-// tok_lane / tok_pos: slot t is lane t's query at kv_len - 1).
+// pay the CTA's fixed latency), at 8 kv heads 2 (PERF.md). The decode and
+// verify wrappers launch this instance too for bf16 at these shapes, in
+// window mode (null tok_lane / tok_pos, `window` = S queries a lane: slot t
+// is query t % S of lane t / S, at kv_len - S + t % S; decode is S = 1), so
+// a decode row, a verify row and a ragged token at one position over one
+// cache are the same bits. The page size enters only as the tensor map's
+// slot extent and the table index i / k: any multiple of 16 whose extent a
+// tensor map can hold (below 2^32 slots) is taken.
 //
 // The general instance (`ragged_paged_attention_kernel`, every other
-// shape `ragged_supported` admits: f32, other head_dims or page sizes,
-// more heads a group, unaligned q):
+// shape `ragged_supported` admits: f32, other head_dims, pages not a
+// multiple of 16 slots, more heads a group, unaligned q):
 //   - one CTA per (packed token, kv head); the G query heads of the group
 //     share every K/V page staged in shared memory, so K/V are never
 //     repeated across the group (native GQA);
@@ -90,25 +99,27 @@
 //     head; running max and sum stay in f32; a prefill chunk of n tokens
 //     of one lane reads that lane's K/V n times (one CTA per token).
 //
-// The decode / verify pair, after the ragged kernel below, replaces
+// The decode / verify pair replaces
 //   - `_decode_kernel` (`_decode_call` / `paged_attention`): entry point
 //     `paged_attention_decode`, one query per sequence;
 //   - `_verify_kernel` (`_verify_call` / `paged_attention_verify`): entry
 //     point `paged_attention_verify`, S queries per sequence (S <= 64).
-// Both run one kernel, `paged_rows_kernel`, over the query rows of a
-// sequence: row (s, g) is query s of head kvh * G + g, at absolute
+// At the split instance's shapes (bf16) both wrappers launch the split
+// instance in window mode (above). Every other shape they take (f32, other
+// head_dims, pages not a multiple of 16 slots, more heads a group,
+// unaligned q) runs the general decode / verify instance,
+// `paged_rows_kernel` (after the ragged kernel below), over the query rows
+// of a sequence: row (s, g) is query s of head kvh * G + g, at absolute
 // position ctx_len - S + s, and sees keys j <= ctx_len - S + s (decode is
 // S = 1: j < ctx_len). A row's pages past its last visible position are
-// never read. A row with no live key (ctx_len == 0, or ctx_len - S + s <
-// 0) writes exact zeros, as the TPU kernel's l_safe = 1 gives. (The TPU
-// verify kernel gives such a row the mean of the V rows of the blocks it
-// visits; the port defines it as zero, its plain version too.) Same bound
-// as the ragged kernel (bytes: each sequence's K/V read once) and the
-// same page ring, but one CTA per (sequence, kv head, query row): the
-// engine sends few sequences (a draft decodes B = 1, generate B = 2), and
-// a CTA walks its pages serially, so more CTAs of one row each beat CTAs
-// that share a staged page across the rows of a group or window; the
-// group's repeated page reads mostly hit L2 (PERF.md).
+// never read. In both instances a row with no live key (ctx_len == 0, or
+// ctx_len - S + s < 0) writes exact zeros, as the TPU kernel's l_safe = 1
+// gives. (The TPU verify kernel gives such a row the mean of the V rows of
+// the blocks it visits; the port defines it as zero, its plain version
+// too.) Same bound as the ragged kernel (bytes: each sequence's K/V read
+// once) and the general ragged instance's page ring, but one CTA per
+// (sequence, kv head, query row), each walking its pages serially; the
+// group's and the window's repeated page reads mostly hit L2 (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -383,12 +394,12 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
 
 // ---------------------------------------------------------------------------
 // The split instance (`ragged_split_kernel`): bf16 q, D 64 or 128 (an int8
-// pool D 128), block size 16, at most 64 rows a tile (G <= 64)
+// pool D 128), pages of 16 k slots, at most 64 rows a tile (G <= 64)
 // ---------------------------------------------------------------------------
 
 constexpr int kSplitWarps = 4;                         // consumer warps
 constexpr int kSplitThreads = 32 * (kSplitWarps + 1);  // + the producer
-constexpr int kSplitBS = 16;                           // slots a page
+constexpr int kSub = 16;                   // slots a sub-page (a TMA box)
 constexpr int kBox = 2048;                 // a TMA box: 16 slots x 128 B
 constexpr int kBarConsumers = 1;           // named barrier of the consumers
 constexpr int kBarTile = 2;                // the tile's description is out
@@ -396,9 +407,9 @@ constexpr int kBarTile = 2;                // the tile's description is out
 template <typename KV, int D>
 struct SplitSmem {
   static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  static constexpr int kPage = kSplitBS * D * (int)sizeof(KV);  // K or V
+  static constexpr int kPage = kSub * D * (int)sizeof(KV);  // K or V
   static constexpr int kBoxes = kPage / kBox;       // boxes a page
-  static constexpr int kBoxCols = kBox / kSplitBS / (int)sizeof(KV);
+  static constexpr int kBoxCols = kBox / kSub / (int)sizeof(KV);
   static constexpr int kStage = 2 * kPage;
   // a multiple of the page lanes (1, 2 or 4): stage s then always feeds
   // the same warps, which take its pages in order, so a warp never waits
@@ -414,13 +425,13 @@ struct SplitSmem {
   static constexpr int kRegion = kRing > kPart + kML ? kRing : kPart + kML;
   static constexpr int kScales = kRegion;            // [S][2][16] f32
   static constexpr int kBar =
-      kScales + (kQuant ? kStages * 2 * kSplitBS * 4 : 0);
+      kScales + (kQuant ? kStages * 2 * kSub * 4 : 0);
   // each consumer lane's q segments: 16 rows x 4 lanes x D / 32 chunks
   static constexpr int kQ = kBar + 2 * kStages * 8;
   static constexpr int kBytes = kQ + kSplitWarps * 16 * 4 * (D / 32) * 16 +
                                 1024;
   static constexpr uint32_t kTx =
-      2 * kPage + (kQuant ? 2 * kSplitBS * 4 : 0);    // bytes a stage
+      2 * kPage + (kQuant ? 2 * kSub * 4 : 0);    // bytes a stage
   static_assert(kPage % kBox == 0 && kRegion % 16 == 0 &&
                     kStages % kSplitWarps == 0, "");
 };
@@ -578,9 +589,13 @@ __device__ __forceinline__ void store_row4(__nv_bfloat16* o, float4 a,
 // so its last tile is full and the short one, if any, comes first.
 // Grid: `slots` clusters of `splits` CTAs along x for each kv head along
 // y. Cluster ci of kv head kvh takes tiles ci, ci + slots, ... (in slot
-// order) and its rank r the pages r, r + splits, ... of each. Rank 0 of
-// cluster ci also zeroes the guard slots t = ci (mod slots). Null tok_lane
-// and tok_pos mean decode: slot t is lane t's one query, at kv_len - 1.
+// order) and its rank r the sub-pages r, r + splits, ... of each. Rank 0
+// of cluster ci also zeroes the guard slots t = ci (mod slots). Null
+// tok_lane and tok_pos mean window mode: slot t is query t % window of lane
+// t / window, at kv_len - window + t % window (a guard where negative);
+// there the tiles are found from kv_lens alone, 32 lanes at a time.
+// Sub-page i of a lane is rows 16 (i % KP) .. + 15 of block table[i / KP]
+// (KP = BS / 16 sub-pages a page).
 template <typename KV, int D>
 __global__ void __launch_bounds__(kSplitThreads, 2) ragged_split_kernel(
     const __grid_constant__ CUtensorMap tk,
@@ -589,9 +604,9 @@ __global__ void __launch_bounds__(kSplitThreads, 2) ragged_split_kernel(
     const float* __restrict__ v_scale, const int* __restrict__ tables,
     const int* __restrict__ kv_lens, const int* __restrict__ tok_lane,
     const int* __restrict__ tok_pos, __nv_bfloat16* __restrict__ out,
-    int num_tokens, int num_heads, int group, int table_width,
+    int num_tokens, int num_heads, int group, int table_width, int sub_pages,
     long long ks_sb, long long ks_sh, long long vs_sb, long long vs_sh,
-    float scale_log2, int tile_tokens) {
+    float scale_log2, int tile_tokens, int window) {
   using L = SplitSmem<KV, D>;
   constexpr bool kQuant = L::kQuant;
   constexpr int S = L::kStages;
@@ -615,27 +630,69 @@ __global__ void __launch_bounds__(kSplitThreads, 2) ragged_split_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, qq = lane & 3;
   const int G = group, M = tile_tokens, T = num_tokens, W = table_width;
+  const int KP = sub_pages, NQ = window;
   auto out_row = [&](int t, int head) {
     return out + ((long long)t * num_heads + (long long)kvh * G + head) * D;
   };
 
   for (int it = 0;; ++it) {
     if (warp == kSplitWarps) {
-      // the producer warp starts alone: one pass over the packed slots,
-      // 32 at a time, finds the tile leaders in
-      // slot order (this cluster's is the (ci + it * slots)-th), its run of
-      // followers, the leaders' count; and, first time round, the guard
-      // slots t = ci (mod slots) are zeroed by rank 0
+      // the producer warp starts alone: it finds this cluster's tile, the
+      // (ci + it * slots)-th in slot order, and the tiles' count; and,
+      // first time round, rank 0 zeroes the guard slots t = ci (mod slots)
       const int target = ci + it * slots;
       int found = -1, total = 0, m = 0, p0 = 0, ln = 0, len = 0;
+      // window mode: the tiles from the lanes' kv_lens. Lane b's live
+      // rows are its last lv = min(kv_len, NQ) slots and the leader rule
+      // below cuts them at NQ - M, NQ - 2M, ...: its nt = ceil(lv / M)
+      // tiles, tile k starting at row max(NQ - lv, NQ - (nt - k) M)
+      const int B = NQ > 0 ? T / NQ : 0;
+      for (int c0 = 0; c0 < B; c0 += 32) {
+        const int b = c0 + lane;
+        const int n = b < B ? kv_lens[b] : 0;
+        const int lv = min(max(n, 0), NQ);
+        const int nt = (lv + M - 1) / M;
+        int inc = nt;                    // tiles of lanes c0 .. b
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, inc, o);
+          if (lane >= o) inc += v;
+        }
+        const int sum = __shfl_sync(0xffffffffu, inc, 31);
+        if (found < 0 && target < total + sum) {
+          const int k = target - total - (inc - nt);
+          const int src =
+              __ffs(__ballot_sync(0xffffffffu, k >= 0 && k < nt)) - 1;
+          const int r0 = max(NQ - lv, NQ - (nt - k) * M);
+          found = __shfl_sync(0xffffffffu, b * NQ + r0, src);
+          m = __shfl_sync(0xffffffffu, NQ - (nt - 1 - k) * M - r0, src);
+          p0 = __shfl_sync(0xffffffffu, n - NQ + r0, src);
+          ln = c0 + src;
+          len = __shfl_sync(0xffffffffu, n, src);
+        }
+        total += sum;
+        // first time round rank 0 zeroes the dead rows (positions < 0)
+        // among its slots t = ci (mod slots), the warp a row at a time
+        if (it == 0 && rank == 0)
+          for (unsigned dm = __ballot_sync(0xffffffffu, b < B && lv < NQ); dm;
+               dm &= dm - 1) {
+            const int src = __ffs(dm) - 1, t0 = (c0 + src) * NQ;
+            const int dead = NQ - __shfl_sync(0xffffffffu, lv, src);
+            for (int t = t0 + ((ci - t0) % slots + slots) % slots;
+                 t < t0 + dead; t += slots) {
+              uint4* o = reinterpret_cast<uint4*>(out_row(t, 0));
+              for (int i = lane; i < G * D / kVec; i += 32)
+                o[i] = make_uint4(0, 0, 0, 0);
+            }
+          }
+      }
+      // ragged mode: one pass over the packed slots, 32 at a time, finds
+      // the tile leaders and the run of followers of this cluster's
       bool counting = false;             // the tile runs into this chunk
-      for (int c0 = 0; c0 < T; c0 += 32) {
+      for (int c0 = 0; NQ == 0 && c0 < T; c0 += 32) {
         const int t = c0 + lane;
         int p = -1, pp = -1, l = 0, lp = -1, n = 0;
-        if (t < T && tok_pos == nullptr) {
-          l = t;                         // decode: slot t is lane t's query
-          p = kv_lens[t] - 1;
-        } else if (t < T) {
+        if (t < T) {
           p = tok_pos[t];
           l = tok_lane[t];
           if (t > 0) {
@@ -677,12 +734,13 @@ __global__ void __launch_bounds__(kSplitThreads, 2) ragged_split_kernel(
           for (int i = 0; i < G * D / kVec; ++i) o[i] = make_uint4(0, 0, 0, 0);
         }
       }
-      // pages up to the last token's, cut at the kv_len gate (j * BS <
-      // kv_len) and at the table's width, as the JAX kernel's grid
+      // sub-pages up to the last token's, cut at the kv_len gate (page j
+      // while j * BS < kv_len) and at the table's width, as the JAX
+      // kernel's grid
       int np = 0;
       if (found >= 0 && len > 0)
-        np = min(min((p0 + m - 1) / kSplitBS + 1,
-                     (len + kSplitBS - 1) / kSplitBS), W);
+        np = min(min((p0 + m - 1) / kSub + 1,
+                     (len + kSub * KP - 1) / (kSub * KP) * KP), W * KP);
       if (lane == 0) {
         tile[0] = found;
         tile[1] = m;
@@ -720,27 +778,31 @@ __global__ void __launch_bounds__(kSplitThreads, 2) ragged_split_kernel(
       if (last) break;
       continue;
     }
-    // A row's pages form four streams, page j in stream j % 4, each
-    // taken in page order by one warp and the four combined in stream
+    // A row's sub-pages form four streams, sub-page j in stream j % 4,
+    // each taken in order by one warp and the four combined in stream
     // order: a row's result does not depend on its tile, the cluster's
-    // size or the batch around it. Rank r of the C (1, 2 or 4) CTAs takes
-    // the streams s = r (mod C), pages r, r + C, ...; its 4 consumer warps
-    // are C groups of 16 rows (M * G <= 16 C) x PL = 4 / C streams, page k
-    // of the rank in stream k % PL.
+    // size, the page size or the batch around it. Rank r of the C (1, 2 or
+    // 4) CTAs takes the streams s = r (mod C), sub-pages r, r + C, ...; its
+    // 4 consumer warps are C groups of 16 rows (M * G <= 16 C) x PL = 4 / C
+    // streams, sub-page k of the rank in stream k % PL.
     const int RG = C, PL = kSplitWarps / C;
     const int live = (R + 15) / 16;      // row groups with rows
     const int nl = np > rank ? (np - 1 - rank) / C + 1 : 0;
 
     if (warp == kSplitWarps) {
       // the producer warp: lane 0 keeps the ring full; the warp reads the
-      // block table 32 entries at a time
-      const int* trow = tables + (long long)ln * W + rank;
+      // block table for 32 sub-pages at a time (sub-page i: block
+      // table[i / KP], first slot 16 (i % KP))
+      const int* trow = tables + (long long)ln * W;
       if (lane == 0) fence_proxy_async();
       for (int c0 = 0; c0 < nl; c0 += 32) {
-        const int blk_l = c0 + lane < nl ? trow[C * (c0 + lane)] : 0;
+        const int i = rank + C * (c0 + lane);
+        const int blk_l = c0 + lane < nl ? trow[i / KP] : 0;
+        const int row_l = kSub * (i % KP);
         const int cnt = min(32, nl - c0);
         for (int j = 0; j < cnt; ++j) {
           const int blk = __shfl_sync(0xffffffffu, blk_l, j);
+          const int row = __shfl_sync(0xffffffffu, row_l, j);
           const int k = c0 + j, st = k % S;
           if (lane == 0) {
             mbar_wait(empty + st, ((k / S) & 1) ^ 1);
@@ -748,17 +810,17 @@ __global__ void __launch_bounds__(kSplitThreads, 2) ragged_split_kernel(
             unsigned char* dst = sm + st * L::kStage;
 #pragma unroll
             for (int b = 0; b < L::kBoxes; ++b) {
-              tma_load_4d(dst + b * kBox, tk, full + st, b * L::kBoxCols, 0,
-                          kvh, blk);
+              tma_load_4d(dst + b * kBox, tk, full + st, b * L::kBoxCols,
+                          row, kvh, blk);
               tma_load_4d(dst + L::kPage + b * kBox, tv, full + st,
-                          b * L::kBoxCols, 0, kvh, blk);
+                          b * L::kBoxCols, row, kvh, blk);
             }
             if constexpr (kQuant) {
-              float* sd = scl + st * 2 * kSplitBS;
-              bulk_load(sd, k_scale + blk * ks_sb + kvh * ks_sh,
-                        kSplitBS * 4, full + st);
-              bulk_load(sd + kSplitBS, v_scale + blk * vs_sb + kvh * vs_sh,
-                        kSplitBS * 4, full + st);
+              float* sd = scl + st * 2 * kSub;
+              bulk_load(sd, k_scale + blk * ks_sb + kvh * ks_sh + row,
+                        kSub * 4, full + st);
+              bulk_load(sd + kSub, v_scale + blk * vs_sb + kvh * vs_sh + row,
+                        kSub * 4, full + st);
             }
           }
         }
@@ -806,7 +868,7 @@ __global__ void __launch_bounds__(kSplitThreads, 2) ragged_split_kernel(
         mbar_wait(full + st, (k / S) & 1);
         const uint32_t kst = smem_addr(sm + st * L::kStage);
         const uint32_t vst = kst + L::kPage;
-        const float* ksc = scl + st * 2 * kSplitBS;
+        const float* ksc = scl + st * 2 * kSub;
         // S = Q K^T over two n tiles of 8 keys, k steps 2c and 2c + 1 at
         // a time: A from the lane's q chunk c of rows g, g + 8 (words 4c ..
         // 4c + 3), B from its K row's words of the same columns
@@ -842,7 +904,7 @@ __global__ void __launch_bounds__(kSplitThreads, 2) ragged_split_kernel(
         }
         // scale (and, int8, the slot's K scale), mask keys past the row's
         // position, online softmax in base 2
-        const int kb = (rank + C * k) * kSplitBS;
+        const int kb = (rank + C * k) * kSub;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           float mx = -INFINITY;
@@ -872,7 +934,7 @@ __global__ void __launch_bounds__(kSplitThreads, 2) ragged_split_kernel(
               sum += x;
               // int8: the slot's V scale folds into the probability
               s[nt][2 * h + e] =
-                  kQuant ? x * ksc[kSplitBS + 8 * nt + 2 * qq + e] : x;
+                  kQuant ? x * ksc[kSub + 8 * nt + 2 * qq + e] : x;
             }
           l_run[h] = l_run[h] * alpha + sum;     // this lane's columns
 #pragma unroll
@@ -988,29 +1050,29 @@ int launch_split(const void* q, const void* k_cache, const void* v_cache,
                  const float* k_scale, const float* v_scale,
                  const int* tables, const int* kv_lens, const int* tok_lane,
                  const int* tok_pos, void* out, int num_tokens,
-                 int num_heads, int num_kv_heads, int table_width,
-                 int num_blocks, long long k_sb, long long k_sh,
-                 long long k_ss, long long v_sb, long long v_sh,
-                 long long v_ss, long long ks_sb, long long ks_sh,
-                 long long vs_sb, long long vs_sh, float sm_scale,
-                 int splits, int slots, int tile_tokens,
-                 cudaStream_t stream) {
+                 int num_heads, int num_kv_heads, int block_size,
+                 int table_width, int num_blocks, long long k_sb,
+                 long long k_sh, long long k_ss, long long v_sb,
+                 long long v_sh, long long v_ss, long long ks_sb,
+                 long long ks_sh, long long vs_sb, long long vs_sh,
+                 float sm_scale, int splits, int slots, int tile_tokens,
+                 int window, cudaStream_t stream) {
   using L = SplitSmem<KV, D>;
   const EncodeFn enc = encode_fn();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   // the pool as a 4-D tensor (D, BS, KVH, NB) with its own strides; a box
-  // is 128 bytes of 16 slots of one (block, kv head)
+  // is 128 bytes of the 16 slots of one sub-page of a (block, kv head)
   CUtensorMap maps[2];
   const void* pools[2] = {k_cache, v_cache};
   const long long st[2][3] = {{k_ss, k_sh, k_sb}, {v_ss, v_sh, v_sb}};
   for (int i = 0; i < 2; ++i) {
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)kSplitBS,
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)block_size,
                                 (cuuint64_t)num_kv_heads,
                                 (cuuint64_t)num_blocks};
     const cuuint64_t strides[3] = {(cuuint64_t)st[i][0] * sizeof(KV),
                                    (cuuint64_t)st[i][1] * sizeof(KV),
                                    (cuuint64_t)st[i][2] * sizeof(KV)};
-    const cuuint32_t box[4] = {(cuuint32_t)L::kBoxCols, kSplitBS, 1, 1};
+    const cuuint32_t box[4] = {(cuuint32_t)L::kBoxCols, kSub, 1, 1};
     const cuuint32_t step[4] = {1, 1, 1, 1};
     const CUresult r = enc(
         &maps[i],
@@ -1042,8 +1104,9 @@ int launch_split(const void* q, const void* k_cache, const void* v_cache,
       &cfg, kernel, maps[0], maps[1],
       static_cast<const __nv_bfloat16*>(q), k_scale, v_scale, tables,
       kv_lens, tok_lane, tok_pos, static_cast<__nv_bfloat16*>(out),
-      num_tokens, num_heads, num_heads / num_kv_heads, table_width, ks_sb,
-      ks_sh, vs_sb, vs_sh, sm_scale * 1.4426950408889634f, tile_tokens);
+      num_tokens, num_heads, num_heads / num_kv_heads, table_width,
+      block_size / kSub, ks_sb, ks_sh, vs_sb, vs_sh,
+      sm_scale * 1.4426950408889634f, tile_tokens, window);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1283,7 +1346,7 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache,
              long long v_ss, long long ks_sb, long long ks_sh,
              long long vs_sb, long long vs_sh, float sm_scale, int dtype,
              int num_blocks, int splits, int slots, int tile_tokens,
-             void* stream) {
+             int window, void* stream) {
   if (num_tokens == 0) return 0;
   const int* tb = static_cast<const int*>(tables);
   const int* kl = static_cast<const int*>(kv_lens);
@@ -1291,18 +1354,20 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache,
   const int* ps = static_cast<const int*>(tok_pos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (splits > 0) {
-    if (dtype != 0 || block_size != kSplitBS ||
+    if (dtype != 0 || block_size < kSub || block_size % kSub != 0 ||
         (splits != 1 && splits != 2 && splits != 4) || slots < 1 ||
         tile_tokens < 1 ||
-        tile_tokens * (num_heads / num_kv_heads) > 16 * splits)
+        tile_tokens * (num_heads / num_kv_heads) > 16 * splits ||
+        (ps == nullptr) != (window > 0) ||
+        (window > 0 && num_tokens % window != 0))
       return (int)cudaErrorInvalidValue;
 #define SPLIT_CASE(KVT, DD)                                                 \
   return launch_split<KVT, DD>(q, k_cache, v_cache, k_scale, v_scale, tb,   \
                                kl, ln, ps, out, num_tokens, num_heads,      \
-                               num_kv_heads, table_width, num_blocks, k_sb, \
-                               k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh,  \
-                               vs_sb, vs_sh, sm_scale, splits, slots,       \
-                               tile_tokens, s);
+                               num_kv_heads, block_size, table_width,       \
+                               num_blocks, k_sb, k_sh, k_ss, v_sb, v_sh,    \
+                               v_ss, ks_sb, ks_sh, vs_sb, vs_sh, sm_scale,  \
+                               splits, slots, tile_tokens, window, s);
     if constexpr (kQuant) {
       if (head_dim == 128) SPLIT_CASE(int8_t, 128)
     } else {
@@ -1312,6 +1377,7 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache,
 #undef SPLIT_CASE
     return (int)cudaErrorInvalidValue;
   }
+  if (ps == nullptr || window != 0) return (int)cudaErrorInvalidValue;
   using KB = typename std::conditional<kQuant, int8_t, __nv_bfloat16>::type;
   using KF = typename std::conditional<kQuant, int8_t, float>::type;
   if (dtype == 0)
@@ -1336,8 +1402,11 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache,
 // instance and its geometry come from `ragged_plan`
 // (ops/kernels/paged_attention.py): splits == 0 is the general instance;
 // splits > 0 the split one, `slots` clusters of `splits` CTAs a kv head,
-// tiles of up to `tile_tokens` tokens (num_blocks: the pool's NB). Returns
-// cudaGetLastError() after the launch (0 = launched).
+// tiles of up to `tile_tokens` tokens (num_blocks: the pool's NB). window
+// 0 takes packed tokens (tok_lane, tok_pos); window S > 0, the split
+// instance only, takes null tok_lane / tok_pos and num_tokens = B * S
+// (slot t: query t % S of lane t / S at kv_lens[t / S] - S + t % S; decode
+// and verify). Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int ragged_paged_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* tables, const void* kv_lens, const void* tok_lane,
@@ -1345,13 +1414,14 @@ extern "C" int ragged_paged_attention(
     int num_kv_heads, int head_dim, int block_size, int table_width,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, float sm_scale, int dtype,
-    int num_blocks, int splits, int slots, int tile_tokens, void* stream) {
+    int num_blocks, int splits, int slots, int tile_tokens, int window,
+    void* stream) {
   return dispatch<false>(q, k_cache, v_cache, nullptr, nullptr, tables,
                         kv_lens, tok_lane, tok_pos, out, num_tokens,
                         num_heads, num_kv_heads, head_dim, block_size,
                         table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, 0,
                         0, 0, 0, sm_scale, dtype, num_blocks, splits, slots,
-                        tile_tokens, stream);
+                        tile_tokens, window, stream);
 }
 
 // The int8 pool: k_cache/v_cache int8 [NB, KVH, BS, D] (strides in
@@ -1368,13 +1438,14 @@ extern "C" int ragged_paged_attention_q(
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long ks_sb, long long ks_sh, long long vs_sb,
     long long vs_sh, float sm_scale, int dtype, int num_blocks, int splits,
-    int slots, int tile_tokens, void* stream) {
+    int slots, int tile_tokens, int window, void* stream) {
   return dispatch<true>(
       q, k_cache, v_cache, static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), tables, kv_lens, tok_lane, tok_pos,
       out, num_tokens, num_heads, num_kv_heads, head_dim, block_size,
       table_width, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, ks_sb, ks_sh, vs_sb,
-      vs_sh, sm_scale, dtype, num_blocks, splits, slots, tile_tokens, stream);
+      vs_sh, sm_scale, dtype, num_blocks, splits, slots, tile_tokens, window,
+      stream);
 }
 
 // The dynamic shared memory (bytes) a CTA of the split instance takes at

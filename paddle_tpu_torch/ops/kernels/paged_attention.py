@@ -13,7 +13,10 @@ plain PyTorch versions on CPU tensors:
 - `paged_attention` (plain: `paged_attention_ref`), one decode query per
   sequence;
 - `paged_attention_verify` (plain: `paged_attention_verify_ref`), S
-  causal queries per sequence (the speculative verify window).
+  causal queries per sequence (the speculative verify window);
+  both launch the ragged kernel's split instance in window mode at its
+  shapes (bf16), so a decode row, a verify row and a ragged token at one
+  position give the same bits, and the decode / verify kernel elsewhere.
 There is no fallback between kernel and plain version: a CUDA tensor the
 kernel does not take raises.
 
@@ -189,7 +192,8 @@ class RaggedPlan(NamedTuple):
 
 
 # the split instance (`ragged_split_kernel` in csrc/ragged_paged_attention.cu)
-PLAN_BLOCK_SIZE = 16          # slots a page (a TMA box of 16 rows)
+PLAN_BLOCK_SIZE = 16          # slots a sub-page (a TMA box of 16 rows); it
+                              # takes pages of any multiple of them
 PLAN_MAX_ROWS = 64            # rows a tile: four warps of 16
 PLAN_WARPS = 4                # consumer warps a CTA, and a row's page streams
 PLAN_SPLITS = (1, 2, 4)       # cluster sizes: each CTA whole streams
@@ -226,12 +230,16 @@ def ragged_plan(tokens: int, heads: int, kv_heads: int, head_dim: int,
     card of `sms` SMs (`aligned`: q starts on a 16-byte boundary). A pure
     function of the shapes.
 
-    Aligned bf16 q with head_dim 128 (64 too for a bf16 pool), 16-slot
-    pages and at most 64 query heads a kv head take the split instance: a
+    Aligned bf16 q with head_dim 128 (64 too for a bf16 pool), pages of
+    any multiple of 16 slots (the kernel streams a page as sub-pages of 16;
+    the page size bounds nothing else) and at most 64 query heads a kv
+    head take the split instance: a
     cluster of `splits` CTAs (1, 2 or 4) a tile of `tile_tokens` = 16 x
     splits // G tokens of a lane (every lane's tokens are at most
     ceil(q_len / tile_tokens) tiles, so `slots` = min(T, B) + (T - B) //
-    tile_tokens clusters a kv head hold any packing in one pass). The rule
+    tile_tokens clusters a kv head hold any packing in one pass, and the
+    ceil(S / tile_tokens) tiles a lane of a window of S: `tokens` = B x S,
+    `lanes` = B). The rule
     takes the largest split whose slots x kv_heads x splits CTAs stay
     within PLAN_CTAS_PER_SM an SM, else the smallest that holds a token's
     G rows (Llama-2-7B's 32 kv heads at 8 lanes: 1; 8 kv heads: 2);
@@ -240,7 +248,8 @@ def ragged_plan(tokens: int, heads: int, kv_heads: int, head_dim: int,
     per packed token and kv head)."""
     group = heads // kv_heads if kv_heads and heads % kv_heads == 0 else 0
     split = (aligned and dtype == torch.bfloat16
-             and block_size == PLAN_BLOCK_SIZE
+             and block_size >= PLAN_BLOCK_SIZE
+             and block_size % PLAN_BLOCK_SIZE == 0
              and (head_dim == 128 or (head_dim == 64 and not int8))
              and 0 < group <= PLAN_MAX_ROWS and tokens > 0)
     if not split:
@@ -407,12 +416,12 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
         raise ValueError(f"decode kernel takes q [B, H, D] bf16/f32 with "
                          f"D % 8 == 0 and D <= 256, got {tuple(q.shape)} "
                          f"{q.dtype}")
-    if q.is_contiguous() and 0 < q.shape[0] == block_tables.shape[0] and \
-            _plan(q, k_cache, block_tables, False).splits:
+    if _window_split(q, k_cache, block_tables):
         # the ragged kernel's split instance, one query a lane: decode and
         # ragged steps then share one arithmetic, bit for bit
         return _launch(q, k_cache, v_cache, block_tables, context_lens,
-                       None, None, sm_scale, None, None)
+                       None, None, sm_scale, None, None, window=1,
+                       counter=LAUNCHES_DECODE)
     return _launch_rows(q[:, None], k_cache, v_cache, block_tables,
                         context_lens, sm_scale, verify=False)[:, 0]
 
@@ -422,9 +431,13 @@ def paged_attention_verify(q, k_cache, v_cache, block_tables, context_lens,
     """Batched multi-token verify attention: q [B, S, H, D], query s of
     sequence b at position context_lens[b] - S + s attends to positions
     <= its own (context_lens counts all S new tokens, already written).
-    Returns [B, S, H, D] in q's dtype. CPU tensors take
-    `paged_attention_verify_ref`; CUDA tensors launch the verify kernel
-    or raise."""
+    Returns [B, S, H, D] in q's dtype. A row with no live position
+    (context_lens[b] - S + s < 0) is exact zeros. CPU tensors take
+    `paged_attention_verify_ref`; CUDA tensors launch a kernel or raise:
+    bf16 at the shapes `ragged_plan` gives the split instance launch the
+    ragged kernel's split instance over the B windows of S queries (one
+    launch; each row the same bits as the ragged kernel's and a decode
+    call's at its position), everything else the verify kernel."""
     if q.device.type == "cpu":
         return paged_attention_verify_ref(q, k_cache, v_cache, block_tables,
                                           context_lens, sm_scale)
@@ -435,8 +448,27 @@ def paged_attention_verify(q, k_cache, v_cache, block_tables, context_lens,
         raise ValueError(f"verify kernel takes q [B, S, H, D] bf16/f32 with "
                          f"S <= 64, D % 8 == 0 and D <= 256, got "
                          f"{tuple(q.shape)} {q.dtype}")
+    b, s, h, d = q.shape
+    if _window_split(q, k_cache, block_tables):
+        return _launch(q.view(b * s, h, d), k_cache, v_cache, block_tables,
+                       context_lens, None, None, sm_scale, None, None,
+                       window=s, counter=LAUNCHES_VERIFY).view(b, s, h, d)
     return _launch_rows(q, k_cache, v_cache, block_tables, context_lens,
                         sm_scale, verify=True)
+
+
+def _window_split(q, k_cache, block_tables) -> bool:
+    """Whether a decode (q [B, H, D]) or verify (q [B, S, H, D]) call on
+    the card launches the split instance in window mode: q contiguous,
+    one table row a sequence, a 4-D pool, and the shapes `ragged_plan`
+    gives the split instance (B x S tokens of B lanes). Otherwise the
+    decode / verify kernel takes it."""
+    if not (q.is_contiguous() and q.numel() > 0 and k_cache.dim() == 4
+            and block_tables.dim() == 2
+            and q.shape[0] == block_tables.shape[0]):
+        return False
+    return _plan(q.view(-1, q.shape[-2], q.shape[-1]), k_cache,
+                 block_tables, False).splits > 0
 
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -540,36 +572,31 @@ def _lib(quant):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         nptr, nstride = (10, 10) if quant else (8, 6)
         fn.argtypes = [p] * nptr + [i] * 6 + [ll] * nstride + \
-            [ctypes.c_float] + [i] * 5 + [p]
+            [ctypes.c_float] + [i] * 6 + [p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _plan(q, k_cache, block_tables, quant):
-    """`ragged_plan` for these inputs on q's card; raises where the plan
-    takes the general instance and its CTA would not fit."""
+    """`ragged_plan` for these inputs on q's card."""
     t, h, d = q.shape
     _nb, kv_h, bs, _ = k_cache.shape
-    plan = ragged_plan(t, h, kv_h, d, bs, block_tables.shape[1],
+    return ragged_plan(t, h, kv_h, d, bs, block_tables.shape[1],
                        block_tables.shape[0], q.dtype, quant,
                        _support.sm_count(q.device.index
                                          if q.device.index is not None
                                          else torch.cuda.current_device()),
                        q.data_ptr() % 16 == 0)
-    if plan.smem_bytes > _SMEM_MAX:
-        raise ValueError(f"ragged kernel needs {plan.smem_bytes} bytes of "
-                         f"shared memory per block, over the {_SMEM_MAX} a "
-                         "Hopper block may use")
-    return plan
 
 
 def _launch(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
-            sm_scale, k_scale, v_scale):
-    """One launch of the ragged kernel in the instance `_plan` picks.
-    tok_lane = tok_pos = None is a decode call (q [B, H, D], query b of
-    lane b at kv_lens[b] - 1; the split instance only), counted as a
-    decode launch."""
-    decode = tok_pos is None
+            sm_scale, k_scale, v_scale, window=0, counter=None):
+    """One launch of the ragged kernel in the instance `_plan` picks;
+    raises where that is the general instance and its CTA would not fit.
+    `window` S > 0 with tok_lane = tok_pos = None is window mode (the
+    split instance only): q [B * S, H, D], row b * S + s query s of lane
+    b at kv_lens[b] - S + s, a decode or verify call. Counts one launch on
+    `counter` (default: the ragged kernel's of the pool)."""
     quant = _check(q, k_cache, v_cache, block_tables, kv_lens, tok_lane,
                    tok_pos, k_scale, v_scale)
     t, h, d = q.shape
@@ -577,6 +604,14 @@ def _launch(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
     if sm_scale is None:
         sm_scale = 1.0 / float(math.sqrt(d))
     plan = _plan(q, k_cache, block_tables, quant)
+    if plan.smem_bytes > _SMEM_MAX:
+        raise ValueError(f"ragged kernel needs {plan.smem_bytes} bytes of "
+                         f"shared memory per block, over the {_SMEM_MAX} a "
+                         "Hopper block may use")
+    if window and (plan.splits == 0 or tok_pos is not None
+                   or t != window * block_tables.shape[0]):
+        raise ValueError("window mode takes the split instance, no "
+                         "tok_lane / tok_pos and one window a table row")
     out = torch.empty_like(q)
     fn = _lib(quant)
     if quant:
@@ -590,16 +625,15 @@ def _launch(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*ptrs, block_tables.data_ptr(), kv_lens.data_ptr(),
-                None if decode else tok_lane.data_ptr(),
-                None if decode else tok_pos.data_ptr(), out.data_ptr(),
+                None if window else tok_lane.data_ptr(),
+                None if window else tok_pos.data_ptr(), out.data_ptr(),
                 t, h, kv_h, d, bs, block_tables.shape[1], *strides,
                 float(sm_scale), _DTYPE_CODE[q.dtype], nb, plan.splits,
-                plan.slots, plan.tile_tokens, stream)
+                plan.slots, plan.tile_tokens, window, stream)
     name = "ragged_paged_attention_q" if quant else "ragged_paged_attention"
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    (LAUNCHES_DECODE if decode else LAUNCHES_Q if quant else
-     LAUNCHES).count += 1
+    (counter or (LAUNCHES_Q if quant else LAUNCHES)).count += 1
     return out
 
 

@@ -1,9 +1,9 @@
 """Time the flash attention kernels, the weight-only gemms, the RMSNorm
-forward and the ragged paged attention of two checkouts on one card, in
-turns.
+forward and the paged attention (ragged, decode, verify) of two checkouts
+on one card, in turns.
 
     python -m paddle_tpu_torch.tools.kernel_compare --parent DIR \\
-        [--out kernel_compare.json]
+        [--only paged] [--out kernel_compare.json]
     python -m paddle_tpu_torch.tools.kernel_compare --sweep-splits \\
         [--out split_sweep.json]
 
@@ -17,12 +17,16 @@ at each shape of `SHAPES`, `quant_matmul` (int8 weights) and
 `quant_matmul_int4` (bf16 x, M = 40) at each shape of `GEMM_SHAPES`, and
 `rms_norm_fwd` at each case of `RMS_CASES`, and `paged_attention_ragged`
 at each composition of `RAGGED_COMPOSITIONS` over a bf16 pool and an int8
-pool (median device time of one call with a cold L2, as `chip_smoke.py`
-times; the gemms, RMSNorm and the ragged kernels also after an L2 left
-clean), and prints one JSON line. `--sweep-splits` times this tree's int8
+pool, and `paged_attention` / `paged_attention_verify` at each case of
+`PAGED_CASES` (median device time of one call with a cold L2, as
+`chip_smoke.py` times; the gemms, RMSNorm and the paged attention also
+after an L2 left clean), and prints one JSON line; `--only paged` times
+the paged attention alone. `--sweep-splits` times this tree's int8
 and int4 gemms at every K split the kernel takes (1 .. 8) beside the one
 `gemm_plan` picks, and its ragged kernel at every cluster size (1, 2, 4)
-beside the one `ragged_plan` picks, with 32 and 8 kv heads. The script
+beside the one `ragged_plan` picks, with 32 and 8 kv heads, and the
+verify windows of `PAGED_CASES` likewise (`--only paged`: these alone,
+no gemm). The script
 prints the card's name and power limit, then one JSON object with every
 run, and writes it to `--out` when given. Needs a CUDA card.
 """
@@ -84,6 +88,19 @@ RAGGED_COMPOSITIONS = {
 }
 RAGGED_GEOMETRY = dict(T=40, H=32, D=128, BS=16, W=128, NB=1024)
 RAGGED_KERNELS = ("ragged", "ragged_clean_l2")
+# decode (S None) and verify windows of S queries over the serve workload's
+# context lengths (`paged_inputs`) at Llama-2-7B width: (kv heads, S, slots
+# a page); 64-slot pages are `block_multihead_attention`'s default
+PAGED_CASES = {
+    "decode_mha_bs16": (32, None, 16),
+    "decode_mha_bs64": (32, None, 64),
+    "verify_mha_s5": (32, 5, 16),
+    "verify_gqa_s5": (8, 5, 16),
+    "verify_mha_s64": (32, 64, 16),
+    "verify_gqa_s64": (8, 64, 16),
+    "verify_mha_s5_bs64": (32, 5, 64),
+}
+PAGED_KERNELS = ("paged", "paged_clean_l2")
 
 
 def ragged_inputs(name, kv_heads, quant, dtype, gen, bs=16):
@@ -129,6 +146,62 @@ def ragged_inputs(name, kv_heads, quant, dtype, gen, bs=16):
         scales, pos
 
 
+def paged_inputs(kv_heads, dtype, gen, s=None, bs=16, d=128):
+    """Decode or verify inputs at the serving geometry: the serve
+    workload's context lengths (`default_rng(0)`, 64-512) plus an empty
+    sequence and one of 3 tokens, 32 query heads of `d`, a pool holding
+    the workload's 1024 x 16 slots in pages of `bs` (tables of 2048 slots),
+    each sequence's pages distinct blocks in a seeded order; q [B, H, D]
+    (decode, `s` None) or [B, S, H, D], random from `gen`. Returns (args,
+    context lengths)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.tools.serve_workload import BS, MAXB, NB
+
+    h = 32
+    nb, w = NB * BS // bs, MAXB * BS // bs
+    ctx = [int(n) for n in np.random.default_rng(0).integers(64, 513, 8)]
+    ctx += [0, 3]
+    b = len(ctx)
+    perm = np.random.default_rng(1).permutation(np.arange(1, nb))
+    tables = np.zeros((b, w), np.int32)
+    used = 0
+    for i, n in enumerate(ctx):
+        k = -(-n // bs)
+        tables[i, :k] = perm[used:used + k]
+        used += k
+    dev = torch.device("cuda")
+    shape = (b, h, d) if s is None else (b, s, h, d)
+    q = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    kc = torch.randn((nb, kv_heads, bs, d), generator=gen,
+                     device=dev).to(dtype)
+    vc = torch.randn((nb, kv_heads, bs, d), generator=gen,
+                     device=dev).to(dtype)
+    lens = torch.tensor(ctx, dtype=torch.int32, device=dev)
+    return (q, kc, vc, torch.from_numpy(tables).to(dev), lens), ctx
+
+
+def as_16_slot_pages(k_cache, v_cache, block_tables, k_scale=None,
+                     v_scale=None):
+    """The same pool in pages of 16 slots: block j's slots 16 i .. 16 i +
+    15 become block j * BS / 16 + i, and each table entry the BS / 16
+    blocks of its page in order (scale planes likewise)."""
+    import torch
+
+    nb, kvh, bs, d = k_cache.shape
+    k = bs // 16
+
+    def split(x):
+        return x.reshape(nb, kvh, k, 16, *x.shape[3:]).transpose(1, 2) \
+            .reshape(nb * k, kvh, 16, *x.shape[3:]).contiguous()
+    ar = torch.arange(k, dtype=block_tables.dtype,
+                      device=block_tables.device)
+    tables = (block_tables[:, :, None] * k + ar).reshape(
+        block_tables.shape[0], -1).contiguous()
+    scales = [split(x) for x in (k_scale, v_scale) if x is not None]
+    return (split(k_cache), split(v_cache), tables, *scales)
+
+
 def _time_ms(fn, flush, reps=30, clean=None):
     """`chip_smoke.time_ms`, copied: a worker imports nothing from its
     tree but the kernel wrappers both trees have. With `clean` (a 256 MB
@@ -168,15 +241,51 @@ def _gemm_inputs(n, k, dev, fmt="int8"):
     return x, nq.pack_int4(q) if fmt == "int4" else q, s
 
 
-def worker():
-    """One timing run of the `paddle_tpu_torch` on `sys.path`."""
+def worker(only=None):
+    """One timing run of the `paddle_tpu_torch` on `sys.path` (`only`
+    "paged": the paged attention alone)."""
+    import torch
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    clean = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
+    out = {"tree": str(Path(fa.__file__).resolve().parents[3])}
+    if only != "paged":
+        _time_dense(out, flush, clean)
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    for name in RAGGED_COMPOSITIONS:
+        for pool in ("bf16", "int8"):
+            g = torch.Generator(device=dev).manual_seed(13)
+            args, sc, _pos = ragged_inputs(name, 32, pool == "int8",
+                                           torch.bfloat16, g)
+
+            def call():
+                return pa.paged_attention_ragged(*args, **sc)
+            out[f"ragged_{pool}_{name}"] = dict(zip(RAGGED_KERNELS, (
+                _time_ms(call, flush), _time_ms(call, flush, clean=clean))))
+            del args, sc
+    for name, (kvh, s, bs) in PAGED_CASES.items():
+        g = torch.Generator(device=dev).manual_seed(13)
+        args, _ctx = paged_inputs(kvh, torch.bfloat16, g, s, bs)
+        fn = pa.paged_attention if s is None else pa.paged_attention_verify
+
+        def call():
+            return fn(*args)
+        out[name] = dict(zip(PAGED_KERNELS, (
+            _time_ms(call, flush), _time_ms(call, flush, clean=clean))))
+        del args
+    print(json.dumps(out), flush=True)
+
+
+def _time_dense(out, flush, clean):
+    """The flash kernels, both gemms and RMSNorm, into `out`."""
     import torch
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
 
     dev = torch.device("cuda")
-    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
-    out = {"tree": str(Path(fa.__file__).resolve().parents[3])}
     for name, (b, s, h, kvh, d, causal) in SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(10)
         q, k, v, do = (torch.randn((b, s, n, d), generator=g, device=dev)
@@ -194,7 +303,6 @@ def worker():
                 lambda: fa.flash_attention_dkv(*args), flush)}
         del q, k, v, do, o, lse, delta, args
         torch.cuda.empty_cache()
-    clean = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
     for prefix, fmt in GEMM_FORMATS.items():
         fn = qm.quant_matmul_int4 if fmt == "int4" else qm.quant_matmul
         for name, (n, k) in GEMM_SHAPES.items():
@@ -227,25 +335,12 @@ def worker():
         out[name] = dict(zip(RMS_KERNELS, (
             _time_ms(call, flush), _time_ms(call, flush, clean=clean))))
         del x, w
-    from paddle_tpu_torch.ops.kernels import paged_attention as pa
-
-    for name in RAGGED_COMPOSITIONS:
-        for pool in ("bf16", "int8"):
-            g = torch.Generator(device=dev).manual_seed(13)
-            args, sc, _pos = ragged_inputs(name, 32, pool == "int8",
-                                           torch.bfloat16, g)
-
-            def call():
-                return pa.paged_attention_ragged(*args, **sc)
-            out[f"ragged_{pool}_{name}"] = dict(zip(RAGGED_KERNELS, (
-                _time_ms(call, flush), _time_ms(call, flush, clean=clean))))
-            del args, sc
-    print(json.dumps(out), flush=True)
 
 
-def sweep_splits():
+def sweep_splits(only=None):
     """This tree's int8 and int4 gemms at every K split (one launch each
-    through the C entry point) at each of `GEMM_SHAPES`."""
+    through the C entry point) at each of `GEMM_SHAPES` (not with `only`
+    "paged"), and `sweep_ragged`."""
     import torch
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
 
@@ -255,6 +350,8 @@ def sweep_splits():
     clean = torch.ones(256 << 20, dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     res = {}
+    if only == "paged":
+        return {"sms": sms, "ragged": sweep_ragged(flush, clean)}
     for prefix, fmt in GEMM_FORMATS.items():
         int4 = fmt == "int4"
         fn = qm._lib(int4)
@@ -295,8 +392,9 @@ def sweep_splits():
 def sweep_ragged(flush, clean):
     """This tree's ragged kernels (bf16 q, a bf16 and an int8 pool) at
     every cluster size the split instance takes (its tile follows it), at
-    each composition with 32 (Llama-2-7B) and 8 kv heads; every split
-    checked against the plain version first."""
+    each composition with 32 (Llama-2-7B) and 8 kv heads, and the verify
+    windows of `PAGED_CASES`; every split checked against the plain
+    version first."""
     import torch
     from paddle_tpu_torch.ops.kernels import _support
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
@@ -343,6 +441,34 @@ def sweep_ragged(flush, clean):
                         plan.tile_tokens, "slots": plan.slots,
                         "ms_dirty_clean_l2": ms}
                     del args, sc, want
+        for name, (kvh, s, bs) in PAGED_CASES.items():
+            if s is None:
+                continue
+            g = torch.Generator(device=dev).manual_seed(13)
+            args, _ctx = paged_inputs(kvh, torch.bfloat16, g, s, bs)
+            q = args[0]
+            plan = planned(q.view(-1, *q.shape[2:]), args[1], args[3], False)
+            want = pa.paged_attention_verify_ref(*args).float()
+            ms = {}
+            for splits in pa.PLAN_SPLITS:
+                if q.shape[2] // args[1].shape[1] > 16 * splits:
+                    continue
+                pa._plan = forced(splits)
+                err = float((pa.paged_attention_verify(*args).float()
+                             - want).abs().max())
+                if not err <= 4e-3 * (1 + float(want.abs().max())):
+                    raise AssertionError(f"{name} splits {splits}: err "
+                                         f"{err}")
+
+                def call():
+                    return pa.paged_attention_verify(*args)
+                ms[splits] = [_time_ms(call, flush),
+                              _time_ms(call, flush, clean=clean)]
+            pa._plan = planned
+            res[name] = {"planned": plan.splits,
+                         "tile_tokens": plan.tile_tokens,
+                         "slots": plan.slots, "ms_dirty_clean_l2": ms}
+            del args, want
     finally:
         pa._plan = planned
     return res
@@ -353,11 +479,13 @@ def main(argv=None):
     ap.add_argument("--parent", default=None,
                     help="another checkout of the repository")
     ap.add_argument("--sweep-splits", action="store_true")
+    ap.add_argument("--only", choices=("paged",), default=None,
+                    help="time the paged attention kernels alone")
     ap.add_argument("--out", default=None)
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.worker:
-        worker()
+        worker(a.only)
         return 0
     import torch
 
@@ -372,7 +500,7 @@ def main(argv=None):
     print(smi, flush=True)
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     if a.sweep_splits:
-        result["sweep"] = sweep_splits()
+        result["sweep"] = sweep_splits(a.only)
     else:
         here = Path(__file__).resolve().parents[2]
         other = Path(a.parent).resolve()
@@ -380,7 +508,8 @@ def main(argv=None):
         for label, tree in (("parent", other), ("change", here),
                             ("change", here), ("parent", other)):
             env = dict(os.environ, PYTHONPATH=str(tree))
-            r = subprocess.run([sys.executable, __file__, "--worker"],
+            r = subprocess.run([sys.executable, __file__, "--worker"]
+                               + (["--only", a.only] if a.only else []),
                                cwd=tree, env=env, capture_output=True,
                                text=True)
             if r.returncode != 0:
@@ -389,12 +518,15 @@ def main(argv=None):
             run["label"] = label
             runs.append(run)
             print(json.dumps(run), flush=True)
-        cases = [(name, k) for name in SHAPES for k in KERNELS] + \
+        cases = [] if a.only else \
+            [(name, k) for name in SHAPES for k in KERNELS] + \
             [(f"{prefix}_{name}", k) for prefix in GEMM_FORMATS
              for name in GEMM_SHAPES for k in GEMM_KERNELS] + \
-            [(name, k) for name in RMS_CASES for k in RMS_KERNELS] + \
-            [(f"ragged_{pool}_{name}", k) for name in RAGGED_COMPOSITIONS
-             for pool in ("bf16", "int8") for k in RAGGED_KERNELS]
+            [(name, k) for name in RMS_CASES for k in RMS_KERNELS]
+        cases += [(f"ragged_{pool}_{name}", k)
+                  for name in RAGGED_COMPOSITIONS for pool in ("bf16", "int8")
+                  for k in RAGGED_KERNELS] + \
+            [(name, k) for name in PAGED_CASES for k in PAGED_KERNELS]
         summary = {}
         for name, k in cases:
             summary.setdefault(name, {})[k] = {

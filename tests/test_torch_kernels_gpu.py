@@ -267,12 +267,12 @@ SPLIT_CASES = {
 }
 
 
-def _split_case(dev, name, quant, seed=0):
+def _split_case(dev, name, quant, seed=0, bs=16):
     """Seeded inputs of SPLIT_CASES[name] with 3 guard slots; the pool
-    (NB just over the pages the lanes use) in bf16 or, `quant`, int8 with
-    its scale planes."""
+    (NB just over the pages the lanes use, `bs` slots a page) in bf16 or,
+    `quant`, int8 with its scale planes."""
     h, kvh, d, q_lens, kv_lens = SPLIT_CASES[name]
-    bs, t = 16, sum(q_lens) + 3
+    t = sum(q_lens) + 3
     w = max(-(-n // bs) for n in kv_lens) + 1
     nb = sum(-(-n // bs) for n in kv_lens) + 2
     rng = np.random.default_rng(seed)
@@ -406,6 +406,139 @@ def test_decode_takes_the_split_instance_bit_equal_to_ragged():
     torch.testing.assert_close(out.float(), ref.float(),
                                atol=TOL[torch.bfloat16],
                                rtol=TOL[torch.bfloat16])
+
+
+# (heads, kv heads, head_dim, slots a page, context lengths, S): windows
+# with dead rows (ctx < S, an empty lane), across page edges, G 1, 4 and 8,
+# pages of 16, 32 and 64 slots
+VERIFY_SPLIT_CASES = {
+    "mha_s5": (4, 4, 128, 16, [0, 3, 5, 17, 40], 5),
+    "gqa4_s17_bs64": (16, 4, 128, 64, [10, 17, 70, 0, 300], 17),
+    "gqa8_s64": (16, 2, 128, 16, [64, 100, 3, 2048], 64),
+    "d64_s16_bs32": (8, 8, 64, 32, [16, 33, 0, 130], 16),
+}
+
+
+def _no_rows_kernel(*a, **k):
+    raise AssertionError("the decode / verify kernel was launched")
+
+
+@pytest.mark.parametrize("name", list(VERIFY_SPLIT_CASES))
+def test_verify_takes_the_split_instance_bit_equal_to_ragged_and_decode(
+        name, monkeypatch):
+    """bf16 verify at the split instance's shapes launches it once in
+    window mode (a verify launch, no ragged or decode one): each row the
+    same bits as the ragged kernel on the same windows and as a decode
+    call at its position, within the plain version's tolerance, and a
+    row at a negative position (a dead row) exact zeros."""
+    dev = _card()
+    h, kvh, d, bs, lens, s = VERIFY_SPLIT_CASES[name]
+    q, kc, vc, tables, kl = _rows_case(dev, torch.bfloat16, h, kvh, d, bs,
+                                       lens, s=s)
+    assert pa._window_split(q, kc, tables)
+    monkeypatch.setattr(pa, "_launch_rows", _no_rows_kernel)
+    counts = (pa.LAUNCHES, pa.LAUNCHES_DECODE, pa.LAUNCHES_VERIFY)
+    before = [c.count for c in counts]
+    out = pa.paged_attention_verify(q, kc, vc, tables, kl)
+    torch.cuda.synchronize()
+    assert [c.count for c in counts] == [before[0], before[1],
+                                         before[2] + 1]
+    b = q.shape[0]
+    lane, pos = pa.ragged_metadata(
+        torch.full((b,), s, dtype=torch.int32, device=dev), kl, b * s)
+    rag = pa.paged_attention_ragged(q.reshape(b * s, h, d), kc, vc, tables,
+                                    kl, lane, pos)
+    assert torch.equal(out, rag.reshape(out.shape))
+    for i in range(s):
+        cut = torch.clamp(kl - (s - 1 - i), min=0).to(torch.int32)
+        assert torch.equal(out[:, i], pa.paged_attention(
+            q[:, i].contiguous(), kc, vc, tables, cut))
+    ref = pa.paged_attention_verify_ref(q, kc, vc, tables, kl)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+    last = kl[:, None] - s + torch.arange(s, device=dev)[None, :]
+    assert bool((last < 0).any()) and bool((out[last < 0] == 0).all())
+
+
+@pytest.mark.parametrize("bs", [32, 48, 64, 256])
+@pytest.mark.parametrize("op", ["ragged", "ragged_int8", "decode",
+                                "verify"])
+def test_pages_of_16k_slots_give_the_bits_of_16_slot_pages(op, bs,
+                                                           monkeypatch):
+    """A pool of pages of any multiple of 16 slots runs the split
+    instance and gives the same bits as the same keys in 16-slot pages,
+    in the ragged kernel (bf16 and int8 pools), decode and verify."""
+    dev = _card()
+    from paddle_tpu_torch.tools.kernel_compare import as_16_slot_pages
+
+    monkeypatch.setattr(pa, "_launch_rows", _no_rows_kernel)
+    if op.startswith("ragged"):
+        quant = op == "ragged_int8"
+        args, sc = _split_case(dev, "tiles_gqa8", quant, bs=bs)
+        q, kc, vc, tables, kl, lane, pos = args
+        assert pa._plan(q, kc, tables, quant).splits > 0
+        pool = as_16_slot_pages(kc, vc, tables, sc.get("k_scale"),
+                                sc.get("v_scale"))
+        sc16 = dict(zip(("k_scale", "v_scale"), pool[3:]))
+        want = pa.paged_attention_ragged(q, *pool[:3], kl, lane, pos,
+                                         **sc16)
+        got = pa.paged_attention_ragged(*args, **sc)
+        ref = pa.paged_attention_ragged_ref(*args, **sc)
+    else:
+        s = 7 if op == "verify" else None
+        q, kc, vc, tables, kl = _rows_case(dev, torch.bfloat16, 16, 4, 128,
+                                           bs, [0, 5, 40, 300], s=s)
+        assert pa._window_split(q, kc, tables)
+        fn = pa.paged_attention_verify if s else pa.paged_attention
+        ref_fn = pa.paged_attention_verify_ref if s else \
+            pa.paged_attention_ref
+        want = fn(q, *as_16_slot_pages(kc, vc, tables), kl)
+        got = fn(q, kc, vc, tables, kl)
+        ref = ref_fn(q, kc, vc, tables, kl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("op", ["decode", "verify"])
+@pytest.mark.parametrize("case", ["f32", "bf16_d96", "bf16_bs8",
+                                  "bf16_g128"])
+def test_general_decode_verify_shapes_run_the_rows_kernel(case, op,
+                                                          monkeypatch):
+    """What the split instance refuses (f32, head_dim 96, 8-slot pages,
+    128 query heads a kv head) runs the decode / verify kernel, within
+    the file's tolerance, dead rows exact zeros."""
+    dev = _card()
+    dtype, h, kvh, d, bs = {"f32": (torch.float32, 8, 2, 128, 16),
+                            "bf16_d96": (torch.bfloat16, 8, 2, 96, 16),
+                            "bf16_bs8": (torch.bfloat16, 8, 2, 128, 8),
+                            "bf16_g128": (torch.bfloat16, 128, 1, 128, 16)
+                            }[case]
+    s = 5 if op == "verify" else None
+    args = _rows_case(dev, dtype, h, kvh, d, bs, [0, 3, 37], s=s)
+    assert not pa._window_split(*args[:2], args[3])
+
+    def no_split(*a, **k):
+        raise AssertionError("the split instance was launched")
+    monkeypatch.setattr(pa, "_launch", no_split)
+    fn = pa.paged_attention_verify if s else pa.paged_attention
+    ref_fn = pa.paged_attention_verify_ref if s else pa.paged_attention_ref
+    counter = pa.LAUNCHES_VERIFY if s else pa.LAUNCHES_DECODE
+    before = counter.count
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert counter.count == before + 1
+    ref = ref_fn(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    lens = args[-1]
+    last = lens[:, None] - (s or 1) + torch.arange(s or 1,
+                                                   device=dev)[None, :]
+    dead = last < 0 if s else last[:, 0] < 0
+    assert bool((out[dead] == 0).all())
 
 
 def test_split_plan_matches_the_kernels_shared_memory():
@@ -1339,6 +1472,45 @@ def test_block_multihead_attention_on_card_matches_cpu():
                                    atol=2e-2, rtol=2e-2)
         for a, c in zip(card[1:], cpu[1:]):          # qkv_out, both pools
             _assert_one_rounding(a.cpu(), c)
+
+
+def test_block_multihead_attention_64_slot_pages_take_the_split_instance(
+        monkeypatch):
+    """`block_multihead_attention`'s default 64-slot pages: each bf16
+    decode call launches the split instance once (a decode launch; the
+    decode kernel never runs) and matches the CPU run."""
+    dev = _card()
+    import paddle_tpu_torch.incubate.nn.functional as IF
+
+    monkeypatch.setattr(pa, "_launch_rows", _no_rows_kernel)
+    g = torch.Generator().manual_seed(32)
+    h, kvh, d, bs, nb = 8, 2, 128, 64, 8
+    lens = [20, 70, 33]
+    b = len(lens)
+    tables = torch.arange(1, 1 + b * 2, dtype=torch.int32).reshape(b, 2)
+    rope = torch.rand((2, b, 128, 1, d // 2), generator=g) * 2 - 1
+    pools = {"cpu": [torch.zeros((nb, kvh, bs, d), dtype=torch.bfloat16)
+                     for _ in range(2)]}
+    pools["cuda"] = [p.to(dev) for p in pools["cpu"]]
+    width = (h + 2 * kvh) * d
+    steps = [(lens, [0] * b, lens)] + [([0] * b, [n + i for n in lens],
+                                        [1] * b) for i in range(3)]
+    for enc, dec, this in steps:
+        qkv = torch.randn((sum(this), width), generator=g).bfloat16()
+        outs = {}
+        for where in ("cpu", "cuda"):
+            before = pa.LAUNCHES_DECODE.count
+            outs[where] = IF.block_multihead_attention(
+                qkv.to(where), *pools[where], torch.tensor(enc),
+                torch.tensor(dec), torch.tensor(this),
+                block_tables=tables.to(where), rope_emb=rope.to(where),
+                block_size=bs, num_heads=h, num_kv_heads=kvh)
+            n = pa.LAUNCHES_DECODE.count - before
+            assert n == (int(where == "cuda") if dec[0] else 0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(outs["cuda"][0].float().cpu(),
+                                   outs["cpu"][0].float(), atol=2e-2,
+                                   rtol=2e-2)
 
 
 def test_mixed_dtype_fused_rms_norm_weight_raises_on_card():
