@@ -20,7 +20,15 @@ layers, random weights from a seed): once in bf16, then with an int8 KV
 pool and int8 weights, and with an int8 KV pool and int4 weights; runs
 `LlamaInferenceEngine.generate`; and serves speculatively, with the
 n-gram proposer and with a self-draft engine, holding every greedy token
-teacher-forced against the plain engine. Then the training path: the
+teacher-forced against the plain engine. Then the serving policy layer:
+bench.py serving_shared_prefix's trace at the same width (42 requests
+behind a 192-token shared prefix, arriving by scheduler step) over a
+bf16 pool and an int8 pool, with the prefix cache on and off (greedy
+streams identical, hit rate, evictions, copy-on-writes, the prefill
+tokens saved equal to the hit tokens, no leaked block), and the fault
+layer on a small model: a transient dispatch fault, a watchdog restart
+through an engine factory, an overload burst under queue watermarks,
+and `MLPLMEngine` on the card against the CPU. Then the training path: the
 flash attention kernels (forward, dQ, dK/dV) and the RMSNorm kernel
 against their plain versions at the training shapes, past the length
 where the JAX package streams K/V, over ragged 128-row tiles and at the
@@ -1156,6 +1164,278 @@ def phase_serve_spec(kind, smi):
     return ngram, draft
 
 
+def _prefix_run(fe, trace, shared_idx, kv_bits, label):
+    """Drive the shared-prefix trace once on `fe` (its warm-up already
+    served) with the launch and engine-call counts zeroed just before
+    and read just after; gate it (every request FINISHED with its tokens,
+    no leaked block, the manager's refcounts consistent with the tree's
+    leases, exactly 32 ragged launches a ragged step and no other
+    kernel) and return its numbers."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.tools.serve_workload import (LAYERS, PREFIX_NEW,
+                                                       drive_prefix_trace)
+
+    sch = fe.scheduler
+    tree = sch.prefix_cache
+    stats0 = tree.stats() if tree is not None else None
+    fe.metrics.reset_window()
+    _support.reset_launch_counts()
+    for c in ENGINE_CALLS:
+        monitor.reset(f"serving.{c}")
+    pre0 = monitor.get("serving.prefill_tokens")
+    preempt0 = monitor.get("serving.preemptions")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    handles, steps = drive_prefix_trace(fe, trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {c: _support.launch_counter(c).count for c in SERVE_KERNELS}
+    calls = _engine_calls(monitor)
+    bad = [(h.request_id, h.status.value, h.finish_reason, len(h.tokens))
+           for h in handles
+           if h.status.value != "finished" or len(h.tokens) != PREFIX_NEW]
+    if bad:
+        raise AssertionError(f"{label}: requests not finished with "
+                             f"{PREFIX_NEW} tokens: {bad}")
+    mgr = sch.engine.manager
+    leaked = sch.kv_leaked_blocks()
+    if leaked:
+        raise AssertionError(f"{label}: {leaked} leaked blocks")
+    mgr.check_consistency(external=None if tree is None
+                          else tree.block_ref_counts())
+    attn = "ragged_paged_attention_q" if kv_bits == 8 else \
+        "ragged_paged_attention"
+    expect = {c: 0 for c in launches}
+    expect[attn] = LAYERS * calls["ragged_steps"]
+    if launches != expect or calls["ragged_steps"] == 0 or any(
+            calls[c] for c in ENGINE_CALLS if c != "ragged_steps"):
+        raise AssertionError(f"{label}: kernel launches {launches} != "
+                             f"{expect} over engine calls {calls}")
+    ttft = [h.ttft_ms() for i, h in enumerate(handles) if i in shared_idx]
+    out = {"ragged_steps": calls["ragged_steps"], "scheduler_steps": steps,
+           "wall_s": wall, "tok_s": len(handles) * PREFIX_NEW / wall,
+           "ttft_shared_p50_ms": float(np.percentile(ttft, 50)),
+           "ttft_shared_p99_ms": float(np.percentile(ttft, 99)),
+           "prefill_tokens": monitor.get("serving.prefill_tokens") - pre0,
+           "preemptions": monitor.get("serving.preemptions") - preempt0,
+           "launches": launches[attn], "leaked_blocks": leaked}
+    if tree is not None:
+        st = tree.stats()
+        d = {k: st[k] - stats0[k] for k in ("hits", "misses", "hit_tokens",
+                                             "evictions", "cow_copies")}
+        d["hit_rate"] = d["hits"] / max(d["hits"] + d["misses"], 1)
+        d["nodes"] = st["nodes"]
+        out["prefix"] = d
+        s = fe.summary()
+        out["ttft_cached_p50_ms"] = s["serving.prefix_cache.ttft_cached_p50_ms"]
+        out["ttft_cold_p50_ms"] = s["serving.prefix_cache.ttft_cold_p50_ms"]
+    return [h.tokens for h in handles], out
+
+
+def phase_serve_prefix(kind, smi):
+    """The shared-prefix trace (`prefix_workload`: bench.py
+    serving_shared_prefix's trace at Llama-2-7B width, 32 layers, bf16)
+    over a bf16 pool and an int8 pool, each with the prefix cache on and
+    off over one model build. Gates (beside `_prefix_run`'s): greedy
+    streams identical with the cache on and off; the trace's hit rate >
+    0.6, evictions > 0, copy-on-write copies > 0; the cold run's prefill
+    tokens less the cached run's == the trace's hit tokens. bench.py's
+    CPU bands (shared TTFT p99 > 3x, tok/s > 1.5x) are reported, not
+    gated."""
+    from paddle_tpu_torch.serving import ServingMetrics
+    from paddle_tpu_torch.tools.serve_workload import (
+        LAYERS, PREFIX_LEN, PREFIX_MAXB, PREFIX_NB, PREFIX_NEW,
+        prefix_workload)
+
+    launches = {"ragged_paged_attention": 0, "ragged_paged_attention_q": 0}
+    for kv_bits in (16, 8):
+        label = f"serve_prefix_kv{kv_bits}"
+        t0 = time.perf_counter()
+        make_frontend, _shared, trace = prefix_workload(kv_bits=kv_bits)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0     # the model build
+        shared_idx = {i for i, (_t, _p, is_shared) in enumerate(trace)
+                      if is_shared}
+        runs = {}
+        for cache in (True, False):
+            ServingMetrics.reset_monitor()
+            fe = make_frontend(cache)
+            torch.cuda.synchronize()
+            runs[cache] = _prefix_run(fe, trace, shared_idx, kv_bits,
+                                      f"{label}_{'on' if cache else 'off'}")
+            del fe
+            release()
+        del make_frontend             # the model, before the next pool's
+        release()
+        (tok_on, on), (tok_off, off) = runs[True], runs[False]
+        if tok_on != tok_off:
+            diff = [i for i, (a, b) in enumerate(zip(tok_on, tok_off))
+                    if a != b]
+            raise AssertionError(f"{label}: greedy streams differ with the "
+                                 f"cache on and off at requests {diff}")
+        d = on["prefix"]
+        saved = off["prefill_tokens"] - on["prefill_tokens"]
+        if not (d["hit_rate"] > 0.6 and d["evictions"] > 0
+                and d["cow_copies"] > 0 and saved == d["hit_tokens"]):
+            raise AssertionError(f"{label}: prefix gates failed: {d}, cold "
+                                 f"- cached prefill tokens {saved}")
+        ttft_x = off["ttft_shared_p99_ms"] / on["ttft_shared_p99_ms"]
+        tok_x = on["tok_s"] / off["tok_s"]
+        emit({"phase": label,
+              "model": f"llama_7b_shaped(num_layers={LAYERS}) bf16",
+              "kv_bits": kv_bits, "requests": len(trace),
+              "shared_requests": len(shared_idx),
+              "prefix_tokens": PREFIX_LEN, "new_tokens": PREFIX_NEW,
+              "pool": [PREFIX_NB, 16], "max_blocks_per_seq": PREFIX_MAXB,
+              "arrival_steps": [t for t, _p, _s in trace],
+              "cache_on": on, "cache_off": off,
+              "streams_identical": True,
+              "prefill_tokens_saved": saved,
+              "ttft_shared_p99_speedup": ttft_x, "tok_s_speedup": tok_x,
+              "bench_cpu_bands": {"ttft_p99_gt_3x": ttft_x > 3.0,
+                                  "tok_s_gt_1_5x": tok_x > 1.5},
+              "setup_s": setup_s, "device": kind, "nvidia_smi": smi,
+              "sample_tokens": tok_on[0]})
+        attn = "ragged_paged_attention_q" if kv_bits == 8 else \
+            "ragged_paged_attention"
+        launches[attn] += on["launches"] + off["launches"]
+    return launches
+
+
+def phase_serve_faults(kind, smi):
+    """The fault-tolerance layer on the card, on the small model (f32)
+    and on `MLPLMEngine`, each case against its fault-free greedy run:
+    (a) a transient `serve.decode` fault within the retry budget (every
+    lane replays); (b) more consecutive faults than `step_retries`: one
+    watchdog restart through an `engine_factory` that builds the same
+    engine on the card, no leak on the new pool; (c) a burst of 4x the
+    lane count a step under `AdmissionConfig(queue_high=1, queue_low=0)`:
+    some shed, all terminal, the admitted ones' streams those of the
+    admitted prompts served alone; (d) `MLPLMEngine` on the card against
+    its CPU run (ragged-step logits within 1e-5, the same greedy
+    streams)."""
+    from paddle_tpu_torch import LlamaInferenceEngine
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import (AdmissionConfig, MLPLMEngine,
+                                          ServingFrontend, ServingMetrics,
+                                          WatchdogConfig)
+
+    model = _small_model()
+    geo = dict(max_batch_size=4, num_blocks=64, block_size=16,
+               max_blocks_per_seq=16)
+
+    def engine():
+        return LlamaInferenceEngine(model, device="cuda", **geo)
+
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, 512, int(n)).tolist()
+               for n in (9, 40, 23, 61, 17, 33)]
+
+    def serve(fe, plist, new=8):
+        hs = [fe.submit(q, max_new_tokens=new) for q in plist]
+        fe.run_until_idle()
+        return hs
+
+    ref = [h.tokens for h in serve(ServingFrontend(engine()), prompts)]
+    report = {}
+    try:
+        # (a) transient: 1 fault, within the default 3 retries
+        ServingMetrics.reset_monitor()
+        faults.inject("serve.decode", after_n=3, times=1)
+        fe = ServingFrontend(engine())
+        hs = serve(fe, prompts)
+        faults.clear()
+        got = [h.tokens for h in hs]
+        if got != ref or monitor.get("serving.step_faults") != 1:
+            raise AssertionError(f"serve_faults (a): streams {got == ref}, "
+                                 "step faults "
+                                 f"{monitor.get('serving.step_faults')}")
+        report["transient"] = {"step_faults": 1, "streams_equal": True}
+        # (b) 3 faults in a row > step_retries=1: one restart
+        ServingMetrics.reset_monitor()
+        faults.inject("serve.decode", after_n=3, times=3)
+        fe = ServingFrontend(engine(), watchdog=WatchdogConfig(
+            step_retries=1, max_restarts=2), engine_factory=engine)
+        hs = serve(fe, prompts)
+        faults.clear()
+        got = [h.tokens for h in hs]
+        sch = fe.scheduler
+        mgr = sch.engine.manager
+        restarts = monitor.get("serving.engine_restarts")
+        if got != ref or restarts != 1 \
+                or sch.engine_restarts_remaining != 1 \
+                or sch.kv_leaked_blocks() != 0 \
+                or mgr.free_blocks != mgr.num_blocks - 1:
+            raise AssertionError(
+                f"serve_faults (b): streams {got == ref}, restarts "
+                f"{restarts}, remaining {sch.engine_restarts_remaining}, "
+                f"leaked {sch.kv_leaked_blocks()}")
+        report["restart"] = {"engine_restarts": restarts,
+                             "restarts_remaining":
+                                 sch.engine_restarts_remaining,
+                             "leaked_blocks": 0, "streams_equal": True}
+    finally:
+        faults.clear()
+    # (c) 4 arrivals a step for 6 steps into 4 lanes, queue_high=1
+    ServingMetrics.reset_monitor()
+    fe = ServingFrontend(engine(), admission=AdmissionConfig(
+        queue_high=1, queue_low=0))
+    burst = [rng.integers(1, 512, int(n)).tolist()
+             for n in rng.integers(8, 48, 24)]
+    hs = []
+    for step in range(6):
+        hs += [fe.submit(q, max_new_tokens=8)
+               for q in burst[4 * step:4 * step + 4]]
+        fe.step()
+    fe.run_until_idle()
+    shed = [h for h in hs if h.status.value == "shed"]
+    admitted = [(h, q) for h, q in zip(hs, burst)
+                if h.status.value != "shed"]
+    alone = serve(ServingFrontend(engine()), [q for _h, q in admitted])
+    if not shed or not all(h.finished for h in hs) or any(
+            h.status.value != "finished" or h.tokens != a.tokens
+            for (h, _q), a in zip(admitted, alone)):
+        raise AssertionError(
+            f"serve_faults (c): shed {len(shed)}, statuses "
+            f"{[h.status.value for h in hs]}")
+    report["burst"] = {"requests": len(hs), "shed": len(shed),
+                       "admitted": len(admitted), "streams_equal": True,
+                       "shed_by_reason": ServingMetrics.shed_by_reason()}
+    # (d) MLPLMEngine on the card against its CPU run
+    mlp = {dev: MLPLMEngine(vocab_size=512, hidden=64, max_batch_size=4,
+                            num_blocks=64, block_size=16,
+                            max_blocks_per_seq=8, seed=5, device=dev)
+           for dev in ("cpu", "cuda")}
+    tables = np.zeros((4, 8), np.int32)
+    tables[0, :3] = [3, 4, 5]
+    tables[2, :2] = [7, 8]
+    err = 0.0
+    for q_lens, kv_lens in (([30, 0, 12, 0], [30, 0, 12, 0]),
+                            ([1, 0, 1, 0], [31, 0, 13, 0])):
+        t = np.zeros((44,), np.int32)
+        t[:sum(q_lens)] = rng.integers(1, 512, sum(q_lens))
+        a = mlp["cpu"].ragged_step(t, q_lens, kv_lens, tables)
+        b = mlp["cuda"].ragged_step(t, q_lens, kv_lens, tables).cpu()
+        err = max(err, float((a - b).abs().max()))
+    streams = {dev: [h.tokens for h in serve(ServingFrontend(
+        e.respawn(), prefix_cache=True), prompts + prompts[:2])]
+        for dev, e in mlp.items()}
+    if err > 1e-5 or streams["cuda"] != streams["cpu"]:
+        raise AssertionError(f"serve_faults (d): MLPLMEngine on the card "
+                             f"max abs err {err}, streams "
+                             f"{streams['cuda'] == streams['cpu']}")
+    report["mlp_engine"] = {"max_abs_err": err, "tol": 1e-5,
+                            "streams_equal": True}
+    emit({"phase": "serve_faults", "model": "llama_tiny(vocab=512, "
+          "layers=2, hidden=256, heads=2, kv_heads=1) f32; MLPLMEngine("
+          "vocab=512, hidden=64)", "cases": report, "device": kind,
+          "nvidia_smi": smi})
+    del model, mlp
+    release()
+
+
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
 FA_PY = "paddle_tpu/ops/pallas/flash_attention.py"
 
@@ -2264,6 +2544,8 @@ def main():
     l8, l4 = phase_serve_quant(kind, smi)
     gen_launches = phase_generate(kind, smi)
     ngram_launches, draft_launches = phase_serve_spec(kind, smi)
+    prefix_launches = phase_serve_prefix(kind, smi)
+    phase_serve_faults(kind, smi)
     flash = phase_flash()
     rms = phase_rms()
     phase_train_reference()
@@ -2285,12 +2567,15 @@ def main():
         _row("ragged_paged_attention", attn_src, f"{pa_py}:278",
              bf16_launches["ragged_paged_attention"]
              + ngram_launches["ragged_paged_attention"]
-             + draft_launches["ragged_paged_attention"], attn["mha_bf16"],
+             + draft_launches["ragged_paged_attention"]
+             + prefix_launches["ragged_paged_attention"], attn["mha_bf16"],
              instance=attn["mha_bf16"]["instance"],
              splits=attn["mha_bf16"]["splits"]),
         _row("ragged_paged_attention_q", attn_src, f"{pa_py}:380",
              l8["ragged_paged_attention_q"]
-             + l4["ragged_paged_attention_q"], attn_q["mha_bf16"],
+             + l4["ragged_paged_attention_q"]
+             + prefix_launches["ragged_paged_attention_q"],
+             attn_q["mha_bf16"],
              instance=attn_q["mha_bf16"]["instance"],
              splits=attn_q["mha_bf16"]["splits"]),
         _row("paged_attention_decode", attn_src, f"{pa_py}:38",

@@ -3,7 +3,9 @@ Hopper.
 
 It serves the Llama model through the ragged paged-KV engine
 (`ServingFrontend` -> `Scheduler` -> `LlamaInferenceEngine.ragged_step`,
-or `verify_step` with speculative decoding, `serving.SpecDecodeConfig`),
+or `verify_step` with speculative decoding, `serving.SpecDecodeConfig`;
+the prefix cache, tenant SLO classes, overload shedding and the engine
+watchdog are frontend options; `MLPLMEngine` is the tiny second engine),
 generates with `LlamaInferenceEngine.generate` (`prefill` +
 `decode_step`), and trains it (`loss, logits = model(ids, labels=labels)`,
 `loss.backward()`, `paddle_tpu_torch.optimizer.AdamW.step()`), with
@@ -12,11 +14,12 @@ weight-only gemms, flash attention and RMSNorm. Entry points run on the
 CUDA card unless the caller passes `device="cpu"`. The package imports
 neither jax nor paddle_tpu.
 """
-from .convert import from_jax_state, moe_from_jax_state
+from .convert import from_jax_state, mlp_from_jax_params, moe_from_jax_state
 from .inference import LlamaInferenceEngine
 from .models import LlamaConfig, LlamaForCausalLM, llama_7b_shaped, llama_tiny
-from .serving import RequestHandle, ServingFrontend
+from .serving import MLPLMEngine, RequestHandle, ServingFrontend
 
-__all__ = ["from_jax_state", "moe_from_jax_state", "LlamaInferenceEngine",
-           "LlamaConfig", "LlamaForCausalLM", "llama_7b_shaped", "llama_tiny",
-           "RequestHandle", "ServingFrontend"]
+__all__ = ["from_jax_state", "mlp_from_jax_params", "moe_from_jax_state",
+           "LlamaInferenceEngine", "LlamaConfig", "LlamaForCausalLM",
+           "llama_7b_shaped", "llama_tiny", "MLPLMEngine", "RequestHandle",
+           "ServingFrontend"]

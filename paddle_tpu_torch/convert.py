@@ -3,7 +3,9 @@
 The two packages name and lay out their parameters alike (paddle names,
 Linear weights `[in, out]`), so the state exported by
 `paddle_tpu.jit.state_arrays` as numpy arrays loads as it is: a Llama
-model with `from_jax_state`, an MoE layer with `moe_from_jax_state`.
+model with `from_jax_state`, an MoE layer with `moe_from_jax_state`. A
+JAX `MLPLMEngine`'s `params` (embed, w1, b1, w2, b2) load into the port's
+`MLPLMEngine` with `mlp_from_jax_params`.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 
 from .models.llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["from_jax_state", "moe_from_jax_state"]
+__all__ = ["from_jax_state", "moe_from_jax_state", "mlp_from_jax_params"]
 
 
 @torch.no_grad()
@@ -73,3 +75,28 @@ def moe_from_jax_state(state: Dict[str, np.ndarray], layer):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
         p.copy_(torch.tensor(arr))
     return layer
+
+
+@torch.no_grad()
+def mlp_from_jax_params(params: Dict[str, np.ndarray], engine):
+    """Load a JAX `MLPLMEngine`'s `params` (name -> array: `embed`
+    `[V, D]`, `w1` `[2D, 2D]`, `b1`, `w2` `[2D, V]`, `b2`; e.g.
+    `{k: np.asarray(v) for k, v in jax_engine.params.items()}`) into the
+    port's `MLPLMEngine` in place (its device stays), and return it. The
+    weights must be dense f32 arrays of the engine's exact shapes (a
+    weight-only quantized JAX head has no counterpart in the port)."""
+    mine = engine.params
+    missing = sorted(set(mine) - set(params))
+    extra = sorted(set(params) - set(mine))
+    if missing or extra:
+        raise KeyError(f"params do not match the engine: missing "
+                       f"{missing}, unexpected {extra}")
+    for name, p in mine.items():
+        if isinstance(params[name], dict):
+            raise ValueError(f"{name}: a quantized weight; the port's "
+                             "MLPLMEngine holds dense f32 weights")
+        arr = np.asarray(params[name], np.float32)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
+        p.copy_(torch.tensor(arr))
+    return engine

@@ -1,6 +1,6 @@
 """Process-wide named counters and gauges (the port's slice of
-`paddle_tpu/framework/monitor.py`): `inc`, `set_gauge`, `get` and
-`reset`.
+`paddle_tpu/framework/monitor.py`): `inc`, `set_gauge`, `get`,
+`snapshot` and `reset`.
 
 The serving path bumps `serving.*` counters here. Where the JAX package
 counted jit retraces (`serving.{ragged,verify,prefill,decode}_retraces`),
@@ -15,7 +15,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, Union
 
-__all__ = ["inc", "set_gauge", "get", "reset"]
+__all__ = ["inc", "set_gauge", "get", "snapshot", "reset"]
 
 _lock = threading.Lock()
 _values: Dict[str, Union[int, float]] = {}
@@ -36,6 +36,12 @@ def set_gauge(name: str, value) -> None:
 
 def get(name: str):
     return _values.get(name, 0)
+
+
+def snapshot(prefix: str = "") -> Dict[str, Union[int, float]]:
+    """Every counter and gauge whose name starts with `prefix`."""
+    with _lock:
+        return {k: v for k, v in _values.items() if k.startswith(prefix)}
 
 
 def reset(prefix: str = "") -> None:

@@ -23,8 +23,9 @@ num_blocks, kv_heads, block_size, head_dim]` (and its scale planes `[L,
 num_blocks, kv_heads, block_size]`) are updated in place (the JAX engine
 donates them to each step instead).
 
-Not ported yet, raising `NotImplementedError`: `copy_kv_block` (prefix
-caching) and KV migration (`extract_kv_blocks` / `inject_kv_blocks`).
+`copy_kv_block` copies one pool block across all layers (the prefix
+cache's copy-on-write). Not ported yet, raising `NotImplementedError`:
+KV migration (`extract_kv_blocks` / `inject_kv_blocks`).
 """
 from __future__ import annotations
 
@@ -395,13 +396,37 @@ class LlamaInferenceEngine:
         return np.stack([rng.choice(p.shape[1], p=p[i])
                          for i in range(p.shape[0])]).astype(np.int32)
 
+    def copy_kv_block(self, src: int, dst: int) -> None:
+        """Copy physical block `src` onto block `dst` in every layer's K
+        and V pool (the `BlockCacheManager` copy-on-write hook, wired by
+        the scheduler when prefix caching is on); on an int8 pool both
+        scale planes' rows move in the same call, so a block's q bytes
+        and its scales never part. An indexed tensor copy on the pool's
+        device, as the JAX engine's jitted `.at[].set`.
+
+        `src` and `dst` are checked on the host before anything is
+        enqueued: an id outside the pool raises `ValueError` and leaves
+        the pool and the manager's books as they were. A fault the card
+        reports later (CUDA errors surface asynchronously, at a later
+        synchronizing call) is past that point: `_cow`'s promise that a
+        failing hook leaves the pool as it was holds only for what the
+        host can refuse."""
+        nb = self.k_cache.shape[1]
+        src, dst = int(src), int(dst)
+        if not (0 <= src < nb and 0 <= dst < nb):
+            raise ValueError(f"copy_kv_block: blocks ({src}, {dst}) "
+                             f"outside the pool of {nb}")
+        with torch.no_grad():
+            pools = [self.k_cache, self.v_cache]
+            if self.k_scale is not None:
+                pools += [self.k_scale, self.v_scale]
+            for pool in pools:
+                pool[:, dst].copy_(pool[:, src])
+
     def _not_ported(self, entry: str):
         raise NotImplementedError(
-            f"{entry} is not ported yet: it waits for the prefix cache "
-            "and KV migration")
-
-    def copy_kv_block(self, *args, **kw):
-        self._not_ported("copy_kv_block")
+            f"{entry} is not ported yet: it waits for KV migration "
+            "(ROADMAP Queue A)")
 
     def extract_kv_blocks(self, *args, **kw):
         self._not_ported("extract_kv_blocks")

@@ -1,15 +1,19 @@
-from .engine import EngineCore
-from .fault_tolerance import EngineStalled, EngineStepError
+from .engine import EngineCore, MLPLMEngine
+from .fault_tolerance import (AdmissionConfig, EngineStalled, EngineStepError,
+                              OverloadController, WatchdogConfig)
 from .frontend import RequestHandle, ServingFrontend
 from .metrics import ServingMetrics
 from .quant import greedy_agreement, quant_summary, quantize_engine
 from .scheduler import Request, RequestStatus, SamplingParams, Scheduler
+from .slo import DEFAULT_TENANT, SLOClass, SLOConfig, slo_for_adapters
 from .spec import (DraftEngineProposer, NGramProposer, Proposer,
                    SpecDecodeConfig)
 
-__all__ = ["EngineCore", "EngineStalled", "EngineStepError",
+__all__ = ["EngineCore", "MLPLMEngine", "AdmissionConfig", "EngineStalled",
+           "EngineStepError", "OverloadController", "WatchdogConfig",
            "RequestHandle", "ServingFrontend", "ServingMetrics", "Request",
            "RequestStatus", "SamplingParams", "Scheduler",
            "greedy_agreement", "quant_summary", "quantize_engine",
+           "DEFAULT_TENANT", "SLOClass", "SLOConfig", "slo_for_adapters",
            "DraftEngineProposer", "NGramProposer", "Proposer",
            "SpecDecodeConfig"]

@@ -1,28 +1,43 @@
 """EngineCore — the model-agnostic serving engine protocol the scheduler
-programs against (the port of `paddle_tpu/serving/engine.py`'s protocol).
+programs against, and `MLPLMEngine`, its second implementation (the port
+of `paddle_tpu/serving/engine.py`).
 
 An engine owns the model weights and a paged KV pool, exposes its
 `BlockCacheManager` as `manager`, and serves through `ragged_step` (the
 scheduler's plain rounds) and `verify_step` (its speculative rounds); a
 draft engine behind `DraftEngineProposer` is driven through `prefill`
-and `decode_step`. It may raise from a step: a typed `EngineStepError`
-naming lanes fails only those requests; any other exception propagates
-out of the scheduler's step.
+and `decode_step`; `copy_kv_block` backs the prefix cache's
+copy-on-write.
+
+Failure contract: an engine may raise from a step. A typed
+`EngineStepError(phase, seq_ids=...)` names the poisoned lane(s) and
+fails only those requests; any other exception is attributed by
+per-lane probe replays in the scheduler's fault boundary, retried a
+bounded number of times when no lane is culpable, then escalated to the
+watchdog (`serving/fault_tolerance.py`). Engines whose device state can
+be corrupted pair with an `engine_factory` (e.g. `MLPLMEngine.respawn`)
+so the watchdog can rebuild them.
 """
 from __future__ import annotations
 
 from typing import Protocol, runtime_checkable
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
+from ..inference import kv_quant
 from ..inference.cache import BlockCacheManager
+from ..ops.kernels._support import resolve_device
+from ..ops.kernels.paged_attention import ragged_metadata
 
-__all__ = ["EngineCore"]
+__all__ = ["EngineCore", "MLPLMEngine"]
 
 
 @runtime_checkable
 class EngineCore(Protocol):
-    """Structural protocol: `LlamaInferenceEngine` satisfies it as-is."""
+    """Structural protocol: `LlamaInferenceEngine` and `MLPLMEngine`
+    satisfy it as they are."""
 
     max_batch_size: int
     manager: BlockCacheManager
@@ -55,3 +70,245 @@ class EngineCore(Protocol):
         """One token per sequence at position `context_lens - 1`; returns
         logits [B, V]."""
         ...
+
+    def copy_kv_block(self, src: int, dst: int) -> None:
+        """Copy physical pool block `src` onto block `dst` (the
+        `BlockCacheManager` copy-on-write hook)."""
+        ...
+
+
+def _i32(a, device) -> torch.Tensor:
+    """Host ints -> an int32 tensor on `device`."""
+    return torch.as_tensor(np.asarray(a, np.int32)).to(device)
+
+
+class MLPLMEngine:
+    """Bag-of-embeddings MLP language model over the paged cache
+    (EngineCore #2), the port of the JAX package's `MLPLMEngine`.
+
+    The "KV" pool is `[num_blocks, block_size, D]` token embeddings (int8
+    with a `[num_blocks, block_size]` f32 scale plane at `kv_bits=8`,
+    quantized per slot as `inference/kv_quant.py` does); a token's logits
+    are `gelu([own embedding, masked mean of its lane's window] @ w1 +
+    b1) @ w2 + b2` (tanh gelu, f32). Same paged bookkeeping and step
+    contract as the Llama engine at a tiny size, so the scheduler and
+    frontend stack run model-agnostic scenarios fast. Plain tensor code:
+    the JAX engine has no Pallas body. Weights are drawn from
+    `numpy.random.default_rng(seed)` exactly as the JAX engine draws
+    them, so one seed gives both packages the same weights
+    (`convert.mlp_from_jax_params` loads a JAX engine's weights too).
+
+    `device=None` means the CUDA card and raises without one; tests pass
+    `device="cpu"`. Not ported: tensor parallelism (`tp` > 1) and LoRA
+    adapters, both raising `NotImplementedError` (ROADMAP Queue A), and
+    KV migration (`extract_kv_blocks` / `inject_kv_blocks`)."""
+
+    def __init__(self, vocab_size: int = 256, hidden: int = 32,
+                 max_batch_size: int = 8, num_blocks: int = 64,
+                 block_size: int = 8, max_blocks_per_seq: int = 8,
+                 seed: int = 0, kv_bits: int = 16, device=None,
+                 tp: int = 1, adapters=None):
+        if tp != 1:
+            raise NotImplementedError(
+                "MLPLMEngine: tensor parallelism (serving/tp.py) is not "
+                "ported yet (ROADMAP Queue A)")
+        if adapters is not None:
+            raise NotImplementedError(
+                "MLPLMEngine: LoRA adapters (serving/lora.py) are not "
+                "ported yet (ROADMAP Queue A)")
+        self.kv_bits = int(kv_bits)
+        if self.kv_bits not in (8, 16):
+            raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
+        self.device = resolve_device(device)
+        self._init_kwargs = dict(
+            vocab_size=vocab_size, hidden=hidden,
+            max_batch_size=max_batch_size, num_blocks=num_blocks,
+            block_size=block_size, max_blocks_per_seq=max_blocks_per_seq,
+            seed=seed, kv_bits=kv_bits, device=self.device)
+        self.vocab_size = vocab_size
+        self.max_batch_size = max_batch_size
+        self.block_size = block_size
+        self.manager = BlockCacheManager(num_blocks, block_size,
+                                         max_blocks_per_seq)
+        rng = np.random.default_rng(seed)
+        d = hidden
+
+        def init(*shape):
+            return torch.as_tensor(rng.normal(0, 0.08, shape).astype(
+                np.float32)).to(self.device)
+
+        def zeros(n):
+            return torch.zeros((n,), dtype=torch.float32,
+                               device=self.device)
+
+        # drawn in the JAX engine's order: embed, w1, w2
+        self.params = {"embed": init(vocab_size, d)}
+        self.params["w1"] = init(2 * d, 2 * d)
+        self.params["b1"] = zeros(2 * d)
+        self.params["w2"] = init(2 * d, vocab_size)
+        self.params["b2"] = zeros(vocab_size)
+        if self.kv_bits == 8:
+            self.cache = torch.zeros((num_blocks, block_size, d),
+                                     dtype=torch.int8, device=self.device)
+            self.cache_scale = torch.zeros((num_blocks, block_size),
+                                           dtype=torch.float32,
+                                           device=self.device)
+            bpb = block_size * d * 1 + block_size * 4
+        else:
+            self.cache = torch.zeros((num_blocks, block_size, d),
+                                     dtype=torch.float32, device=self.device)
+            self.cache_scale = None
+            bpb = block_size * d * 4
+        self._kv_bytes_per_token = bpb / block_size
+        self.manager.set_kv_geometry(bpb, self.kv_bits)
+
+    def kv_bytes_per_token(self) -> float:
+        """Device bytes one cached token costs (int8 pools include the
+        scale plane)."""
+        return self._kv_bytes_per_token
+
+    def quant_info(self) -> dict:
+        """The quantization mode the serving metrics publish (the weights
+        stay f32: 16 = unquantized)."""
+        return {"wbits": 16, "kv_bits": self.kv_bits,
+                "kv_bytes_per_token": self._kv_bytes_per_token}
+
+    def copy_kv_block(self, src: int, dst: int) -> None:
+        """Copy one physical cache block (`BlockCacheManager` COW hook,
+        wired by the scheduler when prefix caching is on): the block's
+        whole `[block_size, D]` slab and, on an int8 pool, its scale row
+        in the same call. Ids outside the pool raise `ValueError` on the
+        host before anything is enqueued (see
+        `LlamaInferenceEngine.copy_kv_block` for what an asynchronous
+        device fault means for the manager's books)."""
+        nb = self.cache.shape[0]
+        src, dst = int(src), int(dst)
+        if not (0 <= src < nb and 0 <= dst < nb):
+            raise ValueError(f"copy_kv_block: blocks ({src}, {dst}) "
+                             f"outside the pool of {nb}")
+        with torch.no_grad():
+            self.cache[dst].copy_(self.cache[src])
+            if self.cache_scale is not None:
+                self.cache_scale[dst].copy_(self.cache_scale[src])
+
+    def respawn(self) -> "MLPLMEngine":
+        """A fresh engine with IDENTICAL weights (seed-derived) and an
+        empty pool, on the same device — the watchdog `engine_factory`
+        for this engine class (`engine_factory=engine.respawn`)."""
+        return MLPLMEngine(**self._init_kwargs)
+
+    def _not_ported(self, entry: str):
+        raise NotImplementedError(
+            f"{entry} is not ported yet: it waits for KV migration "
+            "(ROADMAP Queue A)")
+
+    def extract_kv_blocks(self, *args, **kw):
+        self._not_ported("extract_kv_blocks")
+
+    def inject_kv_blocks(self, *args, **kw):
+        self._not_ported("inject_kv_blocks")
+
+    def _require_full_kv(self, entry: str):
+        if self.kv_bits != 16:
+            raise RuntimeError(
+                f"{entry} is a legacy full-precision entry point; a "
+                f"kv_bits={self.kv_bits} engine serves through "
+                "ragged_step/verify_step (the scheduler's only dispatches)")
+
+    def _head(self, last, mean):
+        """`gelu([last, mean] @ w1 + b1) @ w2 + b2`, f32."""
+        p = self.params
+        h = torch.cat([last, mean], dim=-1)
+        h = F.gelu(torch.matmul(h, p["w1"]) + p["b1"], approximate="tanh")
+        return torch.matmul(h, p["w2"]) + p["b2"]
+
+    def _ragged(self, tokens, q_lens, kv_lens, tables):
+        """Packed tokens [T] + per-lane (q_len, kv_len): token t embeds,
+        writes its embedding (quantized on an int8 pool) at its absolute
+        position (guard slots write nothing), and conditions on (own
+        embedding, masked mean of its lane's window through its
+        position) — what a sequence of decode steps computes. Returns
+        f32 logits [T, V]."""
+        bs = self.block_size
+        b, maxb = tables.shape
+        tok_lane, tok_pos = ragged_metadata(q_lens, kv_lens,
+                                            tokens.shape[0])
+        x = self.params["embed"][tokens.long()]                  # [T, D]
+        pos = torch.clamp(tok_pos.long(), min=0)
+        blocks = tables.long()[tok_lane.long(), pos // bs]       # [T]
+        valid = tok_pos >= 0
+        idx = (blocks[valid], (pos % bs)[valid])
+        if self.cache_scale is not None:
+            q, s = kv_quant.quantize_kv(x)                       # [T, D], [T]
+            self.cache[idx] = q[valid]
+            self.cache_scale[idx] = s[valid]
+            window = kv_quant.dequantize_kv(
+                self.cache[tables.long()],
+                self.cache_scale[tables.long()])                 # [B, MAXB, BS, D]
+        else:
+            self.cache[idx] = x[valid]
+            window = self.cache[tables.long()]
+        window = window.reshape(b, maxb * bs, -1)[tok_lane.long()]  # [T, W, D]
+        wpos = torch.arange(maxb * bs, dtype=torch.int32,
+                            device=x.device)
+        mask = (wpos[None, :] <= tok_pos[:, None]).to(x.dtype)
+        mean = (window * mask[..., None]).sum(1) / torch.clamp(
+            mask.sum(1, keepdim=True), min=1.0)
+        return self._head(x, mean).float()
+
+    def ragged_step(self, tokens, q_lens, kv_lens, block_tables):
+        """Packed ragged step; see `EngineCore.ragged_step`."""
+        dev = self.device
+        with torch.no_grad():
+            return self._ragged(_i32(tokens, dev), _i32(q_lens, dev),
+                                _i32(kv_lens, dev), _i32(block_tables, dev))
+
+    def verify_step(self, tokens, context_lens, block_tables):
+        """Multi-token verify pass; see `EngineCore.verify_step`. A ragged
+        step whose lanes all hold a window of S tokens."""
+        ids = np.asarray(tokens, np.int32)
+        b, s = ids.shape
+        dev = self.device
+        with torch.no_grad():
+            logits = self._ragged(
+                _i32(ids.reshape(b * s), dev),
+                _i32(np.full((b,), s, np.int32), dev),
+                _i32(context_lens, dev), _i32(block_tables, dev))
+        return logits.reshape(b, s, -1)
+
+    def prefill(self, input_ids, block_tables, lens=None):
+        """Prompts [B, S] at positions 0..S-1 (right-padded; `lens` the
+        true lengths): every position's embedding is written through the
+        row's table, and the logits [B, V] condition on the embedding at
+        `lens - 1` and the masked mean of the first `lens` embeddings."""
+        self._require_full_kv("prefill")
+        ids = np.asarray(input_ids, np.int32)
+        b, s = ids.shape
+        if lens is None:
+            lens = np.full((b,), s, np.int32)
+        dev, bs = self.device, self.block_size
+        with torch.no_grad():
+            ids_t = _i32(ids, dev)
+            tables = _i32(block_tables, dev).long()
+            lens_t = _i32(lens, dev)
+            x = self.params["embed"][ids_t.long()]               # [B, S, D]
+            p = torch.arange(s, device=dev)
+            blocks = tables[:, p // bs]                          # [B, S]
+            offs = (p % bs)[None, :].expand(b, s)
+            self.cache[blocks.reshape(-1), offs.reshape(-1)] = \
+                x.reshape(b * s, -1)
+            mask = (p[None, :] < lens_t[:, None]).to(x.dtype)
+            mean = (x * mask[..., None]).sum(1) / torch.clamp(
+                mask.sum(1, keepdim=True), min=1.0)
+            last_i = torch.clamp(lens_t.long() - 1, 0, s - 1)
+            last = x[torch.arange(b, device=dev), last_i]
+            return self._head(last, mean).float()
+
+    def decode_step(self, tokens, context_lens, block_tables):
+        """One token per sequence, written at `context_lens - 1`; logits
+        [B, V] condition on its embedding and the masked mean of the
+        sequence's window."""
+        self._require_full_kv("decode_step")
+        tok = np.asarray(tokens, np.int32)
+        q_lens = np.ones(tok.shape, np.int32)
+        return self.ragged_step(tok, q_lens, context_lens, block_tables)

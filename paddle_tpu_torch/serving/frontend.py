@@ -3,20 +3,22 @@ scheduler (the port of `paddle_tpu/serving/frontend.py`'s core).
 
 Callers submit token prompts and get back a `RequestHandle` they can
 poll, stream or cancel. Over-capacity submissions come back REJECTED with
-a reason, expired deadlines TIMED_OUT, isolated engine faults FAILED:
-every submitted request reaches a terminal status. The frontend is driven
-synchronously: `step()` advances one scheduling round; `stream()` and
-`run_until_idle()` drive it for you and raise a typed `EngineStalled`
-(never spin) after `stall_after` consecutive zero-progress steps.
+a reason, overload watermarks SHED, expired deadlines TIMED_OUT, isolated
+engine faults FAILED: every submitted request reaches a terminal status.
+The frontend is driven synchronously: `step()` advances one scheduling
+round; `stream()` and `run_until_idle()` drive it for you and, when no
+watchdog is installed, raise a typed `EngineStalled` (never spin) after
+`stall_after` consecutive zero-progress steps.
 """
 from __future__ import annotations
 
 import time
 from typing import Iterator, List, Optional, Sequence
 
-from .fault_tolerance import EngineStalled
+from .fault_tolerance import AdmissionConfig, EngineStalled, WatchdogConfig
 from .metrics import ServingMetrics
 from .scheduler import Request, RequestStatus, SamplingParams, Scheduler
+from .slo import SLOConfig
 
 __all__ = ["RequestHandle", "ServingFrontend"]
 
@@ -73,21 +75,41 @@ class ServingFrontend:
                  stall_after: int = 512,
                  prefill_chunk_tokens: int = 32,
                  spec=None,
-                 clock=time.perf_counter):
+                 clock=time.perf_counter,
+                 admission: Optional[AdmissionConfig] = None,
+                 watchdog: Optional[WatchdogConfig] = None,
+                 engine_factory=None,
+                 prefix_cache: bool = False,
+                 slo: Optional[SLOConfig] = None):
         """`engine`: an `EngineCore` (e.g. `LlamaInferenceEngine`, whose
         `device=None` means the CUDA card). `prefill_chunk_tokens`:
         per-step pending-prompt token budget for chunked prefill.
         `spec`: optional `SpecDecodeConfig` enabling speculative decoding
         (the engine then serves through `verify_step`).
-        `stall_after`: `run_until_idle`/`stream` raise `EngineStalled`
-        after this many consecutive zero-progress steps. `clock`: time
-        source for deadlines and latency stamps."""
+        `stall_after`: with no watchdog, `run_until_idle`/`stream` raise
+        `EngineStalled` after this many consecutive zero-progress steps.
+        `clock`: time source for deadlines, latency stamps and stall
+        detection, shared with the scheduler.
+
+        `admission`: optional `AdmissionConfig` (overload load shedding:
+        watermarks and deadline-aware early rejection). `watchdog` +
+        `engine_factory`: optional `WatchdogConfig` (stall detection and
+        bounded engine restarts; the factory rebuilds an identically
+        configured engine, e.g. `MLPLMEngine.respawn`; a factory alone
+        opts into the default `WatchdogConfig`). `prefix_cache`: the
+        shared-prefix radix cache — repeated prompts and sessions skip
+        the cached part of prefill. `slo`: optional `SLOConfig` of
+        per-tenant quotas, reserves, admission weights and watermark
+        tiers; submissions then carry `tenant=`."""
         self.metrics = metrics or ServingMetrics()
         self._clock = clock
         self.scheduler = Scheduler(engine, metrics=self.metrics,
                                    max_queue=max_queue,
                                    prefill_chunk_tokens=prefill_chunk_tokens,
-                                   spec=spec, clock=clock)
+                                   spec=spec, clock=clock,
+                                   admission=admission, watchdog=watchdog,
+                                   engine_factory=engine_factory,
+                                   prefix_cache=prefix_cache, slo=slo)
         self.default_timeout_s = default_timeout_s
         self.stall_after = stall_after
 
@@ -95,10 +117,21 @@ class ServingFrontend:
                temperature: float = 0.0, top_k: int = 0,
                eos_token_id: Optional[int] = None,
                timeout_s: Optional[float] = None,
-               stream_cb=None, seed: int = 0) -> RequestHandle:
+               stream_cb=None, seed: int = 0,
+               tenant: Optional[str] = None,
+               adapter: Optional[str] = None) -> RequestHandle:
         """Enqueue a generation request. NEVER raises on load conditions:
-        a request that cannot be served comes back already REJECTED with
-        `finish_reason` in {prompt_too_long, queue_full, empty_prompt}."""
+        a request that cannot be served comes back already terminal with
+        `finish_reason` in {prompt_too_long, queue_full, empty_prompt}
+        (REJECTED) or a watermark / deadline reason (SHED). `tenant`
+        names the request's SLO class when an `SLOConfig` is installed
+        (unknown or None -> the default class). `adapter` (a LoRA
+        adapter) raises `NotImplementedError`: LoRA serving is not
+        ported yet (ROADMAP Queue A)."""
+        if adapter is not None:
+            raise NotImplementedError(
+                "submit(adapter=...): LoRA serving (serving/lora.py) is "
+                "not ported yet (ROADMAP Queue A)")
         timeout_s = self.default_timeout_s if timeout_s is None else timeout_s
         now = self._clock()
         deadline = None if timeout_s is None else now + timeout_s
@@ -109,7 +142,7 @@ class ServingFrontend:
         if stream_cb is not None:
             cb = lambda req, tok, _cb=stream_cb: _cb(tok)  # noqa: E731
         req = Request(prompt_ids, sampling=sp, deadline=deadline,
-                      stream_cb=cb)
+                      stream_cb=cb, tenant=tenant)
         self.scheduler.submit(req, now=now)
         return RequestHandle(req)
 
@@ -122,6 +155,11 @@ class ServingFrontend:
 
     def _check_stalled(self):
         sch = self.scheduler
+        if sch.watchdog_active:
+            # the watchdog owns stall recovery (restart, then typed
+            # failure once its budget is gone); raising here on a tighter
+            # stall_after would preempt the restart the caller configured
+            return
         if self.stall_after and not sch.idle \
                 and sch.zero_progress_steps >= self.stall_after:
             mgr = sch.engine.manager
@@ -132,8 +170,10 @@ class ServingFrontend:
 
     def run_until_idle(self, max_steps: int = 100000) -> int:
         """Drive until every submitted request is terminal. Returns steps
-        taken; a wedged engine raises `EngineStalled`, and `max_steps`
-        bounds runaway loops (a bug, so it raises)."""
+        taken. Without a watchdog a wedged engine raises `EngineStalled`
+        (with one, the watchdog restarts the engine, and fails every
+        request typed once its budget is gone); `max_steps` bounds
+        runaway loops (a bug, so it raises)."""
         for n in range(max_steps):
             if self.scheduler.idle:
                 return n

@@ -1,11 +1,15 @@
-"""Serving metrics: request/token counters, TTFT/TPOT latency, queue
-depth, batch occupancy, KV utilization, preemptions and speculative
-acceptance (the port's slice of `paddle_tpu/serving/metrics.py`: the
-methods the core and speculative serving paths call).
+"""Serving metrics: request/token counters, TTFT/TPOT latency (split into
+prefix-cache hits and cold requests), queue depth and queued cost, batch
+occupancy, KV utilization, preemptions, speculative acceptance, overload
+shedding, isolated and step faults, stalls and engine restarts, and the
+per-tenant admission counters (the port of
+`paddle_tpu/serving/metrics.py`).
 
-Counters go to the port's monitor under the `serving.` prefix; gauges
-and the per-request latency samples stay on the `ServingMetrics`
-instance, and `summary()` reports both with p50/p99 TTFT and TPOT.
+Counters go to the port's monitor under the `serving.` prefix (the
+prefix cache and the block manager bump `serving.prefix_cache.*` at
+their source); step gauges and the per-request latency samples stay on
+the `ServingMetrics` instance, and `summary()` reports both with p50/p99
+TTFT and TPOT.
 """
 from __future__ import annotations
 
@@ -21,14 +25,14 @@ __all__ = ["ServingMetrics"]
 # bounded sliding window: a long-running server never grows its samples
 _WINDOW = 4096
 
+# counters summary() reports even before their first bump
 _COUNTERS = ("requests_submitted", "requests_rejected", "requests_completed",
              "requests_cancelled", "requests_timed_out", "requests_failed",
              "preemptions", "isolated_faults", "prefill_tokens", "prefills",
              "decode_steps", "tokens_generated", "ragged_steps",
-             "spec_steps", "spec_proposed_tokens", "spec_accepted_tokens")
-# speculative-decoding gauges kept in the monitor, in summary() once a
-# verify round has run
-_SPEC_GAUGES = ("spec_acceptance_pct", "spec_tokens_per_lane_step")
+             "spec_steps", "spec_proposed_tokens", "spec_accepted_tokens",
+             "shed_total", "step_faults", "stall_detections",
+             "engine_restarts")
 
 
 def _pct(samples, q: float) -> Optional[float]:
@@ -48,6 +52,10 @@ class ServingMetrics:
     def __init__(self):
         self.ttft_s = deque(maxlen=_WINDOW)
         self.tpot_s = deque(maxlen=_WINDOW)
+        # TTFT of requests admitted WITH a prefix-cache hit, and of the
+        # rest: the side-by-side the prefix cache is judged on
+        self.ttft_cached_s = deque(maxlen=_WINDOW)
+        self.ttft_cold_s = deque(maxlen=_WINDOW)
         self.gauges: Dict[str, float] = {}
         # per-round acceptance samples (speculative decoding), bounded
         # like the latency windows
@@ -63,6 +71,8 @@ class ServingMetrics:
         boundary) without touching the counters."""
         self.ttft_s.clear()
         self.tpot_s.clear()
+        self.ttft_cached_s.clear()
+        self.ttft_cold_s.clear()
         self.accept_rate.clear()
         self._occ_sum = 0.0
         self._steps = 0
@@ -77,14 +87,43 @@ class ServingMetrics:
         monitor.inc("serving.requests_rejected")
         monitor.inc(f"serving.rejected.{reason}")
 
+    def on_shed(self, reason: str):
+        """Overload shed at admission (status SHED): servable, but the
+        watermark / deadline admission control turned it away."""
+        monitor.inc("serving.shed_total")
+        monitor.inc(f"serving.shed.{reason}")
+
+    @staticmethod
+    def shed_by_reason() -> dict:
+        """Non-zero shed counts keyed by reason."""
+        return {k[len("serving.shed."):]: v
+                for k, v in monitor.snapshot("serving.shed.").items() if v}
+
     def on_preempt(self):
         monitor.inc("serving.preemptions")
 
+    # ---- fault tolerance ----
     def on_isolated_fault(self, phase: str):
-        """One request failed at the fault boundary (NaN lane, or a typed
-        `EngineStepError` naming it); the other lanes kept serving."""
+        """One request failed at the fault boundary (NaN lane, targeted
+        `EngineStepError`, cache fault, failed probe replay); the other
+        lanes kept serving."""
         monitor.inc("serving.isolated_faults")
         monitor.inc(f"serving.isolated_faults.{phase}")
+
+    def on_step_fault(self, phase: str):
+        """One UNattributed (transient) dispatch fault: nothing committed,
+        no lane culpable; the whole step replays next round."""
+        monitor.inc("serving.step_faults")
+        monitor.inc(f"serving.step_faults.{phase}")
+
+    def on_stall(self):
+        monitor.inc("serving.stall_detections")
+
+    def on_engine_restart(self, reason: str):
+        monitor.inc("serving.engine_restarts")
+        # reasons carry a phase suffix (step_faults:decode): keep the
+        # leading class so the counter space stays bounded
+        monitor.inc(f"serving.engine_restarts.{reason.split(':', 1)[0]}")
 
     def on_prefill_chunk(self, num_tokens: int):
         monitor.inc("serving.prefill_tokens", num_tokens)
@@ -101,6 +140,32 @@ class ServingMetrics:
         t = req.ttft()
         if t is not None:
             self.ttft_s.append(t)
+            if req._prefix_hit_tokens > 0:
+                self.ttft_cached_s.append(t)
+            else:
+                self.ttft_cold_s.append(t)
+
+    # ---- shared-prefix radix cache ----
+    def on_prefix_lease(self, hit_tokens: int):
+        """One admission through the radix prefix cache (`hit_tokens`
+        context tokens served from cache; 0 = miss). The hit / miss /
+        eviction / COW counters are bumped at their source; this derives
+        the hit-rate gauge."""
+        hits = monitor.get("serving.prefix_cache.hits")
+        miss = monitor.get("serving.prefix_cache.misses")
+        if hits + miss:
+            self.gauges["serving.prefix_cache.hit_rate_pct"] = \
+                hits / (hits + miss) * 100.0
+
+    # ---- multi-tenant SLO classes ----
+    def on_tenant_admit(self, tenant: str):
+        monitor.inc(f"serving.tenant.{tenant}.admitted")
+
+    def on_tenant_deferred(self, tenant: str, reason: str):
+        """A tenant's head-of-queue request was passed over this
+        admission round (kv_quota / kv_reserve) WITHOUT blocking other
+        tenants."""
+        monitor.inc(f"serving.tenant.{tenant}.deferred.{reason}")
 
     def on_finish(self, req):
         from .scheduler import RequestStatus
@@ -160,11 +225,18 @@ class ServingMetrics:
             kv_utilization * 100.0)
         self.gauge_queue(queue_depth)
 
-    def gauge_queue(self, depth: int):
+    def gauge_queue(self, depth: int, queued_cost: Optional[int] = None):
+        """Queue depth and, when given, the queued cost: the
+        `max_new_tokens`-weighted backlog the cost watermark and the
+        deadline-shed estimate latch on."""
         g = self.gauges
         g["serving.queue_depth"] = depth
         g["serving.queue_depth_peak"] = max(
             g.get("serving.queue_depth_peak", 0), depth)
+        if queued_cost is not None:
+            g["serving.queued_cost"] = queued_cost
+            g["serving.queued_cost_peak"] = max(
+                g.get("serving.queued_cost_peak", 0), queued_cost)
 
     # ---- quantized serving ----
     def on_quant(self, info: dict):
@@ -183,17 +255,20 @@ class ServingMetrics:
 
     # ---- reporting ----
     def summary(self) -> Dict[str, object]:
-        out: Dict[str, object] = {f"serving.{n}": monitor.get(f"serving.{n}")
-                                  for n in _COUNTERS}
-        if monitor.get("serving.spec_steps"):
-            for n in _SPEC_GAUGES:
-                out[f"serving.{n}"] = monitor.get(f"serving.{n}")
+        out: Dict[str, object] = {f"serving.{n}": 0 for n in _COUNTERS}
+        out.update(monitor.snapshot("serving."))
         out.update(self.gauges)
         out["serving.ttft_p50_ms"] = _ms(_pct(self.ttft_s, 50))
         out["serving.ttft_p99_ms"] = _ms(_pct(self.ttft_s, 99))
         out["serving.tpot_p50_ms"] = _ms(_pct(self.tpot_s, 50))
         out["serving.tpot_mean_ms"] = _ms(
             float(np.mean(self.tpot_s)) if self.tpot_s else None)
+        if self.ttft_cached_s or self.ttft_cold_s:
+            for name, window in (("cached", self.ttft_cached_s),
+                                 ("cold", self.ttft_cold_s)):
+                for q in (50, 99):
+                    out[f"serving.prefix_cache.ttft_{name}_p{q}_ms"] = \
+                        _ms(_pct(window, q))
         return out
 
     @staticmethod

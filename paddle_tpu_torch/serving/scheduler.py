@@ -1,12 +1,28 @@
-"""Continuous-batching scheduler over an `EngineCore` (the core of
+"""Continuous-batching scheduler over an `EngineCore` (the port of
 `paddle_tpu/serving/scheduler.py`).
 
 Policy:
 - admission: FIFO from the waiting queue into free slots. Admission
-  leases only the sequence id (one block); the prompt's KV enters the
-  cache chunk by chunk through the ragged step. A request is admitted
-  only when its whole context could lease now, after the prefill debt of
-  lanes still mid-chunking; pool exhaustion leaves it queued.
+  leases the deepest radix-cached prefix of the context when the prefix
+  cache is on, else only the sequence id (one block); the rest of the
+  context's KV enters the cache chunk by chunk through the ragged step.
+  A request is admitted only when its whole context could lease now,
+  after the prefill debt of lanes still mid-chunking; pool exhaustion
+  leaves it queued.
+- prefix caching (optional, `prefix_cache=True`): a radix tree over the
+  paged pool publishes committed KV at finish / preemption and leases the
+  deepest cached prefix at admission (no prefill for the hit; chunking
+  resumes from the first uncached token, and a full hit leaves one
+  token). Divergent writes into shared blocks copy on write
+  (`engine.copy_kv_block`); unpinned tree nodes LRU-evict under pressure.
+- multi-tenant SLOs (optional, `slo=SLOConfig(...)`): per-tenant KV quotas
+  and reserves gate admission without cross-tenant head blocking,
+  admission order is deficit-weighted fair across tenants, and each tier
+  scales the overload watermarks with its own latches.
+- load shedding (optional `AdmissionConfig`): watermark latches with
+  hysteresis over queue depth, queued `max_new_tokens` cost and KV
+  utilization, plus deadline-aware early shedding: overload degrades to
+  fast SHED responses.
 - chunked prefill: every step packs the decode lanes (one token each)
   plus at most `prefill_chunk_tokens` pending-prompt tokens into ONE
   `engine.ragged_step` over a packed buffer of `max_batch_size +
@@ -20,10 +36,20 @@ Policy:
   at once; the slot admits a new request on the same step.
 - padding: empty lanes point their block table at a dedicated guard
   block, never at a sequence's block.
-- fault isolation: a lane whose logits are not finite fails alone (its
-  request is FAILED, `nan_logits`); a typed `EngineStepError` naming
-  lanes fails those lanes and rolls the others back to replay next
-  round. Any other engine exception propagates.
+- fault isolation: every engine dispatch runs behind a typed boundary
+  (`serving/fault_tolerance.py`). Faults attributable to lanes (non-finite
+  logits, a typed `EngineStepError(seq_ids=...)`, cache failures, failed
+  probe replays) fail ONLY those requests; survivors roll back to their
+  pre-step cache lengths and replay next round with identical tokens.
+  Unattributed faults (a kernel launch that raises for every lane alike)
+  retry at most `step_retries` times in a row, then escalate to the
+  watchdog. Nothing replaces a failing kernel with a plain version.
+- watchdog (optional `WatchdogConfig` + `engine_factory`): stall
+  detection (per-dispatch wall clock + zero-progress rounds) drives a
+  bounded-restart supervisor: in-flight sequences re-queue with their
+  tokens, the engine is rebuilt, the guard block and the prefix tree are
+  rebuilt on the fresh pool. Out of budget, every non-terminal request
+  fails typed (`engine_unrecoverable:*`).
 - speculative decoding (optional, `spec=SpecDecodeConfig`): each round a
   proposer drafts up to K tokens per decode lane, and ONE
   `engine.verify_step` scores every lane's fixed window of K + 1 tokens
@@ -32,12 +58,17 @@ Policy:
   token commit, and rejected speculation rolls back with
   `BlockCacheManager.trim`. A proposer out of pool or past its length
   cap drafts nothing; any other proposer error rolls the round back and
-  propagates. Greedy and seeded-stochastic streams equal
-  plain decoding's, token for token.
+  propagates. Greedy and seeded-stochastic streams equal plain
+  decoding's, token for token.
 
 Sampling is `ops/sampling.py` on the logits' device: logits stay on the
 card, and only the [B] token ids and the [T] finite mask cross to the
 host each step.
+
+Left out until the slices that take them (ROADMAP Queue A): the JAX
+scheduler's observability spans, LoRA lanes, and cross-replica KV
+streaming (`import_session`, `export_prefix` / `import_prefix`,
+`release`).
 """
 from __future__ import annotations
 
@@ -51,11 +82,16 @@ import numpy as np
 import torch
 
 from ..framework import monitor
+from ..framework.retry import Budget, retry_call
 from ..inference.cache import KVCacheExhausted, SequenceTooLong
+from ..inference.prefix_cache import RadixPrefixCache
 from ..ops.sampling import sample_tokens
+from ..resilience import faults
 from .engine import EngineCore
-from .fault_tolerance import EngineStepError
+from .fault_tolerance import (AdmissionConfig, EngineStepError,
+                              OverloadController, WatchdogConfig)
 from .metrics import ServingMetrics
+from .slo import DEFAULT_TENANT, SLOConfig
 from .spec import SpecDecodeConfig
 
 __all__ = ["SamplingParams", "RequestStatus", "Request", "Scheduler"]
@@ -83,14 +119,15 @@ class RequestStatus(enum.Enum):
     FINISHED = "finished"
     CANCELLED = "cancelled"
     REJECTED = "rejected"
+    SHED = "shed"               # overload admission control turned it away
     FAILED = "failed"           # engine fault isolated to this request
     TIMED_OUT = "timed_out"
 
     @property
     def terminal(self) -> bool:
         return self in (RequestStatus.FINISHED, RequestStatus.CANCELLED,
-                        RequestStatus.REJECTED, RequestStatus.FAILED,
-                        RequestStatus.TIMED_OUT)
+                        RequestStatus.REJECTED, RequestStatus.SHED,
+                        RequestStatus.FAILED, RequestStatus.TIMED_OUT)
 
 
 class Request:
@@ -100,12 +137,16 @@ class Request:
 
     def __init__(self, prompt_ids, sampling: Optional[SamplingParams] = None,
                  deadline: Optional[float] = None,
-                 stream_cb: Optional[Callable[["Request", int], None]] = None):
+                 stream_cb: Optional[Callable[["Request", int], None]] = None,
+                 tenant: str = DEFAULT_TENANT):
         self.req_id = next(Request._ids)
         self.prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         self.sampling = sampling or SamplingParams()
         self.deadline = deadline              # absolute, scheduler's clock
         self.stream_cb = stream_cb
+        # multi-tenant SLO class (serving/slo.py): quota, lane weight and
+        # watermark tier key off this; "default" = untiered
+        self.tenant = tenant or DEFAULT_TENANT
         self.generated: List[int] = []
         self.status = RequestStatus.QUEUED
         self.finish_reason: Optional[str] = None
@@ -117,9 +158,11 @@ class Request:
         self._admit_seq = -1                  # admission order (victim pick)
         # chunked-prefill cursor: context tokens whose KV is already in
         # cache; the target snapshot is taken at every (re-)admission, so
-        # a re-prefill after preemption replays prompt + kept tokens
+        # a re-prefill after preemption replays prompt + kept tokens. A
+        # prefix-cache hit starts the cursor AT the hit length.
         self._prefill_ctx = np.zeros((0,), np.int32)
         self._prefill_pos = 0
+        self._prefix_hit_tokens = 0           # cached tokens this admission
 
     @property
     def prefilling(self) -> bool:
@@ -129,6 +172,12 @@ class Request:
     @property
     def seq_id(self) -> int:
         return self.req_id
+
+    @property
+    def cost(self) -> int:
+        """Admission-control weight: decode steps this request may still
+        consume (`max_new_tokens` less what it already produced)."""
+        return max(1, self.sampling.max_new_tokens - len(self.generated))
 
     def all_tokens(self) -> np.ndarray:
         """Prompt + every generated token INCLUDING the pending last one:
@@ -158,6 +207,10 @@ class Request:
         return (self.t_finish - self.t_first_token) / (len(self.generated) - 1)
 
 
+def _all_finite(x) -> bool:
+    return bool(torch.isfinite(torch.as_tensor(x)).all())
+
+
 class Scheduler:
     """Admits requests into decode slots and drives ragged steps."""
 
@@ -165,11 +218,28 @@ class Scheduler:
                  metrics: Optional[ServingMetrics] = None,
                  max_queue: int = 256, prefill_chunk_tokens: int = 32,
                  spec: Optional[SpecDecodeConfig] = None,
-                 clock: Callable[[], float] = time.perf_counter):
+                 clock: Callable[[], float] = time.perf_counter,
+                 admission: Optional[AdmissionConfig] = None,
+                 watchdog: Optional[WatchdogConfig] = None,
+                 engine_factory: Optional[Callable[[], EngineCore]] = None,
+                 nan_checks: bool = True,
+                 prefix_cache: bool = False,
+                 slo: Optional[SLOConfig] = None):
         """`prefill_chunk_tokens`: per-step token budget for pending
         prompts; the packed ragged dispatch holds `max_batch_size +
         prefill_chunk_tokens` token slots. `spec`: optional
-        `SpecDecodeConfig`; every round is then one `verify_step`."""
+        `SpecDecodeConfig`; every round is then one `verify_step`.
+        `clock`: the time source of deadlines, latency stamps and stall
+        detection (tests inject a fake one).
+
+        `admission`: optional `AdmissionConfig` (load shedding).
+        `watchdog` + `engine_factory`: stall detection and bounded engine
+        restarts; a factory alone opts into the default `WatchdogConfig`
+        (it would otherwise never run). `nan_checks`: screen every
+        step's logits for non-finite rows (on by default; an injected
+        `"flag"` fault screens regardless). `prefix_cache`: the
+        shared-prefix radix cache (`inference/prefix_cache.py`). `slo`:
+        optional multi-tenant `SLOConfig` (serving/slo.py)."""
         if prefill_chunk_tokens < 1:
             raise ValueError("prefill_chunk_tokens must be >= 1, got "
                              f"{prefill_chunk_tokens}")
@@ -179,18 +249,46 @@ class Scheduler:
         self.spec = spec
         self.prefill_chunk_tokens = int(prefill_chunk_tokens)
         self.ragged_tokens = engine.max_batch_size + self.prefill_chunk_tokens
+        self.engine_factory = engine_factory
+        self.nan_checks = nan_checks
+        self._overload = OverloadController(admission) if admission else None
+        if watchdog is None and engine_factory is not None:
+            watchdog = WatchdogConfig()
+        self._wd = watchdog
+        self._restart_budget = Budget(
+            watchdog.max_restarts if watchdog is not None else 0)
         self._clock = clock
         self.slots: List[Optional[Request]] = [None] * engine.max_batch_size
         self.waiting: Deque[Request] = deque()
+        self._queued_cost = 0          # sum of waiting requests' .cost
         self._admit_counter = itertools.count()
+        # recent decode/verify dispatch wall times; the deadline-shed
+        # estimate uses the MEDIAN, which one slow outlier cannot drag
+        self._tpot_samples: Deque[float] = deque(maxlen=32)
         self._zero_progress = 0        # consecutive no-progress steps
         self._finish_events = 0        # terminal transitions, monotonic
         self._chunk_progress = 0       # prefill tokens last round
+        self._step_faults = 0          # consecutive unattributed faults
+        self._pending_stall: Optional[str] = None
+        self._broken: Optional[str] = None   # rebind failed mid-restart
+        self._last_decode_dt: Optional[float] = None
+        self._prefix_enabled = bool(prefix_cache)
+        self._prefix_tree: Optional[RadixPrefixCache] = None
+        self._slo = slo
+        # per-tenant overload controllers (tier-scaled watermarks, own
+        # latches) and virtual-time clocks of the deficit-weighted
+        # admission order, both lazy; `_vclock` is the system virtual
+        # time (the last admission's start), so a tenant returning from
+        # idle competes from NOW instead of spending banked arrears
+        self._overload_by_tenant = {}
+        self._vtime = {}
+        self._vclock = 0.0
         self._bind_manager(engine.manager)
 
     def _bind_manager(self, mgr):
-        """Lease the guard block, derive pool geometry, and publish the
-        engine's quantization mode."""
+        """(Re)lease the guard block, derive pool geometry, build the
+        prefix tree and publish the engine's quantization mode — at
+        construction and again after every watchdog engine rebuild."""
         # Guard block for padded lanes: empty slots point their block
         # table at this block. Negative ids keep it out of the request id
         # space; probe downward in case another scheduler already leases
@@ -206,6 +304,14 @@ class Scheduler:
         # what one sequence can ever hold: pool minus the guard (and minus
         # blocks other users of a shared engine already lease)
         self._usable_blocks = min(mgr.free_blocks, mgr.max_blocks_per_seq)
+        # the radix tree lives on THIS manager (a fresh one after an
+        # engine swap: the old tree's KV died with the old pool); the
+        # engine's block copy backs copy-on-write, and the tree is the
+        # pool's eviction authority
+        if self._prefix_enabled:
+            self._prefix_tree = RadixPrefixCache(mgr)
+            mgr.set_reclaimer(self._prefix_tree)
+            mgr.set_cow_hook(getattr(self.engine, "copy_kv_block", None))
         # the wbits / kv_bits / kv_bytes_per_token gauges: bind-time, not
         # per step
         info = getattr(self.engine, "quant_info", None)
@@ -217,25 +323,93 @@ class Scheduler:
                 # unset gauges and this counter point at the cause
                 monitor.inc("serving.quant_info_errors")
 
+    # ---- waiting-queue bookkeeping (cost-accounted) ----
+    def _queue_push(self, req: Request, front: bool = False):
+        if front:
+            self.waiting.appendleft(req)
+        else:
+            self.waiting.append(req)
+        self._queued_cost += req.cost
+        self.metrics.gauge_queue(len(self.waiting), self._queued_cost)
+
+    def _queue_remove(self, req: Request):
+        self.waiting.remove(req)
+        self._queued_cost = max(0, self._queued_cost - req.cost)
+        self.metrics.gauge_queue(len(self.waiting), self._queued_cost)
+
     # ---- submission / cancellation ----
     def submit(self, req: Request, now: Optional[float] = None) -> Request:
-        """Admission control. Rejects (with `finish_reason`) instead of
-        raising: empty and over-long prompts and a full queue are load
-        conditions, not bugs."""
+        """Admission control. Rejects or sheds (with `finish_reason`)
+        instead of raising: empty and over-long prompts, a full queue and
+        overload watermarks are load conditions, not bugs."""
         now = self._clock() if now is None else now
         req.t_submit = now
         self.metrics.on_submit()
+        if self._broken is not None:
+            return self._reject(req, self._broken)
         mgr = self.engine.manager
         if len(req.prompt) == 0:
             return self._reject(req, "empty_prompt")
         # +1: the sequence must be able to hold at least one generated token
         if mgr.blocks_needed(len(req.prompt) + 1) > self._usable_blocks:
             return self._reject(req, "prompt_too_long")
+        if self._overload is not None:
+            ctrl = self._overload_for(req.tenant)
+            tpot = (self.tpot_estimate()
+                    if ctrl.cfg.deadline_aware and req.deadline is not None
+                    else None)
+            reason = ctrl.shed_reason(
+                queue_depth=len(self.waiting),
+                queued_cost=self._queued_cost,
+                req_cost=req.cost,
+                kv_utilization=mgr.utilization(),
+                deadline=req.deadline, now=now,
+                tpot_s=tpot, lanes=len(self.slots))
+            if reason is not None:
+                return self._shed(req, reason)
         if len(self.waiting) >= self.max_queue:
             return self._reject(req, "queue_full")
-        self.waiting.append(req)
-        self.metrics.gauge_queue(len(self.waiting))
+        self._queue_push(req)
         return req
+
+    def _overload_for(self, tenant: str) -> OverloadController:
+        """The shared overload controller without an SLO config; with
+        one, a per-tenant controller with tier-scaled watermarks and
+        private hysteresis latches."""
+        if self._slo is None:
+            return self._overload
+        ctrl = self._overload_by_tenant.get(tenant)
+        if ctrl is None:
+            c = self._slo.cls(tenant)
+            cfg = (self._overload.cfg if c.admission_scale == 1.0
+                   else c.scaled_admission(self._overload.cfg))
+            ctrl = OverloadController(cfg)
+            self._overload_by_tenant[tenant] = ctrl
+        return ctrl
+
+    def _tenant_held(self) -> dict:
+        """Pool blocks held per tenant (running slots only), each request
+        at its COMMITTED footprint — the larger of the blocks leased now
+        and the blocks its admitted context will need — so a quota cannot
+        overshoot while prefill chunks are still landing. A shared prefix
+        charges each tenant holding it."""
+        mgr = self.engine.manager
+        held: dict = {}
+        for r in self.slots:
+            if r is not None:
+                blocks = max(mgr.seq_blocks(r.seq_id),
+                             mgr.blocks_needed(len(r._prefill_ctx) + 1))
+                held[r.tenant] = held.get(r.tenant, 0) + blocks
+        return held
+
+    def prefix_stats(self) -> Optional[dict]:
+        """The prefix tree's counters (None with the cache off)."""
+        t = self._prefix_tree
+        return None if t is None else t.stats()
+
+    @property
+    def prefix_cache(self) -> Optional[RadixPrefixCache]:
+        return self._prefix_tree
 
     def _reject(self, req: Request, reason: str) -> Request:
         req.status = RequestStatus.REJECTED
@@ -244,11 +418,18 @@ class Scheduler:
         self.metrics.on_reject(reason)
         return req
 
+    def _shed(self, req: Request, reason: str) -> Request:
+        req.status = RequestStatus.SHED
+        req.finish_reason = reason
+        req.t_finish = self._clock()
+        self.metrics.on_shed(reason)
+        return req
+
     def cancel(self, req: Request) -> bool:
         if req.status.terminal:
             return False
         if req in self.waiting:
-            self.waiting.remove(req)
+            self._queue_remove(req)
             self._finish(req, RequestStatus.CANCELLED, "cancelled",
                          in_slot=False)
             return True
@@ -269,11 +450,20 @@ class Scheduler:
         self._expire(now)
         admitted = self._admit()
         produced = self._decode()
+        # progress = tokens, prefill chunks, admissions or terminal
+        # transitions; a non-idle scheduler sustaining zero progress is
+        # wedged (the watchdog's restart trigger)
         if produced > 0 or admitted > 0 or self._chunk_progress > 0 \
                 or self._finish_events > finish_mark:
             self._zero_progress = 0
         else:
             self._zero_progress += 1
+        if self._pending_stall is not None:
+            reason, self._pending_stall = self._pending_stall, None
+            self._stall(reason)
+        elif (self._wd is not None and not self.idle
+                and self._zero_progress >= self._wd.stall_steps):
+            self._stall("zero_progress")
         self.metrics.on_step(
             occupancy=produced / len(self.slots),
             kv_utilization=self.engine.manager.utilization(),
@@ -292,13 +482,100 @@ class Scheduler:
     @property
     def zero_progress_steps(self) -> int:
         """Consecutive steps with no token, prefill chunk, admission or
-        finish — the frontend raises `EngineStalled` off this."""
+        finish — the frontend raises `EngineStalled` off this when no
+        watchdog runs."""
         return self._zero_progress
+
+    @property
+    def engine_restarts_remaining(self) -> int:
+        return self._restart_budget.remaining
+
+    @property
+    def watchdog_active(self) -> bool:
+        """True when a watchdog owns stall recovery: the frontend's
+        `stall_after` fallback stands down."""
+        return self._wd is not None
+
+    def tpot_estimate(self) -> Optional[float]:
+        """Median recent decode-dispatch wall time (s), or None before
+        the first timed dispatch — what deadline-aware shedding prices a
+        queued token at."""
+        if not self._tpot_samples:
+            return None
+        return float(np.median(np.asarray(self._tpot_samples)))
+
+    def kv_leaked_blocks(self) -> int:
+        """Blocks leased in the manager that belong to neither the guard,
+        a running sequence, nor the prefix tree; 0 for a sole-tenant
+        scheduler. Counted over UNIQUE physical blocks."""
+        mgr = self.engine.manager
+        held = mgr.num_blocks - mgr.free_blocks
+        legit = set(mgr.blocks_of(self._pad_seq_id))
+        for r in self.slots:
+            if r is not None:
+                legit.update(mgr.blocks_of(r.seq_id))
+        if self._prefix_tree is not None:
+            legit.update(self._prefix_tree.blocks())
+        return held - len(legit)
+
+    def _publish_prefix(self, req: Request) -> None:
+        """Publish a departing request's committed context KV into the
+        radix tree (full blocks only) BEFORE the manager frees its
+        lease. A prefilling lane publishes only the chunks already
+        committed; publication never breaks the terminal-status path (a
+        failure is counted)."""
+        tree = self._prefix_tree
+        if tree is None:
+            return
+        mgr = self.engine.manager
+        if not mgr.seq_blocks(req.seq_id):
+            return
+        try:
+            if req.prefilling:
+                toks = req._prefill_ctx[
+                    :min(req._prefill_pos, mgr.seq_len(req.seq_id))]
+            else:
+                toks = req.context_tokens()
+                toks = toks[:min(len(toks), mgr.seq_len(req.seq_id))]
+            if len(toks) >= mgr.block_size:
+                tree.publish(req.seq_id, toks)
+        except Exception:
+            monitor.inc("serving.prefix_cache.publish_errors")
+
+    # ---- fault boundary ----
+    def _dispatch(self, phase: str, fn, *args):
+        """One engine dispatch behind the typed fault boundary: the
+        `serve.<phase>` injection site fires here, the wall clock feeds
+        the TPOT estimate and the watchdog's stall detection, and a
+        `"flag"` injection asks the caller to poison one lane (the NaN
+        path). Returns (result, flagged)."""
+        flagged = faults.check_flag(f"serve.{phase}")
+        t0 = self._clock()
+        try:
+            out = fn(*args)
+        finally:
+            dt = self._clock() - t0
+            if self._wd is not None and dt > self._wd.stall_timeout_s:
+                self.metrics.on_stall()
+                self._pending_stall = f"step_timeout:{phase}"
+        if phase in ("decode", "verify"):
+            # successful dispatches only: fast failures must not drag the
+            # median toward zero while the engine is unhealthy
+            self._last_decode_dt = dt
+        return out, flagged
+
+    def _record_tpot(self, n_lanes: int, produced: int):
+        """Price the last decode/verify dispatch per lane-token: `dt /
+        (produced / n_lanes)` (a verify commits up to K + 1 per lane)."""
+        if produced > 0 and self._last_decode_dt is not None:
+            self._tpot_samples.append(
+                self._last_decode_dt * n_lanes / produced)
 
     def _finite_rows(self, logits) -> np.ndarray:
         """Row-finiteness mask reduced on the logits' device: only [T]
         bools cross to the host, never the [T, V] logits."""
-        return torch.isfinite(logits).all(dim=-1).cpu().numpy()
+        return torch.isfinite(torch.as_tensor(logits)).all(dim=-1) \
+            .cpu().numpy()
 
     def _isolated(self, req: Request, reason: str, phase: str,
                   slot: Optional[int] = None, in_slot: bool = True):
@@ -308,11 +585,118 @@ class Scheduler:
         self._finish(req, RequestStatus.FAILED, reason, slot=slot,
                      in_slot=in_slot)
 
+    def _step_fault(self, phase: str, exc: BaseException, lanes,
+                    probe=None, rollback=None):
+        """A whole-batch dispatch raised. Attribute it: a typed
+        `EngineStepError`'s `seq_ids` are trusted; otherwise each lane is
+        replayed alone (`probe`) and lanes that raise or return
+        non-finite rows are culpable. Culpable requests fail; survivors
+        roll back their cache bookkeeping (`rollback`) and replay next
+        round. No culprit = transient: retried under `step_retries`, then
+        escalated to the watchdog."""
+        lanes = [(i, r) for i, r in lanes if self.slots[i] is r]
+        culpable = []
+        if isinstance(exc, EngineStepError) and exc.seq_ids:
+            ids = set(exc.seq_ids)
+            culpable = [(i, r) for i, r in lanes if r.seq_id in ids]
+        elif probe is not None and not isinstance(exc, faults.InjectedFault):
+            # an untargeted injected fault models a transient dispatch
+            # failure: probing would find nothing
+            for i, r in lanes:
+                try:
+                    bad = not _all_finite(probe(i, r))
+                except Exception:
+                    bad = True
+                if bad:
+                    culpable.append((i, r))
+        culp_ids = {r.seq_id for _, r in culpable}
+        if rollback is not None:
+            rollback([(i, r) for i, r in lanes if r.seq_id not in culp_ids])
+        for i, r in culpable:
+            self._isolated(r, f"engine_fault:{phase}", phase, slot=i)
+        if culpable:
+            self._step_faults = 0
+            return
+        self._step_faults += 1
+        self.metrics.on_step_fault(phase)
+        limit = self._wd.step_retries if self._wd is not None else 3
+        if self._step_faults > limit:
+            self._step_faults = 0
+            self._restart_engine(f"step_faults:{phase}")
+
+    def _stall(self, reason: str):
+        if reason == "zero_progress":
+            self.metrics.on_stall()
+        self._zero_progress = 0
+        self._restart_engine(reason)
+
+    def _restart_engine(self, reason: str) -> bool:
+        """Bounded-restart supervisor: re-queue every in-flight sequence
+        with its tokens (preemption semantics), rebuild the engine
+        through the factory, re-lease the guard block and rebuild the
+        prefix tree on the fresh pool. Out of budget (or no factory):
+        fail every non-terminal request typed."""
+        # a restart resolves any stall recorded for the dispatch that
+        # triggered it (else one slow, raising dispatch spends two units)
+        self._pending_stall = None
+        if self.engine_factory is None or not self._restart_budget.spend():
+            self._fail_all(f"engine_unrecoverable:{reason}")
+            return False
+        mgr = self.engine.manager
+        running = sorted(((r._admit_seq, i, r)
+                          for i, r in enumerate(self.slots) if r is not None),
+                         reverse=True)
+        for _, i, req in running:   # newest first -> oldest ends at front
+            self.slots[i] = None
+            try:
+                mgr.free(req.seq_id)
+            except KeyError:
+                pass
+            self._release_spec(req)
+            req.status = RequestStatus.PREEMPTED
+            req.num_preemptions += 1
+            self._queue_push(req, front=True)
+            self.metrics.on_preempt()
+        try:
+            engine = retry_call(
+                self.engine_factory,
+                retries=self._wd.rebuild_retries if self._wd else 1,
+                retry_on=(Exception,), base_delay=0.0, jitter=0.0,
+                sleep=lambda _s: None,
+                monitor_name="serving.engine_rebuild_retries")
+            self.engine = engine
+            # the rebind runs the serve.cache site (guard-block allocate):
+            # it must stay inside this boundary, or a cache fault here
+            # escapes step() and strands the re-queued requests
+            self._bind_manager(engine.manager)
+        except Exception:
+            # a failed rebind can leave a stale guard-block id over the
+            # fresh pool: this scheduler must not serve again
+            self._broken = f"engine_rebuild_failed:{reason}"
+            self._fail_all(self._broken)
+            return False
+        self._step_faults = 0
+        self._zero_progress = 0
+        # the old window priced tokens at the DEAD engine's dispatch times
+        self._tpot_samples.clear()
+        self._last_decode_dt = None
+        self.metrics.on_engine_restart(reason)
+        return True
+
+    def _fail_all(self, reason: str):
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                self._finish(req, RequestStatus.FAILED, reason, slot=i)
+        while self.waiting:
+            req = self.waiting[0]
+            self._queue_remove(req)
+            self._finish(req, RequestStatus.FAILED, reason, in_slot=False)
+
     # ---- phases ----
     def _expire(self, now: float):
         for req in [r for r in self.waiting
                     if r.deadline is not None and now > r.deadline]:
-            self.waiting.remove(req)
+            self._queue_remove(req)
             self._finish(req, RequestStatus.TIMED_OUT, "deadline_in_queue",
                          in_slot=False)
         for i, req in enumerate(self.slots):
@@ -321,44 +705,123 @@ class Scheduler:
                 self._finish(req, RequestStatus.TIMED_OUT,
                              "deadline_while_running", slot=i)
 
+    def _next_admit(self, mgr, skip: set) -> Optional[Request]:
+        """The next request to TRY admitting. Without an SLO config:
+        strict FIFO (the head). With one: deficit-weighted fair queuing
+        across tenants — each tenant's head request competes, the
+        eligible tenant with the lowest virtual time wins, quota-capped
+        tenants are skipped WITHOUT blocking the others. None when
+        nothing is eligible."""
+        if self._slo is None:
+            return self.waiting[0]
+        heads = {}
+        for r in self.waiting:          # queue order -> FIFO tie-break
+            if r.tenant not in heads:
+                heads[r.tenant] = r
+        held = None
+        eligible = []
+        for t, r in heads.items():
+            if t in skip:
+                continue
+            c = self._slo.cls(t)
+            if c.kv_quota_blocks is not None:
+                if held is None:
+                    held = self._tenant_held()
+                need_all = mgr.blocks_needed(len(r.context_tokens()) + 1)
+                if held.get(t, 0) + need_all > c.kv_quota_blocks:
+                    skip.add(t)         # its own finishes free quota
+                    self.metrics.on_tenant_deferred(t, "kv_quota")
+                    continue
+            eligible.append((t, r))
+        if not eligible:
+            return None
+        # effective time = max(own clock, system clock): an idle tenant's
+        # stale low clock fast-forwards to NOW
+        _best_t, best_r = min(
+            eligible,
+            key=lambda tr: max(self._vtime.get(tr[0], 0.0), self._vclock))
+        return best_r
+
+    def _charge_admission(self, tenant: str) -> None:
+        if self._slo is not None:
+            start = max(self._vtime.get(tenant, 0.0), self._vclock)
+            self._vclock = start
+            self._vtime[tenant] = start \
+                + 1.0 / self._slo.cls(tenant).weight
+            self.metrics.on_tenant_admit(tenant)
+
     def _admit(self) -> int:
-        """Place queued requests into free slots, FIFO. Admission leases
-        only the sequence id (a zero-token allocation = one block); the
-        context KV enters the cache chunk by chunk through the ragged
-        step."""
+        """Place queued requests into free slots. Admission leases the
+        deepest radix-cached prefix of the context when the prefix cache
+        is on (those tokens never prefill; chunking resumes from the
+        first uncached token) and otherwise only the sequence id (a
+        zero-token allocation = one block); the rest of the context's KV
+        enters the cache chunk by chunk through the ragged step. Under an
+        SLO config the order is tenant-fair (`_next_admit`) and gated by
+        per-tenant quotas and reserves."""
         mgr = self.engine.manager
         admitted = 0
+        skip: set = set()               # tenants deferred this round
         while self.waiting and None in self.slots:
-            req = self.waiting[0]
+            req = self._next_admit(mgr, skip)
+            if req is None:
+                break                  # every queued tenant deferred
             ctx = req.context_tokens()
             # admit only when the WHOLE context could lease right now,
             # after the prefill DEBT of admitted lanes still mid-chunking
             # (else two large prompts admit against the same free count
-            # and preempt-churn mid-prefill)
+            # and preempt-churn mid-prefill). Radix-cached and
+            # tree-reclaimable blocks both count as capacity.
             debt = sum(
                 max(0, mgr.blocks_needed(len(r._prefill_ctx))
                     - mgr.seq_blocks(r.seq_id))
                 for r in self.slots if r is not None and r.prefilling)
-            need = mgr.blocks_needed(len(ctx))
-            if need > mgr.free_blocks - debt:
+            tree = self._prefix_tree
+            hit_blocks = tree.match_blocks(ctx) if tree is not None else 0
+            need = mgr.blocks_needed(len(ctx)) - hit_blocks
+            headroom = mgr.free_blocks + mgr.reclaimable_blocks() - debt
+            if need > headroom:
                 break                  # blocks return as runners finish
+            if self._slo is not None:
+                reserve = self._slo.total_reserve_excluding(
+                    req.tenant, self._tenant_held())
+                if need > headroom - reserve:
+                    # honoring OTHER tenants' unused reserves: this
+                    # tenant waits, the others may still admit
+                    skip.add(req.tenant)
+                    self.metrics.on_tenant_deferred(req.tenant,
+                                                    "kv_reserve")
+                    continue
+            hit = 0
             try:
-                mgr.allocate(req.seq_id, 0)
+                if tree is not None:
+                    hit = tree.lease(req.seq_id, ctx)
+                if hit == 0:
+                    mgr.allocate(req.seq_id, 0)
             except (KVCacheExhausted, SequenceTooLong):
                 break
-            self.waiting.popleft()
-            self.metrics.gauge_queue(len(self.waiting))
+            except Exception:          # injected/corrupt cache state
+                self._queue_remove(req)
+                self._isolated(req, "engine_fault:cache", "cache",
+                               in_slot=False)
+                continue
+            self._queue_remove(req)
             slot = self.slots.index(None)
             # snapshot the prefill target HERE: for a preempted
             # re-admission it includes the kept tokens, so the replay is
             # token-deterministic; the pending `_last` (when present)
-            # decodes after the chunks complete
+            # decodes after the chunks complete. A prefix hit starts the
+            # cursor AT the hit (a full hit leaves exactly one token).
             req._prefill_ctx = ctx
-            req._prefill_pos = 0
+            req._prefill_pos = hit
+            req._prefix_hit_tokens = hit
             req.status = RequestStatus.RUNNING
             req._admit_seq = next(self._admit_counter)
             self.slots[slot] = req
             admitted += 1
+            self._charge_admission(req.tenant)
+            if tree is not None:
+                self.metrics.on_prefix_lease(hit)
         return admitted
 
     def _grow_chunk(self, req: Request, slot: int, want: int) -> int:
@@ -449,20 +912,21 @@ class Scheduler:
 
     def _preempt_one(self, exclude: Request) -> bool:
         """Evict the most-recently-admitted running request (≠ exclude)
-        back to the FRONT of the queue, keeping its tokens so far."""
+        back to the FRONT of the queue, keeping its tokens so far (its
+        committed KV is published into the prefix tree first)."""
         victims = [(r._admit_seq, i) for i, r in enumerate(self.slots)
                    if r is not None and r is not exclude]
         if not victims:
             return False
         _, slot = max(victims)
         req = self.slots[slot]
+        self._publish_prefix(req)
         self.engine.manager.free(req.seq_id)
         self._release_spec(req)
         self.slots[slot] = None
         req.status = RequestStatus.PREEMPTED
         req.num_preemptions += 1
-        self.waiting.appendleft(req)
-        self.metrics.gauge_queue(len(self.waiting))
+        self._queue_push(req, front=True)
         self.metrics.on_preempt()
         return True
 
@@ -476,8 +940,8 @@ class Scheduler:
     def _decode(self) -> int:
         """One ragged round: decode lanes (one token each) plus up to
         `prefill_chunk_tokens` pending-prompt tokens, packed into ONE
-        `engine.ragged_step`. Returns decode tokens committed (prefill
-        progress is tracked separately)."""
+        `engine.ragged_step` (fault site `serve.decode`). Returns decode
+        tokens committed (prefill progress is tracked separately)."""
         self._chunk_progress = 0
         if self.spec is not None:
             return self._decode_spec()
@@ -497,12 +961,24 @@ class Scheduler:
                     continue           # next step's budget serves it
                 rem = len(req._prefill_ctx) - req._prefill_pos
                 pre_len = mgr.seq_len(req.seq_id)
-                got = self._grow_chunk(req, i, min(rem, budget))
+                try:
+                    got = self._grow_chunk(req, i, min(rem, budget))
+                except Exception:      # injected/corrupt cache state
+                    self._isolated(req, "engine_fault:cache", "cache",
+                                   slot=i)
+                    continue
                 if got:
                     budget -= got
                     chunks.append((i, req, got, pre_len))
-            elif self._grow(req, i):
-                decode_lanes.append((i, req))
+            else:
+                try:
+                    ok = self._grow(req, i)
+                except Exception:      # injected/corrupt cache state
+                    self._isolated(req, "engine_fault:cache", "cache",
+                                   slot=i)
+                    continue
+                if ok:
+                    decode_lanes.append((i, req))
         # growth-path preemptions may have evicted earlier entries
         decode_lanes = [(i, r) for i, r in decode_lanes
                         if self.slots[i] is r]
@@ -546,35 +1022,56 @@ class Scheduler:
                 continue
             tables[i] = mgr.block_table_array([req.seq_id])[0]
         all_lanes = decode_lanes + [(i, r) for i, r, _n, _p in chunks]
-        try:
-            logits = self.engine.ragged_step(tokens, q_lens, kv_lens, tables)
-        except EngineStepError as e:
-            if not e.seq_ids:
-                raise
-            # the engine named the poisoned lanes: fail those, roll the
-            # others back to their pre-round lengths to replay next round
-            for i, r in all_lanes:
-                if r.seq_id in e.seq_ids:
-                    self._isolated(r, f"engine_fault:{e.phase}", e.phase,
-                                   slot=i)
-                else:
-                    mgr.trim(r.seq_id, pre_lens[r.seq_id])
-            return 0
-        finite = self._finite_rows(logits)          # [T] bools to host
-        for i, req in all_lanes:
+
+        def probe(i, req):
+            """Replay ONE lane of the failed step (same shapes; KV writes
+            are position-indexed and idempotent with the retry). The
+            lane's WHOLE packed band comes back, so a non-finite row in
+            an earlier chunk row convicts it too."""
             n = int(q_lens[i])
             start = int(rows[i]) - n + 1
-            if not bool(finite[start:start + n].all()):
-                # the garbage KV went into this lane's own blocks;
-                # freeing the sequence discards it
-                self._isolated(req, "nan_logits", "decode", slot=i)
-        all_lanes = [(i, r) for i, r in all_lanes if self.slots[i] is r]
-        if not all_lanes:
+            t = np.zeros((T,), np.int32)
+            t[:n] = tokens[start:start + n]
+            q = np.zeros((B,), np.int32)
+            q[i] = n
+            kv = np.zeros((B,), np.int32)
+            kv[i] = kv_lens[i]
+            tb = np.full((B, mgr.max_blocks_per_seq), self._pad_block,
+                         np.int32)
+            tb[i] = tables[i]
+            return self.engine.ragged_step(t, q, kv, tb)[:n]
+
+        def rollback(survivors):
+            self._rollback(survivors, pre_lens)
+
+        try:
+            logits, flagged = self._dispatch(
+                "decode", self.engine.ragged_step, tokens, q_lens, kv_lens,
+                tables)
+        except Exception as e:
+            self._step_fault("decode", e, all_lanes, probe=probe,
+                             rollback=rollback)
             return 0
-        decode_lanes = [(i, r) for i, r in decode_lanes
-                        if self.slots[i] is r]
-        chunks = [(i, r, n, p) for i, r, n, p in chunks
-                  if self.slots[i] is r]
+        if flagged or self.nan_checks:
+            if flagged:              # injection path: poison one lane
+                logits = torch.as_tensor(logits).clone()
+                logits[int(rows[all_lanes[0][0]])] = float("nan")
+            finite = self._finite_rows(logits)      # [T] bools to host
+            for i, req in all_lanes:
+                n = int(q_lens[i])
+                start = int(rows[i]) - n + 1
+                if not bool(finite[start:start + n].all()):
+                    # the garbage KV went into this lane's own blocks;
+                    # freeing the sequence discards it
+                    self._isolated(req, "nan_logits", "decode", slot=i)
+            all_lanes = [(i, r) for i, r in all_lanes
+                         if self.slots[i] is r]
+            if not all_lanes:
+                return 0
+            decode_lanes = [(i, r) for i, r in decode_lanes
+                            if self.slots[i] is r]
+            chunks = [(i, r, n, p) for i, r, n, p in chunks
+                      if self.slots[i] is r]
         t_tok = self._clock()
         # sampling over every lane's LAST packed row: decode lanes commit
         # their token; a prefill lane samples only on the round its final
@@ -586,8 +1083,15 @@ class Scheduler:
             if req._prefill_pos + n >= len(req._prefill_ctx) \
                     and req._last is None:
                 lane_sample[i] = req
-        picked = sample_tokens(self._gather_rows(logits, rows),
-                               *self._sampling_arrays(lane_sample))
+        try:
+            faults.check("serve.sample")
+            picked = sample_tokens(
+                self._gather_rows(torch.as_tensor(logits), rows),
+                *self._sampling_arrays(lane_sample))
+        except Exception as e:
+            self._step_fault("sample", e, all_lanes, rollback=rollback)
+            return 0
+        self._step_faults = 0   # a full dispatch + sample round succeeded
         produced = 0
         for i, req in decode_lanes:
             if self.slots[i] is not req:   # cancelled by a stream_cb
@@ -603,13 +1107,15 @@ class Scheduler:
         self._chunk_progress = chunk_tokens
         self.metrics.on_ragged_step(chunk_tokens, len(decode_lanes))
         if decode_lanes:
+            self._record_tpot(len(decode_lanes), produced)
             self.metrics.on_decode(produced)
         return produced
 
     def _decode_spec(self) -> int:
         """One speculative round: propose -> ONE fixed-shape verify over
-        all lanes -> sampling -> accept the longest matching draft prefix
-        plus the bonus token -> `trim` rollback of rejected slots.
+        all lanes (fault site `serve.verify`) -> sampling -> accept the
+        longest matching draft prefix plus the bonus token -> `trim`
+        rollback of rejected slots.
 
         The verify batch is always [B, K + 1] tokens. A lane with fewer
         than K drafts reserves only what it holds; the window's surplus
@@ -637,7 +1143,12 @@ class Scheduler:
                 want = min(S, rem)
                 if want == rem and rem > 1:
                     want = rem - 1      # complete next round, at slot 0
-                got = self._grow_chunk(req, i, want)
+                try:
+                    got = self._grow_chunk(req, i, want)
+                except Exception:       # injected/corrupt cache state
+                    self._isolated(req, "engine_fault:cache", "cache",
+                                   slot=i)
+                    continue
                 if got == 0:
                     continue
                 toks = list(req._prefill_ctx[
@@ -656,7 +1167,11 @@ class Scheduler:
                 self._rollback(lanes, {r.seq_id: p
                                        for _i, r, _t, p, _f in lanes})
                 raise
-            got = self._grow_n(req, i, 1 + len(drafts))
+            try:
+                got = self._grow_n(req, i, 1 + len(drafts))
+            except Exception:        # injected/corrupt cache state
+                self._isolated(req, "engine_fault:cache", "cache", slot=i)
+                continue
             if got == 0:
                 continue
             lanes.append((i, req, [req._last] + drafts[:got - 1], pre_len,
@@ -691,37 +1206,51 @@ class Scheduler:
                     and req._last is None:
                 lane_reqs[i] = req
             pre_lens[req.seq_id] = pre_len
+
+        def probe(i, req):
+            t = np.zeros((B, S), np.int32)
+            t[i] = tokens[i]
+            c = np.full((B,), S, np.int32)
+            c[i] = ctx[i]
+            tb = np.full((B, width), self._pad_block, np.int32)
+            tb[i] = tables[i]
+            return self.engine.verify_step(t, c, tb)[i]
+
+        def rollback(survivors):
+            self._rollback(survivors, pre_lens)
+
+        lane_pairs = [(i, r) for i, r, _t, _p, _f in lanes]
         try:
-            logits = self.engine.verify_step(tokens, ctx, tables)
-        except EngineStepError as e:
-            if not e.seq_ids:
-                self._rollback(lanes, pre_lens)
-                raise
-            # the engine named the poisoned lanes: fail those, roll the
-            # others back to their pre-round lengths to replay next round
-            for i, req, _t, _p, _f in lanes:
-                if req.seq_id in e.seq_ids:
-                    self._isolated(req, f"engine_fault:{e.phase}", e.phase,
-                                   slot=i)
-                else:
-                    mgr.trim(req.seq_id, pre_lens[req.seq_id])
+            logits, flagged = self._dispatch(
+                "verify", self.engine.verify_step, tokens, ctx, tables)
+        except Exception as e:
+            self._step_fault("verify", e, lane_pairs, probe=probe,
+                             rollback=rollback)
             return 0
-        except Exception:
-            self._rollback(lanes, pre_lens)
-            raise
-        finite = torch.isfinite(logits).all(dim=-1).all(dim=-1) \
-            .cpu().numpy()                          # [B] bools to host
-        for i, req, _t, _p, _f in lanes:
-            if not finite[i]:
-                # the garbage KV went into this lane's own blocks (and the
-                # guard); freeing the sequence discards it
-                self._isolated(req, "nan_logits", "verify", slot=i)
-                lane_reqs[i] = None
-        lanes = [ln for ln in lanes if self.slots[ln[0]] is ln[1]]
-        if not lanes:
-            return 0
+        if flagged or self.nan_checks:
+            if flagged:              # injection path: poison one lane
+                logits = torch.as_tensor(logits).clone()
+                logits[lanes[0][0]] = float("nan")
+            finite = self._finite_rows(logits).all(axis=-1)  # [B] to host
+            for i, req in lane_pairs:
+                if not finite[i]:
+                    # the garbage KV went into this lane's own blocks (and
+                    # the guard); freeing the sequence discards it
+                    self._isolated(req, "nan_logits", "verify", slot=i)
+                    lane_reqs[i] = None
+            lanes = [ln for ln in lanes if self.slots[ln[0]] is ln[1]]
+            if not lanes:
+                return 0
         t_tok = self._clock()
-        picked = sample_tokens(logits, *self._sampling_arrays(lane_reqs))
+        try:
+            faults.check("serve.sample")
+            picked = sample_tokens(logits, *self._sampling_arrays(lane_reqs))
+        except Exception as e:
+            self._step_fault("sample", e,
+                             [(i, r) for i, r, _t, _p, _f in lanes],
+                             rollback=rollback)
+            return 0
+        self._step_faults = 0   # a full verify + sample round succeeded
         produced = proposed = accepted = 0
         chunk_tokens = decode_lanes = 0
         for i, req, toks, pre_len, prefilling in lanes:
@@ -754,14 +1283,15 @@ class Scheduler:
         self._chunk_progress = chunk_tokens
         self.metrics.on_ragged_step(chunk_tokens, decode_lanes)
         if decode_lanes:
+            self._record_tpot(decode_lanes, produced)
             self.metrics.on_decode(produced)
             self.metrics.on_spec(proposed=proposed, accepted=accepted,
                                  produced=produced, lanes=decode_lanes)
         return produced
 
     def _rollback(self, lanes, pre_lens):
-        """Trim every lane still in its slot back to its pre-round length
-        (an exception leaves the round; the lanes replay it)."""
+        """Trim every lane still in its slot back to its pre-round length,
+        so the next round replays it (lanes: `(slot, req, ...)`)."""
         mgr = self.engine.manager
         for i, req, *_rest in lanes:
             if self.slots[i] is req:
@@ -813,6 +1343,10 @@ class Scheduler:
             if slot is None:
                 slot = self.slots.index(req)
             self.slots[slot] = None
+            if status is not RequestStatus.FAILED:
+                # a FAILED lane's KV may be poison (NaN isolation, engine
+                # fault): never publish it into the shared tree
+                self._publish_prefix(req)
             self.engine.manager.free(req.seq_id)
         self._release_spec(req)
         req.status = status

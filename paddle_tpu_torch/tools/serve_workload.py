@@ -22,6 +22,20 @@ lengths and sampling as the plain workload.
 
 `generate_workload` is `LlamaInferenceEngine.generate` on the same
 seed-0 weights: 2 prompts of 128 tokens, 16 new greedy tokens.
+
+`prefix_workload` is `bench.py serving_shared_prefix`'s trace at this
+width, for the prefix cache: a shared prefix of 192 tokens; 24 requests
+from `numpy.random.default_rng(0)`, 80 % of them the shared prefix + 8-16
+unique tokens and 20 % cold at the same length, plus two exact repeats
+of the first shared request's prompt (a "regenerate": a full hit and a
+copy-on-write); 8 greedy new tokens each; a pool of 128 blocks of 16
+slots (bench.py's 256 x 8: the same 2,048 slots, which the trace
+outgrows, so the tree must evict), 22 blocks a sequence. Requests arrive
+by scheduler step (`drive_prefix_trace`), from bench.py's exponential
+gaps at one request a step on average, never by wall clock, so the runs
+with the cache on and off see one trace. Each frontend first serves two
+short warm-up requests and the shared prompt alone (bench.py seeds the
+cache with it the same way).
 """
 from __future__ import annotations
 
@@ -34,6 +48,10 @@ NEW_TOKENS = 32
 SPEC_K = 4
 # generate: prompts x tokens, new tokens
 GEN_PROMPTS, GEN_LEN, GEN_NEW = 2, 128, 16
+# the shared-prefix trace: prefix tokens, requests, repeats, new tokens,
+# and its pool (blocks, blocks a sequence)
+PREFIX_LEN, PREFIX_REQUESTS, PREFIX_REPEATS, PREFIX_NEW = 192, 40, 2, 8
+PREFIX_NB, PREFIX_MAXB = 128, 22
 
 
 def _model(device):
@@ -116,3 +134,72 @@ def generate_workload(device="cuda"):
     prompts = np.random.default_rng(0).integers(
         1, 32000, (GEN_PROMPTS, GEN_LEN)).astype(np.int32)
     return engine, prompts, GenerationConfig(max_new_tokens=GEN_NEW)
+
+
+def prefix_trace(vocab: int = 32000):
+    """The shared-prefix trace: `(shared_prefix, [(arrival_step, prompt,
+    is_shared), ...])` in arrival order (bench.py's draws, in its order,
+    then the repeats and the step gaps)."""
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, vocab, PREFIX_LEN).tolist()
+    specs = []
+    for _ in range(PREFIX_REQUESTS):
+        sfx = rng.integers(8, 17)
+        if rng.random() < 0.8:
+            specs.append((True, shared + rng.integers(1, vocab,
+                                                      sfx).tolist()))
+        else:
+            specs.append((False, rng.integers(1, vocab,
+                                              PREFIX_LEN + sfx).tolist()))
+    first = next(p for is_shared, p in specs if is_shared)
+    specs += [(True, list(first))] * PREFIX_REPEATS
+    steps = np.floor(np.cumsum(rng.exponential(1.0, len(specs)))).astype(int)
+    return shared, [(int(t), p, s) for t, (s, p) in zip(steps, specs)]
+
+
+def prefix_workload(device="cuda", kv_bits=16, model=None):
+    """`(make_frontend, shared_prefix, trace)` for the shared-prefix
+    trace. `make_frontend(prefix_cache)` builds a fresh engine (`kv_bits`
+    16 or 8) over one model — `model`, or the serve workload's seed-0
+    Llama-2-7B-width weights built once on `device` — and its frontend,
+    and serves the warm-up (two short requests, then the shared prompt,
+    2 tokens each) to idle. The frontends of one call share the model's
+    weights."""
+    from .. import LlamaInferenceEngine, ServingFrontend
+
+    if model is None:
+        model = _model(device)
+    vocab = model.config.vocab_size
+    shared, trace = prefix_trace(vocab)
+    warm = np.random.default_rng(1)
+
+    def make_frontend(prefix_cache: bool):
+        engine = LlamaInferenceEngine(
+            model, max_batch_size=B, num_blocks=PREFIX_NB, block_size=BS,
+            max_blocks_per_seq=PREFIX_MAXB, kv_bits=kv_bits, device=device)
+        fe = ServingFrontend(engine, prefill_chunk_tokens=CHUNK,
+                             prefix_cache=prefix_cache)
+        for n in (3, 17):
+            fe.submit(warm.integers(1, vocab, n).tolist(), max_new_tokens=2)
+        fe.submit(shared, max_new_tokens=2)
+        fe.run_until_idle()
+        return fe
+
+    return make_frontend, shared, trace
+
+
+def drive_prefix_trace(fe, trace, max_steps: int = 10000):
+    """Submit each request at its arrival step (greedy, `PREFIX_NEW` new
+    tokens) and step the frontend until every request is terminal.
+    Returns `(handles, scheduler_steps)`."""
+    handles, i, steps = [], 0, 0
+    while i < len(trace) or not fe.scheduler.idle:
+        while i < len(trace) and trace[i][0] <= steps:
+            handles.append(fe.submit(trace[i][1],
+                                     max_new_tokens=PREFIX_NEW))
+            i += 1
+        fe.step()
+        steps += 1
+        if steps > max_steps:
+            raise RuntimeError(f"trace not done after {max_steps} steps")
+    return handles, steps

@@ -1148,6 +1148,130 @@ def test_engine_legacy_entry_points_on_card_match_cpu(kv_bits):
         assert pa.LAUNCHES_DECODE.count == before + 2      # one per layer
 
 
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_copy_kv_block_on_card_is_a_bit_copy(kv_bits):
+    """`copy_kv_block` on the card: block src's bytes in every layer's K
+    and V pool (bf16) and, on an int8 pool, both scale planes' rows land
+    bit for bit in block dst; every other block is untouched."""
+    dev = _card()
+    from paddle_tpu_torch import LlamaInferenceEngine, llama_tiny
+
+    model = llama_tiny(vocab=128, layers=2, hidden=256, heads=2, seq=64,
+                       num_key_value_heads=1, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+    eng = LlamaInferenceEngine(model, device=dev, max_batch_size=2,
+                               num_blocks=8, block_size=16,
+                               max_blocks_per_seq=4, kv_bits=kv_bits,
+                               dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(1)
+    planes = [eng.k_cache, eng.v_cache]
+    if kv_bits == 8:
+        planes += [eng.k_scale, eng.v_scale]
+    for t in planes:
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device=dev, dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=dev))
+    before = [t.clone() for t in planes]
+    eng.copy_kv_block(2, 5)
+    keep = [i for i in range(8) if i != 5]
+    for t, b in zip(planes, before):
+        assert torch.equal(t[:, 5], b[:, 2])
+        assert torch.equal(t[:, keep], b[:, keep])
+    with pytest.raises(ValueError, match="outside the pool"):
+        eng.copy_kv_block(2, 8)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_prefix_hit_ragged_rows_equal_the_cold_run(kv_bits):
+    """A bf16 engine at the serving head_dim (the split instance): a
+    prompt's rows from a prefix hit — its first two blocks written by
+    another lane in another packing, then a chunk of 16 at kv_len 48 —
+    and a full hit's last token after a copy-on-write of the shared
+    partial block are `torch.equal` to the rows of the prompt run cold
+    in its own chunks."""
+    dev = _card()
+    from paddle_tpu_torch import LlamaInferenceEngine, llama_tiny
+
+    model = llama_tiny(vocab=512, layers=2, hidden=256, heads=2, seq=256,
+                       num_key_value_heads=1, device="cpu",
+                       generator=torch.Generator().manual_seed(3))
+    geo = dict(max_batch_size=4, num_blocks=32, block_size=16,
+               max_blocks_per_seq=8, kv_bits=kv_bits, dtype=torch.bfloat16)
+    t_slots = 4 + 32
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(1, 512, 48).astype(np.int32)
+    other = rng.integers(1, 512, 4).astype(np.int32)
+
+    def step(eng, lanes):
+        """lanes: [(lane, tokens, kv_len, table)] -> per-lane rows."""
+        tokens = np.zeros((t_slots,), np.int32)
+        q = np.zeros((4,), np.int32)
+        kv = np.zeros((4,), np.int32)
+        tables = np.zeros((4, 8), np.int32)
+        starts, cur = {}, 0
+        for lane, toks, kv_len, table in sorted(lanes, key=lambda x: x[0]):
+            tokens[cur:cur + len(toks)] = toks
+            q[lane], kv[lane] = len(toks), kv_len
+            tables[lane, :len(table)] = table
+            starts[lane] = cur
+            cur += len(toks)
+        out = eng.ragged_step(tokens, q, kv, tables)
+        return {lane: out[starts[lane]:starts[lane] + len(t)]
+                for lane, t, _k, _tb in lanes}
+
+    cold = LlamaInferenceEngine(model, device=dev, **geo)
+    step(cold, [(0, prompt[:32], 32, [1, 2, 3])])
+    want = step(cold, [(0, prompt[32:], 48, [1, 2, 3])])[0]
+    warm = LlamaInferenceEngine(model, device=dev, **geo)
+    # another request writes the prefix's two blocks beside a 4-token lane
+    step(warm, [(0, other, 4, [9]), (2, prompt[:32], 32, [5, 6])])
+    got = step(warm, [(0, other[:1], 5, [9]),
+                      (1, prompt[32:], 48, [5, 6, 7])])[1]
+    assert torch.equal(got, want)
+    # a full hit leaves the last token: its partial block is shared, so
+    # it is copied before the write (the manager's COW hook)
+    warm.copy_kv_block(7, 10)
+    last = step(warm, [(3, prompt[47:], 48, [5, 6, 10])])[3]
+    assert torch.equal(last, want[-1:])
+
+
+def test_mlp_engine_on_card_matches_cpu():
+    """`MLPLMEngine` on the card: ragged steps (f32 and int8 pools)
+    within 1e-5 of its CPU run, and the same greedy streams served with
+    the prefix cache on."""
+    dev = _card()
+    from paddle_tpu_torch.serving import MLPLMEngine, ServingFrontend
+
+    for kv_bits in (16, 8):
+        engines = [MLPLMEngine(vocab_size=256, hidden=32, max_batch_size=4,
+                               num_blocks=32, block_size=8,
+                               max_blocks_per_seq=8, seed=2,
+                               kv_bits=kv_bits, device=d)
+                   for d in ("cpu", dev)]
+        tables = np.zeros((4, 8), np.int32)
+        tables[0, :3] = [3, 4, 5]
+        tables[1, :1] = [9]
+        rng = np.random.default_rng(5)
+        for q_lens, kv_lens in (([17, 5, 0, 0], [17, 5, 0, 0]),
+                                ([1, 1, 0, 0], [18, 6, 0, 0])):
+            t = np.zeros((24,), np.int32)
+            t[:sum(q_lens)] = rng.integers(1, 256, sum(q_lens))
+            a, b = (e.ragged_step(t, q_lens, kv_lens, tables)
+                    for e in engines)
+            assert b.device.type == "cuda"
+            torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=0)
+        prompts = [rng.integers(1, 256, n).tolist() for n in (9, 20, 13)]
+        streams = []
+        for e in engines:
+            fe = ServingFrontend(e.respawn(), prefix_cache=True)
+            hs = [fe.submit(q, max_new_tokens=6) for q in prompts * 2]
+            fe.run_until_idle()
+            streams.append([h.tokens for h in hs])
+        assert streams[0] == streams[1]
+
+
 def test_f16_engine_decode_raises_on_card():
     """The decode kernel takes bf16/f32 only (JAX's gate also takes f16):
     an f16 engine's `decode_step` and `generate` raise on the card

@@ -286,7 +286,8 @@ def test_legacy_entry_points_raise(entry):
     full-precision `prefill` / `decode_step` / `generate` raise as the
     JAX engine's do, before any block is leased; `verify_step` refuses
     lengths and tables that do not match its windows; `copy_kv_block`
-    is not ported yet (it waits for the prefix cache)."""
+    refuses block ids outside the pool on the host, before it touches
+    the pool (KV migration, `extract_kv_blocks`, is not ported yet)."""
     m = _jax_model(4)
     te = LlamaInferenceEngine(_port(m), max_blocks_per_seq=4, device="cpu",
                               kv_bits=8)
@@ -310,8 +311,16 @@ def test_legacy_entry_points_raise(entry):
             te.verify_step(np.ones((2, 3), np.int32),
                            np.full(2, 3, np.int32), tables[:1])
     else:
-        with pytest.raises(NotImplementedError):
-            getattr(te, entry)(1, 2)
+        pools = [t.clone() for t in (te.k_cache, te.v_cache, te.k_scale,
+                                     te.v_scale)]
+        nb = te.k_cache.shape[1]
+        for src, dst in ((nb, 2), (1, -1)):
+            with pytest.raises(ValueError, match="outside the pool"):
+                getattr(te, entry)(src, dst)
+        assert all(torch.equal(a, b) for a, b in zip(
+            pools, (te.k_cache, te.v_cache, te.k_scale, te.v_scale)))
+        with pytest.raises(NotImplementedError, match="KV migration"):
+            te.extract_kv_blocks(1)
 
 
 def test_kv_geometry_matches_jax():

@@ -75,7 +75,14 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.ops.kernels.fused_moe, "
             "paddle_tpu_torch.incubate.distributed.models.moe, "
             "paddle_tpu_torch.tools.moe_workload, "
-            "paddle_tpu_torch.tools.moe_profile\n"
+            "paddle_tpu_torch.tools.moe_profile, "
+            "paddle_tpu_torch.framework.retry, "
+            "paddle_tpu_torch.resilience.faults, "
+            "paddle_tpu_torch.inference.prefix_cache, "
+            "paddle_tpu_torch.serving.slo, "
+            "paddle_tpu_torch.serving.fault_tolerance, "
+            "paddle_tpu_torch.serving.engine, "
+            "paddle_tpu_torch.tools.serve_workload\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n")
@@ -104,6 +111,11 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
                                              max_blocks_per_seq=4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         llama_tiny()
+    from paddle_tpu_torch.serving import MLPLMEngine
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MLPLMEngine()
+    assert MLPLMEngine(device="cpu").cache.device.type == "cpu"
     from paddle_tpu_torch.tools.train_workload import train_workload
 
     with pytest.raises(RuntimeError, match="device='cpu'|CUDA"):
@@ -145,3 +157,28 @@ def test_block_cache_copy_is_isolated_from_the_jax_package():
     mgr.free(0)
     mgr.free(1)
     assert mgr.free_blocks == 8
+
+
+def test_block_cache_fires_the_ports_own_fault_site():
+    """The port's manager arms the `serve.cache` site of the port's own
+    registry (`paddle_tpu_torch.resilience.faults`), never the JAX
+    package's, in allocate, adopt and append_tokens."""
+    from paddle_tpu.resilience import faults as jax_faults
+    from paddle_tpu_torch.inference.cache import BlockCacheManager
+    from paddle_tpu_torch.resilience import faults
+
+    mgr = BlockCacheManager(8, 4, 4)
+    faults.inject("serve.cache", after_n=2, times=None)
+    try:
+        blocks = mgr.allocate(0, 3)
+        mgr.adopt(1, blocks, 3)
+        for call in (lambda: mgr.append_tokens(1, 1),
+                     lambda: mgr.allocate(2, 1)):
+            with pytest.raises(faults.InjectedFault):
+                call()
+        assert faults.state()["serve.cache"]["calls"] == 4
+        assert "serve.cache" not in jax_faults.state()
+    finally:
+        faults.clear()
+    mgr.check_consistency()
+    assert (mgr.seq_len(1), mgr.ref_count(blocks[0])) == (3, 2)
