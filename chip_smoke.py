@@ -28,7 +28,17 @@ streams identical, hit rate, evictions, copy-on-writes, the prefill
 tokens saved equal to the hit tokens, no leaked block), and the fault
 layer on a small model: a transient dispatch fault, a watchdog restart
 through an engine factory, an overload burst under queue watermarks,
-and `MLPLMEngine` on the card against the CPU. Then the training path: the
+and `MLPLMEngine` on the card against the CPU. Then multi-LoRA serving
+and KV migration: `LoRAEngine` on small models on the card against the
+CPU (MLP and Llama engines, int8 pools, int8 and int4 bases); bench.py
+serving_lora's mix at the same width (36 adapters on 40 pool slots, 72
+requests arriving by step) on a LoRA engine and on its base engine, with
+each parity adapter's stream in a mixed batch equal to a dedicated
+wrapper's, then the same over an int8 pool and int4 weights; and the
+serve prompts moved between engines mid-stream (extract, release,
+import_session) over a bf16 and an int8 pool, streams equal to the
+unmigrated ones, and a shared prefix streamed between two prefix-cached
+schedulers. Then the training path: the
 flash attention kernels (forward, dQ, dK/dV) and the RMSNorm kernel
 against their plain versions at the training shapes, past the length
 where the JAX package streams K/V, over ragged 128-row tiles and at the
@@ -50,8 +60,12 @@ the EP route over a one-rank NCCL group with the kernels on and off, and
 on the dense route.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only serve_lora,serve_migrate
 
-Each phase prints one JSON line. Any failure raises, so the script exits
+Each phase prints one JSON line. `--only` runs the device check and the
+named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
+`serve_migrate`), with no kernels line and no last line: a measurement of
+those phases without the whole run. Any failure raises, so the script exits
 non-zero and never prints the last line, which on success is exactly
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA card it fails at the first phase.
@@ -64,6 +78,7 @@ import math
 import re
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -1436,6 +1451,504 @@ def phase_serve_faults(kind, smi):
     release()
 
 
+# ---- multi-LoRA serving and KV migration ----
+
+def _sync(device="cuda"):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _launches():
+    from paddle_tpu_torch.ops.kernels import _support
+
+    return {c: _support.launch_counter(c).count for c in SERVE_KERNELS}
+
+
+def _launch_gate(label, launches, expect):
+    if launches != expect:
+        raise AssertionError(f"{label}: kernel launches {launches} != "
+                             f"{expect}")
+
+
+def _lora_pair(base):
+    """A LoRAEngine over `base` with two adapters (ranks 3 and 8) leased
+    and a lane -> slot vector of [first, zero, second, zero]."""
+    from paddle_tpu_torch.serving import attach_adapters
+    from paddle_tpu_torch.serving.lora import random_adapter
+
+    eng = attach_adapters(base, pool_slots=3, rank_buckets=(2, 4, 8))
+    for i, (ad, rank) in enumerate((("a", 3), ("b", 8))):
+        eng.adapter_pool.register(ad, random_adapter(eng, rank=rank,
+                                                     seed=11 + i,
+                                                     scale=0.1))
+    s0, s1 = eng.adapter_pool.lease("a"), eng.adapter_pool.lease("b")
+    eng.set_lane_adapters(np.asarray([s0, eng.zero_slot, s1, eng.zero_slot],
+                                     np.int32))
+    return eng
+
+
+def phase_lora_reference(kind, smi, device="cuda"):
+    """`LoRAEngine` on the card against its CPU run on small models: over
+    `MLPLMEngine` (f32 and int8 pools) and over the small Llama (f32 and
+    int8 pools, int8 and int4 weight-only bases), with lanes on two
+    adapters and on the zero slot: three ragged steps and a verify
+    window (S = 5), logits within 1e-3; the zero-slot lane's rows
+    bit-equal to the base engine's run of the same step on the card."""
+    from paddle_tpu_torch import LlamaInferenceEngine
+    from paddle_tpu_torch.serving import MLPLMEngine
+    from paddle_tpu_torch.serving.quant import quantize_engine
+
+    model = _small_model()
+    geo = dict(max_batch_size=4, num_blocks=64, block_size=16,
+               max_blocks_per_seq=16)
+
+    def llama(kv_bits, wbits):
+        def build(dev):
+            e = LlamaInferenceEngine(model, device=dev, kv_bits=kv_bits,
+                                     **geo)
+            return quantize_engine(e, wbits) if wbits else e
+        return build
+
+    def mlp(kv_bits):
+        return lambda dev: MLPLMEngine(vocab_size=512, hidden=64, seed=5,
+                                       kv_bits=kv_bits, device=dev, **geo)
+
+    cases = {"mlp_kv16": mlp(16), "mlp_kv8": mlp(8),
+             "llama_kv16": llama(16, None), "llama_kv8": llama(8, None),
+             "llama_w8": llama(16, 8), "llama_kv8_w4": llama(8, 4)}
+    tables = np.zeros((4, 16), np.int32)
+    tables[0, :3] = [1, 2, 3]
+    tables[1, :2] = [4, 5]
+    tables[2, :2] = [6, 7]
+    steps = (([20, 7, 9, 0], [20, 7, 9, 0]), ([1, 1, 1, 0], [21, 8, 10, 0]),
+             ([12, 1, 1, 0], [33, 9, 11, 0]))
+    report = {}
+    for name, build in cases.items():
+        rng = np.random.default_rng(8)
+        engines = {dev: _lora_pair(build(dev)) for dev in ("cpu", device)}
+        base = build(device)             # the plain engine, same steps
+        err = 0.0
+        for q_lens, kv_lens in steps:
+            tokens = np.zeros((40,), np.int32)
+            n = sum(q_lens)
+            tokens[:n] = rng.integers(1, 512, n)
+            a = engines["cpu"].ragged_step(tokens, q_lens, kv_lens, tables)
+            b = engines[device].ragged_step(tokens, q_lens, kv_lens,
+                                            tables).cpu()
+            err = max(err, float((a - b).abs().max()))
+            if not torch.allclose(a, b, atol=1e-3, rtol=1e-3):
+                raise AssertionError(f"lora_reference {name}: ragged step "
+                                     f"on the card != CPU: {err}")
+            c = base.ragged_step(tokens, q_lens, kv_lens, tables).cpu()
+            lo = q_lens[0]
+            if not torch.equal(b[lo:lo + q_lens[1]], c[lo:lo + q_lens[1]]):
+                raise AssertionError(f"lora_reference {name}: the zero-slot "
+                                     "lane differs from the base engine")
+        vtok = rng.integers(1, 512, (4, 5)).astype(np.int32)
+        vctx = np.asarray([38, 14, 16, 5], np.int32)
+        a = engines["cpu"].verify_step(vtok, vctx, tables)
+        b = engines[device].verify_step(vtok, vctx, tables).cpu()
+        verr = float((a - b).abs().max())
+        if not torch.allclose(a, b, atol=1e-3, rtol=1e-3):
+            raise AssertionError(f"lora_reference {name}: verify on the "
+                                 f"card != CPU: {verr}")
+        report[name] = {"ragged_max_abs_err": err,
+                        "verify_max_abs_err": verr,
+                        "zero_slot_lane_bit_equal_to_base": True}
+        del engines, base
+    emit({"phase": "lora_reference", "model": "llama_tiny(vocab=512, "
+          "layers=2, hidden=256, heads=2, kv_heads=1) f32; MLPLMEngine("
+          "vocab=512, hidden=64)", "adapters": "ranks 3 and 8, buckets "
+          "(2, 4, 8), lanes [a, zero, b, zero]", "tol": 1e-3,
+          "ragged_steps": len(steps), "verify": "S = 5",
+          "cases": report, "device": kind, "nvidia_smi": smi})
+    release()
+
+
+def _epilogue_ms(lora, tokens):
+    """Device ms of one step's LoRA epilogues (the engine step's gather
+    of every target's factors, then every layer's four targets at
+    `tokens` packed rows, the engine's own pools and a mixed slot
+    vector), replayed from one CUDA graph so host launch gaps do not
+    count."""
+    from paddle_tpu_torch.serving.lora import _swap_lora, lora_mm
+
+    dev = lora.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    dtype = lora.params["embed"].dtype
+    ids = torch.randint(0, lora.adapter_pool.pool_slots + 1, (tokens,),
+                        generator=g, device=dev)
+    xs = {k: torch.randn(tokens, kk, generator=g, device=dev).to(dtype)
+          for k, (kk, _n) in lora._lora_targets.items()}
+    ys = {k: torch.zeros(tokens, n, device=dev, dtype=dtype)
+          for k, (_kk, n) in lora._lora_targets.items()}
+
+    nl = lora._nlayers
+
+    def step():
+        swapped = _swap_lora({k: [y] * nl for k, y in ys.items()},
+                             lora._pools, ids, nl)
+        for l in range(nl):
+            for k in lora._pools:
+                lora_mm(xs[k], swapped[k][l], lambda _x, w: w)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph
+    return statistics.median(times)
+
+
+def _lora_trace_run(fe, trace, adapters, label, kv_bits, wbits, device):
+    """Drive the multi-LoRA trace on `fe` with the launch and engine-call
+    counts zeroed just before and read just after; gate it (every
+    request FINISHED with its tokens, no leaked block, consistent books,
+    exactly 32 ragged launches a ragged step and, on a quantized base,
+    4 x 32 + 1 weight-only gemms a ragged step, nothing else) and return
+    `(streams, numbers)`."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.tools.serve_workload import (LAYERS, LORA_NEW,
+                                                       drive_lora_trace)
+
+    fe.metrics.reset_window()
+    _support.reset_launch_counts()
+    for c in ENGINE_CALLS:
+        monitor.reset(f"serving.{c}")
+    loads0 = monitor.get("serving.lora.miss_loads")
+    _sync(device)
+    t1 = time.perf_counter()
+    handles, steps = drive_lora_trace(fe, trace, adapters=adapters)
+    _sync(device)
+    wall = time.perf_counter() - t1
+    launches = _launches()
+    calls = _engine_calls(monitor)
+    bad = [(h.request_id, h.status.value, h.finish_reason, len(h.tokens))
+           for h in handles
+           if h.status.value != "finished" or len(h.tokens) != LORA_NEW]
+    if bad:
+        raise AssertionError(f"{label}: requests not finished with "
+                             f"{LORA_NEW} tokens: {bad}")
+    sch = fe.scheduler
+    leaked = sch.kv_leaked_blocks()
+    if leaked:
+        raise AssertionError(f"{label}: {leaked} leaked blocks")
+    sch.engine.manager.check_consistency()
+    attn = "ragged_paged_attention_q" if kv_bits == 8 else \
+        "ragged_paged_attention"
+    gemm = {8: "quant_matmul", 4: "quant_matmul_int4"}.get(wbits)
+    expect = {c: 0 for c in launches}
+    expect[attn] = LAYERS * calls["ragged_steps"]
+    if gemm is not None:
+        expect[gemm] = (4 * LAYERS + 1) * calls["ragged_steps"]
+    if calls["ragged_steps"] == 0 or any(
+            calls[c] for c in ENGINE_CALLS if c != "ragged_steps"):
+        raise AssertionError(f"{label}: engine calls {calls}")
+    _launch_gate(label, launches, expect)
+    ttft = [h.ttft_ms() for h in handles]
+    tokens_out = len(handles) * LORA_NEW
+    return [h.tokens for h in handles], {
+        "ragged_steps": calls["ragged_steps"], "scheduler_steps": steps,
+        "wall_s": wall, "tok_s": tokens_out / wall,
+        "ms_per_step": wall / calls["ragged_steps"] * 1e3,
+        "ttft_p50_ms": float(np.percentile(ttft, 50)),
+        "ttft_p99_ms": float(np.percentile(ttft, 99)),
+        "miss_loads": monitor.get("serving.lora.miss_loads") - loads0,
+        "launches": launches, "leaked_blocks": leaked}
+
+
+def _serve_lora(label, kv_bits, wbits, kind, smi, factors=None,
+                parity=None, device="cuda"):
+    """One multi-LoRA serve phase: the mix on a `LoRAEngine` of 40 slots
+    (residency pre-warmed: each adapter leased and released once), then
+    the same trace on the base engine with no adapters; the no-adapter
+    streams of the LoRA engine against the base's; each of `parity`
+    served in a mixed batch beside two other adapters against a
+    dedicated wrapper (2 slots) of the same base. Returns `(launches,
+    factors)`."""
+    from paddle_tpu_torch.serving import ServingFrontend, ServingMetrics
+    from paddle_tpu_torch.tools.serve_workload import (
+        CHUNK, LAYERS, LORA_ADAPTERS, LORA_NEW, LORA_PARITY, LORA_SLOTS,
+        lora_adapters, lora_workload)
+
+    t0 = time.perf_counter()
+    base, attach, trace = lora_workload(device=device, kv_bits=kv_bits,
+                                        wbits=wbits)
+    vocab = base.config.vocab_size
+    lora = attach(LORA_SLOTS, {})
+    if factors is None:
+        factors = lora_adapters(lora)
+    for name, f in factors.items():
+        lora.adapter_pool.register(name, f)
+    pool = lora.adapter_pool
+    ServingMetrics.reset_monitor()
+    fe = ServingFrontend(lora, prefill_chunk_tokens=CHUNK)
+    for name in factors:               # pre-warm: every adapter uploads
+        pool.lease(name)
+        pool.release(name)
+    warm = np.random.default_rng(1)
+    for n in (3, 17):
+        fe.submit(warm.integers(1, vocab, n).tolist(), max_new_tokens=2,
+                  adapter="ad0")
+    fe.run_until_idle()
+    fe_base = ServingFrontend(base, prefill_chunk_tokens=CHUNK)
+    for n in (3, 17):
+        fe_base.submit(warm.integers(1, vocab, n).tolist(),
+                       max_new_tokens=2)
+    fe_base.run_until_idle()
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+
+    mix_tokens, mix = _lora_trace_run(fe, trace, True, f"{label}_mix",
+                                      kv_bits, wbits, device)
+    st = pool.stats()
+    pool.check_consistency()
+    if mix["miss_loads"] or st["resident_adapters"] != LORA_ADAPTERS \
+            or st["leases"] or st["evictions"]:
+        raise AssertionError(f"{label}: pool books {st}, timed miss loads "
+                             f"{mix['miss_loads']}")
+    base_tokens, single = _lora_trace_run(fe_base, trace, False,
+                                          f"{label}_base", kv_bits, wbits,
+                                          device)
+    # no-adapter requests on the LoRA engine: the base engine's streams
+    plain = [fe.submit(p, max_new_tokens=LORA_NEW) for _t, p, _a in
+             trace[:8]]
+    fe.run_until_idle()
+    if [h.tokens for h in plain] != base_tokens[:8]:
+        raise AssertionError(f"{label}: no-adapter streams on the LoRA "
+                             "engine differ from the base engine's")
+    # per-adapter parity: mixed batch on the shared engine == dedicated
+    prompt = trace[0][1]
+    parity_out = {}
+    for name in parity or LORA_PARITY:
+        ded = attach(2, {name: factors[name]})
+        fe_d = ServingFrontend(ded, prefill_chunk_tokens=CHUNK)
+        hd = fe_d.submit(prompt, max_new_tokens=LORA_NEW, adapter=name)
+        fe_d.run_until_idle()
+        others = [a for a in LORA_PARITY if a != name][:2]
+        hs = [fe.submit(prompt, max_new_tokens=LORA_NEW, adapter=a)
+              for a in [name] + others]
+        fe.run_until_idle()
+        if hd.status.value != "finished" or hs[0].tokens != hd.tokens:
+            raise AssertionError(f"{label}: {name} shared {hs[0].tokens} != "
+                                 f"dedicated {hd.tokens}")
+        parity_out[name] = {"tokens": hd.tokens, "beside": others}
+        del ded, fe_d
+        release()
+    st = pool.stats()
+    pool.check_consistency()
+    if st["leases"] or fe.scheduler.kv_leaked_blocks():
+        raise AssertionError(f"{label}: books after parity {st}")
+    epi_ms = _epilogue_ms(lora, fe.scheduler.ragged_tokens)
+    pool_gb = sum(t.numel() * t.element_size() for pl in lora._pools.values()
+                  for t in pl.values()) / 2 ** 30
+    emit({"phase": label,
+          "model": f"llama_7b_shaped(num_layers={LAYERS}) bf16",
+          "kv_bits": kv_bits, "wbits": wbits or 16,
+          "adapters": LORA_ADAPTERS, "pool_slots": LORA_SLOTS,
+          "requests": len(trace), "new_tokens": LORA_NEW,
+          "arrival_steps": [t for t, _p, _a in trace],
+          "mix": mix, "single_model": single,
+          "tok_s_ratio": mix["tok_s"] / single["tok_s"],
+          "bench_band_tok_s_ratio_ge_0_8":
+              mix["tok_s"] / single["tok_s"] >= 0.8,
+          "pool": st, "adapter_pool_gb": pool_gb,
+          "epilogue_device_ms_per_step": epi_ms,
+          "epilogue_share_of_step": epi_ms / mix["ms_per_step"],
+          "parity": parity_out, "no_adapter_streams_equal_base": True,
+          "setup_s": setup_s, "device": kind, "nvidia_smi": smi,
+          "sample_tokens": mix_tokens[0]})
+    launches = {c: mix["launches"][c] + single["launches"][c]
+                for c in mix["launches"]}
+    del fe, fe_base, lora, base, attach
+    release()
+    return launches, factors
+
+
+def phase_serve_lora(kind, smi, device="cuda"):
+    return _serve_lora("serve_lora", 16, None, kind, smi, device=device)
+
+
+def phase_serve_lora_quant(kind, smi, factors, device="cuda"):
+    launches, _f = _serve_lora("serve_lora_quant", 8, 4, kind, smi,
+                               factors=factors, parity=("ad7",),
+                               device=device)
+    return launches
+
+
+def _byte_sums(pools):
+    """A checksum of each pool: its bytes read as int32 and summed in
+    int64, one layer at a time (no pool-sized temporary)."""
+    return [int(torch.stack([p[l].view(torch.int32).sum(dtype=torch.int64)
+                             for l in range(p.shape[0])]).sum())
+            for p in pools]
+
+
+def phase_serve_migrate(kind, smi, device="cuda"):
+    """KV migration at Llama-2-7B width (32 layers, bf16) over a bf16 and
+    an int8 pool (`migrate_workload`): the 8 serve prompts served greedy
+    unmigrated, then again with each request moved after its first token
+    and 4 decode tokens into a `LoRAEngine` over the same engine with no
+    adapter (its own pools). Gates: the payload's slabs bit-equal to the
+    source blocks and the source pools' bytes unchanged by each
+    extraction; every migrated stream token for token the unmigrated
+    one; no leaked block on either engine; 32 ragged launches a ragged
+    step. Then the prefix trace's 192-token shared prefix exported from
+    one prefix-cached scheduler and imported into another: the
+    importer's first shared request leases the whole prefix (192 hit
+    tokens) and streams the exporter's tokens."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.serving import (ServingFrontend, ServingMetrics,
+                                          attach_adapters)
+    from paddle_tpu_torch.tools.serve_workload import (
+        CHUNK, LAYERS, MIGRATE_AT, MIGRATE_NEW, PREFIX_LEN, PREFIX_NEW,
+        drive_migration, migrate_workload)
+
+    launches = {"ragged_paged_attention": 0, "ragged_paged_attention_q": 0}
+    for kv_bits in (16, 8):
+        label = f"serve_migrate_kv{kv_bits}"
+        ServingMetrics.reset_monitor()
+        engine, prompts, make_prefix_frontend, shared, first = \
+            migrate_workload(device=device, kv_bits=kv_bits)
+        fe = ServingFrontend(engine, prefill_chunk_tokens=CHUNK)
+        ref = [fe.submit(p, max_new_tokens=MIGRATE_NEW) for p in prompts]
+        fe.run_until_idle()
+        ref = [h.tokens for h in ref]
+        dst = attach_adapters(engine, pool_slots=1, rank_buckets=(8,))
+        fe_dst = ServingFrontend(dst, prefill_chunk_tokens=CHUNK)
+        moves = []
+        extract, inject = engine.extract_kv_blocks, dst.inject_kv_blocks
+
+        def checked_extract(seq_id):
+            sums = _byte_sums(engine._pools())
+            _sync(device)
+            t0 = time.perf_counter()
+            pay = extract(seq_id)
+            _sync(device)
+            dt = time.perf_counter() - t0
+            blocks = list(engine.manager.blocks_of(seq_id))
+            for name, pool in zip(pay.slabs, engine._pools()):
+                slab = pay.slabs[name]
+                if not all(torch.equal(slab[:, j], pool[:, b])
+                           for j, b in enumerate(blocks)):
+                    raise AssertionError(f"{label}: slab {name} differs "
+                                         "from the source blocks")
+            if _byte_sums(engine._pools()) != sums:
+                raise AssertionError(f"{label}: extraction changed the "
+                                     "source pool")
+            moves.append({"tokens": pay.num_tokens,
+                          "blocks": pay.num_blocks,
+                          "payload_mb": pay.nbytes / 1e6,
+                          "extract_ms": dt * 1e3})
+            return pay
+
+        def timed_inject(seq_id, payload):
+            _sync(device)
+            t0 = time.perf_counter()
+            inject(seq_id, payload)
+            _sync(device)
+            moves[-1]["inject_ms"] = (time.perf_counter() - t0) * 1e3
+
+        engine.extract_kv_blocks = checked_extract
+        dst.inject_kv_blocks = timed_inject
+        _support.reset_launch_counts()
+        monitor.reset("serving.ragged_steps")
+        handles = drive_migration(fe, fe_dst, prompts)
+        del engine.extract_kv_blocks, dst.inject_kv_blocks
+        lch = _launches()
+        steps = monitor.get("serving.ragged_steps")
+        got = [h.tokens for h in handles]
+        if got != ref or len(moves) != len(prompts) or any(
+                h.status.value != "finished" for h in handles):
+            raise AssertionError(f"{label}: migrated streams equal "
+                                 f"{got == ref}, moves {len(moves)}")
+        for f in (fe, fe_dst):
+            if f.scheduler.kv_leaked_blocks():
+                raise AssertionError(f"{label}: leaked blocks")
+            f.scheduler.engine.manager.check_consistency()
+        attn = "ragged_paged_attention_q" if kv_bits == 8 else \
+            "ragged_paged_attention"
+        expect = {c: 0 for c in lch}
+        expect[attn] = LAYERS * steps
+        _launch_gate(label, lch, expect)
+        launches[attn] += lch[attn]
+        del fe, fe_dst, dst, engine
+        release()
+        # prefix streaming between two prefix-cached schedulers
+        fe1, fe2 = make_prefix_frontend(), make_prefix_frontend()
+        fe1.submit(shared, max_new_tokens=2)
+        fe1.run_until_idle()
+        h1 = fe1.submit(first, max_new_tokens=PREFIX_NEW)
+        fe1.run_until_idle()
+        _sync(device)
+        t0 = time.perf_counter()
+        payload = fe1.scheduler.export_prefix(shared)
+        _sync(device)
+        t1 = time.perf_counter()
+        gained = fe2.scheduler.import_prefix(shared, payload)
+        _sync(device)
+        t2 = time.perf_counter()
+        h2 = fe2.submit(first, max_new_tokens=PREFIX_NEW)
+        fe2.run_until_idle()
+        hit = h2._req._prefix_hit_tokens
+        if gained != PREFIX_LEN or hit != PREFIX_LEN \
+                or h2.tokens != h1.tokens:
+            raise AssertionError(f"{label}: prefix import gained {gained}, "
+                                 f"hit {hit}, streams "
+                                 f"{h2.tokens == h1.tokens}")
+        for f in (fe1, fe2):
+            if f.scheduler.kv_leaked_blocks():
+                raise AssertionError(f"{label}: prefix leak")
+            f.scheduler.engine.manager.check_consistency(
+                external=f.scheduler.prefix_cache.block_ref_counts())
+        ext = [m["extract_ms"] for m in moves]
+        inj = [m["inject_ms"] for m in moves]
+        mb = [m["payload_mb"] for m in moves]
+        emit({"phase": label,
+              "model": f"llama_7b_shaped(num_layers={LAYERS}) bf16",
+              "kv_bits": kv_bits, "requests": len(prompts),
+              "prompt_lens": [len(p) for p in prompts],
+              "moved_at_tokens": MIGRATE_AT, "new_tokens": MIGRATE_NEW,
+              "moves": moves, "streams_equal_unmigrated": True,
+              "ragged_steps": steps, "launches": lch[attn],
+              "payload_mb_median": statistics.median(mb),
+              "extract_ms_median": statistics.median(ext),
+              "inject_ms_median": statistics.median(inj),
+              # GB/s of the sequence's blocks, each byte read once and
+              # written once (pool to slab, or slab to pool)
+              "extract_gb_s_median": statistics.median(
+                  2 * m["payload_mb"] / m["extract_ms"] for m in moves),
+              "inject_gb_s_median": statistics.median(
+                  2 * m["payload_mb"] / m["inject_ms"] for m in moves),
+              "prefix": {"tokens": PREFIX_LEN, "gained": gained,
+                         "importer_hit_tokens": hit,
+                         "payload_mb": payload.nbytes / 1e6,
+                         "export_ms": (t1 - t0) * 1e3,
+                         "import_ms": (t2 - t1) * 1e3,
+                         "streams_equal": True},
+              "device": kind, "nvidia_smi": smi,
+              "sample_tokens": got[0]})
+        del fe1, fe2, make_prefix_frontend, payload
+        release()
+    return launches
+
+
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
 FA_PY = "paddle_tpu/ops/pallas/flash_attention.py"
 
@@ -2532,7 +3045,28 @@ def _row(name, source, replaces, launches, case, **extra):
             "ok": True}
 
 
-def main():
+# the phases `--only` runs alone, after the device check
+ONLY = {
+    "lora_reference": phase_lora_reference,
+    "serve_lora": phase_serve_lora,
+    "serve_lora_quant":
+        lambda kind, smi: phase_serve_lora_quant(kind, smi, None),
+    "serve_migrate": phase_serve_migrate,
+}
+
+
+def main(argv=()):
+    if argv:
+        names = argv[1].split(",") if len(argv) == 2 and \
+            argv[0] == "--only" else []
+        if not names or any(n not in ONLY for n in names):
+            raise SystemExit("usage: python3 chip_smoke.py [--only "
+                             f"PHASE[,PHASE...]], phases {sorted(ONLY)}")
+        kind, smi = phase_device()
+        for name in names:
+            ONLY[name](kind, smi)
+        print(smi, flush=True)
+        return
     kind, smi = phase_device()
     phase_build()
     attn = phase_kernel()
@@ -2546,6 +3080,11 @@ def main():
     ngram_launches, draft_launches = phase_serve_spec(kind, smi)
     prefix_launches = phase_serve_prefix(kind, smi)
     phase_serve_faults(kind, smi)
+    phase_lora_reference(kind, smi)
+    lora_launches, factors = phase_serve_lora(kind, smi)
+    lora_q_launches = phase_serve_lora_quant(kind, smi, factors)
+    del factors
+    migrate_launches = phase_serve_migrate(kind, smi)
     flash = phase_flash()
     rms = phase_rms()
     phase_train_reference()
@@ -2568,13 +3107,17 @@ def main():
              bf16_launches["ragged_paged_attention"]
              + ngram_launches["ragged_paged_attention"]
              + draft_launches["ragged_paged_attention"]
-             + prefix_launches["ragged_paged_attention"], attn["mha_bf16"],
+             + prefix_launches["ragged_paged_attention"]
+             + lora_launches["ragged_paged_attention"]
+             + migrate_launches["ragged_paged_attention"], attn["mha_bf16"],
              instance=attn["mha_bf16"]["instance"],
              splits=attn["mha_bf16"]["splits"]),
         _row("ragged_paged_attention_q", attn_src, f"{pa_py}:380",
              l8["ragged_paged_attention_q"]
              + l4["ragged_paged_attention_q"]
-             + prefix_launches["ragged_paged_attention_q"],
+             + prefix_launches["ragged_paged_attention_q"]
+             + lora_q_launches["ragged_paged_attention_q"]
+             + migrate_launches["ragged_paged_attention_q"],
              attn_q["mha_bf16"],
              instance=attn_q["mha_bf16"]["instance"],
              splits=attn_q["mha_bf16"]["splits"]),
@@ -2595,7 +3138,8 @@ def main():
              splits=int8["qkv_int8"]["splits"]),
         _row("quant_matmul_int4", gemm_src,
              "paddle_tpu/ops/pallas/quant_matmul.py:115",
-             l4["quant_matmul_int4"], int4["qkv_int4"],
+             l4["quant_matmul_int4"] + lora_q_launches["quant_matmul_int4"],
+             int4["qkv_int4"],
              splits=int4["qkv_int4"]["splits"]),
         *[_row(name, FLASH_SRC, f"{FA_PY}:{line}", train_launches[name],
                flash["train_mha"][name], also_replaces=f"{FA_PY}:{also}")
@@ -2622,4 +3166,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,6 +1,6 @@
 """Process-wide named counters and gauges (the port's slice of
 `paddle_tpu/framework/monitor.py`): `inc`, `set_gauge`, `get`,
-`snapshot` and `reset`.
+`observe` (fixed-bucket histograms), `snapshot` and `reset`.
 
 The serving path bumps `serving.*` counters here. Where the JAX package
 counted jit retraces (`serving.{ragged,verify,prefill,decode}_retraces`),
@@ -15,10 +15,14 @@ from __future__ import annotations
 import threading
 from typing import Dict, Union
 
-__all__ = ["inc", "set_gauge", "get", "snapshot", "reset"]
+__all__ = ["inc", "set_gauge", "get", "observe", "snapshot", "reset"]
 
 _lock = threading.Lock()
 _values: Dict[str, Union[int, float]] = {}
+# histogram name -> [counts per bucket (+inf last), sum, count]
+_hists: Dict[str, list] = {}
+# the JAX monitor's default bucket bounds
+_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0)
 
 
 def inc(name: str, n: int = 1) -> int:
@@ -38,16 +42,41 @@ def get(name: str):
     return _values.get(name, 0)
 
 
-def snapshot(prefix: str = "") -> Dict[str, Union[int, float]]:
-    """Every counter and gauge whose name starts with `prefix`."""
+def observe(name: str, value: float) -> None:
+    """Record one sample into the fixed-bucket histogram `name` (the JAX
+    monitor's default bounds)."""
     with _lock:
-        return {k: v for k, v in _values.items() if k.startswith(prefix)}
+        h = _hists.setdefault(name, [[0] * (len(_BUCKETS) + 1), 0.0, 0])
+        h[0][next((i for i, b in enumerate(_BUCKETS) if value <= b),
+                  len(_BUCKETS))] += 1
+        h[1] += value
+        h[2] += 1
+
+
+def snapshot(prefix: str = "") -> Dict[str, Union[int, float]]:
+    """Every counter and gauge whose name starts with `prefix`, and each
+    such histogram as the JAX monitor flattens it: cumulative
+    `<name>_bucket_le_<bound>` counts, `<name>_sum` and `<name>_count`."""
+    with _lock:
+        out = {k: v for k, v in _values.items() if k.startswith(prefix)}
+        for name, (counts, total, n) in _hists.items():
+            if not name.startswith(prefix):
+                continue
+            cum = 0
+            for b, c in zip(_BUCKETS, counts):
+                cum += c
+                out[f"{name}_bucket_le_{b:g}"] = cum
+            out[f"{name}_bucket_le_inf"] = cum + counts[-1]
+            out[f"{name}_sum"] = round(total, 6)
+            out[f"{name}_count"] = n
+        return out
 
 
 def reset(prefix: str = "") -> None:
-    """Zero every counter whose name starts with `prefix` (all of them by
-    default)."""
+    """Zero every counter, gauge and histogram whose name starts with
+    `prefix` (all of them by default)."""
     with _lock:
-        for k in list(_values):
-            if k.startswith(prefix):
-                del _values[k]
+        for store in (_values, _hists):
+            for k in list(store):
+                if k.startswith(prefix):
+                    del store[k]

@@ -24,8 +24,10 @@ num_blocks, kv_heads, block_size]`) are updated in place (the JAX engine
 donates them to each step instead).
 
 `copy_kv_block` copies one pool block across all layers (the prefix
-cache's copy-on-write). Not ported yet, raising `NotImplementedError`:
-KV migration (`extract_kv_blocks` / `inject_kv_blocks`).
+cache's copy-on-write). `extract_kv_blocks` / `inject_kv_blocks` move a
+sequence's blocks between engines (`inference/kv_migrate.py`). A
+projection weight may also be a multi-LoRA epilogue dict (`serving/
+lora.py`), which wraps a dense or quantized base.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from ..nn.functional.attention import _sdpa_fn
 from ..nn.quant import dequant_matmul, pack_int4, per_channel_quantize
 from ..ops.kernels import paged_attention as pk
 from ..ops.kernels._support import resolve_device
-from . import kv_quant
+from . import kv_migrate, kv_quant
 from .cache import BlockCacheManager
 
 __all__ = ["LlamaInferenceEngine", "GenerationConfig"]
@@ -99,6 +101,8 @@ def _stack_llama_params(model: LlamaForCausalLM, device, dtype=None) -> Dict:
 
 
 QUANT_KEYS = ("qkv_w", "o_w", "gate_up_w", "down_w")
+# a migration payload's planes, in pool order (`LlamaInferenceEngine._pools`)
+KV_PLANES = ("k", "v", "k_scale", "v_scale")
 _WBITS = {"int8": 8, "int4": 4, "fp8": 8}
 _ALGO = {"int8": "weight_only_int8", "int4": "weight_only_int4",
          "fp8": "fp8"}
@@ -128,11 +132,17 @@ def _quantize_layers(params, algo: str) -> Dict:
 
 
 def _mm(x, w):
-    """x [..., K] @ a layer weight: dense `[K, N]` (torch.matmul), or a
+    """x [..., K] @ a layer weight: dense `[K, N]` (torch.matmul), a
     weight-only quantized `{"q": [N, K], "s": [N]}` / int4-packed
-    `{"q4": [N, K/2], "s": [N]}` dict (`nn.quant.dequant_matmul`)."""
+    `{"q4": [N, K/2], "s": [N]}` dict (`nn.quant.dequant_matmul`), or a
+    multi-LoRA epilogue dict `{"w", "la", "lb"}` that wraps either
+    (`serving.lora.lora_mm`)."""
     if not isinstance(w, dict):
         return torch.matmul(x, w.to(x.dtype))
+    if "la" in w:
+        from ..serving.lora import lora_mm
+
+        return lora_mm(x, w, _mm)
     if "q4" in w:
         return dequant_matmul(x, w["q4"], w["s"], "int4")
     return dequant_matmul(x, w["q"], w["s"])
@@ -219,6 +229,14 @@ class LlamaInferenceEngine:
                              num_layers=L)
         self.manager.set_kv_geometry(
             kv_quant.kv_bytes_per_block(**self._kv_geom), self.kv_bits)
+        self._mig_header = {
+            "version": kv_migrate.PAYLOAD_VERSION, "engine": "llama",
+            "block_size": block_size,
+            "max_blocks_per_seq": max_blocks_per_seq,
+            "kv_bits": self.kv_bits, "tp": 1, "num_layers": L,
+            "kv_heads": kvh, "head_dim": d,
+            "dtype": kv_migrate.dtype_name(pool_dtype),
+        }
 
     def kv_bytes_per_token(self) -> float:
         """Device bytes one cached token costs across K+V and all
@@ -411,29 +429,46 @@ class LlamaInferenceEngine:
         synchronizing call) is past that point: `_cow`'s promise that a
         failing hook leaves the pool as it was holds only for what the
         host can refuse."""
-        nb = self.k_cache.shape[1]
+        self._copy_block(self._pools(), src, dst)
+
+    def _pools(self):
+        """The pool tensors a block spans: K and V, and on an int8 pool
+        both scale planes, in the payload's plane order."""
+        if self.k_scale is None:
+            return [self.k_cache, self.v_cache]
+        return [self.k_cache, self.v_cache, self.k_scale, self.v_scale]
+
+    @staticmethod
+    def _copy_block(pools, src: int, dst: int) -> None:
+        """Copy block `src` onto `dst` along the block axis (1) of every
+        tensor in `pools`, after checking both ids on the host."""
+        nb = pools[0].shape[1]
         src, dst = int(src), int(dst)
         if not (0 <= src < nb and 0 <= dst < nb):
             raise ValueError(f"copy_kv_block: blocks ({src}, {dst}) "
                              f"outside the pool of {nb}")
         with torch.no_grad():
-            pools = [self.k_cache, self.v_cache]
-            if self.k_scale is not None:
-                pools += [self.k_scale, self.v_scale]
             for pool in pools:
                 pool[:, dst].copy_(pool[:, src])
 
-    def _not_ported(self, entry: str):
-        raise NotImplementedError(
-            f"{entry} is not ported yet: it waits for KV migration "
-            "(ROADMAP Queue A)")
+    def extract_kv_blocks(self, seq_id: int) -> kv_migrate.KVBlockPayload:
+        """Export `seq_id`'s committed KV blocks across all layers: one
+        indexed copy per pool tensor along the block axis (`{"k", "v"}`,
+        and `"k_scale"`, `"v_scale"` on an int8 pool), one slab row a
+        real block. The source pools are untouched."""
+        return kv_migrate.extract_payload(self.manager, self._mig_header,
+                                          self._pools(), KV_PLANES, 1,
+                                          seq_id)
 
-    def extract_kv_blocks(self, *args, **kw):
-        self._not_ported("extract_kv_blocks")
-
-    def inject_kv_blocks(self, *args, **kw):
-        self._not_ported("inject_kv_blocks")
-
+    def inject_kv_blocks(self, seq_id: int,
+                         payload: kv_migrate.KVBlockPayload) -> None:
+        """Import a migrated payload under `seq_id`: the header is checked
+        before anything is allocated, the manager's typed capacity errors
+        propagate from `allocate`, and any failure after allocation frees
+        the blocks again. The payload's slabs are copied, not taken."""
+        kv_migrate.inject_payload(self.manager, self._mig_header,
+                                  self._pools(), KV_PLANES, 1, seq_id,
+                                  payload)
 
 def _layer(x, l: int, params, cos, sin, attend, cfg):
     """One decoder layer over tokens x [..., H] (any leading shape).

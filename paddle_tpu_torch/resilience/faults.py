@@ -20,7 +20,9 @@ in `serving/scheduler.py`; the ragged step fires ``serve.decode``;
 ``action="flag"`` asks the scheduler to poison one lane's logits with
 NaN instead of raising), ``serve.sample`` (per sampler call) and
 ``serve.cache`` (per `BlockCacheManager.allocate` / `adopt` /
-`append_tokens`). An ``exc`` that is an `serving.EngineStepError` with
+`append_tokens`) and ``serve.adapter`` (per adapter-pool miss in
+`serving/lora.py`, before the pool is touched: an armed fault fails the
+admitting request as ``engine_fault:adapter``). An ``exc`` that is an `serving.EngineStepError` with
 ``seq_ids`` drives the targeted lane-isolation path; the default
 `InjectedIOError` drives the transient-retry path.
 """

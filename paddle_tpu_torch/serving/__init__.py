@@ -1,7 +1,11 @@
+from ..inference.kv_migrate import KVMigrationError
 from .engine import EngineCore, MLPLMEngine
 from .fault_tolerance import (AdmissionConfig, EngineStalled, EngineStepError,
                               OverloadController, WatchdogConfig)
 from .frontend import RequestHandle, ServingFrontend
+from .lora import (AdapterError, AdapterPool, AdapterPoolExhausted,
+                   AdapterRankError, LoRAEngine, UnknownAdapterError,
+                   attach_adapters)
 from .metrics import ServingMetrics
 from .quant import greedy_agreement, quant_summary, quantize_engine
 from .scheduler import Request, RequestStatus, SamplingParams, Scheduler
@@ -16,4 +20,6 @@ __all__ = ["EngineCore", "MLPLMEngine", "AdmissionConfig", "EngineStalled",
            "greedy_agreement", "quant_summary", "quantize_engine",
            "DEFAULT_TENANT", "SLOClass", "SLOConfig", "slo_for_adapters",
            "DraftEngineProposer", "NGramProposer", "Proposer",
-           "SpecDecodeConfig"]
+           "SpecDecodeConfig", "AdapterError", "AdapterPool",
+           "AdapterPoolExhausted", "AdapterRankError", "LoRAEngine",
+           "UnknownAdapterError", "attach_adapters", "KVMigrationError"]

@@ -7,7 +7,9 @@ An engine owns the model weights and a paged KV pool, exposes its
 scheduler's plain rounds) and `verify_step` (its speculative rounds); a
 draft engine behind `DraftEngineProposer` is driven through `prefill`
 and `decode_step`; `copy_kv_block` backs the prefix cache's
-copy-on-write.
+copy-on-write; `extract_kv_blocks` / `inject_kv_blocks`, where an engine
+has them, move a sequence's blocks between engines
+(`inference/kv_migrate.py`).
 
 Failure contract: an engine may raise from a step. A typed
 `EngineStepError(phase, seq_ids=...)` names the poisoned lane(s) and
@@ -26,12 +28,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..inference import kv_quant
+from ..inference import kv_migrate, kv_quant
 from ..inference.cache import BlockCacheManager
+from ..inference.llama_runner import _mm
 from ..ops.kernels._support import resolve_device
 from ..ops.kernels.paged_attention import ragged_metadata
 
 __all__ = ["EngineCore", "MLPLMEngine"]
+
+# a migration payload's planes, in pool order (`MLPLMEngine._pools`)
+MLP_PLANES = ("cache", "scale")
 
 
 @runtime_checkable
@@ -82,6 +88,49 @@ def _i32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.int32)).to(device)
 
 
+def _mlp_head(params, last, mean):
+    """`gelu([last, mean] @ w1 + b1) @ w2 + b2`, f32 (tanh gelu). The
+    weights take every form `llama_runner._mm` takes: dense, weight-only
+    quantized, or a multi-LoRA epilogue dict wrapping either."""
+    h = torch.cat([last, mean], dim=-1)
+    h = F.gelu(_mm(h, params["w1"]) + params["b1"], approximate="tanh")
+    return _mm(h, params["w2"]) + params["b2"]
+
+
+def _mlp_ragged_stack(params, cache, cache_scale, tokens, q_lens, kv_lens,
+                      tables, block_size: int):
+    """Packed tokens [T] + per-lane (q_len, kv_len) over the embedding
+    pool `cache` (int8 with its `cache_scale` plane, or f32 with None):
+    token t embeds, writes its embedding (quantized on an int8 pool) at
+    its absolute position in place (guard slots write nothing), and
+    conditions on (own embedding, masked mean of its lane's window
+    through its position) — what a sequence of decode steps computes.
+    Returns f32 logits [T, V]."""
+    bs = block_size
+    b, maxb = tables.shape
+    tok_lane, tok_pos = ragged_metadata(q_lens, kv_lens, tokens.shape[0])
+    x = params["embed"][tokens.long()]                           # [T, D]
+    pos = torch.clamp(tok_pos.long(), min=0)
+    blocks = tables.long()[tok_lane.long(), pos // bs]           # [T]
+    valid = tok_pos >= 0
+    idx = (blocks[valid], (pos % bs)[valid])
+    if cache_scale is not None:
+        q, s = kv_quant.quantize_kv(x)                           # [T, D], [T]
+        cache[idx] = q[valid]
+        cache_scale[idx] = s[valid]
+        window = kv_quant.dequantize_kv(
+            cache[tables.long()], cache_scale[tables.long()])    # [B, MAXB, BS, D]
+    else:
+        cache[idx] = x[valid]
+        window = cache[tables.long()]
+    window = window.reshape(b, maxb * bs, -1)[tok_lane.long()]  # [T, W, D]
+    wpos = torch.arange(maxb * bs, dtype=torch.int32, device=x.device)
+    mask = (wpos[None, :] <= tok_pos[:, None]).to(x.dtype)
+    mean = (window * mask[..., None]).sum(1) / torch.clamp(
+        mask.sum(1, keepdim=True), min=1.0)
+    return _mlp_head(params, x, mean).float()
+
+
 class MLPLMEngine:
     """Bag-of-embeddings MLP language model over the paged cache
     (EngineCore #2), the port of the JAX package's `MLPLMEngine`.
@@ -99,23 +148,15 @@ class MLPLMEngine:
     (`convert.mlp_from_jax_params` loads a JAX engine's weights too).
 
     `device=None` means the CUDA card and raises without one; tests pass
-    `device="cpu"`. Not ported: tensor parallelism (`tp` > 1) and LoRA
-    adapters, both raising `NotImplementedError` (ROADMAP Queue A), and
-    KV migration (`extract_kv_blocks` / `inject_kv_blocks`)."""
+    `device="cpu"`. `w1` / `w2` may be weight-only quantized
+    (`serving.quant.quantize_engine`) and wrapped in LoRA epilogues
+    (`serving.lora.attach_adapters`); `extract_kv_blocks` /
+    `inject_kv_blocks` migrate a sequence's blocks between engines."""
 
     def __init__(self, vocab_size: int = 256, hidden: int = 32,
                  max_batch_size: int = 8, num_blocks: int = 64,
                  block_size: int = 8, max_blocks_per_seq: int = 8,
-                 seed: int = 0, kv_bits: int = 16, device=None,
-                 tp: int = 1, adapters=None):
-        if tp != 1:
-            raise NotImplementedError(
-                "MLPLMEngine: tensor parallelism (serving/tp.py) is not "
-                "ported yet (ROADMAP Queue A)")
-        if adapters is not None:
-            raise NotImplementedError(
-                "MLPLMEngine: LoRA adapters (serving/lora.py) are not "
-                "ported yet (ROADMAP Queue A)")
+                 seed: int = 0, kv_bits: int = 16, device=None):
         self.kv_bits = int(kv_bits)
         if self.kv_bits not in (8, 16):
             raise ValueError(f"kv_bits must be 8 or 16, got {kv_bits}")
@@ -161,6 +202,13 @@ class MLPLMEngine:
             bpb = block_size * d * 4
         self._kv_bytes_per_token = bpb / block_size
         self.manager.set_kv_geometry(bpb, self.kv_bits)
+        self._mig_header = {
+            "version": kv_migrate.PAYLOAD_VERSION, "engine": "mlp",
+            "block_size": block_size,
+            "max_blocks_per_seq": max_blocks_per_seq,
+            "kv_bits": self.kv_bits, "tp": 1, "hidden": hidden,
+            "dtype": kv_migrate.dtype_name(self.cache.dtype),
+        }
 
     def kv_bytes_per_token(self) -> float:
         """Device bytes one cached token costs (int8 pools include the
@@ -168,9 +216,13 @@ class MLPLMEngine:
         return self._kv_bytes_per_token
 
     def quant_info(self) -> dict:
-        """The quantization mode the serving metrics publish (the weights
-        stay f32: 16 = unquantized)."""
-        return {"wbits": 16, "kv_bits": self.kv_bits,
+        """The quantization mode the serving metrics publish: `wbits` 16
+        for f32 weights, 8 or 4 after `serving.quant.quantize_engine`."""
+        wb = 16
+        w1 = self.params.get("w1")
+        if isinstance(w1, dict):
+            wb = 4 if "q4" in w1 else 8
+        return {"wbits": wb, "kv_bits": self.kv_bits,
                 "kv_bytes_per_token": self._kv_bytes_per_token}
 
     def copy_kv_block(self, src: int, dst: int) -> None:
@@ -181,15 +233,27 @@ class MLPLMEngine:
         host before anything is enqueued (see
         `LlamaInferenceEngine.copy_kv_block` for what an asynchronous
         device fault means for the manager's books)."""
-        nb = self.cache.shape[0]
+        self._copy_block(self._pools(), src, dst)
+
+    def _pools(self):
+        """The pool tensors a block spans: the embeddings, and on an int8
+        pool the scale plane, in the payload's plane order."""
+        if self.cache_scale is None:
+            return [self.cache]
+        return [self.cache, self.cache_scale]
+
+    @staticmethod
+    def _copy_block(pools, src: int, dst: int) -> None:
+        """Copy block `src` onto `dst` along the block axis (0) of every
+        tensor in `pools`, after checking both ids on the host."""
+        nb = pools[0].shape[0]
         src, dst = int(src), int(dst)
         if not (0 <= src < nb and 0 <= dst < nb):
             raise ValueError(f"copy_kv_block: blocks ({src}, {dst}) "
                              f"outside the pool of {nb}")
         with torch.no_grad():
-            self.cache[dst].copy_(self.cache[src])
-            if self.cache_scale is not None:
-                self.cache_scale[dst].copy_(self.cache_scale[src])
+            for pool in pools:
+                pool[dst].copy_(pool[src])
 
     def respawn(self) -> "MLPLMEngine":
         """A fresh engine with IDENTICAL weights (seed-derived) and an
@@ -197,16 +261,22 @@ class MLPLMEngine:
         for this engine class (`engine_factory=engine.respawn`)."""
         return MLPLMEngine(**self._init_kwargs)
 
-    def _not_ported(self, entry: str):
-        raise NotImplementedError(
-            f"{entry} is not ported yet: it waits for KV migration "
-            "(ROADMAP Queue A)")
+    def extract_kv_blocks(self, seq_id: int) -> kv_migrate.KVBlockPayload:
+        """Export `seq_id`'s committed blocks: one indexed copy of the
+        embedding pool (`"cache"`) and, on an int8 pool, of its scale
+        plane (`"scale"`), one slab row a real block. The source pool is
+        untouched."""
+        return kv_migrate.extract_payload(self.manager, self._mig_header,
+                                          self._pools(), MLP_PLANES, 0,
+                                          seq_id)
 
-    def extract_kv_blocks(self, *args, **kw):
-        self._not_ported("extract_kv_blocks")
-
-    def inject_kv_blocks(self, *args, **kw):
-        self._not_ported("inject_kv_blocks")
+    def inject_kv_blocks(self, seq_id: int,
+                         payload: kv_migrate.KVBlockPayload) -> None:
+        """Import a migrated payload under `seq_id` (see
+        `LlamaInferenceEngine.inject_kv_blocks`)."""
+        kv_migrate.inject_payload(self.manager, self._mig_header,
+                                  self._pools(), MLP_PLANES, 0, seq_id,
+                                  payload)
 
     def _require_full_kv(self, entry: str):
         if self.kv_bits != 16:
@@ -215,46 +285,10 @@ class MLPLMEngine:
                 f"kv_bits={self.kv_bits} engine serves through "
                 "ragged_step/verify_step (the scheduler's only dispatches)")
 
-    def _head(self, last, mean):
-        """`gelu([last, mean] @ w1 + b1) @ w2 + b2`, f32."""
-        p = self.params
-        h = torch.cat([last, mean], dim=-1)
-        h = F.gelu(torch.matmul(h, p["w1"]) + p["b1"], approximate="tanh")
-        return torch.matmul(h, p["w2"]) + p["b2"]
-
     def _ragged(self, tokens, q_lens, kv_lens, tables):
-        """Packed tokens [T] + per-lane (q_len, kv_len): token t embeds,
-        writes its embedding (quantized on an int8 pool) at its absolute
-        position (guard slots write nothing), and conditions on (own
-        embedding, masked mean of its lane's window through its
-        position) — what a sequence of decode steps computes. Returns
-        f32 logits [T, V]."""
-        bs = self.block_size
-        b, maxb = tables.shape
-        tok_lane, tok_pos = ragged_metadata(q_lens, kv_lens,
-                                            tokens.shape[0])
-        x = self.params["embed"][tokens.long()]                  # [T, D]
-        pos = torch.clamp(tok_pos.long(), min=0)
-        blocks = tables.long()[tok_lane.long(), pos // bs]       # [T]
-        valid = tok_pos >= 0
-        idx = (blocks[valid], (pos % bs)[valid])
-        if self.cache_scale is not None:
-            q, s = kv_quant.quantize_kv(x)                       # [T, D], [T]
-            self.cache[idx] = q[valid]
-            self.cache_scale[idx] = s[valid]
-            window = kv_quant.dequantize_kv(
-                self.cache[tables.long()],
-                self.cache_scale[tables.long()])                 # [B, MAXB, BS, D]
-        else:
-            self.cache[idx] = x[valid]
-            window = self.cache[tables.long()]
-        window = window.reshape(b, maxb * bs, -1)[tok_lane.long()]  # [T, W, D]
-        wpos = torch.arange(maxb * bs, dtype=torch.int32,
-                            device=x.device)
-        mask = (wpos[None, :] <= tok_pos[:, None]).to(x.dtype)
-        mean = (window * mask[..., None]).sum(1) / torch.clamp(
-            mask.sum(1, keepdim=True), min=1.0)
-        return self._head(x, mean).float()
+        return _mlp_ragged_stack(self.params, self.cache, self.cache_scale,
+                                 tokens, q_lens, kv_lens, tables,
+                                 self.block_size)
 
     def ragged_step(self, tokens, q_lens, kv_lens, block_tables):
         """Packed ragged step; see `EngineCore.ragged_step`."""
@@ -302,7 +336,7 @@ class MLPLMEngine:
                 mask.sum(1, keepdim=True), min=1.0)
             last_i = torch.clamp(lens_t.long() - 1, 0, s - 1)
             last = x[torch.arange(b, device=dev), last_i]
-            return self._head(last, mean).float()
+            return _mlp_head(self.params, last, mean).float()
 
     def decode_step(self, tokens, context_lens, block_tables):
         """One token per sequence, written at `context_lens - 1`; logits

@@ -8,7 +8,9 @@ engine faults FAILED: every submitted request reaches a terminal status.
 The frontend is driven synchronously: `step()` advances one scheduling
 round; `stream()` and `run_until_idle()` drive it for you and, when no
 watchdog is installed, raise a typed `EngineStalled` (never spin) after
-`stall_after` consecutive zero-progress steps.
+`stall_after` consecutive zero-progress steps. `release`, `resubmit`
+and `import_session` move requests between frontends (a session's KV
+travels as a `KVBlockPayload`, `inference/kv_migrate.py`).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Iterator, List, Optional, Sequence
 from .fault_tolerance import AdmissionConfig, EngineStalled, WatchdogConfig
 from .metrics import ServingMetrics
 from .scheduler import Request, RequestStatus, SamplingParams, Scheduler
-from .slo import SLOConfig
+from .slo import DEFAULT_TENANT, SLOConfig
 
 __all__ = ["RequestHandle", "ServingFrontend"]
 
@@ -122,16 +124,14 @@ class ServingFrontend:
                adapter: Optional[str] = None) -> RequestHandle:
         """Enqueue a generation request. NEVER raises on load conditions:
         a request that cannot be served comes back already terminal with
-        `finish_reason` in {prompt_too_long, queue_full, empty_prompt}
-        (REJECTED) or a watermark / deadline reason (SHED). `tenant`
-        names the request's SLO class when an `SLOConfig` is installed
-        (unknown or None -> the default class). `adapter` (a LoRA
-        adapter) raises `NotImplementedError`: LoRA serving is not
-        ported yet (ROADMAP Queue A)."""
-        if adapter is not None:
-            raise NotImplementedError(
-                "submit(adapter=...): LoRA serving (serving/lora.py) is "
-                "not ported yet (ROADMAP Queue A)")
+        `finish_reason` in {prompt_too_long, queue_full, empty_prompt,
+        unknown_adapter, no_adapter_pool} (REJECTED) or a watermark /
+        deadline reason (SHED). `tenant` names the request's SLO class
+        when an `SLOConfig` is installed (unknown or None -> the default
+        class). `adapter` names a registered LoRA adapter of a multi-LoRA
+        engine (`serving/lora.py`); when the SLO config has a class named
+        after the adapter (`slo_for_adapters`) and no tenant was given,
+        the adapter IS the tenant."""
         timeout_s = self.default_timeout_s if timeout_s is None else timeout_s
         now = self._clock()
         deadline = None if timeout_s is None else now + timeout_s
@@ -141,13 +141,49 @@ class ServingFrontend:
         cb = None
         if stream_cb is not None:
             cb = lambda req, tok, _cb=stream_cb: _cb(tok)  # noqa: E731
+        if adapter is not None and (tenant is None
+                                    or tenant == DEFAULT_TENANT):
+            slo = self.scheduler._slo
+            if slo is not None and adapter in slo.classes:
+                tenant = adapter
         req = Request(prompt_ids, sampling=sp, deadline=deadline,
-                      stream_cb=cb, tenant=tenant)
+                      stream_cb=cb, tenant=tenant, adapter=adapter)
         self.scheduler.submit(req, now=now)
         return RequestHandle(req)
 
     def cancel(self, handle: RequestHandle) -> bool:
         return self.scheduler.cancel(handle._req)
+
+    # ---- moving requests between frontends ----
+    def in_flight(self) -> List[Request]:
+        """Non-terminal requests this frontend owns (admission order,
+        then the queue)."""
+        return self.scheduler.in_flight()
+
+    def release(self, handle_or_req) -> bool:
+        """Take a non-terminal request OUT of this frontend without a
+        terminal status (blocks freed, tokens so far kept, status
+        PREEMPTED), so it can be re-submitted elsewhere. Accepts a
+        `RequestHandle` or a `Request`."""
+        req = getattr(handle_or_req, "_req", handle_or_req)
+        return self.scheduler.release(req)
+
+    def resubmit(self, req: Request) -> Request:
+        """Route an existing `Request` through this frontend's admission
+        (`submit` builds fresh requests). The caller resets it to QUEUED
+        with its committed tokens folded into the prompt; admission may
+        still reject or shed it (a terminal status, never an
+        exception)."""
+        return self.scheduler.submit(req, now=self._clock())
+
+    def import_session(self, req: Request, payload) -> Request:
+        """Admit an existing `Request` whose context KV arrives as a
+        migrated `KVBlockPayload` instead of through prefill
+        (`Scheduler.import_session`): load conditions come back as a
+        terminal status, migration mismatches and pool exhaustion raise
+        typed."""
+        return self.scheduler.import_session(req, payload,
+                                             now=self._clock())
 
     def step(self) -> int:
         """Advance one scheduling round; returns tokens produced."""

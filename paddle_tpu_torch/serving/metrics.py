@@ -1,8 +1,9 @@
 """Serving metrics: request/token counters, TTFT/TPOT latency (split into
 prefix-cache hits and cold requests), queue depth and queued cost, batch
 occupancy, KV utilization, preemptions, speculative acceptance, overload
-shedding, isolated and step faults, stalls and engine restarts, and the
-per-tenant admission counters (the port of
+shedding, isolated and step faults, stalls and engine restarts, the
+per-tenant admission counters, and the adapter pool's gauges with a
+per-adapter TTFT histogram (the port of
 `paddle_tpu/serving/metrics.py`).
 
 Counters go to the port's monitor under the `serving.` prefix (the
@@ -144,6 +145,11 @@ class ServingMetrics:
                 self.ttft_cached_s.append(t)
             else:
                 self.ttft_cold_s.append(t)
+            if req.adapter:
+                # per-adapter TTFT: an adapter whose requests keep missing
+                # the pool shows up as a fat histogram here
+                monitor.observe(f"serving.lora.ttft_seconds.{req.adapter}",
+                                t)
 
     # ---- shared-prefix radix cache ----
     def on_prefix_lease(self, hit_tokens: int):
@@ -252,6 +258,22 @@ class ServingMetrics:
         if bpt is not None:
             monitor.set_gauge("serving.kv_bytes_per_token",
                               round(float(bpt), 1))
+
+    # ---- multi-LoRA serving ----
+    def on_lora(self, info: dict):
+        """Publish the adapter pool's shape (`LoRAEngine.lora_info`): slot
+        count, residency, registry size and padded rank, as the
+        `serving.lora.{pool_slots,resident_adapters,registered_adapters,
+        rank_max}` gauges. Bind-time, like `on_quant`; the pool bumps
+        `serving.lora.{miss_loads,evictions}` at their source."""
+        monitor.set_gauge("serving.lora.pool_slots",
+                          int(info.get("pool_slots", 0)))
+        monitor.set_gauge("serving.lora.resident_adapters",
+                          int(info.get("resident_adapters", 0)))
+        monitor.set_gauge("serving.lora.registered_adapters",
+                          int(info.get("registered", 0)))
+        monitor.set_gauge("serving.lora.rank_max",
+                          int(info.get("rank_max", 0)))
 
     # ---- reporting ----
     def summary(self) -> Dict[str, object]:

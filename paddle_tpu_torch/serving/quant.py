@@ -1,11 +1,11 @@
 """Quantized serving: weight-only engine quantization after construction,
 the quantization mode a serving run publishes, and the greedy-agreement
-yardstick (the port of `paddle_tpu/serving/quant.py` for the Llama
-engine).
+yardstick (the port of `paddle_tpu/serving/quant.py`).
 
 `quantize_engine(engine, wbits=8|4)` swaps a built engine's projection
 weights, and an untied lm_head, for the `{"q"|"q4", "s"}` dicts the
-engine's `_mm` runs through the weight-only gemm kernels. Scales are the
+engine's `_mm` runs through the weight-only gemm kernels (the MLP
+engine's `w1` / `w2` likewise). Scales are the
 per-output-channel absmax / qmax in f32 — the numbers the JAX package's
 `ChannelAbsmaxObserver` calibrates — so the engine constructor's
 quantizer (`llama_runner.quantize_weight`) serves both. KV quantization
@@ -24,29 +24,47 @@ from ..inference.llama_runner import QUANT_KEYS, quantize_weight
 __all__ = ["quantize_engine", "quant_summary", "greedy_agreement"]
 
 
+# the MLP engine's gemm weights ([K, N] each)
+_MLP_KEYS = ("w1", "w2")
+
+
 @torch.no_grad()
 def quantize_engine(engine, wbits: int = 8):
-    """Weight-only-quantize a built Llama engine IN PLACE; returns it.
+    """Weight-only-quantize a built engine IN PLACE; returns it.
 
-    Every layer's qkv / o / gate_up / down projection (per-layer,
-    per-output-channel scales) and an untied lm_head become int8 or
-    split-half packed int4. The embedding stays in the native dtype, and
-    so does a tied head, which is the embedding. `wbits`: 8 or 4 (int4
-    needs even in_features). Raises on an engine whose weights are
-    already quantized: re-quantizing quantized values would compound
-    error silently."""
+    A Llama engine's qkv / o / gate_up / down projections of every layer
+    (per-layer, per-output-channel scales) and an untied lm_head, or an
+    `MLPLMEngine`'s `w1` / `w2`, become int8 or split-half packed int4.
+    The embedding stays in the native dtype, and so does a tied head,
+    which is the embedding. `wbits`: 8 or 4 (int4 needs even
+    in_features). Raises on an engine whose weights are already
+    quantized: re-quantizing quantized values would compound error
+    silently."""
     if wbits not in (4, 8):
         raise ValueError(f"wbits must be 4 or 8, got {wbits}")
     params = getattr(engine, "params", None)
-    if not isinstance(params, dict) or "qkv_w" not in params:
+    if not isinstance(params, dict) or not ("qkv_w" in params
+                                            or "w1" in params):
         raise TypeError(f"{type(engine).__name__}: unrecognized parameter "
-                        "layout (expected the Llama projection keys)")
+                        "layout (expected the Llama projection keys or "
+                        "MLP w1/w2)")
+    algo = f"int{wbits}"
+    new = dict(params)
+    if "qkv_w" not in params:
+        for key in _MLP_KEYS:
+            if isinstance(params[key], dict):
+                raise ValueError(f"engine weight {key!r} is already "
+                                 "quantized - re-quantizing would "
+                                 "compound error")
+        for key in _MLP_KEYS:
+            new[key] = quantize_weight(params[key], algo)
+        engine.params = new
+        engine.weight_only = algo
+        return engine
     for key in QUANT_KEYS:
         if any(isinstance(w, dict) for w in params[key]):
             raise ValueError(f"engine weight {key!r} is already quantized "
                              "- re-quantizing would compound error")
-    algo = f"int{wbits}"
-    new = dict(params)
     for key in QUANT_KEYS:
         new[key] = [quantize_weight(w, algo) for w in params[key]]
     head = params.get("lm_head")

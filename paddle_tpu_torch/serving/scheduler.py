@@ -61,14 +61,25 @@ Policy:
   propagates. Greedy and seeded-stochastic streams equal plain
   decoding's, token for token.
 
+- multi-LoRA lanes (an engine with an `adapter_pool`, `serving/lora.py`):
+  a request naming an adapter leases it at admission, BEFORE its KV
+  lease; a resident adapter admits for free, a miss (an upload, perhaps
+  an eviction) spends `adapter_miss_loads_per_step`, and a full pool
+  leaves the request queued. The lease is released at every exit, and
+  the lane -> slot vector is installed before every ragged / verify
+  dispatch.
+- KV migration (`inference/kv_migrate.py`): `import_session` admits a
+  request whose context KV arrives as a payload instead of through
+  prefill, `release` takes a request out without a terminal status, and
+  `export_prefix` / `import_prefix` stream a radix-cached prefix between
+  schedulers.
+
 Sampling is `ops/sampling.py` on the logits' device: logits stay on the
 card, and only the [B] token ids and the [T] finite mask cross to the
 host each step.
 
-Left out until the slices that take them (ROADMAP Queue A): the JAX
-scheduler's observability spans, LoRA lanes, and cross-replica KV
-streaming (`import_session`, `export_prefix` / `import_prefix`,
-`release`).
+Left out until the slice that takes it (ROADMAP Queue A): the JAX
+scheduler's observability spans.
 """
 from __future__ import annotations
 
@@ -84,12 +95,14 @@ import torch
 from ..framework import monitor
 from ..framework.retry import Budget, retry_call
 from ..inference.cache import KVCacheExhausted, SequenceTooLong
+from ..inference.kv_migrate import KVMigrationError
 from ..inference.prefix_cache import RadixPrefixCache
 from ..ops.sampling import sample_tokens
 from ..resilience import faults
 from .engine import EngineCore
 from .fault_tolerance import (AdmissionConfig, EngineStepError,
                               OverloadController, WatchdogConfig)
+from .lora import AdapterPoolExhausted
 from .metrics import ServingMetrics
 from .slo import DEFAULT_TENANT, SLOConfig
 from .spec import SpecDecodeConfig
@@ -138,7 +151,8 @@ class Request:
     def __init__(self, prompt_ids, sampling: Optional[SamplingParams] = None,
                  deadline: Optional[float] = None,
                  stream_cb: Optional[Callable[["Request", int], None]] = None,
-                 tenant: str = DEFAULT_TENANT):
+                 tenant: str = DEFAULT_TENANT,
+                 adapter: Optional[str] = None):
         self.req_id = next(Request._ids)
         self.prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         self.sampling = sampling or SamplingParams()
@@ -147,6 +161,14 @@ class Request:
         # multi-tenant SLO class (serving/slo.py): quota, lane weight and
         # watermark tier key off this; "default" = untiered
         self.tenant = tenant or DEFAULT_TENANT
+        # multi-LoRA serving (serving/lora.py): the registered adapter of
+        # this request's lanes; None = the base model. `_adapter_slot` is
+        # not None exactly while the request holds one lease in the
+        # CURRENT engine's pool (taken at admission, dropped at every exit,
+        # and cleared without a release when an engine swap discards the
+        # pool with the engine)
+        self.adapter = adapter
+        self._adapter_slot: Optional[int] = None
         self.generated: List[int] = []
         self.status = RequestStatus.QUEUED
         self.finish_reason: Optional[str] = None
@@ -163,6 +185,11 @@ class Request:
         self._prefill_ctx = np.zeros((0,), np.int32)
         self._prefill_pos = 0
         self._prefix_hit_tokens = 0           # cached tokens this admission
+        # the context KV arrived as a migrated payload (`import_session`):
+        # admission skips the lease and prefill of that context; cleared
+        # at admission, and a queue exit before then frees the blocks
+        # (`_drop_resident_kv`)
+        self._kv_resident = False
 
     @property
     def prefilling(self) -> bool:
@@ -283,6 +310,10 @@ class Scheduler:
         self._overload_by_tenant = {}
         self._vtime = {}
         self._vclock = 0.0
+        # multi-LoRA admission pricing: adapter-MISS admissions (an upload,
+        # perhaps an eviction) one admission round may pay for; resident
+        # adapters admit for free and never count against it
+        self.adapter_miss_loads_per_step = 1
         self._bind_manager(engine.manager)
 
     def _bind_manager(self, mgr):
@@ -304,6 +335,12 @@ class Scheduler:
         # what one sequence can ever hold: pool minus the guard (and minus
         # blocks other users of a shared engine already lease)
         self._usable_blocks = min(mgr.free_blocks, mgr.max_blocks_per_seq)
+        # prefix streaming between schedulers: `_mig_seq` mints transient
+        # sequence ids for the export / import lease (negative, far below
+        # the guard's probe range); the hook (set by a router) is asked
+        # for a peer's cached copy on an admission-time radix miss
+        self._mig_seq = -(1 << 30)
+        self.prefix_stream_hook: Optional[Callable] = None
         # the radix tree lives on THIS manager (a fresh one after an
         # engine swap: the old tree's KV died with the old pool); the
         # engine's block copy backs copy-on-write, and the tree is the
@@ -322,6 +359,25 @@ class Scheduler:
                 # bind must survive a broken hook, but not silently: the
                 # unset gauges and this counter point at the cause
                 monitor.inc("serving.quant_info_errors")
+        # the multi-LoRA surface, re-resolved after every engine swap: the
+        # adapter pool leases at admission, and the lane -> slot vector is
+        # pushed before each dispatch
+        self._lora = getattr(self.engine, "adapter_pool", None)
+        self._set_lanes = getattr(self.engine, "set_lane_adapters", None)
+        self._lora_zero = int(getattr(self.engine, "zero_slot", 0))
+        # a swap killed the old pool with the old engine: a request still
+        # holding an old slot re-leases from the fresh pool at admission
+        for req in self.waiting:
+            req._adapter_slot = None
+        for req in self.slots:
+            if req is not None:
+                req._adapter_slot = None
+        linfo = getattr(self.engine, "lora_info", None)
+        if linfo is not None:
+            try:
+                self.metrics.on_lora(linfo())
+            except Exception:
+                monitor.inc("serving.lora_info_errors")
 
     # ---- waiting-queue bookkeeping (cost-accounted) ----
     def _queue_push(self, req: Request, front: bool = False):
@@ -353,6 +409,12 @@ class Scheduler:
         # +1: the sequence must be able to hold at least one generated token
         if mgr.blocks_needed(len(req.prompt) + 1) > self._usable_blocks:
             return self._reject(req, "prompt_too_long")
+        if req.adapter is not None:
+            # an unknown adapter can never become leasable by waiting
+            if self._lora is None:
+                return self._reject(req, "no_adapter_pool")
+            if not self._lora.is_registered(req.adapter):
+                return self._reject(req, "unknown_adapter")
         if self._overload is not None:
             ctrl = self._overload_for(req.tenant)
             tpot = (self.tpot_estimate()
@@ -371,6 +433,68 @@ class Scheduler:
             return self._reject(req, "queue_full")
         self._queue_push(req)
         return req
+
+    def import_session(self, req: Request, payload,
+                       now: Optional[float] = None) -> Request:
+        """Admit a request whose context KV arrives as a migrated
+        `KVBlockPayload` (`inference/kv_migrate.py`) instead of through
+        chunked prefill: a session handed over from another engine.
+
+        Load conditions come back as terminal statuses, as in `submit`
+        (broken scheduler, empty prompt, over-long context, full queue),
+        all checked BEFORE the pool is touched. Migration problems raise
+        typed: `KVMigrationError` (a header mismatch, a token count that
+        is not the request's committed context, or an engine without the
+        primitive) and the manager's `KVCacheExhausted` /
+        `SequenceTooLong` from the inject's allocation. On success the
+        blocks sit under `req.seq_id`, `_admit` skips the lease and the
+        prefill of that context, and a pending `_last` token decodes in
+        the importing scheduler's next round. Overload shedding is
+        skipped: the import carries prefill work already spent."""
+        now = self._clock() if now is None else now
+        if req.t_submit is None:
+            req.t_submit = now
+        self.metrics.on_submit()
+        if self._broken is not None:
+            return self._reject(req, self._broken)
+        if len(req.prompt) == 0:
+            return self._reject(req, "empty_prompt")
+        mgr = self.engine.manager
+        if mgr.blocks_needed(int(payload.num_tokens) + 1) \
+                > self._usable_blocks:
+            return self._reject(req, "prompt_too_long")
+        if len(self.waiting) >= self.max_queue:
+            return self._reject(req, "queue_full")
+        inject = getattr(self.engine, "inject_kv_blocks", None)
+        if inject is None:
+            raise KVMigrationError(
+                f"{type(self.engine).__name__} has no inject_kv_blocks "
+                "— this engine cannot accept migrated KV")
+        ctx = req.context_tokens()
+        if int(payload.num_tokens) != len(ctx):
+            raise KVMigrationError(
+                f"payload carries KV for {payload.num_tokens} tokens "
+                f"but the request's committed context is {len(ctx)}")
+        inject(req.seq_id, payload)     # typed errors propagate; a failed
+        req._kv_resident = True         # inject leaves no blocks
+        req.status = RequestStatus.QUEUED
+        req.finish_reason = None
+        self._queue_push(req)
+        return req
+
+    def _drop_resident_kv(self, req: Request) -> None:
+        """Free KV imported by `import_session` for a request leaving the
+        WAITING queue before admission claimed it (deadline, cancel,
+        release, fail-all). Idempotent; never raises into a terminal
+        transition."""
+        if not req._kv_resident:
+            return
+        req._kv_resident = False
+        try:
+            if self.engine.manager.seq_blocks(req.seq_id) > 0:
+                self.engine.manager.free(req.seq_id)
+        except Exception:
+            monitor.inc("serving.kv_migrate.drop_errors")
 
     def _overload_for(self, tenant: str) -> OverloadController:
         """The shared overload controller without an SLO config; with
@@ -411,6 +535,72 @@ class Scheduler:
     def prefix_cache(self) -> Optional[RadixPrefixCache]:
         return self._prefix_tree
 
+    # ---- prefix streaming between schedulers ----
+    def _mig_seq_id(self) -> int:
+        """A fresh transient sequence id for a prefix-stream lease:
+        negative and far below the guard's probe range, so it collides
+        neither with request ids nor with another scheduler's guard on a
+        shared engine."""
+        mgr = self.engine.manager
+        while True:
+            self._mig_seq -= 1
+            if mgr.seq_blocks(self._mig_seq) == 0:
+                return self._mig_seq
+
+    def export_prefix(self, tokens):
+        """The radix-cached KV of the longest FULL-block cached prefix of
+        `tokens` as a migration payload, gathered through a transient
+        lease (adopt, extract, free): the tree's pins and every running
+        request are untouched. None when there is nothing to ship: the
+        cache off, an engine without the primitive, or a hit shorter
+        than one block."""
+        tree = self._prefix_tree
+        extract = getattr(self.engine, "extract_kv_blocks", None)
+        if tree is None or extract is None:
+            return None
+        blocks, hit = tree.match_export(tokens)
+        if not blocks:
+            return None
+        mgr = self.engine.manager
+        tmp = self._mig_seq_id()
+        mgr.adopt(tmp, blocks, hit)
+        try:
+            return extract(tmp)
+        finally:
+            mgr.free(tmp)
+
+    def import_prefix(self, tokens, payload) -> int:
+        """Publish a streamed prefix payload (a peer's `export_prefix` of
+        `tokens`) into THIS scheduler's radix tree: inject under a
+        transient sequence, publish the full blocks, free the lease (the
+        tree's pins keep the KV; blocks whose content the tree already
+        indexes go back to the pool). Returns the cached tokens gained; 0
+        when the tree already covers the payload, the pool has no room
+        (a stream must not pressure a loaded pool), or the cache or the
+        primitive is off. Typed migration errors propagate."""
+        tree = self._prefix_tree
+        inject = getattr(self.engine, "inject_kv_blocks", None)
+        if tree is None or inject is None:
+            return 0
+        toks = np.asarray(tokens).reshape(-1).tolist()
+        n = int(payload.num_tokens)
+        if n < 1 or len(toks) < n:
+            return 0
+        _blocks, local = tree.match_export(toks)
+        if local >= n:
+            return 0
+        mgr = self.engine.manager
+        if int(payload.num_blocks) > min(mgr.free_blocks,
+                                         self._usable_blocks):
+            return 0
+        tmp = self._mig_seq_id()
+        inject(tmp, payload)
+        try:
+            added = tree.publish(tmp, toks[:n])
+        finally:
+            mgr.free(tmp)
+        return n if added else 0
+
     def _reject(self, req: Request, reason: str) -> Request:
         req.status = RequestStatus.REJECTED
         req.finish_reason = reason
@@ -424,6 +614,40 @@ class Scheduler:
         req.t_finish = self._clock()
         self.metrics.on_shed(reason)
         return req
+
+    def in_flight(self) -> List[Request]:
+        """Every non-terminal request this scheduler owns: the running
+        slots in admission order, then the waiting queue."""
+        running = sorted(((r._admit_seq, i) for i, r in
+                          enumerate(self.slots) if r is not None))
+        return [self.slots[i] for _, i in running] + list(self.waiting)
+
+    def release(self, req: Request) -> bool:
+        """Take a non-terminal request out of this scheduler WITHOUT a
+        terminal status: its blocks are freed, its speculative state and
+        adapter lease dropped, and it lands in PREEMPTED with its tokens
+        so far (the preemption invariant), so a re-submission elsewhere
+        replays token-deterministically. It is not re-queued here and no
+        preemption is counted. False when the request is terminal or not
+        owned here."""
+        if req.status.terminal:
+            return False
+        if req in self.waiting:
+            self._queue_remove(req)
+            self._drop_resident_kv(req)
+            self._adapter_release(req)
+            req.status = RequestStatus.PREEMPTED
+            return True
+        for i, r in enumerate(self.slots):
+            if r is req:
+                self.slots[i] = None
+                self._publish_prefix(req)
+                self.engine.manager.free(req.seq_id)
+                self._release_spec(req)
+                self._adapter_release(req)
+                req.status = RequestStatus.PREEMPTED
+                return True
+        return False
 
     def cancel(self, req: Request) -> bool:
         if req.status.terminal:
@@ -653,6 +877,10 @@ class Scheduler:
             except KeyError:
                 pass
             self._release_spec(req)
+            # NOT _adapter_release: the old pool (and its lease books)
+            # dies with the old engine; releasing a stale slot into the
+            # FRESH pool would corrupt its refcounts
+            req._adapter_slot = None
             req.status = RequestStatus.PREEMPTED
             req.num_preemptions += 1
             self._queue_push(req, front=True)
@@ -762,6 +990,10 @@ class Scheduler:
         mgr = self.engine.manager
         admitted = 0
         skip: set = set()               # tenants deferred this round
+        # adapter-miss admissions are PRICED: each pays an upload (perhaps
+        # an eviction first), so only this many enter a round; resident
+        # adapters admit for free
+        miss_budget = self.adapter_miss_loads_per_step
         while self.waiting and None in self.slots:
             req = self._next_admit(mgr, skip)
             if req is None:
@@ -777,8 +1009,14 @@ class Scheduler:
                     - mgr.seq_blocks(r.seq_id))
                 for r in self.slots if r is not None and r.prefilling)
             tree = self._prefix_tree
-            hit_blocks = tree.match_blocks(ctx) if tree is not None else 0
-            need = mgr.blocks_needed(len(ctx)) - hit_blocks
+            # imported KV (`import_session`): the context blocks are
+            # already leased under seq_id, so the request needs no new
+            # capacity and no radix lease
+            resident = req._kv_resident and mgr.seq_blocks(req.seq_id) > 0
+            hit_blocks = tree.match_blocks(ctx) \
+                if tree is not None and not resident else 0
+            need = 0 if resident \
+                else mgr.blocks_needed(len(ctx)) - hit_blocks
             headroom = mgr.free_blocks + mgr.reclaimable_blocks() - debt
             if need > headroom:
                 break                  # blocks return as runners finish
@@ -792,19 +1030,77 @@ class Scheduler:
                     self.metrics.on_tenant_deferred(req.tenant,
                                                     "kv_reserve")
                     continue
+            if req.adapter is not None and self._lora is not None:
+                # the adapter lease precedes the KV lease: residency is a
+                # refcount bump, a miss spends the round's load budget,
+                # and a full pool defers (without an SLO config the queue
+                # is strict FIFO, so a deferral ends the round)
+                resident_ad = self._lora.is_resident(req.adapter)
+                if not resident_ad and miss_budget <= 0:
+                    if self._slo is None:
+                        break
+                    skip.add(req.tenant)
+                    self.metrics.on_tenant_deferred(req.tenant,
+                                                    "adapter_miss")
+                    continue
+                try:
+                    req._adapter_slot = self._lora.lease(req.adapter)
+                except AdapterPoolExhausted:
+                    if self._slo is None:
+                        break          # leases return as runners finish
+                    skip.add(req.tenant)
+                    self.metrics.on_tenant_deferred(req.tenant,
+                                                    "adapter_pool")
+                    continue
+                except Exception:      # injected / failed adapter load
+                    self._queue_remove(req)
+                    self._isolated(req, "engine_fault:adapter", "adapter",
+                                   in_slot=False)
+                    continue
+                if not resident_ad:
+                    miss_budget -= 1
             hit = 0
-            try:
-                if tree is not None:
-                    hit = tree.lease(req.seq_id, ctx)
-                if hit == 0:
-                    mgr.allocate(req.seq_id, 0)
-            except (KVCacheExhausted, SequenceTooLong):
-                break
-            except Exception:          # injected/corrupt cache state
-                self._queue_remove(req)
-                self._isolated(req, "engine_fault:cache", "cache",
-                               in_slot=False)
-                continue
+            if resident:
+                # the migrated KV covers the committed context and the
+                # chunk cursor starts past it. Without a pending `_last`
+                # token the FINAL context token re-enters as a one-token
+                # chunk, so the first sample happens here (trim keeps the
+                # manager's length == the attended KV; the rewrite is the
+                # same content at the same slot). With `_last` pending the
+                # cursor covers the whole context and the token decodes
+                # next round.
+                req._kv_resident = False
+                target = len(ctx) if req._last is not None \
+                    else max(len(ctx) - 1, 0)
+                if mgr.seq_len(req.seq_id) > target:
+                    mgr.trim(req.seq_id, target)
+                hit = mgr.seq_len(req.seq_id)
+            else:
+                try:
+                    if tree is not None:
+                        if self.prefix_stream_hook is not None \
+                                and tree.match_tokens(ctx) == 0:
+                            # first miss: ask the router for a peer's
+                            # cached copy before a cold prefill; the hook
+                            # never raises into admission
+                            try:
+                                self.prefix_stream_hook(ctx)
+                            except Exception:
+                                monitor.inc(
+                                    "serving.prefix_stream_hook_errors")
+                        hit = tree.lease(req.seq_id, ctx)
+                    if hit == 0:
+                        mgr.allocate(req.seq_id, 0)
+                except (KVCacheExhausted, SequenceTooLong):
+                    # the adapter lease taken above must not outlive this
+                    # failed admission attempt
+                    self._adapter_release(req)
+                    break
+                except Exception:      # injected/corrupt cache state
+                    self._queue_remove(req)
+                    self._isolated(req, "engine_fault:cache", "cache",
+                                   in_slot=False)
+                    continue
             self._queue_remove(req)
             slot = self.slots.index(None)
             # snapshot the prefill target HERE: for a preempted
@@ -814,13 +1110,14 @@ class Scheduler:
             # cursor AT the hit (a full hit leaves exactly one token).
             req._prefill_ctx = ctx
             req._prefill_pos = hit
-            req._prefix_hit_tokens = hit
+            req._prefix_hit_tokens = 0 if resident else hit
             req.status = RequestStatus.RUNNING
             req._admit_seq = next(self._admit_counter)
             self.slots[slot] = req
             admitted += 1
             self._charge_admission(req.tenant)
-            if tree is not None:
+            if tree is not None and not resident:
+                # a resident cursor is migrated KV, not a radix hit
                 self.metrics.on_prefix_lease(hit)
         return admitted
 
@@ -923,6 +1220,7 @@ class Scheduler:
         self._publish_prefix(req)
         self.engine.manager.free(req.seq_id)
         self._release_spec(req)
+        self._adapter_release(req)
         self.slots[slot] = None
         req.status = RequestStatus.PREEMPTED
         req.num_preemptions += 1
@@ -1044,6 +1342,7 @@ class Scheduler:
         def rollback(survivors):
             self._rollback(survivors, pre_lens)
 
+        self._install_lane_adapters()
         try:
             logits, flagged = self._dispatch(
                 "decode", self.engine.ragged_step, tokens, q_lens, kv_lens,
@@ -1220,6 +1519,7 @@ class Scheduler:
             self._rollback(survivors, pre_lens)
 
         lane_pairs = [(i, r) for i, r, _t, _p, _f in lanes]
+        self._install_lane_adapters()
         try:
             logits, flagged = self._dispatch(
                 "verify", self.engine.verify_step, tokens, ctx, tables)
@@ -1348,7 +1648,12 @@ class Scheduler:
                 # fault): never publish it into the shared tree
                 self._publish_prefix(req)
             self.engine.manager.free(req.seq_id)
+        else:
+            # a WAITING request may hold imported KV (`import_session`)
+            # that no slot path will ever free
+            self._drop_resident_kv(req)
         self._release_spec(req)
+        self._adapter_release(req)
         req.status = status
         req.finish_reason = reason
         req.t_finish = self._clock()
@@ -1365,3 +1670,28 @@ class Scheduler:
             self.spec.proposer.release(req.seq_id)
         except Exception:
             monitor.inc("serving.spec_release_errors")
+
+    def _adapter_release(self, req: Request):
+        """Drop a request's adapter lease on any exit from the batch or
+        the queue (finish, cancel, preempt, release, failed admission).
+        Idempotent: `_adapter_slot` is the lease token, cleared first;
+        never raises into the serving path."""
+        if req._adapter_slot is None or self._lora is None:
+            return
+        req._adapter_slot = None
+        try:
+            self._lora.release(req.adapter)
+        except Exception:
+            monitor.inc("serving.lora.release_errors")
+
+    def _install_lane_adapters(self):
+        """Push this round's lane -> adapter-slot vector: occupied lanes
+        carry their request's leased slot, empty and base lanes the zero
+        slot."""
+        if self._set_lanes is None:
+            return
+        lanes = np.full((len(self.slots),), self._lora_zero, np.int32)
+        for i, r in enumerate(self.slots):
+            if r is not None and r._adapter_slot is not None:
+                lanes[i] = r._adapter_slot
+        self._set_lanes(lanes)

@@ -21,8 +21,8 @@ entitlements differ. This is the policy the scheduler consults:
 
 Unknown tenants fall back to the `default` class. With no `SLOConfig`
 installed the scheduler is a single global FIFO. `slo_for_adapters`
-builds one class per LoRA adapter name; the port serves no adapters yet
-(ROADMAP Queue A), but the classes are plain tenants.
+builds one class per LoRA adapter name: `ServingFrontend.submit(adapter=)`
+then makes the adapter the tenant (`serving/lora.py`).
 """
 from __future__ import annotations
 

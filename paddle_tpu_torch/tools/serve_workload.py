@@ -36,6 +36,21 @@ gaps at one request a step on average, never by wall clock, so the runs
 with the cache on and off see one trace. Each frontend first serves two
 short warm-up requests and the shared prompt alone (bench.py seeds the
 cache with it the same way).
+
+`lora_workload` is `bench.py serving_lora`'s mix at this width: 36
+tenant adapters `ad0..ad35` (`serving.lora.random_adapter(seed=i)`, ranks
+cycling 2, 3, 4, 6, 8, rank buckets (2, 4, 8)) on one engine with 40
+pool slots; 72 requests of 12-token prompts from
+`numpy.random.default_rng(0)` over the model's vocabulary, request i on
+adapter `ad{i % 36}`, 8 greedy new tokens each, arriving by scheduler
+step from bench.py's exponential gaps (scaled to one request a step on
+average, as `prefix_trace` does).
+
+`migrate_workload` is KV migration at this width: the serve workload's 8
+prompts (64-512 tokens), greedy, handed from one engine to another
+after their prefill and 4 decode tokens (`drive_migration`), and the
+prefix trace's shared prefix streamed between two prefix-cached
+schedulers.
 """
 from __future__ import annotations
 
@@ -52,6 +67,15 @@ GEN_PROMPTS, GEN_LEN, GEN_NEW = 2, 128, 16
 # and its pool (blocks, blocks a sequence)
 PREFIX_LEN, PREFIX_REQUESTS, PREFIX_REPEATS, PREFIX_NEW = 192, 40, 2, 8
 PREFIX_NB, PREFIX_MAXB = 128, 22
+# the multi-LoRA mix (bench.py serving_lora): adapters, their ranks and
+# rank buckets, pool slots, prompt tokens, new tokens, and the adapters
+# the per-adapter parity gate serves on a dedicated wrapper
+LORA_ADAPTERS, LORA_RANKS, LORA_BUCKETS = 36, (2, 3, 4, 6, 8), (2, 4, 8)
+LORA_SLOTS, LORA_PROMPT, LORA_NEW = 40, 12, 8
+LORA_PARITY = ("ad0", "ad7", "ad23")
+# KV migration: new tokens, and the tokens a request has generated (its
+# first token and 4 decode tokens) when it moves
+MIGRATE_NEW, MIGRATE_AT = 12, 5
 
 
 def _model(device):
@@ -203,3 +227,136 @@ def drive_prefix_trace(fe, trace, max_steps: int = 10000):
         if steps > max_steps:
             raise RuntimeError(f"trace not done after {max_steps} steps")
     return handles, steps
+
+
+def lora_trace(vocab: int = 32000):
+    """The multi-LoRA mix: `[(arrival_step, prompt, adapter), ...]` in
+    arrival order (bench.py's draws in its order: the prompts, then the
+    exponential gaps, here in steps)."""
+    rng = np.random.default_rng(0)
+    n = 2 * LORA_ADAPTERS
+    prompts = [rng.integers(1, vocab, LORA_PROMPT).tolist()
+               for _ in range(n)]
+    gap = 0.002                       # bench.py's mean gap, in seconds
+    steps = np.floor(np.cumsum(rng.exponential(gap, n) / gap)).astype(int)
+    return [(int(t), p, f"ad{i % LORA_ADAPTERS}")
+            for i, (t, p) in enumerate(zip(steps, prompts))]
+
+
+def lora_adapters(engine):
+    """The mix's host factors on a LoRA-wrapped engine's targets:
+    `{name: factors}` for `ad0..ad35` (rank `LORA_RANKS[i % 5]`, seed i),
+    registered as they are into every wrapper of one width."""
+    from ..serving.lora import random_adapter
+
+    return {f"ad{i}": random_adapter(
+        engine, rank=LORA_RANKS[i % len(LORA_RANKS)], seed=i)
+        for i in range(LORA_ADAPTERS)}
+
+
+def lora_workload(device="cuda", kv_bits=16, wbits=None):
+    """`(base_engine, attach, trace)` for the multi-LoRA mix: the serve
+    workload's engine (`kv_bits` 16 or 8; `wbits` None, 8 or 4 for
+    `quantize_engine`) on `device`; `attach(pool_slots, factors)` wraps
+    it in a `LoRAEngine` (own KV pools, rank buckets `LORA_BUCKETS`) and
+    registers `factors` (`{name: factors}`, e.g. `lora_adapters`'s); and
+    the trace (`lora_trace`)."""
+    from ..serving import attach_adapters
+    from ..serving.quant import quantize_engine
+
+    model = _model(device)
+    engine = _engine(model, device, kv_bits)
+    del model
+    if wbits is not None:
+        quantize_engine(engine, wbits)
+
+    def attach(pool_slots, factors):
+        lora = attach_adapters(engine, pool_slots=pool_slots,
+                               rank_buckets=LORA_BUCKETS)
+        for name, f in factors.items():
+            lora.adapter_pool.register(name, f)
+        return lora
+
+    return engine, attach, lora_trace(engine.config.vocab_size)
+
+
+def drive_lora_trace(fe, trace, adapters=True, max_steps: int = 10000):
+    """Submit each request of `trace` at its arrival step (greedy,
+    `LORA_NEW` new tokens; on its adapter, or on none with
+    `adapters=False`) and step `fe` until every request is terminal.
+    Returns `(handles, scheduler_steps)`."""
+    handles, i, steps = [], 0, 0
+    while i < len(trace) or not fe.scheduler.idle:
+        while i < len(trace) and trace[i][0] <= steps:
+            handles.append(fe.submit(
+                trace[i][1], max_new_tokens=LORA_NEW,
+                adapter=trace[i][2] if adapters else None))
+            i += 1
+        fe.step()
+        steps += 1
+        if steps > max_steps:
+            raise RuntimeError(f"trace not done after {max_steps} steps")
+    return handles, steps
+
+
+def migrate_workload(device="cuda", kv_bits=16):
+    """`(engine, prompts, make_prefix_frontend, shared_prefix,
+    shared_prompt)` for KV migration: the serve workload's engine
+    (`kv_bits` 16 or 8) and its 8 prompts; `make_prefix_frontend()`
+    builds a prefix-cached frontend over a fresh engine of the prefix
+    trace's pool on the same weights (two short warm-up requests served);
+    the prefix trace's shared prefix and its first shared prompt."""
+    from .. import LlamaInferenceEngine, ServingFrontend
+
+    model = _model(device)
+    engine = _engine(model, device, kv_bits)
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, vocab, n).tolist()
+               for n in rng.integers(64, 513, B)]
+    shared, trace = prefix_trace(vocab)
+    first = next(p for _t, p, is_shared in trace if is_shared)
+    warm = np.random.default_rng(1)
+
+    def make_prefix_frontend():
+        eng = LlamaInferenceEngine(
+            model, max_batch_size=B, num_blocks=PREFIX_NB, block_size=BS,
+            max_blocks_per_seq=PREFIX_MAXB, kv_bits=kv_bits, device=device)
+        fe = ServingFrontend(eng, prefill_chunk_tokens=CHUNK,
+                             prefix_cache=True)
+        for n in (3, 17):
+            fe.submit(warm.integers(1, vocab, n).tolist(), max_new_tokens=2)
+        fe.run_until_idle()
+        return fe
+
+    return engine, prompts, make_prefix_frontend, shared, first
+
+
+def drive_migration(fe_src, fe_dst, prompts, max_steps: int = 10000):
+    """Serve `prompts` (greedy, `MIGRATE_NEW` new tokens) on `fe_src`; as
+    soon as a request has generated `MIGRATE_AT` tokens, move it: extract
+    its blocks from the source engine, `release` it there, and
+    `import_session` it into `fe_dst`, which finishes it. Returns the
+    handles."""
+    src = fe_src.scheduler.engine
+    handles = [fe_src.submit(p, max_new_tokens=MIGRATE_NEW)
+               for p in prompts]
+    moved, steps = set(), 0
+    while not (fe_src.scheduler.idle and fe_dst.scheduler.idle):
+        fe_src.step()
+        fe_dst.step()
+        for h in handles:
+            req = h._req
+            if h.request_id in moved or req.status.terminal \
+                    or len(req.generated) < MIGRATE_AT:
+                continue
+            payload = src.extract_kv_blocks(req.seq_id)
+            if not fe_src.release(h):
+                raise RuntimeError(f"request {h.request_id} not released")
+            fe_dst.import_session(req, payload)
+            moved.add(h.request_id)
+        steps += 1
+        if steps > max_steps:
+            raise RuntimeError(f"migration not done after {max_steps} "
+                               "steps")
+    return handles

@@ -1830,3 +1830,81 @@ def test_moe_ep_path_on_card_matches_cpu():
     for a, b in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-4,
                                    rtol=1e-4)
+
+
+def test_lora_epilogue_bits_ignore_pool_size_and_neighbours():
+    """A token's LoRA epilogue on the card (bf16, T 40, Rmax 8 at
+    Llama-2-7B's qkv width) gives the same bits whatever the pool's slot
+    count and whatever the other 39 tokens hold or point at."""
+    from paddle_tpu_torch.serving.lora import _swap_lora, lora_mm
+
+    def epilogue(xs, la, lb, ids):
+        swapped = _swap_lora({"t": w}, {"t": {"a": la, "b": lb}}, ids, None)
+        return lora_mm(xs, swapped["t"], lambda a, b: a @ b)
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    T, K, R, N = 40, 4096, 8, 12288
+    x = torch.randn(T, K, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    fa = torch.randn(K, R, generator=g, device=dev) * 0.05
+    fb = torch.randn(R, N, generator=g, device=dev) * 0.05
+
+    def run(slots, xs, slot):
+        la = torch.randn(slots + 1, K, R, generator=g, device=dev) * 0.05
+        lb = torch.randn(slots + 1, R, N, generator=g, device=dev) * 0.05
+        la[slot], lb[slot] = fa, fb
+        ids = torch.randint(0, slots, (T,), generator=g, device=dev)
+        ids[7] = slot
+        return epilogue(xs, la, lb, ids)[7]
+
+    alone = torch.zeros_like(x)
+    alone[7] = x[7]
+    a = run(40, x, 23)
+    assert torch.equal(a, run(2, x, 1))
+    assert torch.equal(a, run(2, alone, 0))
+    # the zero slot adds an exact zero
+    z = epilogue(x, torch.zeros(3, K, R, device=dev),
+                 torch.randn(3, R, N, generator=g, device=dev),
+                 torch.full((T,), 2, device=dev))
+    assert torch.equal(z, x @ w)
+
+
+@pytest.mark.parametrize("kv_bits", [16, 8])
+def test_kv_migration_round_trip_bit_equal_on_card(kv_bits):
+    """extract -> inject -> extract of a Llama engine's blocks on the card
+    is bit-equal, leaves the source pools' bytes as they were, and the
+    injected sequence's next step gives the source's logits."""
+    from paddle_tpu_torch import LlamaInferenceEngine, llama_tiny
+
+    dev = _card()
+    model = llama_tiny(vocab=256, layers=2, hidden=256, heads=2, seq=512,
+                       device="cpu", dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(9))
+    geo = dict(max_batch_size=2, num_blocks=32, block_size=16,
+               max_blocks_per_seq=16, kv_bits=kv_bits, device=dev)
+    src = LlamaInferenceEngine(model, **geo)
+    dst = LlamaInferenceEngine(model, **geo)
+    n = 45
+    blocks = src.manager.allocate(0, n)
+    tables = np.zeros((2, 16), np.int32)
+    tables[0, :len(blocks)] = blocks
+    toks = np.random.default_rng(2).integers(1, 256, n).astype(np.int32)
+    src.ragged_step(toks, [n, 0], [n, 0], tables)
+    before = [t.clone() for t in src._pools()]
+    pay = src.extract_kv_blocks(0)
+    assert all(torch.equal(a, b) for a, b in zip(before, src._pools()))
+    dst.manager.allocate(9, 20)            # a different block layout
+    dst.inject_kv_blocks(3, pay)
+    back = dst.extract_kv_blocks(3)
+    assert all(torch.equal(pay.slabs[k], back.slabs[k]) for k in pay.slabs)
+    # one more token on each engine: the same logits
+    outs = []
+    for eng, sid in ((src, 0), (dst, 3)):
+        eng.manager.append_token(sid)
+        t = np.zeros((2, 16), np.int32)
+        bl = eng.manager.blocks_of(sid)
+        t[0, :len(bl)] = bl
+        outs.append(eng.ragged_step(np.asarray([17], np.int32), [1, 0],
+                                    [n + 1, 0], t)[0])
+    assert torch.equal(outs[0], outs[1])

@@ -287,7 +287,9 @@ def test_legacy_entry_points_raise(entry):
     JAX engine's do, before any block is leased; `verify_step` refuses
     lengths and tables that do not match its windows; `copy_kv_block`
     refuses block ids outside the pool on the host, before it touches
-    the pool (KV migration, `extract_kv_blocks`, is not ported yet)."""
+    the pool; `extract_kv_blocks` of a sequence without blocks raises
+    the typed `KVMigrationError` (a `ValueError`) as the JAX engine's
+    does."""
     m = _jax_model(4)
     te = LlamaInferenceEngine(_port(m), max_blocks_per_seq=4, device="cpu",
                               kv_bits=8)
@@ -319,8 +321,9 @@ def test_legacy_entry_points_raise(entry):
                 getattr(te, entry)(src, dst)
         assert all(torch.equal(a, b) for a, b in zip(
             pools, (te.k_cache, te.v_cache, te.k_scale, te.v_scale)))
-        with pytest.raises(NotImplementedError, match="KV migration"):
-            te.extract_kv_blocks(1)
+        for engine in (je, te):
+            with pytest.raises(ValueError, match="holds no KV blocks"):
+                engine.extract_kv_blocks(1)
 
 
 def test_kv_geometry_matches_jax():

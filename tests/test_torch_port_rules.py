@@ -82,6 +82,8 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.serving.slo, "
             "paddle_tpu_torch.serving.fault_tolerance, "
             "paddle_tpu_torch.serving.engine, "
+            "paddle_tpu_torch.serving.lora, "
+            "paddle_tpu_torch.inference.kv_migrate, "
             "paddle_tpu_torch.tools.serve_workload\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
@@ -116,6 +118,18 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MLPLMEngine()
     assert MLPLMEngine(device="cpu").cache.device.type == "cpu"
+    from paddle_tpu_torch.serving import attach_adapters
+
+    lora = attach_adapters(MLPLMEngine(device="cpu"), pool_slots=2)
+    assert {t.device.type for pl in lora._pools.values()
+            for t in pl.values()} == {"cpu"}
+    assert lora.cache.device.type == "cpu"
+    from paddle_tpu_torch.tools.serve_workload import (lora_workload,
+                                                       migrate_workload)
+
+    for workload in (lora_workload, migrate_workload):
+        with pytest.raises(RuntimeError, match="device='cpu'|CUDA"):
+            workload(device=None)
     from paddle_tpu_torch.tools.train_workload import train_workload
 
     with pytest.raises(RuntimeError, match="device='cpu'|CUDA"):
