@@ -38,7 +38,16 @@ wrapper's, then the same over an int8 pool and int4 weights; and the
 serve prompts moved between engines mid-stream (extract, release,
 import_session) over a bf16 and an int8 pool, streams equal to the
 unmigrated ones, and a shared prefix streamed between two prefix-cached
-schedulers. Then the training path: the
+schedulers. Then tensor-parallel serving (`serving.tp.shard_engine`): two
+rank processes sharing the card over a gloo group of CUDA tensors (NCCL
+refuses two ranks on one device) hold small sharded engines (MLP and
+Llama, every KV and weight format) on the card against the same shards
+on the CPU and against the unsharded engine, then serve the serve
+workload at Llama-2-7B width at tp=2 in bf16 and with int8 KV + int4
+weights (both ranks' streams identical, exact launches a step, per-rank
+KV bytes, every greedy token teacher-forced through the unsharded
+engine), then bf16 at tp=1 over a one-rank NCCL group, and the int4 gemm
+at each per-rank shape. Then the training path: the
 flash attention kernels (forward, dQ, dK/dV) and the RMSNorm kernel
 against their plain versions at the training shapes, past the length
 where the JAX package streams K/V, over ragged 128-row tiles and at the
@@ -61,11 +70,13 @@ on the dense route.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve_lora,serve_migrate
+    python3 chip_smoke.py --only tp_reference,serve_tp
 
 Each phase prints one JSON line. `--only` runs the device check and the
 named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
-`serve_migrate`), with no kernels line and no last line: a measurement of
-those phases without the whole run. Any failure raises, so the script exits
+`serve_migrate`, `tp_reference`, `serve_tp`), with no kernels line and no
+last line: a measurement of those phases without the whole run. The TP
+phases start their rank processes as `chip_smoke.py --tp-rank ...`. Any failure raises, so the script exits
 non-zero and never prints the last line, which on success is exactly
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Without a CUDA card it fails at the first phase.
@@ -536,7 +547,8 @@ def phase_paged():
     return decode, verify, verify_launches
 
 
-def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16):
+def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16,
+                table=GEMM_SHAPES):
     from paddle_tpu_torch.nn import quant as nq
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
 
@@ -546,7 +558,7 @@ def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = {}
     for name in shapes:
-        n, k = GEMM_SHAPES[name]
+        n, k = table[name]
         w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
         x = torch.randn((GEMM_M, k), generator=gen,
                         device="cuda").to(x_dtype)
@@ -1949,6 +1961,501 @@ def phase_serve_migrate(kind, smi, device="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving (`serving/tp.py`): SPMD ranks over a gloo group
+# ---------------------------------------------------------------------------
+
+TP = 2                 # the ranks' tp degree; NCCL refuses two ranks on
+TP_TILES = 4           # one card, so the ranks share it over gloo
+TP_WORLD_TIMEOUT_S = 300
+# per rank at tp=2 and 4 tiles: qkv and gate_up column shards, one tile of
+# the o and down row shards (a view of whole weight rows), the untied head's
+# vocab shard (`kernel_compare` times the unsharded shapes)
+TP_GEMM_SHAPES = {"qkv_tp2": (6144, 4096), "o_tile_tp2": (1024, 2048),
+                  "gate_up_tp2": (11008, 4096),
+                  "down_tile_tp2": (1024, 5504), "head_tp2": (16000, 4096)}
+TP_REF_TOL = 1e-3      # the card against its CPU run (phase_reference)
+TP_TOL = 2e-4          # sharded against unsharded (tests/test_tp_serving.py)
+TP_SERVE_MODES = (("serve_tp", 16, None), ("serve_tp_quant", 8, 4))
+
+
+def _tp_small_llama():
+    """The small f32 model of `phase_reference` widened to 4 query and 2
+    KV heads (head_dim 128 still), so tp=2 holds whole heads."""
+    from paddle_tpu_torch import llama_tiny
+
+    return llama_tiny(vocab=512, layers=2, hidden=512, heads=4, seq=256,
+                      num_key_value_heads=2, device="cpu",
+                      generator=torch.Generator().manual_seed(3))
+
+
+def _tp_engines(kind, kv_bits, wbits, device, model):
+    from paddle_tpu_torch import LlamaInferenceEngine
+    from paddle_tpu_torch.serving import MLPLMEngine, quantize_engine
+
+    geo = dict(max_batch_size=4, num_blocks=64, block_size=16,
+               max_blocks_per_seq=16, kv_bits=kv_bits, device=device)
+    if kind == "mlp":
+        eng = MLPLMEngine(vocab_size=256, hidden=32, seed=5, **geo)
+    else:
+        eng = LlamaInferenceEngine(model, **geo)
+    if wbits is not None:
+        quantize_engine(eng, wbits)
+    return eng
+
+
+def _tp_steps(eng, vocab):
+    """Three ragged steps (`phase_reference`'s lanes) and a verify window
+    of S = 5 on blocks 20-23; f32 logits on the CPU."""
+    rng = np.random.default_rng(4)
+    tables = np.zeros((4, 16), np.int32)
+    tables[0, :3] = [1, 2, 3]
+    tables[2, :2] = [4, 5]
+    outs = []
+    for q_lens, kv_lens in (([20, 0, 9, 0], [20, 0, 9, 0]),
+                            ([1, 0, 1, 0], [21, 0, 10, 0]),
+                            ([12, 0, 1, 0], [33, 0, 11, 0])):
+        tokens = np.zeros((32,), np.int32)
+        n = sum(q_lens)
+        tokens[:n] = rng.integers(1, vocab, n)
+        outs.append(torch.as_tensor(eng.ragged_step(
+            tokens, q_lens, kv_lens, tables)).cpu())
+    vt = np.zeros((2, 16), np.int32)
+    vt[:, :2] = [[20, 21], [22, 23]]
+    outs.append(torch.as_tensor(eng.verify_step(
+        rng.integers(1, vocab, (2, 5)).astype(np.int32),
+        np.asarray([31, 24], np.int32), vt)).cpu())
+    return outs
+
+
+def _tp_reference_cases(tp):
+    """Every small engine at `tp` (tp=2: this rank's shard, over the
+    world's gloo group): the sharded engine on the card against the same
+    shard on the CPU (plain kernel versions) within `TP_REF_TOL`, and
+    against the unsharded engine on the card within `TP_TOL` with equal
+    argmax."""
+    from paddle_tpu_torch.serving import shard_engine
+
+    model = _tp_small_llama()
+    report = {}
+    for kind, vocab in (("mlp", 256), ("llama", 512)):
+        for kv_bits in (16, 8):
+            for wbits in (None, 8, 4):
+                mk = lambda dev: _tp_engines(  # noqa: E731
+                    kind, kv_bits, wbits, dev, model)
+                card = _tp_steps(shard_engine(mk("cuda"), tp=tp,
+                                              overlap_tiles=TP_TILES), vocab)
+                cpu = _tp_steps(shard_engine(mk("cpu"), tp=tp,
+                                             overlap_tiles=TP_TILES), vocab)
+                plain = _tp_steps(mk("cuda"), vocab)
+                name = f"{kind}_kv{kv_bits}_w{wbits or 32}"
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(card, cpu))
+                err_tp = max(float((a - b).abs().max())
+                             for a, b in zip(card, plain))
+                for a, b, tol, what in (
+                        *((a, b, TP_REF_TOL, "its CPU run")
+                          for a, b in zip(card, cpu)),
+                        *((a, b, TP_TOL, "the unsharded engine")
+                          for a, b in zip(card, plain))):
+                    if not torch.allclose(a, b, atol=tol, rtol=tol) or \
+                            not torch.equal(a.argmax(-1), b.argmax(-1)):
+                        raise AssertionError(
+                            f"tp_reference {name} tp={tp}: the shard on "
+                            f"the card != {what} (max abs err "
+                            f"{float((a - b).abs().max())})")
+                report[name] = {"card_vs_cpu": err,
+                                "card_vs_unsharded": err_tp}
+    return report
+
+
+def _record_rows(fe):
+    """Record, per request, the logits row each committed token was
+    sampled from (device views: no host sync in the timed run)."""
+    sched = fe.scheduler
+    state, rows = {}, {}
+    gather, commit = sched._gather_rows, sched._commit_token
+
+    def gather_rec(logits, idx):
+        state["rows"] = gather(logits, idx)
+        return state["rows"]
+
+    def commit_rec(req, tok, slot, t_tok):
+        rows.setdefault(req.req_id, []).append(state["rows"][slot])
+        return commit(req, tok, slot, t_tok)
+
+    sched._gather_rows = gather_rec
+    sched._commit_token = commit_rec
+    return rows
+
+
+class _CollectiveClock:
+    """Host seconds spent inside `torch.distributed` collective calls and
+    in waits on their handles (the tp collectives, the lockstep check and
+    the logit gather), while installed. With gloo over CUDA tensors a
+    call also waits for the kernels that produce its input."""
+
+    NAMES = ("all_reduce", "all_gather")
+
+    def __init__(self):
+        self.seconds, self.calls = 0.0, 0
+        self._saved = {}
+
+    def __enter__(self):
+        dist = torch.distributed
+        for name in self.NAMES:
+            fn = getattr(dist, name)
+            self._saved[name] = fn
+            setattr(dist, name, self._timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(torch.distributed, name, fn)
+
+    def _timed(self, fn):
+        clock = self
+
+        class Handle:
+            def __init__(self, work):
+                self.work = work
+
+            def wait(self):
+                t0 = time.perf_counter()
+                try:
+                    return self.work.wait()
+                finally:
+                    clock.seconds += time.perf_counter() - t0
+
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **k)
+            finally:
+                clock.seconds += time.perf_counter() - t0
+                clock.calls += 1
+            return Handle(out) if k.get("async_op") else out
+        return call
+
+
+def _serve_tp_run(label, kv_bits, wbits, rank, tp, group_note):
+    """This rank's TP serve of the serve workload: the ranks build and
+    shard their base engines one after the other (one full base at a time
+    on the card), then serve in lockstep. Gates every request FINISHED
+    with its tokens, exact launches a step, per-rank KV bytes equal to
+    the unsharded engine's over `tp`, no leaked block. Returns the
+    report, every request's stream and the greedy requests' rows."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.serving import ServingFrontend, shard_engine
+    from paddle_tpu_torch.tools.serve_workload import (CHUNK, LAYERS,
+                                                       NEW_TOKENS,
+                                                       serve_engine,
+                                                       serve_requests,
+                                                       warm_up)
+
+    from paddle_tpu_torch.serving import MLPLMEngine
+
+    dist = torch.distributed
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the first `shard_engine` over a group is collective (it creates the
+    # group on every rank); later ones reuse it and run one rank at a time
+    shard_engine(MLPLMEngine(device="cuda"), tp=tp)
+    shard = unsharded_kv = None
+    for turn in range(tp):
+        if turn == rank:
+            base = serve_engine(kv_bits=kv_bits, wbits=wbits)
+            unsharded_kv = base.kv_bytes_per_token()
+            shard = shard_engine(base, tp=tp, overlap_tiles=TP_TILES)
+            del base
+            release()
+        if dist.is_initialized() and tp > 1:
+            dist.barrier()
+    setup_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    info = shard.quant_info()
+    if info["kv_bytes_per_token"] * tp != unsharded_kv:
+        raise AssertionError(f"{label}: per-rank KV bytes "
+                             f"{info['kv_bytes_per_token']} x {tp} != "
+                             f"the unsharded engine's {unsharded_kv}")
+    fe = ServingFrontend(shard, prefill_chunk_tokens=CHUNK)
+    warm_up(fe)
+    requests = serve_requests()
+    rows = _record_rows(fe)
+    fe.metrics.reset_window()
+    torch.cuda.reset_peak_memory_stats()
+    _support.reset_launch_counts()
+    for c in ENGINE_CALLS:
+        monitor.reset(f"serving.{c}")
+    clock = _CollectiveClock()
+    with clock:
+        t1 = time.perf_counter()
+        handles = [fe.submit(p, **kw) for p, kw in requests]
+        steps = fe.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    launches = {c: _support.launch_counter(c).count for c in SERVE_KERNELS}
+    calls = _engine_calls(monitor)
+    bad = [(h.request_id, h.status.value, h.finish_reason, len(h.tokens))
+           for h in handles
+           if h.status.value != "finished" or len(h.tokens) != NEW_TOKENS]
+    if bad:
+        raise AssertionError(f"{label}: requests not finished with "
+                             f"{NEW_TOKENS} tokens: {bad}")
+    n = calls["ragged_steps"]
+    expect = {c: 0 for c in launches}
+    expect["ragged_paged_attention_q" if kv_bits == 8 else
+           "ragged_paged_attention"] = LAYERS * n
+    if wbits is not None:
+        # qkv, gate_up, the untied head once; o and down once a tile
+        expect["quant_matmul_int4" if wbits == 4 else "quant_matmul"] = \
+            ((2 + 2 * TP_TILES) * LAYERS + 1) * n
+    if launches != expect or calls["verify_steps"] or \
+            calls["legacy_decode_steps"] or calls["prefill_steps"]:
+        raise AssertionError(f"{label}: kernel launches {launches} != "
+                             f"{expect} over engine calls {calls}")
+    leaked = fe.scheduler.kv_leaked_blocks()
+    if leaked:
+        raise AssertionError(f"{label}: {leaked} leaked blocks")
+    s = fe.summary()
+    tokens_out = sum(len(h.tokens) for h in handles)
+    report = {
+        "phase": label, "rank": rank, "tp": tp, "group": group_note,
+        "tiles": TP_TILES, "kv_bits": kv_bits, "wbits": wbits or 16,
+        "requests": len(handles), "tokens_out": tokens_out,
+        "scheduler_steps": steps, "engine_calls": calls,
+        "kernel_launches": launches,
+        "launches_per_step": {c: v / n for c, v in launches.items() if v},
+        "wall_s": wall, "tok_s": tokens_out / wall,
+        "ms_per_step": 1e3 * wall / n,
+        "collective_calls": clock.calls,
+        "collective_host_ms_per_step": 1e3 * clock.seconds / n,
+        "collective_share": clock.seconds / wall,
+        "ttft_p50_ms": s["serving.ttft_p50_ms"],
+        "tpot_p50_ms": s["serving.tpot_p50_ms"],
+        "kv_bytes_per_token_per_rank": info["kv_bytes_per_token"],
+        "kv_bytes_per_token_unsharded": unsharded_kv,
+        "setup_s": setup_s, "build_peak_mem_gb": build_peak,
+        "serve_peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "leaked_blocks": leaked}
+    greedy = [i for i, (_p, kw) in enumerate(requests)
+              if not kw.get("temperature")]
+    saved = {i: torch.stack(rows[handles[i].request_id]).float().cpu()
+             for i in greedy}
+    streams = [list(h.tokens) for h in handles]
+    del fe, shard, rows, handles
+    release()
+    return report, streams, saved
+
+
+def _tp_rank_main(rank, world, port, d, tasks):
+    """One rank of `phase_tp`'s gloo world (`chip_smoke.py --tp-rank`):
+    runs the `tasks` ("reference", "serve") and saves its outcomes to
+    `d/rank{rank}.pt`."""
+    import datetime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300))
+    out = {}
+    if "reference" in tasks:
+        t0 = time.perf_counter()
+        out["reference"] = _tp_reference_cases(world)
+        out["reference_s"] = time.perf_counter() - t0
+    if "serve" in tasks:
+        for label, kv_bits, wbits in TP_SERVE_MODES:
+            out[label] = _serve_tp_run(label, kv_bits, wbits, rank, world,
+                                       f"gloo world of {world} over CUDA "
+                                       "tensors, one card")
+    torch.save(out, f"{d}/rank{rank}.pt")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _tp_world(tasks):
+    """Spawn the TP ranks (`chip_smoke.py --tp-rank`, one process each,
+    sharing the one card over a gloo group) and return their outcomes."""
+    import os
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        procs = []
+        for r in range(TP):
+            with open(f"{d}/rank{r}.log", "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--tp-rank",
+                     str(r), str(TP), str(port), d, ",".join(tasks)],
+                    cwd=here, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + TP_WORLD_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        logs = [open(f"{d}/rank{r}.log").read() for r in range(TP)]
+        if any(p.returncode for p in procs):
+            raise AssertionError("tp ranks failed:\n" + "\n".join(
+                f"--- rank {r} (rc {p.returncode}) ---\n{log[-6000:]}"
+                for r, (p, log) in enumerate(zip(procs, logs))))
+        return [torch.load(f"{d}/rank{r}.pt", weights_only=False)
+                for r in range(TP)]
+
+
+def phase_tp(kind, smi, tasks=("reference", "serve")):
+    """Tensor-parallel serving (`serving.tp.shard_engine`). The card holds
+    one H100 and NCCL refuses two ranks on one device, so tp=2 runs as
+    two processes sharing the card over a gloo group of CUDA tensors; the
+    backend real multi-card TP uses, NCCL, runs tp=1 over a one-rank
+    group here. These are correctness runs on one card: TP speed needs
+    several cards.
+
+    `tp_reference`: small f32 engines (MLP and Llama, kv_bits 16 and 8,
+    dense, int8 and int4) at tp=2 in the world of 2 and at tp=1 with no
+    group (`_tp_reference_cases`). `serve_tp` / `serve_tp_quant`: the
+    serve workload at Llama-2-7B width, 32 layers, bf16 and int8 KV +
+    int4, at tp=2 (`_serve_tp_run` on each rank; both ranks' streams
+    identical), then every greedy token of rank 0 teacher-forced through
+    the unsharded engine (tie-aware agreement 1.0; strict top-1
+    reported); then bf16 at tp=1 over a one-rank NCCL group; then the
+    int4 gemm at each per-rank shape of the TP path."""
+    from paddle_tpu_torch.ops.kernels import _support
+
+    t0 = time.perf_counter()
+    # built here once, so the ranks load them instead of compiling twice
+    _support.build([_support.CSRC_DIR / f"{stem}.cu" for stem in
+                    ("ragged_paged_attention", "quant_matmul")])
+    ranks = _tp_world(tasks)
+    launches = {c: 0 for c in SERVE_KERNELS}
+    if "reference" in tasks:
+        one = _tp_reference_cases(1)
+        emit({"phase": "tp_reference", "tol_card_vs_cpu": TP_REF_TOL,
+              "tol_vs_unsharded": TP_TOL, "tiles": TP_TILES,
+              "models": "MLPLMEngine(vocab 256, hidden 32) and llama_tiny("
+                        "vocab=512, layers=2, hidden=512, heads=4, "
+                        "kv_heads=2) f32",
+              "steps": "3 ragged + verify S = 5",
+              "tp2": [r["reference"] for r in ranks], "tp1": one,
+              "tp2_rank_s": [r["reference_s"] for r in ranks],
+              "seconds": time.perf_counter() - t0})
+    if "serve" not in tasks:
+        return launches
+    from paddle_tpu_torch.tools.serve_workload import (CHUNK, serve_engine,
+                                                       serve_requests)
+
+    requests = serve_requests()
+    for label, kv_bits, wbits in TP_SERVE_MODES:
+        reports = [r[label][0] for r in ranks]
+        streams = [r[label][1] for r in ranks]
+        if any(s != streams[0] for s in streams):
+            raise AssertionError(f"{label}: the ranks' token streams "
+                                 "differ (lockstep broken)")
+        for c in launches:
+            launches[c] += reports[0]["kernel_launches"][c]
+        engine = serve_engine(kv_bits=kv_bits, wbits=wbits)
+        judged = [_teacher_forced(engine, requests[i][0], streams[0][i],
+                                  rows.to(engine.device),
+                                  CHUNK + engine.max_batch_size)
+                  for i, rows in sorted(ranks[0][label][2].items())]
+        agreement = _agreement_gate(label, judged, 0.0)
+        extra = {}
+        if wbits is None:
+            extra = _serve_tp1_nccl(engine, requests, launches)
+        del engine
+        release()
+        emit({**reports[0], "rank": None, "ranks": reports,
+              "streams_identical_across_ranks": True,
+              "teacher_forced_greedy": agreement,
+              "reference": "the unsharded engine, teacher-forced in "
+                           "steps of the scheduler's 40 packed tokens",
+              "note": "a correctness run on one card: both ranks share "
+                      "it, so ms a step is not TP speed",
+              "device": kind, "nvidia_smi": smi, **extra})
+    _tp_gemms(kind, smi)
+    emit({"phase": "tp", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def _tp_gemms(kind, smi):
+    """The int4 gemm at each per-rank shape of the TP path (`_gemm_cases`:
+    against its plain version, timed beside the plain version and cuBLAS
+    bf16); the unsharded shapes are `phase_gemm`'s."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+    gemms = _gemm_cases("int4", list(TP_GEMM_SHAPES), gen, flush,
+                        table=TP_GEMM_SHAPES)
+    del flush
+    release()
+    emit({"phase": "tp_gemm", "kernel": "quant_matmul_int4", "M": GEMM_M,
+          "shapes": "per rank at tp=2, 4 tiles (o and down: one tile)",
+          "cases": gemms, "device": kind, "nvidia_smi": smi})
+
+
+def _serve_tp1_nccl(engine, requests, launches):
+    """The bf16 serve at tp=1 over a one-rank NCCL group in this process
+    (every collective a real NCCL call): shard `engine`, serve, gate
+    FINISHED / launches / leaks, and teacher-force its greedy tokens
+    through `engine` (unsharded; its own pools)."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.serving import ServingFrontend, shard_engine
+    from paddle_tpu_torch.tools.moe_workload import one_rank_group
+    from paddle_tpu_torch.tools.serve_workload import (CHUNK, LAYERS,
+                                                       NEW_TOKENS, warm_up)
+
+    one_rank_group()
+    try:
+        shard = shard_engine(engine, tp=1, overlap_tiles=TP_TILES)
+        fe = ServingFrontend(shard, prefill_chunk_tokens=CHUNK)
+        warm_up(fe)
+        rows = _record_rows(fe)
+        _support.reset_launch_counts()
+        for c in ENGINE_CALLS:
+            monitor.reset(f"serving.{c}")
+        t1 = time.perf_counter()
+        handles = [fe.submit(p, **kw) for p, kw in requests]
+        steps = fe.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = {c: _support.launch_counter(c).count for c in SERVE_KERNELS}
+        n = monitor.get("serving.ragged_steps")
+        want = {c: 0 for c in got}
+        want["ragged_paged_attention"] = LAYERS * n
+        bad = [h.request_id for h in handles
+               if h.status.value != "finished" or len(h.tokens) != NEW_TOKENS]
+        if bad or got != want or fe.scheduler.kv_leaked_blocks():
+            raise AssertionError(f"serve_tp1_nccl: unfinished {bad}, "
+                                 f"launches {got} != {want}, leaked "
+                                 f"{fe.scheduler.kv_leaked_blocks()}")
+        for c in launches:
+            launches[c] += got[c]
+        judged = [_teacher_forced(engine, requests[i][0], handles[i].tokens,
+                                  rows[handles[i].request_id],
+                                  CHUNK + engine.max_batch_size)
+                  for i, (_p, kw) in enumerate(requests)
+                  if not kw.get("temperature")]
+        return {"tp1_nccl": {
+            "scheduler_steps": steps, "ragged_steps": n,
+            "kernel_launches": got, "ms_per_step": 1e3 * wall / n,
+            "tok_s": sum(len(h.tokens) for h in handles) / wall,
+            "teacher_forced_greedy": _agreement_gate(
+                "serve_tp1_nccl", judged, 0.0)}}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
 FA_PY = "paddle_tpu/ops/pallas/flash_attention.py"
 
@@ -3052,10 +3559,19 @@ ONLY = {
     "serve_lora_quant":
         lambda kind, smi: phase_serve_lora_quant(kind, smi, None),
     "serve_migrate": phase_serve_migrate,
+    "tp_reference": None,
+    "serve_tp": None,
 }
+# the TP phases by `phase_tp` task: `--only` runs them in one world
+TP_ONLY = {"tp_reference": "reference", "serve_tp": "serve"}
 
 
 def main(argv=()):
+    if argv and argv[0] == "--tp-rank":
+        # one rank of phase_tp's world: RANK WORLD PORT DIR TASKS
+        _tp_rank_main(int(argv[1]), int(argv[2]), int(argv[3]), argv[4],
+                      argv[5].split(","))
+        return
     if argv:
         names = argv[1].split(",") if len(argv) == 2 and \
             argv[0] == "--only" else []
@@ -3064,7 +3580,11 @@ def main(argv=()):
                              f"PHASE[,PHASE...]], phases {sorted(ONLY)}")
         kind, smi = phase_device()
         for name in names:
-            ONLY[name](kind, smi)
+            if name not in TP_ONLY:
+                ONLY[name](kind, smi)
+        tasks = tuple(TP_ONLY[n] for n in TP_ONLY if n in names)
+        if tasks:                       # one world of ranks for both
+            phase_tp(kind, smi, tasks)
         print(smi, flush=True)
         return
     kind, smi = phase_device()
@@ -3085,6 +3605,7 @@ def main(argv=()):
     lora_q_launches = phase_serve_lora_quant(kind, smi, factors)
     del factors
     migrate_launches = phase_serve_migrate(kind, smi)
+    tp_launches = phase_tp(kind, smi)
     flash = phase_flash()
     rms = phase_rms()
     phase_train_reference()
@@ -3109,7 +3630,8 @@ def main(argv=()):
              + draft_launches["ragged_paged_attention"]
              + prefix_launches["ragged_paged_attention"]
              + lora_launches["ragged_paged_attention"]
-             + migrate_launches["ragged_paged_attention"], attn["mha_bf16"],
+             + migrate_launches["ragged_paged_attention"]
+             + tp_launches["ragged_paged_attention"], attn["mha_bf16"],
              instance=attn["mha_bf16"]["instance"],
              splits=attn["mha_bf16"]["splits"]),
         _row("ragged_paged_attention_q", attn_src, f"{pa_py}:380",
@@ -3117,7 +3639,8 @@ def main(argv=()):
              + l4["ragged_paged_attention_q"]
              + prefix_launches["ragged_paged_attention_q"]
              + lora_q_launches["ragged_paged_attention_q"]
-             + migrate_launches["ragged_paged_attention_q"],
+             + migrate_launches["ragged_paged_attention_q"]
+             + tp_launches["ragged_paged_attention_q"],
              attn_q["mha_bf16"],
              instance=attn_q["mha_bf16"]["instance"],
              splits=attn_q["mha_bf16"]["splits"]),
@@ -3138,7 +3661,8 @@ def main(argv=()):
              splits=int8["qkv_int8"]["splits"]),
         _row("quant_matmul_int4", gemm_src,
              "paddle_tpu/ops/pallas/quant_matmul.py:115",
-             l4["quant_matmul_int4"] + lora_q_launches["quant_matmul_int4"],
+             l4["quant_matmul_int4"] + lora_q_launches["quant_matmul_int4"]
+             + tp_launches["quant_matmul_int4"],
              int4["qkv_int4"],
              splits=int4["qkv_int4"]["splits"]),
         *[_row(name, FLASH_SRC, f"{FA_PY}:{line}", train_launches[name],

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.tp_overlap import gather_columns, row_parallel_matmul
 from ..framework import monitor
 from ..models.llama import LlamaForCausalLM
 from ..nn.functional.attention import _sdpa_fn
@@ -473,8 +474,23 @@ class LlamaInferenceEngine:
 def _layer(x, l: int, params, cos, sin, attend, cfg):
     """One decoder layer over tokens x [..., H] (any leading shape).
     `attend(l, q, k, v)` writes this step's K/V into layer l's pools in
-    place and returns the attention [..., nh, d]."""
+    place and returns the attention [..., nh, d].
+
+    A cfg carrying a `tp` (`distributed.tp_overlap.TPInfo`, set by
+    `serving/tp.py`) marks a tensor-parallel shard: its head counts are
+    the local ones, qkv / gate_up are column shards holding whole heads
+    (resp. matching gate | up halves), and o / down are row shards whose
+    partial sums are all-reduced tile by tile over the tp group, so tile
+    k's reduction overlaps tile k+1's gemm."""
     lead = x.shape[:-1]
+    tp = getattr(cfg, "tp", None)
+
+    def row_mm(a, w):
+        if tp is None:
+            return _mm(a, w)
+        return row_parallel_matmul(a, w, group=tp.group, ntiles=tp.tiles,
+                                   mm=_mm)
+
     nh, kvh, d = cfg.num_attention_heads, cfg.num_key_value_heads, \
         cfg.head_dim
     h1 = _rms(x, params["ln1"][l], cfg.rms_norm_eps)
@@ -485,11 +501,12 @@ def _layer(x, l: int, params, cos, sin, attend, cfg):
     q = _rope_half(q, cos, sin).contiguous()
     k = _rope_half(k, cos, sin)
     attn = attend(l, q, k, v)
-    x = x + _mm(attn.reshape(*lead, nh * d).to(x.dtype), params["o_w"][l])
+    x = x + row_mm(attn.reshape(*lead, nh * d).to(x.dtype),
+                   params["o_w"][l])
     h2 = _rms(x, params["ln2"][l], cfg.rms_norm_eps)
     g, u = torch.chunk(_mm(h2, params["gate_up_w"][l]), 2, dim=-1)
     act = F.silu(g.float()).to(g.dtype) * u
-    return x + _mm(act, params["down_w"][l])
+    return x + row_mm(act, params["down_w"][l])
 
 
 def _rope_at(params, positions):
@@ -503,12 +520,19 @@ def _rope_at(params, positions):
 
 
 def _logits(params, x, cfg):
-    """Final norm and head: f32 logits [..., V]."""
+    """Final norm and head: f32 logits [..., V]. On a TP shard (`cfg.tp`)
+    an untied head is a vocab column shard, all-gathered when
+    `tp.gather_logits` is set (else the shard is returned for the caller
+    to assemble); a tied head, the embedding, stays replicated."""
     x = _rms(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")
     if head is None:
         return torch.matmul(x, params["embed"].to(x.dtype).t()).float()
-    return _mm(x, head).float()
+    logits = _mm(x, head)
+    tp = getattr(cfg, "tp", None)
+    if tp is not None and tp.gather_logits:
+        logits = gather_columns(logits, tp.group)
+    return logits.float()
 
 
 def _ragged_stack(params, k_cache, v_cache, k_scale, v_scale, tokens, q_lens,

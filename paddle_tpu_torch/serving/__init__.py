@@ -12,6 +12,7 @@ from .scheduler import Request, RequestStatus, SamplingParams, Scheduler
 from .slo import DEFAULT_TENANT, SLOClass, SLOConfig, slo_for_adapters
 from .spec import (DraftEngineProposer, NGramProposer, Proposer,
                    SpecDecodeConfig)
+from .tp import LockstepError, ShardedEngine, ShardingConfigError, shard_engine
 
 __all__ = ["EngineCore", "MLPLMEngine", "AdmissionConfig", "EngineStalled",
            "EngineStepError", "OverloadController", "WatchdogConfig",
@@ -22,4 +23,6 @@ __all__ = ["EngineCore", "MLPLMEngine", "AdmissionConfig", "EngineStalled",
            "DraftEngineProposer", "NGramProposer", "Proposer",
            "SpecDecodeConfig", "AdapterError", "AdapterPool",
            "AdapterPoolExhausted", "AdapterRankError", "LoRAEngine",
-           "UnknownAdapterError", "attach_adapters", "KVMigrationError"]
+           "UnknownAdapterError", "attach_adapters", "KVMigrationError",
+           "LockstepError", "ShardedEngine", "ShardingConfigError",
+           "shard_engine"]

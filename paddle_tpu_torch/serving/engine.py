@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.tp_overlap import (axis_index, gather_columns,
+                                     row_parallel_matmul)
 from ..inference import kv_migrate, kv_quant
 from ..inference.cache import BlockCacheManager
 from ..inference.llama_runner import _mm
@@ -88,47 +90,76 @@ def _i32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.int32)).to(device)
 
 
-def _mlp_head(params, last, mean):
+def _mlp_head(params, last, mean, tp=None):
     """`gelu([last, mean] @ w1 + b1) @ w2 + b2`, f32 (tanh gelu). The
     weights take every form `llama_runner._mm` takes: dense, weight-only
-    quantized, or a multi-LoRA epilogue dict wrapping either."""
+    quantized, or a multi-LoRA epilogue dict wrapping either.
+
+    Under TP (`tp` a `distributed.tp_overlap.TPInfo`): `last` / `mean`
+    are the local feature slices, `w1` the matching row shard (rows
+    permuted by `serving/tp.py` so shard s holds [last_s, mean_s]) whose
+    partial sums are all-reduced tile by tile, and `w2` / `b2` vocab
+    column shards; `tp.gather_logits` all-gathers the logits so the
+    sampler sees replicated ones."""
     h = torch.cat([last, mean], dim=-1)
-    h = F.gelu(_mm(h, params["w1"]) + params["b1"], approximate="tanh")
-    return _mm(h, params["w2"]) + params["b2"]
+    if tp is None:
+        h = _mm(h, params["w1"])
+    else:
+        h = row_parallel_matmul(h, params["w1"], group=tp.group,
+                                ntiles=tp.tiles, mm=_mm)
+    h = F.gelu(h + params["b1"], approximate="tanh")
+    logits = _mm(h, params["w2"]) + params["b2"]
+    if tp is not None and tp.gather_logits:
+        logits = gather_columns(logits, tp.group)
+    return logits
 
 
 def _mlp_ragged_stack(params, cache, cache_scale, tokens, q_lens, kv_lens,
-                      tables, block_size: int):
+                      tables, block_size: int, tp=None):
     """Packed tokens [T] + per-lane (q_len, kv_len) over the embedding
     pool `cache` (int8 with its `cache_scale` plane, or f32 with None):
     token t embeds, writes its embedding (quantized on an int8 pool) at
     its absolute position in place (guard slots write nothing), and
     conditions on (own embedding, masked mean of its lane's window
     through its position) — what a sequence of decode steps computes.
-    Returns f32 logits [T, V]."""
+    Returns f32 logits [T, V].
+
+    `tp` (set by `serving/tp.py`) marks a feature-sharded pool: each
+    shard writes and gathers its contiguous D/tp embedding slice, the
+    int8 scale is computed over the FULL feature vector (absmax is a
+    global reduction: a per-shard scale would change the bits) and its
+    plane stays replicated, and the head runs w1 row-parallel / w2
+    column-parallel (`_mlp_head`)."""
     bs = block_size
     b, maxb = tables.shape
     tok_lane, tok_pos = ragged_metadata(q_lens, kv_lens, tokens.shape[0])
     x = params["embed"][tokens.long()]                           # [T, D]
+    x_loc = x
+    if tp is not None:
+        dl = cache.shape[-1]                  # local feature width D/tp
+        off = axis_index(tp) * dl
+        x_loc = x[:, off:off + dl]
     pos = torch.clamp(tok_pos.long(), min=0)
     blocks = tables.long()[tok_lane.long(), pos // bs]           # [T]
     valid = tok_pos >= 0
     idx = (blocks[valid], (pos % bs)[valid])
     if cache_scale is not None:
         q, s = kv_quant.quantize_kv(x)                           # [T, D], [T]
+        if tp is not None:
+            q = q[:, off:off + dl]
         cache[idx] = q[valid]
         cache_scale[idx] = s[valid]
         window = kv_quant.dequantize_kv(
             cache[tables.long()], cache_scale[tables.long()])    # [B, MAXB, BS, D]
     else:
-        cache[idx] = x[valid]
+        cache[idx] = x_loc[valid]
         window = cache[tables.long()]
     window = window.reshape(b, maxb * bs, -1)[tok_lane.long()]  # [T, W, D]
     wpos = torch.arange(maxb * bs, dtype=torch.int32, device=x.device)
     mask = (wpos[None, :] <= tok_pos[:, None]).to(x.dtype)
     mean = (window * mask[..., None]).sum(1) / torch.clamp(
         mask.sum(1, keepdim=True), min=1.0)
-    return _mlp_head(params, x, mean).float()
+    return _mlp_head(params, x_loc, mean, tp).float()
 
 
 class MLPLMEngine:

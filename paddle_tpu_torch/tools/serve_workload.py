@@ -126,9 +126,35 @@ def serve_workload(device="cuda", kv_bits=16, wbits=None, spec=None):
     if wbits is not None:
         quantize_engine(engine, wbits)
     fe = ServingFrontend(engine, prefill_chunk_tokens=CHUNK, spec=config)
+    warm_up(fe)
+    return fe, serve_requests(spec)
+
+
+def serve_engine(device="cuda", kv_bits=16, wbits=None):
+    """The serve workload's engine alone (`kv_bits` 16 or 8; `wbits` None,
+    8 or 4), on `device`, with no frontend: the base engine each rank of
+    a tensor-parallel run shards (`serving.tp.shard_engine`)."""
+    from ..serving.quant import quantize_engine
+
+    model = _model(device)
+    engine = _engine(model, device, kv_bits)
+    del model
+    if wbits is not None:
+        quantize_engine(engine, wbits)
+    return engine
+
+
+def warm_up(fe):
+    """Serve one short request to idle (cuBLAS handles, first launches)."""
     fe.submit(list(range(1, 17)), max_new_tokens=2)
     fe.run_until_idle()
 
+
+def serve_requests(spec=None):
+    """The serve workload's 8 requests, `(prompt, submit_kwargs)` each:
+    prompts of 64-512 tokens from `numpy.random.default_rng(0)` (with
+    `spec`, a repeated phrase of 3-5 tokens), 32 new tokens, the first 6
+    greedy and the last 2 sampled at temperature 0.8, top-k 50."""
     rng = np.random.default_rng(0)
     lens = rng.integers(64, 513, B)
     prompts = []
@@ -138,11 +164,10 @@ def serve_workload(device="cuda", kv_bits=16, wbits=None, spec=None):
         else:
             phrase = rng.integers(1, 32000, int(rng.integers(3, 6)))
             prompts.append(np.resize(phrase, n).tolist())
-    requests = [(p, dict(max_new_tokens=NEW_TOKENS,
-                         **({} if i < 6 else dict(temperature=0.8, top_k=50,
-                                                  seed=i))))
-                for i, p in enumerate(prompts)]
-    return fe, requests
+    return [(p, dict(max_new_tokens=NEW_TOKENS,
+                     **({} if i < 6 else dict(temperature=0.8, top_k=50,
+                                              seed=i))))
+            for i, p in enumerate(prompts)]
 
 
 def generate_workload(device="cuda"):

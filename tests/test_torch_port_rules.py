@@ -84,7 +84,11 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.serving.engine, "
             "paddle_tpu_torch.serving.lora, "
             "paddle_tpu_torch.inference.kv_migrate, "
-            "paddle_tpu_torch.tools.serve_workload\n"
+            "paddle_tpu_torch.tools.serve_workload, "
+            "paddle_tpu_torch.distributed, "
+            "paddle_tpu_torch.distributed.process_mesh, "
+            "paddle_tpu_torch.distributed.tp_overlap, "
+            "paddle_tpu_torch.serving.tp\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n")
@@ -125,9 +129,10 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
             for t in pl.values()} == {"cpu"}
     assert lora.cache.device.type == "cpu"
     from paddle_tpu_torch.tools.serve_workload import (lora_workload,
-                                                       migrate_workload)
+                                                       migrate_workload,
+                                                       serve_engine)
 
-    for workload in (lora_workload, migrate_workload):
+    for workload in (lora_workload, migrate_workload, serve_engine):
         with pytest.raises(RuntimeError, match="device='cpu'|CUDA"):
             workload(device=None)
     from paddle_tpu_torch.tools.train_workload import train_workload
@@ -144,6 +149,13 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
                                device="cpu")
     assert eng.k_cache.device.type == "cpu"
     ServingFrontend(eng)
+    # a shard lives on its base engine's device
+    from paddle_tpu_torch.serving import shard_engine
+
+    shard = shard_engine(eng, tp=1)
+    assert shard.k_cache.device.type == shard.device.type == "cpu"
+    assert shard_engine(MLPLMEngine(device="cpu"), tp=1) \
+        .cache.device.type == "cpu"
 
 
 def test_block_cache_copy_is_isolated_from_the_jax_package():
