@@ -38,7 +38,19 @@ wrapper's, then the same over an int8 pool and int4 weights; and the
 serve prompts moved between engines mid-stream (extract, release,
 import_session) over a bf16 and an int8 pool, streams equal to the
 unmigrated ones, and a shared prefix streamed between two prefix-cached
-schedulers. Then tensor-parallel serving (`serving.tp.shard_engine`): two
+schedulers. Then fleet routing and disaggregated prefill/decode
+(`serving.FleetRouter`, `serving.DisaggRouter`): on small engines (MLP
+and Llama, 16- and 8-bit KV) a kill in mid-decode, a drain, a replica
+added, session affinity, a 1 + 1 handoff and a prefix streamed between
+replicas, each against a single frontend's streams, with the fleet's
+integer counters equal on the card and the CPU; then the serve workload
+at Llama-2-7B width over two replicas built once: a clean fleet run, a
+disaggregated run (one prefill and one decode replica, every session
+handed off with its KV, streams equal the clean run's, no prompt token
+prefilled on the decode tier) and a chaos run that kills the busiest
+replica mid-decode (its requests folded and re-prefilled on the
+survivor, greedy streams bit-equal to the clean run's), each with exact
+launches a step and no leaked block. Then tensor-parallel serving (`serving.tp.shard_engine`): two
 rank processes sharing the card over a gloo group of CUDA tensors (NCCL
 refuses two ranks on one device) hold small sharded engines (MLP and
 Llama, every KV and weight format) on the card against the same shards
@@ -70,12 +82,15 @@ on the dense route.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve_lora,serve_migrate
+    python3 chip_smoke.py --only fleet_reference,serve_fleet,serve_disagg
     python3 chip_smoke.py --only tp_reference,serve_tp
 
 Each phase prints one JSON line. `--only` runs the device check and the
 named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
-`serve_migrate`, `tp_reference`, `serve_tp`), with no kernels line and no
-last line: a measurement of those phases without the whole run. The TP
+`serve_migrate`, `fleet_reference`, `serve_fleet`, `serve_disagg` (these
+two are one run: the disaggregated run sits between the clean and the
+chaos fleet runs), `tp_reference`, `serve_tp`), with no kernels line and
+no last line: a measurement of those phases without the whole run. The TP
 phases start their rank processes as `chip_smoke.py --tp-rank ...`. Any failure raises, so the script exits
 non-zero and never prints the last line, which on success is exactly
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -896,7 +911,7 @@ def _record_spec(fe):
         state["count"] = {}
         return state["logits"]
 
-    def commit_rec(req, tok, slot, t_tok):
+    def commit_rec(req, tok, slot, t_tok, **kw):
         j = state["count"].get(req.req_id, 0)
         state["count"][req.req_id] = j + 1
         lg = state["logits"]
@@ -904,7 +919,7 @@ def _record_spec(fe):
         drafts = state["drafts"].pop(req.req_id, None) if j == 0 else None
         if drafts is not None:
             rounds.setdefault(req.req_id, []).append((lg[slot], drafts))
-        return commit(req, tok, slot, t_tok)
+        return commit(req, tok, slot, t_tok, **kw)
 
     proposer.propose = propose_rec
     engine.verify_step = verify_rec
@@ -1962,6 +1977,550 @@ def phase_serve_migrate(kind, smi, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# fleet routing and disaggregated prefill/decode (`serving/fleet.py`,
+# `serving/disagg.py`): replicas in one process, sessions moved as KV
+# ---------------------------------------------------------------------------
+
+# the integer counters the card's fleet must match the CPU's in
+FLEET_COUNTERS = ("relocations", "relocations_shipped", "shipped_kv_bytes",
+                  "handoffs", "handoff_fallbacks", "prefix_streams",
+                  "prefix_stream_tokens", "session_hits")
+FLEET_REF_NEW = 10
+# the counters of faults a fleet absorbs without failing a request (a
+# replica that fails on the card relocates its requests, and their
+# streams stay equal): each must stay 0 in a run that injects none
+FLEET_FAULTS = ("fleet.relocations", "fleet.handoff_faults",
+                "fleet.handoff_fallbacks", "fleet.submit_faults",
+                "fleet.kv_ship_failures", "fleet.kv_import_failures",
+                "fleet.prefix_stream_failures", "serving.step_faults",
+                "serving.engine_restarts")
+
+
+def _fleet_fault_gate(label, router, dead=(), allow=()):
+    """Fail unless `dead` (death reasons) are the reasons of exactly the
+    replicas that are not alive, and no counter of `FLEET_FAULTS` but
+    those in `allow` moved."""
+    from paddle_tpu_torch.framework import monitor
+
+    gone = sorted(r.death_reason for r in router.replicas if not r.alive)
+    moved = {c: monitor.get(c) for c in FLEET_FAULTS
+             if c not in allow and monitor.get(c)}
+    if gone != sorted(dead) or moved:
+        raise AssertionError(f"{label}: replicas dead {gone} (expected "
+                             f"{sorted(dead)}), fault counters {moved}")
+
+
+def _fleet_engines(device):
+    """The small engines `fleet_reference` runs on `device`, by name: an
+    engine factory each."""
+    from paddle_tpu_torch import LlamaInferenceEngine
+    from paddle_tpu_torch.serving import MLPLMEngine
+
+    model = _small_model()
+    geo = dict(max_batch_size=4, num_blocks=64, block_size=16,
+               max_blocks_per_seq=16)
+    out = {}
+    for kv in (16, 8):
+        out[f"mlp_kv{kv}"] = lambda kv=kv: MLPLMEngine(
+            vocab_size=512, hidden=64, max_batch_size=4, num_blocks=64,
+            block_size=16, max_blocks_per_seq=8, seed=5, kv_bits=kv,
+            device=device)
+        out[f"llama_kv{kv}"] = lambda kv=kv: LlamaInferenceEngine(
+            model, device=device, kv_bits=kv, **geo)
+    return out
+
+
+def _fleet_scenarios(make_engine):
+    """The fleet scenarios of `fleet_reference` over `make_engine` (one
+    device): a kill in mid-decode (fold), a drain (KV shipped), a
+    replica added under load, session affinity, a disaggregated 1 + 1
+    handoff and a prefix streamed between two prefix-cached replicas.
+    Each is held to a single frontend's streams over the same engine
+    kind; every request FINISHED; no leaked block on a live (or drained)
+    replica. Returns `{scenario: (streams, fleet counters, ragged steps
+    of the fleet, ragged launches by counter)}`: launches and ragged
+    steps are zeroed just before each router run and read just after
+    it, before the single frontend runs. No replica dies but the one
+    killed or drained, and no fault counter moves (`_fleet_fault_gate`).
+    """
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.serving import (DisaggRouter, FleetRouter,
+                                          ServingFrontend, ServingMetrics)
+
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, 512, int(n)).tolist()
+               for n in (9, 40, 23, 61, 17, 33)]
+    shared = rng.integers(1, 512, 48).tolist()      # three full blocks
+    other = rng.integers(1, 512, 40).tolist()
+
+    def alone(plist, new=FLEET_REF_NEW):
+        fe = ServingFrontend(make_engine())
+        hs = [fe.submit(q, max_new_tokens=new) for q in plist]
+        fe.run_until_idle()
+        return [h.tokens for h in hs]
+
+    def submit(r, plist, new=FLEET_REF_NEW, **kw):
+        return [r.submit(q, max_new_tokens=new, **kw) for q in plist]
+
+    def kill(r):
+        hs = submit(r, prompts)
+        while not any(len(h._req.generated) >= 2 for h in hs):
+            r.step()
+        r.chaos_kill_replica()
+        r.run_until_idle()
+        return hs, prompts
+
+    def drain(r):
+        hs = submit(r, prompts)
+        while len(hs[0]._req.generated) < 2:
+            r.step()
+        victim = hs[0].replica_id
+        r.drain_replica(victim)
+        r.run_until_idle()
+        if r._rep(victim).death_reason != "drained":
+            raise AssertionError("fleet drain: the replica did not drain")
+        return hs, prompts
+
+    def add_replica(r):
+        hs = submit(r, prompts[:3])
+        r.step()
+        rid = r.add_replica()
+        hs += submit(r, prompts[3:])
+        if hs[3].replica_id != rid:
+            raise AssertionError("fleet add_replica: the new replica took "
+                                 "no placement")
+        r.run_until_idle()
+        return hs, prompts
+
+    def session(r):
+        a = r.submit(prompts[0], max_new_tokens=FLEET_REF_NEW,
+                     session_id="s")
+        r.run_until_idle()
+        b = r.submit(prompts[1], max_new_tokens=FLEET_REF_NEW,
+                     session_id="s")
+        r.run_until_idle()
+        if a.replica_id != b.replica_id:
+            raise AssertionError("fleet session: the second turn moved")
+        return [a, b], prompts[:2]
+
+    def disagg(r):
+        hs = submit(r, prompts)
+        r.run_until_idle()
+        decode = {rep.replica_id for rep in r.replicas
+                  if rep.role == "decode"}
+        if any(h.replica_id not in decode for h in hs):
+            raise AssertionError("fleet disagg: a session stayed on the "
+                                 "prefill tier")
+        return hs, prompts
+
+    def prefix_stream(r):
+        h1 = r.submit(shared, max_new_tokens=6)
+        r.run_until_idle()
+        busy = r.submit(other, max_new_tokens=30)
+        h2 = r.submit(shared, max_new_tokens=6)
+        if h2.replica_id == h1.replica_id:
+            raise AssertionError("fleet prefix_stream: no cold peer")
+        r.run_until_idle()
+        if h2.tokens != h1.tokens:
+            raise AssertionError("fleet prefix_stream: the streamed prefix "
+                                 "changed the stream")
+        return [h1, busy, h2], None
+
+    # scenario: (run, router, death reasons, fault counters it moves)
+    moved = ("fleet.relocations",)
+    cases = {
+        "kill": (kill, lambda: FleetRouter(make_engine, 2),
+                 ("chaos_kill",), moved),
+        "drain": (drain, lambda: FleetRouter(make_engine, 2),
+                  ("drained",), moved),
+        "add_replica": (add_replica, lambda: FleetRouter(make_engine, 1),
+                        (), ()),
+        "session": (session, lambda: FleetRouter(make_engine, 2), (), ()),
+        "disagg": (disagg, lambda: DisaggRouter(
+            make_engine, num_prefill=1, num_decode=1), (), ()),
+        "prefix_stream": (prefix_stream, lambda: FleetRouter(
+            make_engine, 2, frontend_kwargs=dict(prefix_cache=True)),
+            (), ()),
+    }
+    out = {}
+    for name, (run, build, dead, allow) in cases.items():
+        ServingMetrics.reset_monitor()
+        monitor.reset("fleet.")
+        with build() as r:
+            _support.reset_launch_counts()
+            monitor.reset("serving.ragged_steps")
+            hs, plist = run(r)
+            lch = _launches()
+            steps = monitor.get("serving.ragged_steps")
+            bad = [(h.status.value, h.finish_reason) for h in hs
+                   if h.status.value != "finished"]
+            if bad:
+                raise AssertionError(f"fleet {name}: not finished {bad}")
+            for rep in r.replicas:
+                if rep.alive or rep.death_reason == "drained":
+                    sch = rep.scheduler
+                    if sch.kv_leaked_blocks():
+                        raise AssertionError(f"fleet {name}: {rep} leaks "
+                                             f"{sch.kv_leaked_blocks()}")
+            _fleet_fault_gate(f"fleet {name}", r, dead, allow)
+            got = [h.tokens for h in hs]
+            counters = {c: monitor.get(f"fleet.{c}") for c in FLEET_COUNTERS}
+        if plist is not None and got != alone(plist):
+            raise AssertionError(f"fleet {name}: streams differ from a "
+                                 "single frontend's")
+        out[name] = (got, counters, steps, lch)
+    c = {n: v[1] for n, v in out.items()}
+    want = {"kill": c["kill"]["relocations"] >= 1,
+            "drain": c["drain"]["relocations_shipped"] >= 1,
+            "session": c["session"]["session_hits"] == 1,
+            "disagg": c["disagg"]["handoffs"] == len(prompts)
+            and c["disagg"]["handoff_fallbacks"] == 0,
+            "prefix_stream": c["prefix_stream"]["prefix_streams"] == 1
+            and c["prefix_stream"]["prefix_stream_tokens"] == len(shared)}
+    if not all(want.values()):
+        raise AssertionError(f"fleet counters {c}: {want}")
+    return out
+
+
+def phase_fleet_reference(kind, smi):
+    """Fleet routing on small engines, on the card against the CPU: the
+    `_fleet_scenarios` over `MLPLMEngine` and `phase_reference`'s small
+    f32 Llama, each over a 16- and an 8-bit KV pool. Gates: each
+    scenario's own (every request FINISHED, streams equal a single
+    frontend's over the same engine on the same device, no leaked
+    block); the `fleet.*` integer counters equal on the card and the
+    CPU; on the card, in each scenario's router run, 2 ragged launches
+    (one a layer) per ragged step of the Llama engines and none of the
+    MLP engines. Returns the router runs' ragged launches by counter."""
+    launches = {"ragged_paged_attention": 0, "ragged_paged_attention_q": 0}
+    report = {}
+    cpu, card = _fleet_engines("cpu"), _fleet_engines("cuda")
+    for name in card:
+        ref = _fleet_scenarios(cpu[name])
+        got = _fleet_scenarios(card[name])
+        attn = "ragged_paged_attention_q" if name.endswith("kv8") else \
+            "ragged_paged_attention"
+        fleet_launches = 0
+        for s, (_toks, _c, steps, lch) in got.items():
+            expect = {c: 0 for c in lch}
+            if name.startswith("llama"):
+                expect[attn] = 2 * steps
+            _launch_gate(f"fleet_reference {name} {s}", lch, expect)
+            fleet_launches += lch[attn]
+        launches[attn] += fleet_launches
+        steps = sum(v[2] for v in got.values())
+        diff = {s: (got[s][1], ref[s][1]) for s in got
+                if got[s][1] != ref[s][1]}
+        if diff:
+            raise AssertionError(f"fleet_reference {name}: counters on the "
+                                 f"card != CPU: {diff}")
+        report[name] = {
+            "counters": {s: v[1] for s, v in got.items()},
+            "ragged_steps": steps, "launches": fleet_launches,
+            "streams_equal_cpu": {s: got[s][0] == ref[s][0] for s in got}}
+    emit({"phase": "fleet_reference",
+          "engines": "MLPLMEngine(vocab=512, hidden=64) and llama_tiny("
+                     "vocab=512, layers=2, hidden=256, heads=2, kv_heads=1)"
+                     " f32, KV 16 and 8 bits",
+          "scenarios": list(next(iter(report.values()))["counters"]),
+          "new_tokens": FLEET_REF_NEW, "results": report,
+          "device": kind, "nvidia_smi": smi})
+    release()
+    return launches
+
+
+def _fleet_run(router, requests, label, on_step=None):
+    """Submit `requests` to `router`, drive it to idle and gate the run:
+    every request FINISHED with `NEW_TOKENS` tokens, 32 ragged launches
+    (one a layer) per ragged step, no leaked block on a live replica, two
+    hosts in `fleet_summary`'s aggregation. Launch and engine-call counts
+    are zeroed just before the run and read just after. Returns `(handles,
+    token_times, report)`: `token_times[i]` holds the `perf_counter` of
+    each token request i committed. `on_step(router, handles, step)` is
+    called before each router step."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.tools.serve_workload import LAYERS, NEW_TOKENS
+
+    times = []
+    _support.reset_launch_counts()
+    monitor.reset("serving.ragged_steps")
+    t0 = time.perf_counter()
+    handles = []
+    for p, kw in requests:
+        stamps = []
+        times.append(stamps)
+        handles.append(router.submit(
+            p, stream_cb=lambda _tok, s=stamps: s.append(time.perf_counter()),
+            **kw))
+    steps = 0
+    while not router.idle:
+        if on_step is not None:
+            on_step(router, handles, steps + 1)
+        router.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lch = _launches()
+    ragged = monitor.get("serving.ragged_steps")
+    bad = [(h.request_id, h.status.value, h.finish_reason, len(h.tokens))
+           for h in handles
+           if h.status.value != "finished" or len(h.tokens) != NEW_TOKENS]
+    if bad:
+        raise AssertionError(f"{label}: requests not finished with "
+                             f"{NEW_TOKENS} tokens: {bad}")
+    expect = {c: 0 for c in lch}
+    expect["ragged_paged_attention"] = LAYERS * ragged
+    _launch_gate(label, lch, expect)
+    for rep in router.live_replicas:
+        if rep.scheduler.kv_leaked_blocks():
+            raise AssertionError(f"{label}: {rep} leaks "
+                                 f"{rep.scheduler.kv_leaked_blocks()}")
+    summary = router.fleet_summary()
+    if monitor.get("mesh.hosts") != 2:
+        raise AssertionError(f"{label}: fleet_summary aggregated "
+                             f"{monitor.get('mesh.hosts')} hosts")
+    tokens_out = sum(len(h.tokens) for h in handles)
+    return handles, times, {
+        "router_steps": steps, "ragged_steps": ragged,
+        "launches": lch["ragged_paged_attention"], "wall_s": wall,
+        "tok_s": tokens_out / wall, "tokens_out": tokens_out,
+        "replicas": {r.replica_id: r.death_reason or "alive"
+                     for r in router.replicas},
+        "aggregate_tokens": summary["aggregate"]["fleet.tokens_generated"],
+        "hosts": monitor.get("mesh.hosts")}
+
+
+def phase_serve_fleet(kind, smi):
+    """`_serve_fleet_runs`, then the card's memory back: the engines,
+    routers and wrappers die with that function's frame. Returns the
+    ragged launches."""
+    launches = _serve_fleet_runs(kind, smi)
+    release()
+    return launches
+
+
+def _serve_fleet_runs(kind, smi):
+    """The serve workload over two replicas at Llama-2-7B width (32
+    layers, bf16; `fleet_workload`: each replica's engine built once,
+    with its own 1024 x 16 pool), three runs over the same engines:
+
+    (a) a clean `FleetRouter` run over two mixed replicas, whose streams
+        are the reference; every router step records, per the chaos
+        site's own choice of the busiest replica, the tokens its
+        in-flight requests have committed;
+    serve_disagg: a `DisaggRouter` of one prefill and one decode replica.
+        Gates: every request handed off (32 tokens each), no fold
+        fallback; all 8 streams equal (a)'s (the session keeps its
+        sampler draws); the decode tier prefills no token; the shipped
+        bytes equal the payloads' blocks times the pool's bytes per
+        block; both tiers leak-free;
+    (c) the chaos run: the `fleet.step` flag fires at the first router
+        step at which every in-flight request of the busiest replica has
+        committed 4 to 24 tokens (from (a)'s records; sequential stepping
+        is deterministic), killing it. Gates: `fleet.relocations` equals
+        the killed replica's in-flight requests, `relocated_tokens` > 0,
+        the 6 greedy streams equal (a)'s bit for bit.
+
+    Every run: 8 of 8 FINISHED with 32 tokens, 32 ragged launches a
+    ragged step, no leak on a live replica, two hosts in the
+    aggregation, no replica dead but (c)'s killed one and no fault
+    counter moved but (c)'s relocations (`_fleet_fault_gate`). Returns
+    the ragged launches."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import (DisaggRouter, FleetRouter,
+                                          ServingMetrics)
+    from paddle_tpu_torch.tools.serve_workload import (CHUNK, LAYERS,
+                                                       fleet_workload,
+                                                       retire)
+
+    ServingMetrics.reset_monitor()
+    monitor.reset("fleet.")
+    t0 = time.perf_counter()
+    hand_out, engines, requests = fleet_workload()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kw = dict(frontend_kwargs=dict(prefill_chunk_tokens=CHUNK))
+    greedy = [i for i, (_p, k) in enumerate(requests)
+              if not k.get("temperature")]
+    launches = 0
+    weights_kv_gb = torch.cuda.memory_allocated() / 2 ** 30
+
+    # (a) the clean fleet, with the chaos site's view before each step
+    records = []
+
+    def record(router, handles, step):
+        live = router.live_replicas
+        busy = max(live, key=lambda r: (r.scheduler.num_running
+                                        + len(r.scheduler.waiting),
+                                        -router.replicas.index(r)))
+        records.append((step, busy.replica_id, [
+            len(h.tokens) for h in handles
+            if h._replica is busy and not h.status.terminal]))
+
+    torch.cuda.reset_peak_memory_stats()
+    router = FleetRouter(hand_out(), 2, **kw)
+    clean, _t, run_a = _fleet_run(router, requests, "serve_fleet (a)",
+                                  record)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    _fleet_fault_gate("serve_fleet (a)", router)
+    placement = [h.replica_id for h in clean]
+    retire(router)
+    launches += run_a["launches"]
+    ref = [h.tokens for h in clean]
+
+    # serve_disagg: prefill tier engines[0], decode tier engines[1]
+    monitor.reset("fleet.")
+    ServingMetrics.reset_monitor()
+    moves = {}
+    src, dst = engines
+    extract, inject = src.extract_kv_blocks, dst.inject_kv_blocks
+
+    def timed_extract(seq_id):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        pay = extract(seq_id)
+        torch.cuda.synchronize()
+        moves[seq_id] = {"blocks": pay.num_blocks, "tokens": pay.num_tokens,
+                         "bytes": pay.nbytes,
+                         "extract_ms": (time.perf_counter() - ts) * 1e3}
+        return pay
+
+    def timed_inject(seq_id, payload):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        inject(seq_id, payload)
+        torch.cuda.synchronize()
+        moves[seq_id]["inject_ms"] = (time.perf_counter() - ts) * 1e3
+
+    src.extract_kv_blocks, dst.inject_kv_blocks = timed_extract, timed_inject
+    router = DisaggRouter(hand_out(), num_prefill=1, num_decode=1, **kw)
+    decode_rep = next(r for r in router.replicas if r.role == "decode")
+    decode_prefill = []
+    on_chunk = decode_rep.frontend.metrics.on_prefill_chunk
+
+    def counted_chunk(n):
+        decode_prefill.append(n)
+        on_chunk(n)
+
+    decode_rep.frontend.metrics.on_prefill_chunk = counted_chunk
+    try:
+        handed, _t, run_d = _fleet_run(router, requests, "serve_disagg")
+    finally:
+        del src.extract_kv_blocks, dst.inject_kv_blocks
+    _fleet_fault_gate("serve_disagg", router)
+    launches += run_d["launches"]
+    got = [h.tokens for h in handed]
+    handoffs = monitor.get("fleet.handoffs")
+    bpb = src.manager.bytes_per_block
+    shipped = monitor.get("serving.handoff.bytes")
+    want_bytes = sum(m["blocks"] * bpb for m in moves.values())
+    if handoffs != len(requests) or len(moves) != len(requests) \
+            or monitor.get("fleet.handoff_fallbacks") \
+            or got != ref or sum(decode_prefill) \
+            or shipped != want_bytes \
+            or any(m["bytes"] != m["blocks"] * bpb for m in moves.values()) \
+            or any(h.replica_id != decode_rep.replica_id for h in handed):
+        raise AssertionError(
+            f"serve_disagg: handoffs {handoffs} of {len(requests)}, "
+            f"fallbacks {monitor.get('fleet.handoff_fallbacks')}, streams "
+            f"equal {[a == b for a, b in zip(got, ref)]}, decode-tier "
+            f"prefill tokens {sum(decode_prefill)}, bytes {shipped} != "
+            f"{want_bytes}")
+    per = [m["extract_ms"] + m["inject_ms"] for m in moves.values()]
+    emit({"phase": "serve_disagg",
+          "model": f"llama_7b_shaped(num_layers={LAYERS}) bf16",
+          "tiers": {"prefill": 1, "decode": 1}, "requests": len(requests),
+          "handoffs": handoffs, "handoff_fallbacks": 0,
+          "streams_equal_clean_fleet": True,
+          "decode_tier_prefill_tokens": 0,
+          "shipped_bytes": shipped, "bytes_per_block": bpb,
+          "moves": list(moves.values()),
+          "handoff_ms_median": statistics.median(per),
+          "handoff_ms_max": max(per),
+          "handoff_gb_s_median": statistics.median(
+              2 * m["bytes"] / 1e6 / (m["extract_ms"] + m["inject_ms"])
+              for m in moves.values()),
+          **run_d, "tok_s_clean_fleet": run_a["tok_s"],
+          "device": kind, "nvidia_smi": smi})
+    retire(router)
+
+    # (c) the chaos run: kill the busiest replica mid-decode
+    chaos = next((s for s, _rid, toks in records
+                  if toks and all(4 <= t <= 24 for t in toks)), None)
+    if chaos is None:
+        raise AssertionError("serve_fleet: no router step of (a) has every "
+                             "in-flight request of the busiest replica at "
+                             "4-24 tokens")
+    monitor.reset("fleet.")
+    ServingMetrics.reset_monitor()
+    router = FleetRouter(hand_out(), 2, **kw)
+    killed = {}
+    fail = router.fail_replica
+
+    def timed_fail(replica_id, reason="killed"):
+        t = time.perf_counter()
+        carried = {h.request_id: len(h.tokens) for h in router._handles
+                   if h._replica is router._rep(replica_id)
+                   and not h.status.terminal}
+        victims = fail(replica_id, reason)
+        killed.update(t=t, replica=replica_id, victims=victims,
+                      carried=carried)
+        return victims
+
+    router.fail_replica = timed_fail
+    faults.inject("fleet.step", after_n=chaos - 1, times=1, action="flag")
+    try:
+        hs, times, run_c = _fleet_run(router, requests, "serve_fleet (c)")
+    finally:
+        faults.clear("fleet.step")
+    _fleet_fault_gate("serve_fleet (c)", router, dead=("chaos_kill",),
+                      allow=("fleet.relocations",))
+    launches += run_c["launches"]
+    victims = killed.get("victims", [])
+    relocated = [i for i, h in enumerate(hs) if h.num_relocations]
+    got = [h.tokens for h in hs]
+    if not victims or monitor.get("fleet.relocations") != len(victims) \
+            or monitor.get("fleet.relocated_tokens") <= 0 \
+            or len(relocated) != len(victims) \
+            or any(got[i] != ref[i] for i in greedy):
+        raise AssertionError(
+            f"serve_fleet (c): {len(victims)} in flight on the killed "
+            f"replica, relocations {monitor.get('fleet.relocations')}, "
+            f"relocated tokens {monitor.get('fleet.relocated_tokens')}, "
+            f"greedy streams equal "
+            f"{[got[i] == ref[i] for i in greedy]}")
+    next_token_ms = {}
+    for i in relocated:
+        after = [t for t in times[i] if t > killed["t"]]
+        next_token_ms[hs[i].request_id] = (after[0] - killed["t"]) * 1e3
+    reprefill = sum(len(hs[i]._req.prompt) for i in relocated)
+    sampled = [i for i in range(len(requests)) if i not in greedy]
+    emit({"phase": "serve_fleet",
+          "model": f"llama_7b_shaped(num_layers={LAYERS}) bf16",
+          "replicas": 2, "requests": len(requests),
+          "prompt_lens": [len(p) for p, _ in requests],
+          "placement": placement, "setup_s": setup_s,
+          "weights_and_pools_gb": weights_kv_gb, "peak_mem_gb": peak_gb,
+          "clean": run_a, "chaos": {
+              **run_c, "chaos_step": chaos, "killed": killed["replica"],
+              "in_flight_killed": len(victims),
+              "tokens_at_kill": killed["carried"],
+              "relocations": monitor.get("fleet.relocations"),
+              "relocated_tokens": monitor.get("fleet.relocated_tokens"),
+              "reprefilled_tokens": reprefill,
+              "kill_to_next_token_ms": next_token_ms,
+              "greedy_streams_equal_clean": True,
+              "sampled_streams_equal_clean": {
+                  hs[i].request_id: got[i] == ref[i] for i in sampled}},
+          "device": kind, "nvidia_smi": smi, "sample_tokens": ref[0][:8]})
+    router.close()
+    return {"ragged_paged_attention": launches}
+
+
+# ---------------------------------------------------------------------------
 # tensor-parallel serving (`serving/tp.py`): SPMD ranks over a gloo group
 # ---------------------------------------------------------------------------
 
@@ -2080,9 +2639,9 @@ def _record_rows(fe):
         state["rows"] = gather(logits, idx)
         return state["rows"]
 
-    def commit_rec(req, tok, slot, t_tok):
+    def commit_rec(req, tok, slot, t_tok, **kw):
         rows.setdefault(req.req_id, []).append(state["rows"][slot])
-        return commit(req, tok, slot, t_tok)
+        return commit(req, tok, slot, t_tok, **kw)
 
     sched._gather_rows = gather_rec
     sched._commit_token = commit_rec
@@ -3559,6 +4118,11 @@ ONLY = {
     "serve_lora_quant":
         lambda kind, smi: phase_serve_lora_quant(kind, smi, None),
     "serve_migrate": phase_serve_migrate,
+    "fleet_reference": phase_fleet_reference,
+    # one run serves both: the disaggregated run sits between the clean
+    # and the chaos fleet runs over the same engines
+    "serve_fleet": phase_serve_fleet,
+    "serve_disagg": phase_serve_fleet,
     "tp_reference": None,
     "serve_tp": None,
 }
@@ -3579,8 +4143,10 @@ def main(argv=()):
             raise SystemExit("usage: python3 chip_smoke.py [--only "
                              f"PHASE[,PHASE...]], phases {sorted(ONLY)}")
         kind, smi = phase_device()
+        done = set()
         for name in names:
-            if name not in TP_ONLY:
+            if name not in TP_ONLY and ONLY[name] not in done:
+                done.add(ONLY[name])
                 ONLY[name](kind, smi)
         tasks = tuple(TP_ONLY[n] for n in TP_ONLY if n in names)
         if tasks:                       # one world of ranks for both
@@ -3605,6 +4171,8 @@ def main(argv=()):
     lora_q_launches = phase_serve_lora_quant(kind, smi, factors)
     del factors
     migrate_launches = phase_serve_migrate(kind, smi)
+    fleet_ref_launches = phase_fleet_reference(kind, smi)
+    fleet_launches = phase_serve_fleet(kind, smi)
     tp_launches = phase_tp(kind, smi)
     flash = phase_flash()
     rms = phase_rms()
@@ -3631,6 +4199,8 @@ def main(argv=()):
              + prefix_launches["ragged_paged_attention"]
              + lora_launches["ragged_paged_attention"]
              + migrate_launches["ragged_paged_attention"]
+             + fleet_ref_launches["ragged_paged_attention"]
+             + fleet_launches["ragged_paged_attention"]
              + tp_launches["ragged_paged_attention"], attn["mha_bf16"],
              instance=attn["mha_bf16"]["instance"],
              splits=attn["mha_bf16"]["splits"]),
@@ -3640,6 +4210,7 @@ def main(argv=()):
              + prefix_launches["ragged_paged_attention_q"]
              + lora_q_launches["ragged_paged_attention_q"]
              + migrate_launches["ragged_paged_attention_q"]
+             + fleet_ref_launches["ragged_paged_attention_q"]
              + tp_launches["ragged_paged_attention_q"],
              attn_q["mha_bf16"],
              instance=attn_q["mha_bf16"]["instance"],

@@ -5,7 +5,10 @@ It serves the Llama model through the ragged paged-KV engine
 (`ServingFrontend` -> `Scheduler` -> `LlamaInferenceEngine.ragged_step`,
 or `verify_step` with speculative decoding, `serving.SpecDecodeConfig`;
 the prefix cache, tenant SLO classes, overload shedding and the engine
-watchdog are frontend options; `MLPLMEngine` is the tiny second engine),
+watchdog are frontend options; `MLPLMEngine` is the tiny second engine;
+`FleetRouter` and `DisaggRouter` put several frontends behind one
+router, with relocation on a replica's death and prefill -> decode
+handoffs of KV sessions),
 generates with `LlamaInferenceEngine.generate` (`prefill` +
 `decode_step`), and trains it (`loss, logits = model(ids, labels=labels)`,
 `loss.backward()`, `paddle_tpu_torch.optimizer.AdamW.step()`), with
@@ -17,9 +20,12 @@ neither jax nor paddle_tpu.
 from .convert import from_jax_state, mlp_from_jax_params, moe_from_jax_state
 from .inference import LlamaInferenceEngine
 from .models import LlamaConfig, LlamaForCausalLM, llama_7b_shaped, llama_tiny
-from .serving import MLPLMEngine, RequestHandle, ServingFrontend
+from .serving import (DisaggRouter, FleetHandle, FleetRouter, HandoffError,
+                      HandoffState, MLPLMEngine, ReplicaHandle, RequestHandle,
+                      ServingFrontend)
 
 __all__ = ["from_jax_state", "mlp_from_jax_params", "moe_from_jax_state",
            "LlamaInferenceEngine", "LlamaConfig", "LlamaForCausalLM",
            "llama_7b_shaped", "llama_tiny", "MLPLMEngine", "RequestHandle",
-           "ServingFrontend"]
+           "ServingFrontend", "FleetRouter", "FleetHandle", "ReplicaHandle",
+           "DisaggRouter", "HandoffState", "HandoffError"]

@@ -45,13 +45,20 @@ def resolve_device(device=None) -> torch.device:
 
 
 class LaunchCounter:
-    """A plain integer count of one kernel's launches."""
+    """The count of one kernel's launches. `add()` takes a lock, so
+    wrappers called from several threads at once (a fleet router stepping
+    its replicas in parallel) lose no increment."""
 
-    __slots__ = ("name", "count")
+    __slots__ = ("name", "count", "_lock")
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
 
 
 _COUNTERS: Dict[str, LaunchCounter] = {}

@@ -189,7 +189,7 @@ def _launch_bias_act(x2d, bias, act_method):
                              int(bias.dtype == torch.float32), vec, stream)
     if rc != 0:
         raise RuntimeError(f"bias_act launch failed: CUDA error {rc}")
-    LAUNCHES.count += 1
+    LAUNCHES.add()
     return y
 
 
@@ -214,7 +214,7 @@ def _launch_swiglu(x2d, y2d):
                            _DTYPE_CODE[x2d.dtype], vec, stream)
     if rc != 0:
         raise RuntimeError(f"swiglu launch failed: CUDA error {rc}")
-    LAUNCHES_SWIGLU.count += 1
+    LAUNCHES_SWIGLU.add()
     return out
 
 

@@ -245,7 +245,7 @@ def _call(name, counter, q, k, causal, sm_scale, ptrs, strided, kv_lens):
         rc = _fn(name)(*ptrs, lens, dims, strides, float(sm_scale), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    counter.count += 1
+    counter.add()
 
 
 def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, kv_lens=None):

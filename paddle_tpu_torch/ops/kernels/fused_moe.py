@@ -169,7 +169,7 @@ def _launch_dispatch(x_rows, e_idx, p_idx, n_experts, capacity):
             capacity, row_bytes, unit, stream)
     if rc != 0:
         raise RuntimeError(f"moe_dispatch launch failed: CUDA error {rc}")
-    LAUNCHES_DISPATCH.count += 1
+    LAUNCHES_DISPATCH.add()
     return out
 
 
@@ -193,7 +193,7 @@ def _launch_gather(buf, e_idx, p_idx):
             stream)
     if rc != 0:
         raise RuntimeError(f"moe_gather launch failed: CUDA error {rc}")
-    LAUNCHES_GATHER.count += 1
+    LAUNCHES_GATHER.add()
     return out
 
 

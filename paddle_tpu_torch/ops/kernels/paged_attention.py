@@ -633,7 +633,7 @@ def _launch(q, k_cache, v_cache, block_tables, kv_lens, tok_lane, tok_pos,
     name = "ragged_paged_attention_q" if quant else "ragged_paged_attention"
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    (counter or (LAUNCHES_Q if quant else LAUNCHES)).count += 1
+    (counter or (LAUNCHES_Q if quant else LAUNCHES)).add()
     return out
 
 
@@ -691,5 +691,5 @@ def _launch_rows(q, k_cache, v_cache, block_tables, context_lens, sm_scale,
     name = "paged_attention_verify" if verify else "paged_attention_decode"
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    (LAUNCHES_VERIFY if verify else LAUNCHES_DECODE).count += 1
+    (LAUNCHES_VERIFY if verify else LAUNCHES_DECODE).add()
     return out

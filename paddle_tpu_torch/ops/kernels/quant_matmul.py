@@ -229,5 +229,5 @@ def _launch(x2d, wq, scale, out_dtype, int4):
     if rc != 0:
         raise RuntimeError(f"{'quant_matmul_int4' if int4 else 'quant_matmul'}"
                            f" launch failed: CUDA error {rc}")
-    (LAUNCHES_INT4 if int4 else LAUNCHES).count += 1
+    (LAUNCHES_INT4 if int4 else LAUNCHES).add()
     return out

@@ -133,7 +133,7 @@ def _launch(x2d, w, eps):
                     _DTYPE_CODE[x2d.dtype], *plan, stream)
     if rc != 0:
         raise RuntimeError(f"rms_norm launch failed: CUDA error {rc}")
-    LAUNCHES.count += 1
+    LAUNCHES.add()
     return y
 
 

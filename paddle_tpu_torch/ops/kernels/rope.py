@@ -132,7 +132,7 @@ def _launch(q, k, cos, sin, conj):
                     strides, stream)
     if rc != 0:
         raise RuntimeError(f"fused_rope launch failed: CUDA error {rc}")
-    LAUNCHES.count += 1
+    LAUNCHES.add()
     return oq, ok
 
 

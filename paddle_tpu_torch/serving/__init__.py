@@ -1,7 +1,9 @@
 from ..inference.kv_migrate import KVMigrationError
+from .disagg import DisaggRouter, HandoffError, HandoffState
 from .engine import EngineCore, MLPLMEngine
 from .fault_tolerance import (AdmissionConfig, EngineStalled, EngineStepError,
                               OverloadController, WatchdogConfig)
+from .fleet import FleetHandle, FleetRouter, ReplicaHandle
 from .frontend import RequestHandle, ServingFrontend
 from .lora import (AdapterError, AdapterPool, AdapterPoolExhausted,
                    AdapterRankError, LoRAEngine, UnknownAdapterError,
@@ -25,4 +27,5 @@ __all__ = ["EngineCore", "MLPLMEngine", "AdmissionConfig", "EngineStalled",
            "AdapterPoolExhausted", "AdapterRankError", "LoRAEngine",
            "UnknownAdapterError", "attach_adapters", "KVMigrationError",
            "LockstepError", "ShardedEngine", "ShardingConfigError",
-           "shard_engine"]
+           "shard_engine", "FleetHandle", "FleetRouter", "ReplicaHandle",
+           "DisaggRouter", "HandoffError", "HandoffState"]

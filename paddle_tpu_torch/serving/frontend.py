@@ -55,6 +55,33 @@ class RequestHandle:
     def num_preemptions(self) -> int:
         return self._req.num_preemptions
 
+    @property
+    def replica_id(self) -> Optional[str]:
+        """The fleet replica serving this request now (`serving/fleet.py`
+        placement); None under a standalone frontend."""
+        return self._req.replica_id
+
+    @property
+    def num_relocations(self) -> int:
+        """How often a replica death or drain moved this request to
+        another replica (each move also lands a `relocated` event on its
+        timeline)."""
+        return self._req.num_relocations
+
+    def timeline(self) -> list:
+        """This request's recorded timeline events (oldest first) as
+        dicts: queued -> admitted -> prefill -> decode / verify rounds
+        -> (preempted / relocated ->) terminal. Empty unless
+        `observability.enable()` is on; a ring left from an earlier,
+        since-disabled session is not read."""
+        from .. import observability as _obs
+        from ..observability import timeline as _timeline
+
+        if not _obs.enabled():
+            return []
+        return [e.as_dict() for e in _timeline.events()
+                if e.req_id == self._req.req_id]
+
     def ttft_ms(self) -> Optional[float]:
         t = self._req.ttft()
         return None if t is None else t * 1e3
@@ -198,6 +225,13 @@ class ServingFrontend:
             return
         if self.stall_after and not sch.idle \
                 and sch.zero_progress_steps >= self.stall_after:
+            from .. import observability as _obs
+            from ..observability import timeline as _timeline
+
+            if _obs.enabled():
+                # the rounds that led to the wedge, on disk before the
+                # typed raise unwinds the driver loop
+                _timeline.dump_flight("engine_stalled")
             mgr = sch.engine.manager
             raise EngineStalled(
                 sch.zero_progress_steps,

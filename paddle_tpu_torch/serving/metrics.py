@@ -2,8 +2,9 @@
 prefix-cache hits and cold requests), queue depth and queued cost, batch
 occupancy, KV utilization, preemptions, speculative acceptance, overload
 shedding, isolated and step faults, stalls and engine restarts, the
-per-tenant admission counters, and the adapter pool's gauges with a
-per-adapter TTFT histogram (the port of
+per-tenant admission counters, the adapter pool's gauges with a
+per-adapter TTFT histogram, and the prefill -> decode handoffs (count,
+bytes, latency histogram) of disaggregated serving (the port of
 `paddle_tpu/serving/metrics.py`).
 
 Counters go to the port's monitor under the `serving.` prefix (the
@@ -186,6 +187,17 @@ class ServingMetrics:
         t = req.tpot()
         if t is not None:
             self.tpot_s.append(t)
+
+    def on_handoff(self, nbytes: int, wall_s: float):
+        """One prefill -> decode session handoff landed
+        (`serving/disagg.py`): `nbytes` of KV payload moved (slabs and
+        scale planes), `wall_s` from extract to inject. The counters size
+        the link a deployment needs; the histogram is the handoff-latency
+        surface."""
+        monitor.inc("serving.handoff.count")
+        monitor.inc("serving.handoff.bytes", int(nbytes))
+        monitor.inc("serving.handoff.wall_ms", wall_s * 1e3)
+        monitor.observe("serving.handoff.latency_seconds", wall_s)
 
     # ---- step-level ----
     def on_decode(self, tokens: int):

@@ -72,14 +72,19 @@ Policy:
   request whose context KV arrives as a payload instead of through
   prefill, `release` takes a request out without a terminal status, and
   `export_prefix` / `import_prefix` stream a radix-cached prefix between
-  schedulers.
+  schedulers (a fleet router sets `prefix_stream_hook` to pull a peer's
+  copy on an admission-time miss, `serving/fleet.py`).
+- the serving timeline (`observability/timeline.py`, with
+  `observability.enable()`): each request's lifecycle edges (queued,
+  admitted, prefill, decode and verify rounds, preempted, terminal) and
+  each engine dispatch land as events; a step fault, an engine restart
+  and a failed request dump the flight recorder. Every site checks
+  `observability.enabled()` first, so the disabled path allocates
+  nothing.
 
 Sampling is `ops/sampling.py` on the logits' device: logits stay on the
 card, and only the [B] token ids and the [T] finite mask cross to the
 host each step.
-
-Left out until the slice that takes it (ROADMAP Queue A): the JAX
-scheduler's observability spans.
 """
 from __future__ import annotations
 
@@ -92,11 +97,13 @@ from typing import Callable, Deque, List, Optional
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..framework import monitor
 from ..framework.retry import Budget, retry_call
 from ..inference.cache import KVCacheExhausted, SequenceTooLong
 from ..inference.kv_migrate import KVMigrationError
 from ..inference.prefix_cache import RadixPrefixCache
+from ..observability import timeline as _timeline
 from ..ops.sampling import sample_tokens
 from ..resilience import faults
 from .engine import EngineCore
@@ -173,6 +180,12 @@ class Request:
         self.status = RequestStatus.QUEUED
         self.finish_reason: Optional[str] = None
         self.num_preemptions = 0
+        # fleet placement (serving/fleet.py): the replica serving this
+        # request now, and how often a replica death or drain moved it;
+        # None / 0 under a standalone frontend
+        self.replica_id: Optional[str] = None
+        self.num_relocations = 0
+        self.session_id: Optional[str] = None
         self.t_submit: Optional[float] = None
         self.t_first_token: Optional[float] = None
         self.t_finish: Optional[float] = None
@@ -185,6 +198,8 @@ class Request:
         self._prefill_ctx = np.zeros((0,), np.int32)
         self._prefill_pos = 0
         self._prefix_hit_tokens = 0           # cached tokens this admission
+        self._chunks = 0                      # prefill chunks this admission
+        self._t_admit: Optional[float] = None
         # the context KV arrived as a migrated payload (`import_session`):
         # admission skips the lease and prefill of that context; cleared
         # at admission, and a queue exit before then frees the blocks
@@ -294,6 +309,10 @@ class Scheduler:
         self._tpot_samples: Deque[float] = deque(maxlen=32)
         self._zero_progress = 0        # consecutive no-progress steps
         self._finish_events = 0        # terminal transitions, monotonic
+        # tokens committed to request streams over this scheduler's life
+        # (decode, first tokens, speculative accepts): the per-replica
+        # throughput the fleet aggregates (monitor counters are global)
+        self.tokens_committed = 0
         self._chunk_progress = 0       # prefill tokens last round
         self._step_faults = 0          # consecutive unattributed faults
         self._pending_stall: Optional[str] = None
@@ -401,6 +420,10 @@ class Scheduler:
         now = self._clock() if now is None else now
         req.t_submit = now
         self.metrics.on_submit()
+        if _obs.enabled():
+            self._obs_req(req, "queued", t0=now,
+                          prompt_tokens=int(len(req.prompt)),
+                          max_new_tokens=req.sampling.max_new_tokens)
         if self._broken is not None:
             return self._reject(req, self._broken)
         mgr = self.engine.manager
@@ -455,6 +478,10 @@ class Scheduler:
         if req.t_submit is None:
             req.t_submit = now
         self.metrics.on_submit()
+        if _obs.enabled():
+            self._obs_req(req, "queued", t0=now, imported_kv=True,
+                          prompt_tokens=int(len(req.prompt)),
+                          max_new_tokens=req.sampling.max_new_tokens)
         if self._broken is not None:
             return self._reject(req, self._broken)
         if len(req.prompt) == 0:
@@ -606,6 +633,9 @@ class Scheduler:
         req.finish_reason = reason
         req.t_finish = self._clock()
         self.metrics.on_reject(reason)
+        if _obs.enabled():
+            self._obs_req(req, "terminal:rejected", t0=req.t_finish,
+                          reason=reason)
         return req
 
     def _shed(self, req: Request, reason: str) -> Request:
@@ -613,6 +643,9 @@ class Scheduler:
         req.finish_reason = reason
         req.t_finish = self._clock()
         self.metrics.on_shed(reason)
+        if _obs.enabled():
+            self._obs_req(req, "terminal:shed", t0=req.t_finish,
+                          reason=reason)
         return req
 
     def in_flight(self) -> List[Request]:
@@ -786,7 +819,21 @@ class Scheduler:
             # successful dispatches only: fast failures must not drag the
             # median toward zero while the engine is unhealthy
             self._last_decode_dt = dt
+        if _obs.enabled():
+            _timeline.dispatch_span(phase, t0, t0 + dt)
         return out, flagged
+
+    def _obs_req(self, req: Request, name: str, t0: Optional[float] = None,
+                 t1: Optional[float] = None, **meta):
+        """A request-track timeline event; call sites check
+        `_obs.enabled()` first, so the disabled path allocates nothing. A
+        LoRA request's adapter rides every event (whose TTFT paid an
+        adapter load, without a metrics join)."""
+        if req.adapter is not None and "adapter" not in meta:
+            meta["adapter"] = req.adapter
+        _timeline.request_event(
+            req.req_id, name, self._clock() if t0 is None else t0, t1,
+            **meta)
 
     def _record_tpot(self, n_lanes: int, produced: int):
         """Price the last decode/verify dispatch per lane-token: `dt /
@@ -843,6 +890,10 @@ class Scheduler:
             return
         self._step_faults += 1
         self.metrics.on_step_fault(phase)
+        if _obs.enabled():
+            _timeline.dispatch_span(f"step_fault:{phase}", self._clock(),
+                                    None, error=type(exc).__name__)
+            _timeline.dump_flight(f"step_fault_{phase}")
         limit = self._wd.step_retries if self._wd is not None else 3
         if self._step_faults > limit:
             self._step_faults = 0
@@ -863,6 +914,12 @@ class Scheduler:
         # a restart resolves any stall recorded for the dispatch that
         # triggered it (else one slow, raising dispatch spends two units)
         self._pending_stall = None
+        if _obs.enabled():
+            # the evidence first: the ring holds the rounds that led here,
+            # and the rebuild below may fail everything
+            _timeline.dump_flight(f"engine_restart_{reason}")
+            _timeline.dispatch_span(f"engine_restart:{reason}",
+                                    self._clock(), None)
         if self.engine_factory is None or not self._restart_budget.spend():
             self._fail_all(f"engine_unrecoverable:{reason}")
             return False
@@ -885,6 +942,9 @@ class Scheduler:
             req.num_preemptions += 1
             self._queue_push(req, front=True)
             self.metrics.on_preempt()
+            if _obs.enabled():
+                self._obs_req(req, "preempted", reason=f"restart:{reason}",
+                              tokens_kept=len(req.generated))
         try:
             engine = retry_call(
                 self.engine_factory,
@@ -1111,6 +1171,8 @@ class Scheduler:
             req._prefill_ctx = ctx
             req._prefill_pos = hit
             req._prefix_hit_tokens = 0 if resident else hit
+            req._chunks = 0
+            req._t_admit = self._clock()
             req.status = RequestStatus.RUNNING
             req._admit_seq = next(self._admit_counter)
             self.slots[slot] = req
@@ -1119,6 +1181,12 @@ class Scheduler:
             if tree is not None and not resident:
                 # a resident cursor is migrated KV, not a radix hit
                 self.metrics.on_prefix_lease(hit)
+            if _obs.enabled():
+                self._obs_req(req, "admitted", t0=req._t_admit, slot=slot,
+                              prefix_hit_tokens=hit or None,
+                              queue_wait_ms=round(
+                                  (req._t_admit - req.t_submit) * 1e3, 3)
+                              if req.t_submit is not None else None)
         return admitted
 
     def _grow_chunk(self, req: Request, slot: int, want: int) -> int:
@@ -1226,6 +1294,9 @@ class Scheduler:
         req.num_preemptions += 1
         self._queue_push(req, front=True)
         self.metrics.on_preempt()
+        if _obs.enabled():
+            self._obs_req(req, "preempted", reason="kv_pressure",
+                          tokens_kept=len(req.generated))
         return True
 
     @staticmethod
@@ -1396,7 +1467,8 @@ class Scheduler:
             if self.slots[i] is not req:   # cancelled by a stream_cb
                 continue                   # earlier in this very loop
             produced += 1
-            self._commit_token(req, int(picked[i]), i, t_tok)
+            self._commit_token(req, int(picked[i]), i, t_tok,
+                               obs_decode=True)
         chunk_tokens = 0
         for i, req, n, _p in chunks:
             if self.slots[i] is not req:   # cancelled mid-commit
@@ -1553,6 +1625,7 @@ class Scheduler:
         self._step_faults = 0   # a full verify + sample round succeeded
         produced = proposed = accepted = 0
         chunk_tokens = decode_lanes = 0
+        obs_on = _obs.enabled()
         for i, req, toks, pre_len, prefilling in lanes:
             if self.slots[i] is not req:   # cancelled by a stream_cb
                 continue                   # earlier in this very loop
@@ -1572,11 +1645,17 @@ class Scheduler:
             accepted += a
             # the accepted drafts (== the sampled tokens) plus the bonus /
             # correction token from the first unmatched position
+            committed = 0
             for j in range(a + 1):
                 produced += 1
+                committed += 1
                 self._commit_token(req, int(picked[i, j]), i, t_tok)
                 if req.status.terminal:
                     break
+            if obs_on:
+                self._obs_req(req, "verify_round", t0=t_tok,
+                              tokens=committed, drafts=len(drafts),
+                              accepted=a)
             if not req.status.terminal:
                 # roll back rejected speculation: keep pending + accepted
                 mgr.trim(req.seq_id, pre_len + 1 + a)
@@ -1600,29 +1679,39 @@ class Scheduler:
     def _commit_chunk(self, req: Request, n: int, slot: int, t_tok: float,
                       first_tok) -> None:
         """Advance a lane's chunked prefill by `n` committed tokens; on
-        the round the FINAL chunk completes, commit the request's first
-        token (ignored on a preempted re-admission whose pending token
-        already exists)."""
+        the round the FINAL chunk completes, emit the request's prefill
+        event and commit its first token (ignored on a preempted
+        re-admission whose pending token already exists)."""
         req._prefill_pos += n
+        req._chunks += 1
         self.metrics.on_prefill_chunk(n)
         if req.prefilling:
             return                         # more chunks next round
         self.metrics.on_prefill_done()
+        if _obs.enabled():
+            self._obs_req(req, "prefill", t0=req._t_admit, t1=t_tok,
+                          tokens=int(len(req._prefill_ctx)),
+                          chunks=req._chunks)
         if req._last is None:              # fresh: the FIRST token
             self._commit_token(req, int(first_tok), slot, t_tok)
 
     def _commit_token(self, req: Request, tok: int, slot: int,
-                      t_tok: float):
+                      t_tok: float, obs_decode: bool = False):
         """Commit one sampled token: the ONE place the generated stream,
         pending token, TTFT stamp, stream callback and finish check
-        advance together."""
+        advance together. `obs_decode`: a plain decode lane's commit,
+        which gets its own timeline event."""
         req.generated.append(tok)
         req._last = tok
+        self.tokens_committed += 1
         if req.t_first_token is None:
             req.t_first_token = t_tok
             self.metrics.on_first_token(req)
         if req.stream_cb is not None:
             req.stream_cb(req, tok)
+        if obs_decode and _obs.enabled():
+            self._obs_req(req, "decode", t0=t_tok, tokens=1,
+                          total=len(req.generated))
         self._maybe_finish_on_token(req, tok, slot)
 
     def _maybe_finish_on_token(self, req: Request, tok: int, slot: int):
@@ -1659,6 +1748,12 @@ class Scheduler:
         req.t_finish = self._clock()
         self._finish_events += 1
         self.metrics.on_finish(req)
+        if _obs.enabled():
+            self._obs_req(req, f"terminal:{status.value}",
+                          t0=req.t_finish, reason=reason,
+                          tokens=len(req.generated))
+            if status is RequestStatus.FAILED:
+                _timeline.dump_flight(f"request_failed_{reason}")
 
     def _release_spec(self, req: Request):
         """Drop any speculative-proposer state for a request leaving the

@@ -51,6 +51,17 @@ prompts (64-512 tokens), greedy, handed from one engine to another
 after their prefill and 4 decode tokens (`drive_migration`), and the
 prefix trace's shared prefix streamed between two prefix-cached
 schedulers.
+
+`fleet_workload` is the serve workload over a fleet of `FLEET_REPLICAS`
+replicas (`serving.FleetRouter`, `serving.DisaggRouter`): each replica's
+engine is built once, on the seed-0 weights, with its own pool of 1024
+blocks of 16 slots, and served one warm-up request; `hand_out()` gives
+a router an engine factory that hands those engines out in order (and
+builds a fresh engine on fresh seed-0 weights when asked for more, as a
+replica's watchdog does to rebuild its engine). `retire(router)` closes
+a router and frees the guard blocks its live and drained replicas
+leased, so the next router over the same engines starts from empty
+pools.
 """
 from __future__ import annotations
 
@@ -76,6 +87,8 @@ LORA_PARITY = ("ad0", "ad7", "ad23")
 # KV migration: new tokens, and the tokens a request has generated (its
 # first token and 4 decode tokens) when it moves
 MIGRATE_NEW, MIGRATE_AT = 12, 5
+# the fleet: replicas over the serve workload
+FLEET_REPLICAS = 2
 
 
 def _model(device):
@@ -385,3 +398,42 @@ def drive_migration(fe_src, fe_dst, prompts, max_steps: int = 10000):
             raise RuntimeError(f"migration not done after {max_steps} "
                                "steps")
     return handles
+
+
+def fleet_workload(device="cuda"):
+    """`(hand_out, engines, requests)` for the fleet: `FLEET_REPLICAS`
+    bf16 engines built once on one seed-0 model, each served the
+    warm-up request through a throwaway frontend whose guard block is
+    then freed; `hand_out()` returns a new engine factory for one router
+    (the built engines in order, then fresh ones); and the serve
+    workload's requests (`serve_requests`)."""
+    from .. import ServingFrontend
+
+    model = _model(device)
+    engines = [_engine(model, device) for _ in range(FLEET_REPLICAS)]
+    del model                     # the engines hold what they serve
+    for engine in engines:
+        fe = ServingFrontend(engine, prefill_chunk_tokens=CHUNK)
+        warm_up(fe)
+        engine.manager.free(fe.scheduler._pad_seq_id)
+
+    def hand_out():
+        queue = list(engines)
+
+        def factory():
+            return queue.pop(0) if queue else serve_engine(device)
+
+        return factory
+
+    return hand_out, engines, serve_requests()
+
+
+def retire(router):
+    """Close `router` and free the guard block each live or drained
+    replica's scheduler leased on its engine (a dead replica's pool is
+    left as its death left it)."""
+    router.close()
+    for rep in router.replicas:
+        if rep.alive or rep.death_reason == "drained":
+            sch = rep.scheduler
+            sch.engine.manager.free(sch._pad_seq_id)

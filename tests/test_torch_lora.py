@@ -1,7 +1,6 @@
 """Multi-LoRA serving on both packages: the scenarios of
-`tests/test_lora_serving.py` (but fleet affinity, the timeline
-attribution and the profiler's summary line, which wait for their
-slices) run on the port (`device="cpu"`) holding the JAX suite's own
+`tests/test_lora_serving.py` (but the profiler's summary line, whose
+profiler is not ported) run on the port (`device="cpu"`) holding the JAX suite's own
 assertions, and, where an outcome is more than those pinned values, on
 the JAX package too, with the outcomes compared:
 `lora_mm` within f32 rounding; the adapter pool's integer state (slots,
@@ -623,6 +622,63 @@ class TestTenancyAndTelemetry:
         assert snap["serving.lora.ttft_seconds.a_count"] == 1
         assert sorted(k for k in snap if k.endswith("_count")) == [
             "serving.lora.ttft_seconds.a_count"]
+
+    def test_fleet_adapter_affinity(self):
+        def scenario(p):
+            def factory():
+                eng = _mlp_lora(p, seed=3, pool_slots=2, buckets=(2,),
+                                num_blocks=64)
+                eng.adapter_pool.register(
+                    "hot", p.lora.random_adapter(eng, rank=2, seed=0))
+                return eng
+
+            r = p.s.FleetRouter(factory, num_replicas=2)
+            try:
+                reps = r.live_replicas
+                # warm the adapter onto replica 1 only
+                pool1 = reps[1].frontend.scheduler.engine.adapter_pool
+                pool1.lease("hot")
+                pool1.release("hot")
+                loads = [rep.load()["resident_adapters"] for rep in reps]
+                assert loads == [[], ["hot"]]
+                targets = r._targets(None, set(), adapter="hot")
+                assert targets[0].replica_id == reps[1].replica_id
+                h = r.submit(_prompts(1)[0], max_new_tokens=3,
+                             adapter="hot")
+                r.run_until_idle()
+                assert h.status.value == "finished"
+                assert h.replica_id == reps[1].replica_id
+                return loads, [t.replica_id for t in targets], h.tokens
+            finally:
+                r.close()
+
+        both(scenario)
+
+    def test_timeline_carries_adapter_attribution(self):
+        def scenario(p):
+            from paddle_tpu import observability as jobs
+            from paddle_tpu_torch import observability as tobs
+
+            o = jobs if p is JAX else tobs
+            o.enable()
+            o.timeline.reset()
+            try:
+                eng = _mlp_lora(p, seed=3)
+                eng.adapter_pool.register(
+                    "a", p.lora.random_adapter(eng, rank=2, seed=0))
+                fe = p.s.ServingFrontend(eng)
+                hs = _finish_all(fe, _prompts(2), ["a", None], max_new=3)
+                named = [[(e["name"], (e.get("meta") or {}).get("adapter"))
+                          for e in h.timeline()] for h in hs]
+            finally:
+                o.disable()
+                o.timeline.reset()
+            assert any(ad == "a" for _n, ad in named[0])
+            assert all(ad == "a" for _n, ad in named[0])
+            assert all(ad is None for _n, ad in named[1])
+            return named
+
+        both(scenario)
 
 
 # ---------------------------------------------------------------------------

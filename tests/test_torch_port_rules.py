@@ -44,6 +44,15 @@ def test_port_files_exist():
     files = _port_files()
     assert os.path.join(REPO, "chip_smoke.py") in files
     assert len(files) > 15
+    # the fleet's subpackages, which keep their own copies of JAX-free
+    # JAX-package modules, are checked like every other port file
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for name in ("distributed/elastic/__init__.py",
+                 "distributed/elastic/store.py",
+                 "distributed/elastic/manager.py",
+                 "observability/__init__.py", "observability/timeline.py",
+                 "serving/fleet.py", "serving/disagg.py"):
+        assert f"paddle_tpu_torch/{name}" in rel, name
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -88,7 +97,14 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.distributed, "
             "paddle_tpu_torch.distributed.process_mesh, "
             "paddle_tpu_torch.distributed.tp_overlap, "
-            "paddle_tpu_torch.serving.tp\n"
+            "paddle_tpu_torch.serving.tp, "
+            "paddle_tpu_torch.serving.fleet, "
+            "paddle_tpu_torch.serving.disagg, "
+            "paddle_tpu_torch.distributed.elastic, "
+            "paddle_tpu_torch.distributed.elastic.store, "
+            "paddle_tpu_torch.distributed.elastic.manager, "
+            "paddle_tpu_torch.observability, "
+            "paddle_tpu_torch.observability.timeline\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n")

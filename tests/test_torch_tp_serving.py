@@ -570,6 +570,22 @@ def test_tp_summary(world):
         assert (s["dp_index"], s["tp_index"]) == divmod(r, 2)
 
 
+def test_aggregate_mesh_gathers_over_the_world(world):
+    """With no snapshots, `aggregate_mesh` gathers every rank's over the
+    default group: 4 hosts, and the JAX formula over the same four
+    snapshots."""
+    from paddle_tpu.framework import monitor as jmonitor
+
+    _ref, ranks, _ = world
+    snaps = [res["aggregate"][0] for res in ranks]
+    want = jmonitor.aggregate_mesh("tpw.", snapshots=snaps,
+                                   step_wall_key="tpw.step_wall_ms")
+    jmonitor.reset_prefix("mesh.")
+    assert want["hosts"] == RANKS and want["sum"]["tpw.requests"] == 10
+    for res in ranks:
+        assert res["aggregate"][1] == want
+
+
 # ---------------------------------------------------------------------------
 # sharded KV migration: per-rank export, partition pinning
 # ---------------------------------------------------------------------------

@@ -112,6 +112,7 @@ def raised(call):
 def main(rank, world, port, d):
     from paddle_tpu_torch import (LlamaConfig, LlamaInferenceEngine,
                                   from_jax_state)
+    from paddle_tpu_torch.framework import monitor
     from paddle_tpu_torch.serving import (MLPLMEngine, ServingFrontend,
                                           greedy_agreement, quantize_engine,
                                           shard_engine)
@@ -250,6 +251,15 @@ def main(rank, world, port, d):
                        time.perf_counter() - t0)
     # ... and the group still serves in step afterwards
     out["after_lockstep"] = as_np(eng.ragged_step(*ragged_batch(1)))
+
+    # the monitor's cross-host aggregation gathers over the world when
+    # given no snapshots: each rank contributes its own counter and wall
+    monitor.reset("tpw.")
+    monitor.inc("tpw.requests", rank + 1)
+    monitor.set_gauge("tpw.step_wall_ms", 10.0 * (rank + 1))
+    out["aggregate"] = (
+        monitor.snapshot("tpw.", include_histograms=False),
+        monitor.aggregate_mesh("tpw.", step_wall_key="tpw.step_wall_ms"))
 
     out["seconds"] = time.perf_counter() - start
     with open(f"{d}/rank{rank}.pkl", "wb") as f:
