@@ -78,18 +78,27 @@ workload's shapes (forward and backward), a small layer on the card
 against the CPU on the dense and the expert-parallel routes, and one
 forward + backward of a Mixtral-8x7B-width `MoELayer` (8,192 tokens) on
 the EP route over a one-rank NCCL group with the kernels on and off, and
-on the dense route.
+on the dense route. Between the training and the fused-op phases, the
+eager API (`paddle_tpu_torch.Tensor` over torch autograd): one scripted
+program over the eager ops and the tape on the card against its CPU run
+(`eager_reference`), and Llama-2-7B's attention block (one sequence of
+2048 tokens, bf16) in eager Tensors with exactly one launch of each of
+the flash forward, dQ, dK/dV and RMSNorm kernels, its gradients bit-equal
+to the same calls on plain tensors and near the kernels' plain versions
+(`eager_attention`).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve_lora,serve_migrate
     python3 chip_smoke.py --only fleet_reference,serve_fleet,serve_disagg
     python3 chip_smoke.py --only tp_reference,serve_tp
+    python3 chip_smoke.py --only eager_reference,eager_attention
 
 Each phase prints one JSON line. `--only` runs the device check and the
 named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
 `serve_migrate`, `fleet_reference`, `serve_fleet`, `serve_disagg` (these
 two are one run: the disaggregated run sits between the clean and the
-chaos fleet runs), `tp_reference`, `serve_tp`), with no kernels line and
+chaos fleet runs), `tp_reference`, `serve_tp`, `eager_reference`,
+`eager_attention`), with no kernels line and
 no last line: a measurement of those phases without the whole run. The TP
 phases start their rank processes as `chip_smoke.py --tp-rank ...`. Any failure raises, so the script exits
 non-zero and never prints the last line, which on success is exactly
@@ -801,6 +810,12 @@ def _engine_calls(monitor):
     return {c: monitor.get(f"serving.{c}") for c in ENGINE_CALLS}
 
 
+def _reset_engine_calls(monitor):
+    """Zero the engine-call counters (`monitor.reset(name)` zeroes one)."""
+    for c in ENGINE_CALLS:
+        monitor.reset(f"serving.{c}")
+
+
 def _teacher_forced(engine, prompt, tokens, cand_rows, step=None):
     """Score `prompt + tokens[:-1]` teacher-forced through the plain
     engine's `ragged_step` (one step, or steps of `step` packed slots)
@@ -990,9 +1005,8 @@ def _serve(label, kv_bits, wbits, kind, smi, spec=None):
     fe.metrics.reset_window()
     torch.cuda.reset_peak_memory_stats()
     _support.reset_launch_counts()
-    for c in ENGINE_CALLS:
-        monitor.reset(f"serving.{c}")
-    monitor.reset("serving.spec_")
+    _reset_engine_calls(monitor)
+    monitor.reset_prefix("serving.spec_")
     t1 = time.perf_counter()
     handles = [fe.submit(p, **kw) for p, kw in requests]
     steps = fe.run_until_idle()
@@ -1146,8 +1160,7 @@ def phase_generate(kind, smi):
     engine.prefill, engine.decode_step = record(prefill), record(decode)
     torch.cuda.reset_peak_memory_stats()
     _support.reset_launch_counts()
-    for c in ENGINE_CALLS:
-        monitor.reset(f"serving.{c}")
+    _reset_engine_calls(monitor)
     t1 = time.perf_counter()
     out = engine.generate(prompts, config)
     torch.cuda.synchronize()
@@ -1223,8 +1236,7 @@ def _prefix_run(fe, trace, shared_idx, kv_bits, label):
     stats0 = tree.stats() if tree is not None else None
     fe.metrics.reset_window()
     _support.reset_launch_counts()
-    for c in ENGINE_CALLS:
-        monitor.reset(f"serving.{c}")
+    _reset_engine_calls(monitor)
     pre0 = monitor.get("serving.prefill_tokens")
     preempt0 = monitor.get("serving.preemptions")
     torch.cuda.synchronize()
@@ -1655,8 +1667,7 @@ def _lora_trace_run(fe, trace, adapters, label, kv_bits, wbits, device):
 
     fe.metrics.reset_window()
     _support.reset_launch_counts()
-    for c in ENGINE_CALLS:
-        monitor.reset(f"serving.{c}")
+    _reset_engine_calls(monitor)
     loads0 = monitor.get("serving.lora.miss_loads")
     _sync(device)
     t1 = time.perf_counter()
@@ -2146,7 +2157,7 @@ def _fleet_scenarios(make_engine):
     out = {}
     for name, (run, build, dead, allow) in cases.items():
         ServingMetrics.reset_monitor()
-        monitor.reset("fleet.")
+        monitor.reset_prefix("fleet.")
         with build() as r:
             _support.reset_launch_counts()
             monitor.reset("serving.ragged_steps")
@@ -2337,7 +2348,7 @@ def _serve_fleet_runs(kind, smi):
                                                        retire)
 
     ServingMetrics.reset_monitor()
-    monitor.reset("fleet.")
+    monitor.reset_prefix("fleet.")
     t0 = time.perf_counter()
     hand_out, engines, requests = fleet_workload()
     torch.cuda.synchronize()
@@ -2372,7 +2383,7 @@ def _serve_fleet_runs(kind, smi):
     ref = [h.tokens for h in clean]
 
     # serve_disagg: prefill tier engines[0], decode tier engines[1]
-    monitor.reset("fleet.")
+    monitor.reset_prefix("fleet.")
     ServingMetrics.reset_monitor()
     moves = {}
     src, dst = engines
@@ -2454,7 +2465,7 @@ def _serve_fleet_runs(kind, smi):
         raise AssertionError("serve_fleet: no router step of (a) has every "
                              "in-flight request of the busiest replica at "
                              "4-24 tokens")
-    monitor.reset("fleet.")
+    monitor.reset_prefix("fleet.")
     ServingMetrics.reset_monitor()
     router = FleetRouter(hand_out(), 2, **kw)
     killed = {}
@@ -2745,8 +2756,7 @@ def _serve_tp_run(label, kv_bits, wbits, rank, tp, group_note):
     fe.metrics.reset_window()
     torch.cuda.reset_peak_memory_stats()
     _support.reset_launch_counts()
-    for c in ENGINE_CALLS:
-        monitor.reset(f"serving.{c}")
+    _reset_engine_calls(monitor)
     clock = _CollectiveClock()
     with clock:
         t1 = time.perf_counter()
@@ -2981,8 +2991,7 @@ def _serve_tp1_nccl(engine, requests, launches):
         warm_up(fe)
         rows = _record_rows(fe)
         _support.reset_launch_counts()
-        for c in ENGINE_CALLS:
-            monitor.reset(f"serving.{c}")
+        _reset_engine_calls(monitor)
         t1 = time.perf_counter()
         handles = [fe.submit(p, **kw) for p, kw in requests]
         steps = fe.run_until_idle()
@@ -3405,6 +3414,239 @@ def phase_train(kind, smi):
           "losses": losses, "kernel_launches": launches,
           "setup_s": setup_s, "device": kind, "nvidia_smi": smi})
     del model, opt, ids, labels
+    release()
+    return launches
+
+
+# ---- the eager API (paddle_tpu_torch.Tensor over torch autograd) ----
+
+# the eager program's f32 results on the card against its CPU run: a few
+# ulps of one op (exp, sin, erfinv, a reduction's order), at most 1e-5
+# relative; integers, bools and the seeded draws' bits exactly
+EAGER_TOL = dict(rtol=1e-5, atol=1e-6)
+# the eager block's gradients against the block with the kernels' plain
+# versions, norm-relative: the flash kernels alone are held to 1e-2 in
+# bf16, and the block chains two bf16 matmuls after them
+EAGER_PLAIN_TOL = 2e-2
+EAGER_KERNELS = {"flash_attention_fwd": 1, "flash_attention_dq": 1,
+                 "flash_attention_dkv": 1, "rms_norm": 1}
+
+
+def phase_eager_reference():
+    """`eager_workload.eager_program` (creation, promotion, indexing and
+    index assignment, reductions, matmul, softmax, backward, a hook,
+    `paddle.grad` with `create_graph`, PyLayer, hessian, seeded draws) on
+    the card and on the CPU: every float result within EAGER_TOL, every
+    integer, bool and random bit equal, every card tensor on the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools.eager_workload import eager_program
+
+    with place.device_scope("gpu"):
+        t0 = time.perf_counter()
+        gpu = eager_program(paddle)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+    with place.device_scope("cpu"):
+        cpu = eager_program(paddle)
+    if str(gpu.pop("place")) != "Place(gpu:0)" \
+            or str(cpu.pop("place")) != "Place(cpu:0)":
+        raise AssertionError("eager_reference: the program ran on the "
+                             "wrong device")
+    if set(gpu) != set(cpu):
+        raise AssertionError(f"eager_reference: results differ in names "
+                             f"{sorted(set(gpu) ^ set(cpu))}")
+    worst = {}
+    for name in sorted(cpu):
+        g, c = np.asarray(gpu[name]), np.asarray(cpu[name])
+        if g.dtype != c.dtype or g.shape != c.shape:
+            raise AssertionError(f"eager_reference {name}: {g.dtype} "
+                                 f"{g.shape} on the card, {c.dtype} "
+                                 f"{c.shape} on the CPU")
+        if g.dtype.kind == "f":
+            np.testing.assert_allclose(g, c, err_msg=name, **EAGER_TOL)
+            worst[name] = float(np.abs(g.astype(np.float64) - c).max()) \
+                if g.size else 0.0
+        elif not np.array_equal(g, c):
+            raise AssertionError(f"eager_reference {name}: card {g} != "
+                                 f"CPU {c}")
+    emit({"phase": "eager_reference", "results": len(cpu),
+          "float_results": len(worst), "tol": EAGER_TOL,
+          "max_abs_err": max(worst.values()),
+          "worst": max(worst, key=worst.get), "card_run_s": gpu_s})
+
+
+def _apply_overhead_us(n=1000, rounds=7):
+    """Host microseconds one eager call adds over its torch call, on
+    16-element card tensors: `dispatch.apply` alone, and the public
+    `paddle.add` (promotion and checks included). Each loop of `n` calls
+    ends in a synchronise; the three loops run in turns, `rounds` times,
+    and the medians are compared."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import dispatch
+
+    a = paddle.ones([16])
+    t = a._data
+    loops = {"torch_add": lambda: torch.add(t, t),
+             "apply": lambda: dispatch.apply("add", [a, a]),
+             "paddle_add": lambda: paddle.add(a, a)}
+    times = {k: [] for k in loops}
+    for fn in loops.values():
+        for _ in range(50):
+            fn()
+    for _ in range(rounds):
+        for name, fn in loops.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / n * 1e6)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    return {"torch_add_us": med["torch_add"],
+            "apply_us": med["apply"] - med["torch_add"],
+            "paddle_add_us": med["paddle_add"] - med["torch_add"]}
+
+
+def _eager_attention_run(smi):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import dispatch
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.tools import eager_workload as ew
+
+    cfg = ew.LLAMA_7B_BLOCK
+    heads = cfg["heads"]
+    x, w = ew.block_inputs(cfg["batch"], cfg["seq"], cfg["hidden"], heads,
+                           "cuda", torch.bfloat16, seed=16)
+    X = paddle.Tensor(x, stop_gradient=False)
+    W = {n: paddle.Tensor(t, stop_gradient=False) for n, t in w.items()}
+    xt = x.clone().requires_grad_()
+    wt = {n: t.clone().requires_grad_() for n, t in w.items()}
+
+    def eager_step():
+        for t in (X, *W.values()):
+            t.clear_gradient()
+        loss = ew.eager_block(paddle, X, W, heads)
+        loss.backward()
+        return loss
+
+    def torch_step():
+        for t in (xt, *wt.values()):
+            t.grad = None
+        loss = ew.torch_block(xt, wt, heads)
+        loss.backward()
+        return loss
+
+    eager_step()
+    torch_step()
+    torch.cuda.synchronize()
+    _support.reset_launch_counts()
+    loss_e = eager_step()
+    torch.cuda.synchronize()
+    launches = {c: _support.launch_counter(c).count
+                for c in (*SERVE_KERNELS, *TRAIN_KERNELS)}
+    expect = {c: EAGER_KERNELS.get(c, 0) for c in launches}
+    if launches != expect:
+        raise AssertionError(f"eager_attention: kernel launches {launches} "
+                             f"!= {expect} in one step")
+    grads_e = {n: W[n].grad._data.clone() for n in w}
+    grads_e["x"] = X.grad._data.clone()
+    loss_t = torch_step()
+    grads_t = {n: wt[n].grad for n in w}
+    grads_t["x"] = xt.grad
+    unequal = [n for n in grads_e if not torch.equal(grads_e[n], grads_t[n])]
+    if unequal or not torch.equal(loss_e._data, loss_t.detach()):
+        raise AssertionError(f"eager_attention: eager != torch-direct in "
+                             f"{unequal or ['loss']}")
+    (gx,) = paddle.grad(ew.eager_block(paddle, X, W, heads), [X])
+    (gxt,) = torch.autograd.grad(ew.torch_block(xt, wt, heads), [xt])
+    if not torch.equal(gx._data, gxt):
+        raise AssertionError("eager_attention: paddle.grad of x != "
+                             "torch.autograd.grad")
+    del gx, gxt
+    # the plain versions of the kernels on the same inputs
+    xp = x.clone().requires_grad_()
+    wp = {n: t.clone().requires_grad_() for n, t in w.items()}
+    loss_p = ew.plain_block(xp, wp, heads)
+    loss_p.backward()
+    plain_err = {n: _norm_rel(grads_e[n], (xp if n == "x" else wp[n]).grad)
+                 for n in grads_e}
+    lp = float(loss_p.detach())
+    plain_err["loss"] = abs(float(loss_e) - lp) / abs(lp)
+    bad = {n: e for n, e in plain_err.items() if not e <= EAGER_PLAIN_TOL}
+    if bad:
+        raise AssertionError(f"eager_attention: gradients off the plain "
+                             f"versions beyond {EAGER_PLAIN_TOL}: {bad}")
+    del xp, wp, loss_p
+    release()
+    # applies a step, counted outside the timed steps
+    n_apply = [0]
+
+    def count(name, outs):
+        n_apply[0] += 1
+    dispatch.add_op_observer(count)
+    eager_step()
+    dispatch.remove_op_observer(count)
+    walls = {"eager": [], "torch": []}
+    for _ in range(6):
+        for name, step in (("eager", eager_step), ("torch", torch_step),
+                           ("torch", torch_step), ("eager", eager_step)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    # a second derivative through the flash kernels raises, typed
+    q = paddle.to_tensor(np.ones((1, 16, 2, 16), np.float32) * 0.1,
+                         stop_gradient=False)
+    out = paddle.nn.functional.scaled_dot_product_attention(q, q, q,
+                                                            is_causal=True)
+    try:
+        paddle.grad(out.sum(), [q], create_graph=True)
+    except _support.KernelNotDifferentiableError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("eager_attention: create_graph through the "
+                             "flash kernels did not raise")
+    overhead = _apply_overhead_us()
+    eager_ms = statistics.median(walls["eager"])
+    torch_ms = statistics.median(walls["torch"])
+    emit({"phase": "eager_attention",
+          "block": "Llama-2-7B attention block in eager Tensors: rms_norm, "
+                   "q/k/v matmul [in, out], causal sdpa, o matmul, "
+                   "(out.astype('float32') ** 2).mean(), backward",
+          **cfg, "dtype": "bfloat16", "kernel_launches": launches,
+          "grads_bit_equal_to_torch_direct": sorted(grads_e),
+          "paddle_grad_x_bit_equal": True,
+          "plain_norm_rel_err": plain_err,
+          "plain_tol_norm_rel": EAGER_PLAIN_TOL,
+          "step_ms_eager": eager_ms, "step_ms_torch_direct": torch_ms,
+          "step_ms_eager_all": walls["eager"],
+          "step_ms_torch_direct_all": walls["torch"],
+          "applies_per_step": n_apply[0],
+          "host_overhead_us": overhead,
+          "create_graph_refused": refused,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "nvidia_smi": smi})
+    return launches
+
+
+def phase_eager_attention(kind, smi):
+    """The Llama-2-7B attention block (B 1, S 2048, hidden 4096, 32 heads
+    of 128, bf16, `[in, out]` weight Tensors with stop_gradient=False) in
+    eager Tensors, one step: exactly one flash forward, dQ, dK/dV and
+    RMSNorm launch; every `.grad`, the loss and `paddle.grad` of x
+    bit-equal to the same calls on plain tensors under torch autograd;
+    the gradients within EAGER_PLAIN_TOL of the block with the kernels'
+    plain versions. Times the eager and the torch-direct step (host clock
+    around a synchronised step, median of 12 each, in turns), the host
+    overhead of one eager op, and checks that `create_graph` through the
+    flash kernels raises."""
+    from paddle_tpu_torch.framework import place
+
+    torch.cuda.reset_peak_memory_stats()
+    with place.device_scope("gpu"):
+        launches = _eager_attention_run(smi)
     release()
     return launches
 
@@ -4125,6 +4367,8 @@ ONLY = {
     "serve_disagg": phase_serve_fleet,
     "tp_reference": None,
     "serve_tp": None,
+    "eager_reference": lambda kind, smi: phase_eager_reference(),
+    "eager_attention": phase_eager_attention,
 }
 # the TP phases by `phase_tp` task: `--only` runs them in one world
 TP_ONLY = {"tp_reference": "reference", "serve_tp": "serve"}
@@ -4178,6 +4422,8 @@ def main(argv=()):
     rms = phase_rms()
     phase_train_reference()
     train_launches = phase_train(kind, smi)
+    phase_eager_reference()
+    eager_launches = phase_eager_attention(kind, smi)
     fused = phase_incubate_kernels()
     layer_launches = phase_incubate_layer(kind, smi)
     incubate_decode_launches = phase_incubate_serve(kind, smi)
@@ -4236,14 +4482,16 @@ def main(argv=()):
              + tp_launches["quant_matmul_int4"],
              int4["qkv_int4"],
              splits=int4["qkv_int4"]["splits"]),
-        *[_row(name, FLASH_SRC, f"{FA_PY}:{line}", train_launches[name],
+        *[_row(name, FLASH_SRC, f"{FA_PY}:{line}",
+               train_launches[name] + eager_launches[name],
                flash["train_mha"][name], also_replaces=f"{FA_PY}:{also}")
           for name, line, also in (("flash_attention_fwd", 49, 424),
                                    ("flash_attention_dq", 100, 537),
                                    ("flash_attention_dkv", 149, 594))],
         _row("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
              "paddle_tpu/ops/pallas/rms_norm.py:18",
-             train_launches["rms_norm"], rms["bf16"]),
+             train_launches["rms_norm"] + eager_launches["rms_norm"],
+             rms["bf16"]),
         _row("fused_rope", ROPE_SRC, f"{ROPE_PY}:20",
              layer_launches["fused_rope"], fused["rope_bf16"]),
         _row("bias_act", BIAS_ACT_SRC, f"{BA_PY}:57",

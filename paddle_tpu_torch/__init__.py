@@ -16,7 +16,32 @@ hand-written CUDA kernels under `csrc/` for the paged attention, the
 weight-only gemms, flash attention and RMSNorm. Entry points run on the
 CUDA card unless the caller passes `device="cpu"`. The package imports
 neither jax nor paddle_tpu.
+
+The eager API: `paddle.Tensor` over one `torch.Tensor`, `to_tensor` and
+the creation ops, the elementwise, manipulation, comparison and
+reduction ops with paddle's promotion, `paddle.grad`, hooks, `no_grad`,
+`autograd.PyLayer` and `jacobian` / `hessian`, seeded draws with the JAX
+package's bits (`seed`, `rand`, `randint`), over torch autograd; new
+tensors go to the card unless `set_device("cpu")`.
+`nn.functional.scaled_dot_product_attention` and `rms_norm` take Tensors
+to the same kernels.
 """
+from .framework.dtype import (DType, bfloat16, complex64, complex128,
+                              float8_e4m3fn, float8_e5m2, float16, float32,
+                              float64, get_default_dtype, int8, int16, int32,
+                              int64, set_default_dtype, uint8, uint16)
+from .framework.dtype import bool_ as bool
+from .framework.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place,
+                              device_count, get_device,
+                              is_compiled_with_cuda, set_device)
+from .framework.flags import get_flags, set_flags
+from .framework.random import get_rng_state, seed, set_rng_state
+from .core.tensor import Tensor
+from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
+                            set_grad_enabled)
+from . import ops
+from .ops import *  # noqa: F401,F403
+from . import autograd
 from .convert import from_jax_state, mlp_from_jax_params, moe_from_jax_state
 from .inference import LlamaInferenceEngine
 from .models import LlamaConfig, LlamaForCausalLM, llama_7b_shaped, llama_tiny
@@ -24,7 +49,16 @@ from .serving import (DisaggRouter, FleetHandle, FleetRouter, HandoffError,
                       HandoffState, MLPLMEngine, ReplicaHandle, RequestHandle,
                       ServingFrontend)
 
-__all__ = ["from_jax_state", "mlp_from_jax_params", "moe_from_jax_state",
+__all__ = ops.__all__ + [
+           "DType", "bfloat16", "complex64", "complex128", "float8_e4m3fn",
+           "float8_e5m2", "float16", "float32", "float64",
+           "get_default_dtype", "int8", "int16", "int32", "int64",
+           "set_default_dtype", "uint8", "uint16", "bool", "CPUPlace",
+           "CUDAPinnedPlace", "CUDAPlace", "Place", "device_count",
+           "get_device", "is_compiled_with_cuda", "set_device", "get_flags",
+           "set_flags", "get_rng_state", "seed", "set_rng_state", "Tensor",
+           "enable_grad", "grad", "is_grad_enabled", "no_grad",
+           "set_grad_enabled", "autograd", "from_jax_state", "mlp_from_jax_params", "moe_from_jax_state",
            "LlamaInferenceEngine", "LlamaConfig", "LlamaForCausalLM",
            "llama_7b_shaped", "llama_tiny", "MLPLMEngine", "RequestHandle",
            "ServingFrontend", "FleetRouter", "FleetHandle", "ReplicaHandle",

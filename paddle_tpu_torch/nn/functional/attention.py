@@ -8,13 +8,20 @@ and for CPU tensors. A CUDA tensor that the JAX rule gives to its kernel
 and the port's kernels do not take (D of 144-256, or D not a multiple of
 16) raises `NotImplementedError`: it never runs the plain attention
 where the JAX package runs its kernel. Masks are not ported yet: the
-model attends with `is_causal` alone."""
+model attends with `is_causal` alone.
+
+Eager `Tensor` inputs go through `dispatch.apply("sdpa", ...)` to the
+same routes and come back as a `Tensor`; plain `torch.Tensor` inputs
+give a plain `torch.Tensor`."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from ...core import dispatch
+from ...core.tensor import Tensor
+from ...ops._helpers import as_tensor
 from ...ops.kernels import flash_attention as _flash
 
 __all__ = ["scaled_dot_product_attention"]
@@ -56,12 +63,7 @@ def _route(q_shape, k_shape, dtype, is_causal, device_type) -> str:
     return "plain"
 
 
-def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False):
-    """q `[B, Sq, H, D]`, k/v `[B, Sk, KVH, D]` -> `[B, Sq, H, D]`."""
-    if attn_mask is not None:
-        raise NotImplementedError("scaled_dot_product_attention: attn_mask "
-                                  "is not ported yet")
+def _sdpa(query, key, value, *, is_causal):
     route = _route(tuple(query.shape), tuple(key.shape), query.dtype,
                    is_causal, query.device.type)
     if route == "flash":
@@ -74,3 +76,19 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             f"most {_flash.MAX_HEAD_DIM}), and the JAX package runs its "
             f"kernel there (D <= 256)")
     return _sdpa_fn(query, key, value, is_causal)
+
+
+dispatch.register_op("sdpa", _sdpa)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 is_causal=False):
+    """q `[B, Sq, H, D]`, k/v `[B, Sk, KVH, D]` -> `[B, Sq, H, D]`."""
+    if attn_mask is not None:
+        raise NotImplementedError("scaled_dot_product_attention: attn_mask "
+                                  "is not ported yet")
+    if any(isinstance(t, Tensor) for t in (query, key, value)):
+        return dispatch.apply("sdpa", [as_tensor(t) for t in (query, key,
+                                                                value)],
+                              {"is_causal": bool(is_causal)})
+    return _sdpa(query, key, value, is_causal=is_causal)

@@ -1,10 +1,15 @@
 """`rms_norm`, routed as `paddle_tpu/nn/functional/norm.py:193-208`
 routes it: the fused kernel (`ops/kernels/rms_norm.py`) when its
-`supported()` holds, else the plain composite `_rms_norm_fn`."""
+`supported()` holds, else the plain composite `_rms_norm_fn`. Eager
+`Tensor` inputs go through `dispatch.apply("rms_norm", ...)` to the same
+routes and come back as a `Tensor`."""
 from __future__ import annotations
 
 import torch
 
+from ...core import dispatch
+from ...core.tensor import Tensor
+from ...ops._helpers import as_tensor
 from ...ops.kernels import rms_norm as _kernel
 
 __all__ = ["rms_norm"]
@@ -19,10 +24,20 @@ def _rms_norm_fn(x, w, epsilon):
     return y.to(x.dtype) * w
 
 
+def _rms_norm(x, weight, *, epsilon):
+    if _kernel.supported(tuple(x.shape), x.dtype):
+        return _kernel.rms_norm(x, weight, epsilon)
+    return _rms_norm_fn(x, weight, epsilon)
+
+
+dispatch.register_op("rms_norm", _rms_norm)
+
+
 def rms_norm(x, weight, epsilon=1e-6):
     """RMSNorm over the last axis of x. A shape the kernel module admits
     always takes the kernel's path (its plain version on CPU tensors); a
     CUDA tensor never falls back from it."""
-    if _kernel.supported(tuple(x.shape), x.dtype):
-        return _kernel.rms_norm(x, weight, epsilon)
-    return _rms_norm_fn(x, weight, epsilon)
+    if isinstance(x, Tensor) or isinstance(weight, Tensor):
+        return dispatch.apply("rms_norm", [as_tensor(x), as_tensor(weight)],
+                              {"epsilon": float(epsilon)})
+    return _rms_norm(x, weight, epsilon=epsilon)

@@ -23,6 +23,7 @@ from typing import Dict, Iterable, Optional
 import torch
 
 __all__ = ["resolve_device", "launch_counter", "reset_launch_counts",
+           "KernelNotDifferentiableError",
            "build", "load_library", "sm_count", "CSRC_DIR", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
@@ -74,6 +75,22 @@ def launch_counter(name: str) -> LaunchCounter:
 def reset_launch_counts() -> None:
     for c in _COUNTERS.values():
         c.count = 0
+
+
+class KernelNotDifferentiableError(RuntimeError):
+    """A higher-order gradient asked through a kernel whose backward is
+    itself a kernel with no derivative (`create_graph=True` reaching it on
+    a CUDA tensor), as a Pallas call with no JVP rule refuses to be
+    differentiated in the JAX package. Raised instead of returning a
+    gradient detached from the graph."""
+
+    def __init__(self, kernels: str):
+        super().__init__(
+            f"{kernels}: a second derivative through the hand-written "
+            f"kernels is not defined (their backward is a kernel with no "
+            f"derivative); compute it on CPU tensors, which run the "
+            f"differentiable plain version")
+        self.kernels = kernels
 
 
 def _nvcc() -> str:

@@ -328,6 +328,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse, kv_lens = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            # create_graph: the gradient must itself be differentiable
+            return _differentiable_bwd(ctx, q, k, v, kv_lens, do)
         if do.stride(-1) != 1 or do.data_ptr() % 16 \
                 or any(s % 8 for s in do.stride()[:3]):
             do = do.contiguous()
@@ -336,6 +339,23 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta, ctx.causal,
                                          ctx.sm_scale, kv_lens)
         return dq, dk, dv, None, None, None
+
+
+def _differentiable_bwd(ctx, q, k, v, kv_lens, do):
+    """The backward under `create_graph=True`. The dQ and dK/dV kernels
+    have no derivative, so a CUDA tensor raises
+    `KernelNotDifferentiableError`; on CPU tensors the gradient is that of
+    the plain forward, taken on the tape, so it differentiates again (the
+    saved lse would otherwise enter as a constant)."""
+    if q.device.type != "cpu":
+        raise _support.KernelNotDifferentiableError(
+            "flash_attention_dq / flash_attention_dkv")
+    need = ctx.needs_input_grad[:3]
+    wrt = [t for t, n in zip((q, k, v), need) if n]
+    ref, _ = flash_attention_fwd_ref(q, k, v, ctx.causal, ctx.sm_scale,
+                                     kv_lens)
+    gs = iter(torch.autograd.grad(ref, wrt, do, create_graph=True))
+    return (*(next(gs) if n else None for n in need), None, None, None)
 
 
 def flash_attention_bshd(q, k, v, causal=False, sm_scale=None, kv_lens=None):

@@ -10,6 +10,10 @@ raises. The kernel takes w in x's dtype only, as the model's norms are
 plain PyTorch transcription of the JAX package's `_rms_bwd_rule`, as the
 JAX package leaves it to XLA.
 
+The backward is plain PyTorch on the saved x and w, so under
+`create_graph=True` it is recorded and differentiates again on either
+device, as JAX differentiates its custom VJP's `jnp` rule.
+
 Both roundings are the Pallas kernel's: `rsqrt` of the f32 mean square,
 the normalised row rounded to x's dtype BEFORE the multiply by w (the
 serving engine's `_rms` rounds after it, and the composite

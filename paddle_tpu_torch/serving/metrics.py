@@ -7,11 +7,15 @@ per-adapter TTFT histogram, and the prefill -> decode handoffs (count,
 bytes, latency histogram) of disaggregated serving (the port of
 `paddle_tpu/serving/metrics.py`).
 
-Counters go to the port's monitor under the `serving.` prefix (the
-prefix cache and the block manager bump `serving.prefix_cache.*` at
-their source); step gauges and the per-request latency samples stay on
-the `ServingMetrics` instance, and `summary()` reports both with p50/p99
-TTFT and TPOT.
+Counters, gauges and histograms go to the port's monitor under the
+`serving.` prefix, where the JAX package puts them (the prefix cache and
+the block manager bump `serving.prefix_cache.*` at their source): the
+step gauges rounded to 0.1, the TTFT / TPOT gauges published on the
+first finish and every 16th, and the `serving.ttft_seconds`,
+`ttft_cached_seconds`, `ttft_cold_seconds`, `tpot_seconds` and
+per-adapter `serving.lora.ttft_seconds.<adapter>` histograms. The
+per-request latency samples stay on the `ServingMetrics` instance, and
+`summary()` reports the monitor's scalars with p50/p99 TTFT and TPOT.
 """
 from __future__ import annotations
 
@@ -26,6 +30,9 @@ __all__ = ["ServingMetrics"]
 
 # bounded sliding window: a long-running server never grows its samples
 _WINDOW = 4096
+# the latency gauges' percentile passes are O(window): publish on the first
+# finish, then every few
+_PUBLISH_EVERY = 16
 
 # counters summary() reports even before their first bump
 _COUNTERS = ("requests_submitted", "requests_rejected", "requests_completed",
@@ -58,12 +65,12 @@ class ServingMetrics:
         # rest: the side-by-side the prefix cache is judged on
         self.ttft_cached_s = deque(maxlen=_WINDOW)
         self.ttft_cold_s = deque(maxlen=_WINDOW)
-        self.gauges: Dict[str, float] = {}
         # per-round acceptance samples (speculative decoding), bounded
         # like the latency windows
         self.accept_rate = deque(maxlen=_WINDOW)
         self._occ_sum = 0.0
         self._steps = 0
+        self._finishes = 0
         self._spec_steps = 0
         self._spec_produced = 0
 
@@ -78,6 +85,7 @@ class ServingMetrics:
         self.accept_rate.clear()
         self._occ_sum = 0.0
         self._steps = 0
+        self._finishes = 0
         self._spec_steps = 0
         self._spec_produced = 0
 
@@ -135,17 +143,20 @@ class ServingMetrics:
 
     def on_ragged_step(self, prefill_tokens: int, decode_lanes: int):
         """Composition of this round's one ragged dispatch."""
-        self.gauges["serving.step_prefill_tokens"] = prefill_tokens
-        self.gauges["serving.step_decode_lanes"] = decode_lanes
+        monitor.set_gauge("serving.step_prefill_tokens", prefill_tokens)
+        monitor.set_gauge("serving.step_decode_lanes", decode_lanes)
 
     def on_first_token(self, req):
         t = req.ttft()
         if t is not None:
             self.ttft_s.append(t)
+            monitor.observe("serving.ttft_seconds", t)
             if req._prefix_hit_tokens > 0:
                 self.ttft_cached_s.append(t)
+                monitor.observe("serving.ttft_cached_seconds", t)
             else:
                 self.ttft_cold_s.append(t)
+                monitor.observe("serving.ttft_cold_seconds", t)
             if req.adapter:
                 # per-adapter TTFT: an adapter whose requests keep missing
                 # the pool shows up as a fat histogram here
@@ -161,8 +172,8 @@ class ServingMetrics:
         hits = monitor.get("serving.prefix_cache.hits")
         miss = monitor.get("serving.prefix_cache.misses")
         if hits + miss:
-            self.gauges["serving.prefix_cache.hit_rate_pct"] = \
-                hits / (hits + miss) * 100.0
+            monitor.set_gauge("serving.prefix_cache.hit_rate_pct",
+                              round(hits / (hits + miss) * 100.0, 1))
 
     # ---- multi-tenant SLO classes ----
     def on_tenant_admit(self, tenant: str):
@@ -187,6 +198,10 @@ class ServingMetrics:
         t = req.tpot()
         if t is not None:
             self.tpot_s.append(t)
+            monitor.observe("serving.tpot_seconds", t)
+        self._finishes += 1
+        if self._finishes == 1 or self._finishes % _PUBLISH_EVERY == 0:
+            self._publish_latency()
 
     def on_handoff(self, nbytes: int, wall_s: float):
         """One prefill -> decode session handoff landed
@@ -221,40 +236,51 @@ class ServingMetrics:
         tot_p = monitor.get("serving.spec_proposed_tokens")
         tot_a = monitor.get("serving.spec_accepted_tokens")
         if tot_p:
-            monitor.set_gauge("serving.spec_acceptance_pct",
+            monitor.set_value("serving.spec_acceptance_pct",
                               round(tot_a / tot_p * 100.0, 1))
-        monitor.set_gauge(
+        monitor.set_value(
             "serving.spec_tokens_per_lane_step",
             round(self._spec_produced / max(self._spec_steps, 1), 2))
 
     def on_step(self, occupancy: float, kv_utilization: float,
                 queue_depth: int, decoded: bool = True):
         # occupancy averages over decode steps only
-        g = self.gauges
         if decoded:
             self._steps += 1
             self._occ_sum += occupancy
-            g["serving.batch_occupancy_pct"] = occupancy * 100.0
-            g["serving.batch_occupancy_avg_pct"] = \
-                self._occ_sum / self._steps * 100.0
-        g["serving.kv_utilization_pct"] = kv_utilization * 100.0
-        g["serving.kv_utilization_peak_pct"] = max(
-            g.get("serving.kv_utilization_peak_pct", 0.0),
-            kv_utilization * 100.0)
-        self.gauge_queue(queue_depth)
+            monitor.set_gauge("serving.batch_occupancy_pct",
+                              round(occupancy * 100.0, 1))
+            monitor.set_gauge("serving.batch_occupancy_avg_pct",
+                              round(self._occ_sum / self._steps * 100.0, 1))
+        monitor.set_gauge("serving.kv_utilization_pct",
+                          round(kv_utilization * 100.0, 1))
+        monitor.set_max("serving.kv_utilization_peak_pct",
+                        round(kv_utilization * 100.0, 1))
+        monitor.set_gauge("serving.queue_depth", queue_depth)
+        monitor.set_max("serving.queue_depth_peak", queue_depth)
 
     def gauge_queue(self, depth: int, queued_cost: Optional[int] = None):
         """Queue depth and, when given, the queued cost: the
         `max_new_tokens`-weighted backlog the cost watermark and the
         deadline-shed estimate latch on."""
-        g = self.gauges
-        g["serving.queue_depth"] = depth
-        g["serving.queue_depth_peak"] = max(
-            g.get("serving.queue_depth_peak", 0), depth)
+        monitor.set_gauge("serving.queue_depth", depth)
+        monitor.set_max("serving.queue_depth_peak", depth)
         if queued_cost is not None:
-            g["serving.queued_cost"] = queued_cost
-            g["serving.queued_cost_peak"] = max(
-                g.get("serving.queued_cost_peak", 0), queued_cost)
+            monitor.set_gauge("serving.queued_cost", queued_cost)
+            monitor.set_max("serving.queued_cost_peak", queued_cost)
+
+    def _publish_latency(self):
+        for name, val in (("serving.ttft_p50_ms", _pct(self.ttft_s, 50)),
+                          ("serving.ttft_p99_ms", _pct(self.ttft_s, 99)),
+                          ("serving.prefix_cache.ttft_cached_p50_ms",
+                           _pct(self.ttft_cached_s, 50)),
+                          ("serving.prefix_cache.ttft_cold_p50_ms",
+                           _pct(self.ttft_cold_s, 50)),
+                          ("serving.tpot_mean_ms",
+                           float(np.mean(self.tpot_s)) if self.tpot_s
+                           else None)):
+            if val is not None:
+                monitor.set_gauge(name, round(val * 1e3, 3))
 
     # ---- quantized serving ----
     def on_quant(self, info: dict):
@@ -290,8 +316,8 @@ class ServingMetrics:
     # ---- reporting ----
     def summary(self) -> Dict[str, object]:
         out: Dict[str, object] = {f"serving.{n}": 0 for n in _COUNTERS}
-        out.update(monitor.snapshot("serving."))
-        out.update(self.gauges)
+        # the scalar slice: the histogram expansion stays out, as in JAX
+        out.update(monitor.snapshot("serving.", include_histograms=False))
         out["serving.ttft_p50_ms"] = _ms(_pct(self.ttft_s, 50))
         out["serving.ttft_p99_ms"] = _ms(_pct(self.ttft_s, 99))
         out["serving.tpot_p50_ms"] = _ms(_pct(self.tpot_s, 50))
@@ -307,5 +333,6 @@ class ServingMetrics:
 
     @staticmethod
     def reset_monitor():
-        """Zero every serving.* counter (tests, several engines)."""
-        monitor.reset("serving.")
+        """Zero every serving.* counter, gauge and histogram (tests,
+        several engines); the names stay in the monitor at 0."""
+        monitor.reset_prefix("serving.")

@@ -1908,3 +1908,71 @@ def test_kv_migration_round_trip_bit_equal_on_card(kv_bits):
         outs.append(eng.ragged_step(np.asarray([17], np.int32), [1, 0],
                                     [n + 1, 0], t)[0])
     assert torch.equal(outs[0], outs[1])
+
+
+# ---------------------------------------------------------------------------
+# the eager API over the kernels
+# ---------------------------------------------------------------------------
+
+def test_eager_attention_block_bit_equal_to_torch_direct():
+    """The smoke run's `eager_attention` block at a reduced width (S 256,
+    hidden 512, 4 heads of 128, bf16) in eager Tensors: one launch each of
+    the flash forward, dQ, dK/dV and RMSNorm, and every gradient, the
+    loss and `paddle.grad` of x bit-equal to the same calls on plain
+    tensors under torch autograd; a second derivative through the flash
+    kernels raises `KernelNotDifferentiableError`."""
+    dev = _card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.ops.kernels import _support
+    from paddle_tpu_torch.tools import eager_workload as ew
+
+    with place.device_scope("gpu"):
+        x, w = ew.block_inputs(1, 256, 512, 4, dev, torch.bfloat16, seed=2)
+        X = paddle.Tensor(x, stop_gradient=False)
+        W = {n: paddle.Tensor(t, stop_gradient=False) for n, t in w.items()}
+        xt = x.clone().requires_grad_()
+        wt = {n: t.clone().requires_grad_() for n, t in w.items()}
+        _support.reset_launch_counts()
+        le = ew.eager_block(paddle, X, W, 4)
+        le.backward()
+        torch.cuda.synchronize()
+        assert {c: _support.launch_counter(c).count for c in (
+            "flash_attention_fwd", "flash_attention_dq",
+            "flash_attention_dkv", "rms_norm")} == dict.fromkeys(
+                ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv", "rms_norm"), 1)
+        lt = ew.torch_block(xt, wt, 4)
+        lt.backward()
+        assert torch.equal(le._data, lt.detach())
+        assert torch.equal(X.grad._data, xt.grad)
+        for n in w:
+            assert torch.equal(W[n].grad._data, wt[n].grad), n
+        (gx,) = paddle.grad(ew.eager_block(paddle, X, W, 4), [X])
+        (gxt,) = torch.autograd.grad(ew.torch_block(xt, wt, 4), [xt])
+        assert torch.equal(gx._data, gxt)
+        q = paddle.Tensor(x[..., :128].reshape(1, 256, 1, 128).float(),
+                          stop_gradient=False)
+        out = paddle.nn.functional.scaled_dot_product_attention(
+            q, q, q, is_causal=True)
+        with pytest.raises(_support.KernelNotDifferentiableError):
+            paddle.grad(out.sum(), [q], create_graph=True)
+
+
+@pytest.mark.parametrize("low,high", [(-2 ** 40, 2 ** 40),
+                                      (-2 ** 62, 2 ** 62 + 3),
+                                      (-2 ** 63, 2 ** 63 - 1)])
+def test_seeded_randint_past_2_31_on_card_equals_cpu(low, high):
+    """A seeded randint over a span past 2^31 is drawn and reduced on the
+    card (in 32-bit words) to the CPU's values."""
+    _card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+
+    out = {}
+    for dev in ("gpu", "cpu"):
+        with place.device_scope(dev):
+            paddle.seed(11)
+            out[dev] = paddle.randint(low, high, [4096])
+    assert out["gpu"].place == paddle.CUDAPlace(0)
+    assert torch.equal(out["gpu"]._data.cpu(), out["cpu"]._data)

@@ -45,13 +45,22 @@ def test_port_files_exist():
     assert os.path.join(REPO, "chip_smoke.py") in files
     assert len(files) > 15
     # the fleet's subpackages, which keep their own copies of JAX-free
-    # JAX-package modules, are checked like every other port file
+    # JAX-package modules, and the eager core, are checked like every
+    # other port file
     rel = {os.path.relpath(f, REPO) for f in files}
     for name in ("distributed/elastic/__init__.py",
                  "distributed/elastic/store.py",
                  "distributed/elastic/manager.py",
                  "observability/__init__.py", "observability/timeline.py",
-                 "serving/fleet.py", "serving/disagg.py"):
+                 "serving/fleet.py", "serving/disagg.py",
+                 "core/__init__.py", "core/tensor.py", "core/dispatch.py",
+                 "core/autograd.py", "autograd/__init__.py",
+                 "autograd/py_layer.py", "autograd/functional.py",
+                 "framework/dtype.py", "framework/place.py",
+                 "framework/random.py", "framework/monitor.py",
+                 "ops/__init__.py", "ops/_helpers.py", "ops/creation.py",
+                 "ops/math.py", "ops/manipulation.py", "ops/comparison.py",
+                 "ops/reduction.py", "ops/linalg.py", "ops/activation.py"):
         assert f"paddle_tpu_torch/{name}" in rel, name
 
 
@@ -104,7 +113,20 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.distributed.elastic.store, "
             "paddle_tpu_torch.distributed.elastic.manager, "
             "paddle_tpu_torch.observability, "
-            "paddle_tpu_torch.observability.timeline\n"
+            "paddle_tpu_torch.observability.timeline, "
+            "paddle_tpu_torch.core, paddle_tpu_torch.core.tensor, "
+            "paddle_tpu_torch.core.dispatch, "
+            "paddle_tpu_torch.core.autograd, paddle_tpu_torch.autograd, "
+            "paddle_tpu_torch.autograd.py_layer, "
+            "paddle_tpu_torch.autograd.functional, "
+            "paddle_tpu_torch.framework.dtype, "
+            "paddle_tpu_torch.framework.place, "
+            "paddle_tpu_torch.framework.random, "
+            "paddle_tpu_torch.framework.monitor, paddle_tpu_torch.ops, "
+            "paddle_tpu_torch.ops.creation, paddle_tpu_torch.ops.math, "
+            "paddle_tpu_torch.ops.manipulation, "
+            "paddle_tpu_torch.ops.comparison, "
+            "paddle_tpu_torch.ops.reduction, paddle_tpu_torch.ops.linalg\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n")

@@ -254,7 +254,7 @@ def main(rank, world, port, d):
 
     # the monitor's cross-host aggregation gathers over the world when
     # given no snapshots: each rank contributes its own counter and wall
-    monitor.reset("tpw.")
+    monitor.reset_prefix("tpw.")
     monitor.inc("tpw.requests", rank + 1)
     monitor.set_gauge("tpw.step_wall_ms", 10.0 * (rank + 1))
     out["aggregate"] = (
