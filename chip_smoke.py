@@ -85,20 +85,29 @@ program over the eager ops and the tape on the card against its CPU run
 2048 tokens, bf16) in eager Tensors with exactly one launch of each of
 the flash forward, dQ, dK/dV and RMSNorm kernels, its gradients bit-equal
 to the same calls on plain tensors and near the kernels' plain versions
-(`eager_attention`).
+(`eager_attention`). After them the paddle-style model path: small f32
+Layers through eager, `jit.to_static`, `jit.save` -> `jit.load` and the
+inference `Predictor` (dynamic batch 1 / 3 / 7) on the card against the
+CPU, and a program saved from CPU tensors launching the flash and
+RMSNorm kernels once a call on the card (`jit_reference`); then one
+Llama-2-7B decoder layer written as paddle Layers (bf16, one sequence of
+2048 tokens) trained two AdamW steps eagerly and two through
+`jit.to_static`, exported with `jit.save` and served by the `Predictor`
+at batch 1 and 2, with exact launches (`jit_layer`).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve_lora,serve_migrate
     python3 chip_smoke.py --only fleet_reference,serve_fleet,serve_disagg
     python3 chip_smoke.py --only tp_reference,serve_tp
     python3 chip_smoke.py --only eager_reference,eager_attention
+    python3 chip_smoke.py --only jit_reference,jit_layer
 
 Each phase prints one JSON line. `--only` runs the device check and the
 named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
 `serve_migrate`, `fleet_reference`, `serve_fleet`, `serve_disagg` (these
 two are one run: the disaggregated run sits between the clean and the
 chaos fleet runs), `tp_reference`, `serve_tp`, `eager_reference`,
-`eager_attention`), with no kernels line and
+`eager_attention`, `jit_reference`, `jit_layer`), with no kernels line and
 no last line: a measurement of those phases without the whole run. The TP
 phases start their rank processes as `chip_smoke.py --tp-rank ...`. Any failure raises, so the script exits
 non-zero and never prints the last line, which on success is exactly
@@ -115,6 +124,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -3651,6 +3661,182 @@ def phase_eager_attention(kind, smi):
     return launches
 
 
+# ---- the paddle-style model path (nn.Layer, optimizer, jit, Predictor) ----
+
+JIT_DIR = Path(__file__).resolve().parent / "build" / "jit_smoke"
+JIT_REF_TOL = dict(rtol=1e-5, atol=1e-5)
+JIT_LAYER_TOL = 1e-2
+# kernel launches a training step of the decoder layer makes (its two
+# RMSNorms, one attention), and a Predictor run (the forward)
+JIT_TRAIN_STEP = {"flash_attention_fwd": 1, "flash_attention_dq": 1,
+                  "flash_attention_dkv": 1, "rms_norm": 2}
+JIT_SERVE_RUN = {"flash_attention_fwd": 1, "rms_norm": 2}
+
+
+def _launch_delta():
+    """Every kernel's launches since the last call (the counters are
+    zeroed), the non-zero ones."""
+    from paddle_tpu_torch.ops.kernels import _support
+
+    counts = {c.name: c.count for c in _support._COUNTERS.values()}
+    _support.reset_launch_counts()
+    return {n: k for n, k in counts.items() if k}
+
+
+def phase_jit_reference():
+    """`jit_workload.reference_run` (small f32 Layers: an MLP, an
+    attention block and a decoder layer, head dim 32) through eager,
+    `jit.to_static` (forward and gradients), `jit.save` -> `jit.load` and
+    the `Predictor` at batch 1, 3 and 7 of one dynamic-batch program, on
+    the card against the same run on the CPU: every result within
+    JIT_REF_TOL, with TF32 off. Then a program saved from CPU tensors
+    (the attention block: one RMSNorm, one attention) is loaded on the
+    card, through `jit.load` and through the `Predictor`: each call
+    launches the flash forward and the RMSNorm kernel exactly once, and
+    matches the CPU's output within JIT_REF_TOL."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import jit_workload as jw
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    runs = {}
+    for dev in ("gpu", "cpu"):
+        d = JIT_DIR / f"reference_{dev}"
+        d.mkdir(parents=True, exist_ok=True)
+        with place.device_scope(dev):
+            runs[dev] = jw.reference_run(paddle, jw.reference_models(paddle),
+                                         str(d))
+    gpu, cpu = runs["gpu"], runs["cpu"]
+    if set(gpu) != set(cpu):
+        raise AssertionError("jit_reference: results differ in names")
+    worst = {}
+    for name in sorted(cpu):
+        np.testing.assert_allclose(gpu[name], cpu[name], err_msg=name,
+                                   **JIT_REF_TOL)
+        worst[name] = float(np.abs(gpu[name] - cpu[name]).max())
+    # a program saved from CPU tensors, run on the card
+    prefix = str(JIT_DIR / "cpu_saved_attention")
+    x = np.random.default_rng(23).standard_normal(
+        (3, jw.REF["seq"], jw.REF["hidden"])).astype(np.float32)
+    with place.device_scope("cpu"):
+        block = jw.reference_models(paddle)["attention"]
+        block.eval()
+        paddle.jit.save(block, prefix, input_spec=[paddle.jit.InputSpec(
+            [None, jw.REF["seq"], jw.REF["hidden"]], "float32")])
+        ref = block(paddle.to_tensor(x)).numpy()
+    expect = {"flash_attention_fwd": 3, "rms_norm": 3}
+    cpu_saved = {}
+    with place.device_scope("gpu"):
+        loaded = paddle.jit.load(prefix)
+        predictor = paddle.inference.create_predictor(
+            paddle.inference.Config(prefix + ".pdmodel",
+                                    prefix + ".pdiparams"))
+        for label, fn in (("jit_load", lambda: loaded(paddle.to_tensor(x))),
+                          ("predictor", lambda: predictor.run(
+                              [paddle.to_tensor(x)])[0])):
+            fn()
+            torch.cuda.synchronize()
+            _launch_delta()
+            outs = [fn() for _ in range(3)]
+            torch.cuda.synchronize()
+            launched = _launch_delta()
+            if launched != expect:
+                raise AssertionError(f"jit_reference {label}: a CPU-saved "
+                                     f"program launched {launched} in 3 "
+                                     f"calls, not {expect}")
+            if outs[0].place != paddle.CUDAPlace(0):
+                raise AssertionError(f"jit_reference {label}: output on "
+                                     f"{outs[0].place}")
+            for o in outs:
+                np.testing.assert_allclose(o.numpy(), ref, err_msg=label,
+                                           **JIT_REF_TOL)
+            cpu_saved[label] = {"launches_per_call": {
+                k: v / 3 for k, v in launched.items()},
+                "max_abs_err": float(np.abs(outs[0].numpy() - ref).max())}
+        ops = jw.program_ops(loaded._program)
+    emit({"phase": "jit_reference", "results": len(cpu),
+          "tol": JIT_REF_TOL, "max_abs_err": max(worst.values()),
+          "worst": max(worst, key=worst.get),
+          "cpu_saved_program_on_card": cpu_saved, "program_ops": ops})
+    release()
+
+
+def phase_jit_layer(kind, smi):
+    """One Llama-2-7B decoder layer (`eager_workload.decoder_layer`:
+    RMSNorm, q/k/v/o Linear 4096 -> 4096, rotary over rope buffers,
+    causal sdpa of 32 heads of 128, RMSNorm, SwiGLU 11008; bf16, one
+    sequence of 2048 tokens) written as paddle Layers
+    (`jit_workload.layer_run`): two AdamW(multi_precision) steps eagerly
+    and two through `jit.to_static` from the same seeded weights (loss
+    and every gradient within JIT_LAYER_TOL norm-relative of the eager
+    ones; whether they are bit-equal is printed), then `jit.save` with a
+    dynamic batch and the `Predictor` at batch 1 and 2 (each output within
+    JIT_LAYER_TOL of the eager eval forward). Launch gates, each exact:
+    JIT_TRAIN_STEP a training step, eager and to_static, and
+    JIT_SERVE_RUN a Predictor run; the saved program holds the flash and
+    RMSNorm custom ops and no softmax (no plain attention). Step ms are
+    host time around a synchronised step (step 0 of to_static includes
+    its capture)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import eager_workload as ew
+    from paddle_tpu_torch.tools import jit_workload as jw
+
+    cfg = ew.LLAMA_7B_LAYER
+    JIT_DIR.mkdir(parents=True, exist_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    with place.device_scope("gpu"):
+        r = jw.layer_run(paddle, cfg, "bfloat16",
+                         str(JIT_DIR / "llama7b_layer"), steps=2,
+                         sync=torch.cuda.synchronize,
+                         launches=_launch_delta)
+    totals = {}
+    for label, got in r["launches"].items():
+        if got != JIT_TRAIN_STEP:
+            raise AssertionError(f"jit_layer {label}: launches {got} != "
+                                 f"{JIT_TRAIN_STEP}")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+    for step, errs in r["static_vs_eager"].items():
+        bad = {n: e for n, e in errs.items() if not e <= JIT_LAYER_TOL}
+        if bad:
+            raise AssertionError(f"jit_layer {step}: to_static off eager "
+                                 f"beyond {JIT_LAYER_TOL}: {bad}")
+    for label, run in r["serve"].items():
+        if run["launches_per_run"] != JIT_SERVE_RUN:
+            raise AssertionError(f"jit_layer predictor {label}: launches "
+                                 f"{run['launches_per_run']} != "
+                                 f"{JIT_SERVE_RUN} a run")
+        if not run["norm_rel_err"] <= JIT_LAYER_TOL:
+            raise AssertionError(f"jit_layer predictor {label}: "
+                                 f"{run['norm_rel_err']} off the eager "
+                                 f"eval forward")
+        for k, v in run["launches_per_run"].items():
+            totals[k] = totals.get(k, 0) + int(v * 3)
+    ops = r["program_ops"]
+    if any("softmax" in k for k in ops) or ops.get(
+            "paddle_tpu_torch.flash_attention.default") != 1 or ops.get(
+            "paddle_tpu_torch.rms_norm.default") != 2:
+        raise AssertionError(f"jit_layer: the saved program's ops {ops}")
+    emit({"phase": "jit_layer",
+          "layer": "Llama-2-7B decoder layer as paddle Layers (RMSNorm, "
+                   "q/k/v/o Linear, rotary over rope buffers, causal sdpa, "
+                   "RMSNorm, SwiGLU MLP), AdamW(multi_precision)",
+          **cfg, "dtype": "bfloat16", "kernel_launches": r["launches"],
+          "static_vs_eager_norm_rel": r["static_vs_eager"],
+          "static_bit_equal_to_eager": r["bit_equal"],
+          "tol_norm_rel": JIT_LAYER_TOL, "step_ms": r["ms"],
+          "export_s": r["export_s"], "load_s": r["load_s"],
+          "pdiparams_bytes": r["pdiparams_bytes"],
+          "pdmodel_bytes": r["pdmodel_bytes"], "program_ops": ops,
+          "predictor": r["serve"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "device": kind, "nvidia_smi": smi})
+    del r
+    release()
+    return totals
+
+
 # ---- the fused-op surface (incubate.nn.functional) ----
 
 ROPE_SRC = "paddle_tpu_torch/csrc/rope.cu"
@@ -4369,6 +4555,8 @@ ONLY = {
     "serve_tp": None,
     "eager_reference": lambda kind, smi: phase_eager_reference(),
     "eager_attention": phase_eager_attention,
+    "jit_reference": lambda kind, smi: phase_jit_reference(),
+    "jit_layer": phase_jit_layer,
 }
 # the TP phases by `phase_tp` task: `--only` runs them in one world
 TP_ONLY = {"tp_reference": "reference", "serve_tp": "serve"}
@@ -4424,6 +4612,8 @@ def main(argv=()):
     train_launches = phase_train(kind, smi)
     phase_eager_reference()
     eager_launches = phase_eager_attention(kind, smi)
+    phase_jit_reference()
+    jit_launches = phase_jit_layer(kind, smi)
     fused = phase_incubate_kernels()
     layer_launches = phase_incubate_layer(kind, smi)
     incubate_decode_launches = phase_incubate_serve(kind, smi)
@@ -4483,14 +4673,16 @@ def main(argv=()):
              int4["qkv_int4"],
              splits=int4["qkv_int4"]["splits"]),
         *[_row(name, FLASH_SRC, f"{FA_PY}:{line}",
-               train_launches[name] + eager_launches[name],
+               train_launches[name] + eager_launches[name]
+               + jit_launches[name],
                flash["train_mha"][name], also_replaces=f"{FA_PY}:{also}")
           for name, line, also in (("flash_attention_fwd", 49, 424),
                                    ("flash_attention_dq", 100, 537),
                                    ("flash_attention_dkv", 149, 594))],
         _row("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
              "paddle_tpu/ops/pallas/rms_norm.py:18",
-             train_launches["rms_norm"] + eager_launches["rms_norm"],
+             train_launches["rms_norm"] + eager_launches["rms_norm"]
+             + jit_launches["rms_norm"],
              rms["bf16"]),
         _row("fused_rope", ROPE_SRC, f"{ROPE_PY}:20",
              layer_launches["fused_rope"], fused["rope_bf16"]),

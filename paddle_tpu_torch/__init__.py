@@ -25,6 +25,13 @@ package's bits (`seed`, `rand`, `randint`), over torch autograd; new
 tensors go to the card unless `set_device("cpu")`.
 `nn.functional.scaled_dot_product_attention` and `rms_norm` take Tensors
 to the same kernels.
+
+The paddle-style model path: `nn.Layer` and its core layers over
+`Parameter`s, `optimizer.SGD` / `Momentum` / `Adam` / `AdamW` over them,
+`save` / `load` (the JAX package's file format, both ways),
+`jit.to_static` (a `torch.export` capture per input signature),
+`jit.save` / `jit.load` and `inference.create_predictor`; captured and
+loaded programs reach the flash and RMSNorm kernels as custom ops.
 """
 from .framework.dtype import (DType, bfloat16, complex64, complex128,
                               float8_e4m3fn, float8_e5m2, float16, float32,
@@ -42,7 +49,11 @@ from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
 from . import ops
 from .ops import *  # noqa: F401,F403
 from . import autograd
+from .framework.io import load, save
+from . import nn, optimizer, jit
+from .nn.parameter import ParamAttr, create_parameter
 from .convert import from_jax_state, mlp_from_jax_params, moe_from_jax_state
+from . import inference
 from .inference import LlamaInferenceEngine
 from .models import LlamaConfig, LlamaForCausalLM, llama_7b_shaped, llama_tiny
 from .serving import (DisaggRouter, FleetHandle, FleetRouter, HandoffError,
@@ -58,7 +69,8 @@ __all__ = ops.__all__ + [
            "get_device", "is_compiled_with_cuda", "set_device", "get_flags",
            "set_flags", "get_rng_state", "seed", "set_rng_state", "Tensor",
            "enable_grad", "grad", "is_grad_enabled", "no_grad",
-           "set_grad_enabled", "autograd", "from_jax_state", "mlp_from_jax_params", "moe_from_jax_state",
+           "set_grad_enabled", "autograd", "load", "save", "nn", "optimizer", "jit",
+           "ParamAttr", "create_parameter", "from_jax_state", "mlp_from_jax_params", "moe_from_jax_state",
            "LlamaInferenceEngine", "LlamaConfig", "LlamaForCausalLM",
            "llama_7b_shaped", "llama_tiny", "MLPLMEngine", "RequestHandle",
            "ServingFrontend", "FleetRouter", "FleetHandle", "ReplicaHandle",

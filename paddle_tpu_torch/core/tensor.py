@@ -10,8 +10,8 @@ port's engines, which hand plain tensors around. Autograd is torch's:
 - `grad` is the leaf's accumulated `_data.grad`, wrapped;
   `register_hook` wraps torch's hook (a leaf hook's return value
   replaces the cotangent before accumulation).
-- `numpy()` of a bfloat16 tensor gives an `ml_dtypes.bfloat16` array of
-  the same bits where `ml_dtypes` imports (as the JAX package's does),
+- `numpy()` gives a copy; of a bfloat16 tensor an `ml_dtypes.bfloat16`
+  array of the same bits where `ml_dtypes` imports (as the JAX package's does),
   and raises otherwise, naming `astype`: it never converts silently.
 
 The op methods and dunders are attached by `paddle_tpu_torch.ops`.
@@ -28,9 +28,15 @@ from ..framework import dtype as dtype_mod
 from ..framework.place import Place, expected_device
 from . import autograd
 
-__all__ = ["Tensor"]
+__all__ = ["Tensor", "DataDependentError"]
 
 _name_counter = itertools.count()
+
+
+class DataDependentError(RuntimeError):
+    """A Tensor's values were read (`numpy()`, `tolist()`) while a program
+    was being captured (`jit.to_static`, `jit.save`), where tensors have
+    shapes but no values: the signal of a data-dependent Python branch."""
 
 
 def _to_torch(data, device=None) -> torch.Tensor:
@@ -173,9 +179,14 @@ class Tensor:
 
     # -- conversion --------------------------------------------------------
     def numpy(self) -> np.ndarray:
+        if torch.compiler.is_exporting():
+            raise DataDependentError(
+                "Tensor.numpy(): a captured program has no values to read "
+                "(data-dependent Python control flow)")
         d = self._data.detach()
-        if d.device.type != "cpu":
-            d = d.cpu()
+        # a copy, as paddle's numpy() gives: the optimizers and
+        # set_state_dict write parameters in place
+        d = d.cpu() if d.device.type != "cpu" else d.clone()
         dt = self.dtype
         if d.dtype in (torch.bfloat16, torch.float8_e4m3fn,
                        torch.float8_e5m2):

@@ -52,14 +52,20 @@ def _sdpa_fn(q, k, v, causal, scale=None):
 
 def _route(q_shape, k_shape, dtype, is_causal, device_type) -> str:
     """"flash" (the kernels; their plain versions on CPU tensors),
-    "plain" (`_sdpa_fn`) or "raise"."""
+    "plain" (`_sdpa_fn`) or "raise". Inside a capture (`jit.to_static`,
+    `jit.save`) a shape the JAX rule gives to its kernel takes "flash"
+    whatever the capture's device: the recorded op then runs the plain
+    version on CPU tensors and, on CUDA tensors, the kernel or its typed
+    refusal (`ValueError`), never the plain attention."""
     if is_causal and q_shape[1] != k_shape[1]:
         return "plain"
     if _flash.supported(q_shape, k_shape, dtype):
         return "flash"
-    if device_type == "cuda" and _flash.jax_supported(q_shape, k_shape,
-                                                      dtype):
-        return "raise"
+    if _flash.jax_supported(q_shape, k_shape, dtype):
+        if torch.compiler.is_exporting():
+            return "flash"
+        if device_type == "cuda":
+            return "raise"
     return "plain"
 
 

@@ -2,7 +2,8 @@
 routes it: the fused kernel (`ops/kernels/rms_norm.py`) when its
 `supported()` holds, else the plain composite `_rms_norm_fn`. Eager
 `Tensor` inputs go through `dispatch.apply("rms_norm", ...)` to the same
-routes and come back as a `Tensor`."""
+routes and come back as a `Tensor`. `layer_norm` on eager Tensors is the
+plain `norm.py:136-173`."""
 from __future__ import annotations
 
 import torch
@@ -12,7 +13,7 @@ from ...core.tensor import Tensor
 from ...ops._helpers import as_tensor
 from ...ops.kernels import rms_norm as _kernel
 
-__all__ = ["rms_norm"]
+__all__ = ["rms_norm", "layer_norm"]
 
 
 def _rms_norm_fn(x, w, epsilon):
@@ -41,3 +42,34 @@ def rms_norm(x, weight, epsilon=1e-6):
         return dispatch.apply("rms_norm", [as_tensor(x), as_tensor(weight)],
                               {"epsilon": float(epsilon)})
     return _rms_norm(x, weight, epsilon=epsilon)
+
+
+def _ln_fn(x, *rest, has_w, has_b, norm_ndim, epsilon):
+    """`norm.py:136-148`: mean and biased variance over the last
+    `norm_ndim` axes, a division by `sqrt`, then weight and bias."""
+    rest = list(rest)
+    w = rest.pop(0) if has_w else None
+    b = rest.pop(0) if has_b else None
+    axes = tuple(range(x.dim() - norm_ndim, x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
+    y = (x - mean) / torch.sqrt(var + epsilon)
+    if w is not None:
+        y = y * w
+    if b is not None:
+        y = y + b
+    return y
+
+
+dispatch.register_op("layer_norm", _ln_fn)
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    inputs = [as_tensor(x)] + [as_tensor(t) for t in (weight, bias)
+                               if t is not None]
+    return dispatch.apply("layer_norm", inputs, {
+        "has_w": weight is not None, "has_b": bias is not None,
+        "norm_ndim": len(list(normalized_shape)), "epsilon": float(epsilon)})

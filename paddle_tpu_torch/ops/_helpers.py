@@ -190,9 +190,12 @@ def normalize_axis(axis, ndim):
 
 
 def shape_to_tuple(shape):
+    """A shape as a tuple of ints; a symbolic size (a `torch.SymInt`, as
+    a captured program's dynamic dims give) stays symbolic."""
     if isinstance(shape, Tensor):
         return tuple(int(v) for v in shape.numpy().tolist())
     if isinstance(shape, (int, np.integer)):
         return (int(shape),)
-    return tuple(int(s.item()) if isinstance(s, Tensor) else int(s)
+    return tuple(int(s.item()) if isinstance(s, Tensor)
+                 else s if isinstance(s, torch.SymInt) else int(s)
                  for s in shape)

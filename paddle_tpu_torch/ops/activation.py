@@ -1,7 +1,11 @@
 """Activations: `swiglu` on torch tensors, the plain
 `paddle_tpu/ops/activation.py:193-202` the Llama model calls (its MLP does
-not reach the Pallas `bias_act` kernels), and `softmax` on eager Tensors
-(an integer input is cast to the default float dtype first)."""
+not reach the Pallas `bias_act` kernels); and on eager Tensors `softmax`,
+`relu`, `sigmoid`, `silu` / `swish`, `gelu` (the erf form unless
+`approximate`), `leaky_relu`, `elu`, `hardswish`, `mish`, `softplus` and
+`prelu`, the formulas of `paddle_tpu/ops/activation.py:13-165` (an
+integer input is cast to the default float dtype first).
+`nn.functional` re-exports them, as the JAX package's does."""
 from __future__ import annotations
 
 import torch
@@ -9,9 +13,10 @@ import torch.nn.functional as F
 
 from ..core import dispatch
 from ..framework import dtype as dtype_mod
-from ._helpers import as_tensor, cast_to
+from ._helpers import as_tensor, cast_to, make_float_unary
 
-__all__ = ["swiglu", "softmax"]
+__all__ = ["swiglu", "softmax", "relu", "sigmoid", "silu", "swish", "gelu",
+           "leaky_relu", "elu", "hardswish", "mish", "softplus", "prelu"]
 
 
 def swiglu(x, y=None):
@@ -32,3 +37,68 @@ def softmax(x, axis=-1, dtype=None, name=None):
     elif not dtype_mod.is_inexact(x._data.dtype):
         x = cast_to(x, dtype_mod.get_default_dtype())
     return dispatch.apply("softmax", [x], {"axis": int(axis)})
+
+
+relu = make_float_unary("relu", torch.relu)
+sigmoid = make_float_unary("sigmoid_act", torch.sigmoid)
+silu = make_float_unary("silu", F.silu)
+swish = silu
+# x * tanh(softplus(x)), softplus as jax.nn.softplus: logaddexp(x, 0)
+mish = make_float_unary("mish", lambda x: x * torch.tanh(
+    torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))))
+
+dispatch.register_op("gelu", lambda x, *, approximate: F.gelu(
+    x, approximate="tanh" if approximate else "none"))
+
+
+def gelu(x, approximate=False, name=None):
+    return dispatch.apply("gelu", [as_tensor(x)],
+                          {"approximate": bool(approximate)})
+
+
+dispatch.register_op("leaky_relu", lambda x, *, slope: F.leaky_relu(x, slope))
+
+
+def leaky_relu(x, negative_slope=0.01, name=None):
+    return dispatch.apply("leaky_relu", [as_tensor(x)],
+                          {"slope": float(negative_slope)})
+
+
+dispatch.register_op("elu", lambda x, *, alpha: F.elu(x, alpha))
+
+
+def elu(x, alpha=1.0, name=None):
+    return dispatch.apply("elu", [as_tensor(x)], {"alpha": float(alpha)})
+
+
+dispatch.register_op("hardswish", F.hardswish)
+
+
+def hardswish(x, name=None):
+    return dispatch.apply("hardswish", [as_tensor(x)])
+
+
+# x where beta * x > threshold, else softplus(beta * x) / beta
+dispatch.register_op("softplus", lambda x, *, beta, threshold: F.softplus(
+    x, beta, threshold))
+
+
+def softplus(x, beta=1.0, threshold=20.0, name=None):
+    return dispatch.apply("softplus", [as_tensor(x)],
+                          {"beta": float(beta), "threshold": float(threshold)})
+
+
+dispatch.register_op("prelu_op", lambda x, w: torch.where(x >= 0, x, w * x))
+
+
+def prelu(x, weight, data_format="NCHW", name=None):
+    """`where(x >= 0, x, w * x)`; a weight of several values runs along
+    the channel axis (1 for NCHW, else the last)."""
+    from .manipulation import reshape
+
+    x, w = as_tensor(x), as_tensor(weight)
+    if w.size > 1:
+        shape = [1] * x.ndim
+        shape[1 if data_format == "NCHW" else x.ndim - 1] = w.size
+        w = reshape(w, shape)
+    return dispatch.apply("prelu_op", [x, w])

@@ -3,10 +3,14 @@
 The port of `paddle_tpu/ops/pallas/flash_attention.py`, in paddle's
 `[B, S, H, D]` layout throughout (the JAX wrapper's swaps to `[B, H, S, D]`
 are not carried over: the kernels read every tensor through its strides).
-`flash_attention_bshd` is a `torch.autograd.Function`: its forward
-launches `flash_attention_fwd` (out and lse), its backward computes
+`flash_attention_bshd` calls the custom op
+`paddle_tpu_torch::flash_attention` (`torch.ops.paddle_tpu_torch`), whose
+forward launches `flash_attention_fwd` (out and lse) and whose autograd
+formula calls `paddle_tpu_torch::flash_attention_backward`: it computes
 `delta = sum(dO * out)` in f32, as JAX does outside its kernels, then
-launches `flash_attention_dq` and `flash_attention_dkv`. The three kernels
+launches `flash_attention_dq` and `flash_attention_dkv`. A captured
+program records both ops by name (`jit.to_static`, `jit.save`), so it
+launches the kernels wherever it runs on CUDA tensors. The three kernels
 (`csrc/flash_attention.cu`) also cover the JAX package's K/V-streamed
 variants, which it takes past `2 * Sk * D * itemsize > 8 MiB`: they stream
 K/V through shared memory at any length.
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -317,28 +322,70 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal=False,
                                        sm_scale, kv_lens)
 
 
-class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, kv_lens, causal, sm_scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, sm_scale, kv_lens)
-        ctx.save_for_backward(q, k, v, out, lse, kv_lens)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        return out
+# The forward and the backward are `torch.library` custom ops, so a
+# captured program (`jit.to_static`, `jit.save`) records them by name and
+# chooses the route where it runs: the kernels on CUDA tensors, the plain
+# versions on CPU tensors. Their fake implementations give the shapes a
+# capture needs; the launch counters move only in the real ones.
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse, kv_lens = ctx.saved_tensors
-        if torch.is_grad_enabled():
-            # create_graph: the gradient must itself be differentiable
-            return _differentiable_bwd(ctx, q, k, v, kv_lens, do)
-        if do.stride(-1) != 1 or do.data_ptr() % 16 \
-                or any(s % 8 for s in do.stride()[:3]):
-            do = do.contiguous()
-        delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2) \
-            .contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, delta, ctx.causal,
-                                         ctx.sm_scale, kv_lens)
-        return dq, dk, dv, None, None, None
+@torch.library.custom_op("paddle_tpu_torch::flash_attention",
+                         mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_lens: Optional[torch.Tensor], causal: bool,
+              sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_fwd(q, k, v, causal, sm_scale, kv_lens)
+
+
+@_flash_op.register_fake
+def _(q, k, v, kv_lens, causal, sm_scale):
+    b, sq, h, _d = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_backward",
+                         mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                  kv_lens: Optional[torch.Tensor], causal: bool,
+                  sm_scale: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """delta = sum(dO * out) in f32, as JAX computes it outside its
+    kernels, then the dQ and dK/dV kernels (their plain version on CPU
+    tensors)."""
+    if do.stride(-1) != 1 or do.data_ptr() % 16 \
+            or any(s % 8 for s in do.stride()[:3]):
+        do = do.contiguous()
+    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2) \
+        .contiguous()
+    return flash_attention_bwd(q, k, v, do, lse, delta, causal, sm_scale,
+                               kv_lens)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, out, do, lse, kv_lens, causal, sm_scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, kv_lens, causal, sm_scale = inputs
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(q, k, v, out, lse, kv_lens)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+
+
+def _flash_backward(ctx, do, _dlse):
+    q, k, v, out, lse, kv_lens = ctx.saved_tensors
+    if torch.is_grad_enabled():
+        # create_graph: the gradient must itself be differentiable
+        return _differentiable_bwd(ctx, q, k, v, kv_lens, do)
+    dq, dk, dv = _flash_bwd_op(q, k, v, out, do, lse, kv_lens, ctx.causal,
+                               ctx.sm_scale)
+    return dq, dk, dv, None, None, None
+
+
+_flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def _differentiable_bwd(ctx, q, k, v, kv_lens, do):
@@ -366,5 +413,5 @@ def flash_attention_bshd(q, k, v, causal=False, sm_scale=None, kv_lens=None):
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if kv_lens is not None:
         kv_lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    return _FlashAttention.apply(q, k, v, kv_lens, bool(causal),
-                                 float(sm_scale))
+    out, _lse = _flash_op(q, k, v, kv_lens, bool(causal), float(sm_scale))
+    return out

@@ -149,18 +149,34 @@ def rms_norm_fwd(x2d, w, eps):
     return _launch(x2d, w, eps)
 
 
-class _RMSNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x2d, w, eps):
-        ctx.save_for_backward(x2d, w)
-        ctx.eps = eps
-        return rms_norm_fwd(x2d, w, eps)
+# The forward is the `torch.library` custom op `paddle_tpu_torch::rms_norm`,
+# so a captured program (`jit.to_static`, `jit.save`) records it by name
+# and launches the kernel wherever it runs on CUDA tensors; the launch
+# counter moves only in its real implementation.
 
-    @staticmethod
-    def backward(ctx, g):
-        x2d, w = ctx.saved_tensors
-        dx, dw = rms_norm_bwd_ref(x2d, w, g, ctx.eps)
-        return dx, dw, None
+@torch.library.custom_op("paddle_tpu_torch::rms_norm", mutates_args=())
+def _rms_op(x2d: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    return rms_norm_fwd(x2d, w, eps)
+
+
+@_rms_op.register_fake
+def _(x2d, w, eps):
+    return x2d.new_empty(x2d.shape)
+
+
+def _rms_setup(ctx, inputs, output):
+    x2d, w, eps = inputs
+    ctx.save_for_backward(x2d, w)
+    ctx.eps = eps
+
+
+def _rms_backward(ctx, g):
+    x2d, w = ctx.saved_tensors
+    dx, dw = rms_norm_bwd_ref(x2d, w, g, ctx.eps)
+    return dx, dw, None
+
+
+_rms_op.register_autograd(_rms_backward, setup_context=_rms_setup)
 
 
 def rms_norm(x, w, epsilon=1e-6):
@@ -170,4 +186,4 @@ def rms_norm(x, w, epsilon=1e-6):
     x2d = x.reshape(-1, shape[-1])
     if x2d.stride(-1) != 1:
         x2d = x2d.contiguous()
-    return _RMSNorm.apply(x2d, w, float(epsilon)).reshape(shape)
+    return _rms_op(x2d, w, float(epsilon)).reshape(shape)

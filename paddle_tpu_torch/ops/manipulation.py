@@ -1,6 +1,6 @@
 """Shape and index manipulation (the port's subset of
 `paddle_tpu/ops/manipulation.py`): `cast` / `astype`, `reshape`,
-`squeeze`, `concat`, `stack`, `split`,
+`squeeze`, `flatten`, `concat`, `stack`, `split`,
 `gather`, `where`, and `__getitem__` / `__setitem__`.
 
 Indexing takes ints, slices with steps, None, Ellipsis, integer tensors
@@ -24,7 +24,7 @@ from ..framework import dtype as dtype_mod
 from ._helpers import (as_tensor, inplace_rebind, normalize_axis,
                        prep_binary, result_dtype, shape_to_tuple)
 
-__all__ = ["cast", "astype", "reshape", "squeeze", "concat", "stack",
+__all__ = ["cast", "astype", "reshape", "squeeze", "flatten", "concat", "stack",
            "split", "gather", "where", "getitem", "setitem"]
 
 dispatch.register_op("cast", lambda x, *, dtype: x.to(dtype))
@@ -62,6 +62,19 @@ def squeeze(x, axis=None, name=None):
             return x
         axis = ax
     return dispatch.apply("squeeze", [x], {"axis": axis})
+
+
+dispatch.register_op("flatten", lambda x, *, start, stop: torch.flatten(
+    x, start, stop))
+
+
+def flatten(x, start_axis=0, stop_axis=-1, name=None):
+    x = as_tensor(x)
+    if x.ndim == 0:
+        return reshape(x, [1])
+    return dispatch.apply("flatten", [x], {
+        "start": normalize_axis(start_axis, x.ndim),
+        "stop": normalize_axis(stop_axis, x.ndim)})
 
 
 dispatch.register_op("concat", lambda *xs, axis: torch.cat(xs, dim=axis))

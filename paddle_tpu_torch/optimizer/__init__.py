@@ -1,4 +1,5 @@
-"""Optimizers of the port (`paddle_tpu/optimizer`): Adam and AdamW."""
-from .optimizer import Adam, AdamW, Optimizer
+"""Optimizers of the port (`paddle_tpu/optimizer`): SGD, Momentum, Adam
+and AdamW."""
+from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
 
-__all__ = ["Adam", "AdamW", "Optimizer"]
+__all__ = ["SGD", "Momentum", "Adam", "AdamW", "Optimizer"]

@@ -16,20 +16,34 @@ rehearse them on the CPU and the card.
   the same kernels and should give the same bits; `plain_block` computes
   the function with the kernels' plain PyTorch versions (RMSNorm's
   `rms_norm_ref` and the f32 composite attention `_sdpa_fn`).
+- A Llama decoder layer written as users write paddle code
+  (`decoder_layer(paddle, ...)`, over either package's `paddle`):
+  `nn.RMSNorm`, the q / k / v / o `nn.Linear(bias_attr=False)`s, rotary
+  as plain Tensor ops over non-persistable `rope_cos` / `rope_sin`
+  buffers (`paddle_tpu/models/llama.py:52-87`), causal
+  `F.scaled_dot_product_attention`, `nn.RMSNorm`, the SwiGLU MLP with
+  `F.silu`, and the residuals; `mlp=False` keeps the attention half (one
+  norm). `LLAMA_7B_LAYER` is its Llama-2-7B width, which the smoke run's
+  `jit_layer` phase trains eagerly and through `jit.to_static`, exports
+  with `jit.save` and serves through the inference `Predictor`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["LLAMA_7B_BLOCK", "block_inputs", "eager_block", "torch_block",
-           "plain_block", "eager_program", "EPS"]
+__all__ = ["LLAMA_7B_BLOCK", "LLAMA_7B_LAYER", "block_inputs",
+           "eager_block", "torch_block", "plain_block", "eager_program",
+           "decoder_layer", "rope_tables", "EPS"]
 
 # Llama-2-7B's attention block: hidden 4096, 32 heads of 128; one
 # sequence of 2048 tokens
 LLAMA_7B_BLOCK = dict(batch=1, seq=2048, hidden=4096, heads=32)
 EPS = 1e-6
 WEIGHTS = ("norm", "wq", "wk", "wv", "wo")
+# one Llama-2-7B decoder layer: hidden 4096, 32 heads of 128, MLP 11008;
+# one sequence of 2048 tokens
+LLAMA_7B_LAYER = dict(batch=1, seq=2048, hidden=4096, heads=32, ffn=11008)
 
 
 def block_inputs(batch, seq, hidden, heads, device, dtype=torch.bfloat16,
@@ -198,3 +212,65 @@ def eager_program(paddle):
     keep("randn", paddle.randn([64]))
     r["place"] = np.asarray(str(u.place))
     return r
+
+
+def rope_tables(head_dim, positions, theta=10000.0):
+    """(cos, sin) f32 `[positions, head_dim / 2]`, computed in float64 as
+    `paddle_tpu/models/llama.py:52-59` computes them."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                                / head_dim))
+    freqs = np.outer(np.arange(positions, dtype=np.float64), inv_freq)
+    return np.cos(freqs).astype("float32"), np.sin(freqs).astype("float32")
+
+
+def decoder_layer(paddle, hidden, heads, ffn, seq, mlp=True, eps=EPS):
+    """A Llama decoder layer (or its attention half, `mlp=False`) as a
+    `paddle.nn.Layer` of `paddle` (either package), its weights drawn from
+    the shared generator (`paddle.seed`). `x [B, S, hidden]` ->
+    `[B, S, hidden]`; any S up to `seq`."""
+    nn = paddle.nn
+    F = nn.functional
+    head_dim = hidden // heads
+
+    class DecoderLayer(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.input_layernorm = nn.RMSNorm(hidden, eps)
+            self.q_proj = nn.Linear(hidden, hidden, bias_attr=False)
+            self.k_proj = nn.Linear(hidden, hidden, bias_attr=False)
+            self.v_proj = nn.Linear(hidden, hidden, bias_attr=False)
+            self.o_proj = nn.Linear(hidden, hidden, bias_attr=False)
+            if mlp:
+                self.post_attention_layernorm = nn.RMSNorm(hidden, eps)
+                self.gate_proj = nn.Linear(hidden, ffn, bias_attr=False)
+                self.up_proj = nn.Linear(hidden, ffn, bias_attr=False)
+                self.down_proj = nn.Linear(ffn, hidden, bias_attr=False)
+            cos, sin = rope_tables(head_dim, seq)
+            self.register_buffer("rope_cos", paddle.to_tensor(cos),
+                                 persistable=False)
+            self.register_buffer("rope_sin", paddle.to_tensor(sin),
+                                 persistable=False)
+
+        def _rope(self, t, s):
+            half = head_dim // 2
+            c = self.rope_cos[:s].reshape([1, s, 1, half]).astype(t.dtype)
+            sn = self.rope_sin[:s].reshape([1, s, 1, half]).astype(t.dtype)
+            t1, t2 = paddle.split(t, 2, axis=-1)
+            return paddle.concat([t1 * c - t2 * sn, t2 * c + t1 * sn],
+                                 axis=-1)
+
+        def forward(self, x):
+            s = x.shape[1]
+            h = self.input_layernorm(x)
+            q, k, v = (proj(h).reshape([-1, s, heads, head_dim])
+                       for proj in (self.q_proj, self.k_proj, self.v_proj))
+            q, k = self._rope(q, s), self._rope(k, s)
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            x = x + self.o_proj(o.reshape([-1, s, hidden]))
+            if not mlp:
+                return x
+            h = self.post_attention_layernorm(x)
+            return x + self.down_proj(F.silu(self.gate_proj(h))
+                                      * self.up_proj(h))
+
+    return DecoderLayer()
