@@ -93,7 +93,16 @@ RMSNorm kernels once a call on the card (`jit_reference`); then one
 Llama-2-7B decoder layer written as paddle Layers (bf16, one sequence of
 2048 tokens) trained two AdamW steps eagerly and two through
 `jit.to_static`, exported with `jit.save` and served by the `Predictor`
-at batch 1 and 2, with exact launches (`jit_layer`).
+at batch 1 and 2, with exact launches (`jit_layer`). Then lazy eager mode
+and AMP: the Llama in paddle Layers (`models/llama_layers.py`, small,
+f32) trained two AdamW steps eagerly and two under lazy mode, whose
+region runs as a CUDA graph captured at its second sight, on the card
+against the CPU, with AMP O1 / O2 and a GradScaler skip
+(`lazy_reference`); then that Llama at Llama-2-7B width (4 layers, O2
+bf16, one sequence of 2048 tokens) two warm-up and three timed steps
+eagerly and again under lazy mode: lazy within 1e-3 of eager, no capture
+after the warm-up, no uncaptured replay, exact launches a step
+(`lazy_llama`).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve_lora,serve_migrate
@@ -101,13 +110,15 @@ at batch 1 and 2, with exact launches (`jit_layer`).
     python3 chip_smoke.py --only tp_reference,serve_tp
     python3 chip_smoke.py --only eager_reference,eager_attention
     python3 chip_smoke.py --only jit_reference,jit_layer
+    python3 chip_smoke.py --only lazy_reference,lazy_llama
 
 Each phase prints one JSON line. `--only` runs the device check and the
 named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
 `serve_migrate`, `fleet_reference`, `serve_fleet`, `serve_disagg` (these
 two are one run: the disaggregated run sits between the clean and the
 chaos fleet runs), `tp_reference`, `serve_tp`, `eager_reference`,
-`eager_attention`, `jit_reference`, `jit_layer`), with no kernels line and
+`eager_attention`, `jit_reference`, `jit_layer`, `lazy_reference`,
+`lazy_llama`), with no kernels line and
 no last line: a measurement of those phases without the whole run. The TP
 phases start their rank processes as `chip_smoke.py --tp-rank ...`. Any failure raises, so the script exits
 non-zero and never prints the last line, which on success is exactly
@@ -3837,6 +3848,203 @@ def phase_jit_layer(kind, smi):
     return totals
 
 
+# ---- lazy eager mode as CUDA graphs, and AMP (core/lazy.py, amp/) ----
+
+LAZY_REF_TOL = dict(rtol=1e-5, atol=1e-5)
+# the parameters after the AdamW steps: an eps-dominated first update
+# turns a last-bit difference of a gradient into up to one lr step
+# (1e-3), the bound `tests/test_lazy_eager.py` holds them to
+LAZY_PARAM_TOL = dict(rtol=0, atol=1e-3)
+# bf16 results of the AMP cases: the card's and the CPU's bf16 products
+# round alike only within a bf16 ulp or two
+LAZY_AMP_TOL = dict(rtol=1e-2, atol=1e-2)
+LAZY_LLAMA_TOL = 1e-3
+# kernel launches of one lazy_llama step: the flash forward, dQ and dK/dV
+# once a layer, the RMSNorm kernel twice a layer and once at the end
+LAZY_STEP = {"flash_attention_fwd": 4, "flash_attention_dq": 4,
+             "flash_attention_dkv": 4, "rms_norm": 9}
+
+
+def _held_to(label, got, want, tol):
+    """Every float array of `want` (nested dicts / lists) within `tol` of
+    `got`'s; everything else equal. Returns the largest difference."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: keys {sorted(set(got) ^ set(want))}")
+        return max([_held_to(f"{label}.{k}", got[k], want[k], tol)
+                    for k in want] or [0.0])
+    if isinstance(want, (list, tuple)) and want and \
+            isinstance(want[0], np.ndarray):
+        return max(_held_to(f"{label}[{i}]", g, w, tol)
+                   for i, (g, w) in enumerate(zip(got, want)))
+    if isinstance(want, np.ndarray) and want.dtype.kind == "f":
+        np.testing.assert_allclose(got, want, err_msg=label, **tol)
+        return float(np.abs(np.asarray(got, np.float64) - want).max()) \
+            if want.size else 0.0
+    if isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want, err_msg=label)
+    elif got != want:
+        raise AssertionError(f"{label}: card {got} != CPU {want}")
+    return 0.0
+
+
+def phase_lazy_reference():
+    """`lazy_workload.reference_run` on the card and on the CPU: the
+    Llama in paddle Layers (`llama_tiny`, f32, seed 7) two AdamW steps
+    eagerly and two under lazy mode (a region run eagerly at its first
+    sight and captured as a CUDA graph at its second), the card within
+    LAZY_REF_TOL of the CPU and lazy within LAZY_REF_TOL of eager on each
+    (losses, first-step gradients; the parameters after within
+    LAZY_PARAM_TOL);
+    AMP O1 and O2 (decorate, float32 masters) and a GradScaler step that
+    skips on an inf, the card equal to the CPU (bf16 results within
+    LAZY_AMP_TOL). Prints the lazy.* counters of each device's lazy run.
+    Returns the kernel launches of its card run."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import lazy_workload as lw
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    runs = {}
+    _launch_delta()
+    for dev in ("gpu", "cpu"):
+        with place.device_scope(dev):
+            runs[dev] = lw.reference_run(paddle)
+        if dev == "gpu":
+            torch.cuda.synchronize()
+            launches = _launch_delta()
+    gpu, cpu = runs["gpu"], runs["cpu"]
+    worst = {}
+    tols = {"losses": LAZY_REF_TOL, "grads": LAZY_REF_TOL,
+            "params": LAZY_PARAM_TOL}
+    for mode in ("eager", "lazy"):
+        for part, tol in tols.items():
+            worst[f"{mode}.{part}"] = _held_to(
+                f"lazy_reference card {mode} {part}", gpu[mode][part],
+                cpu[mode][part], tol)
+    for dev, r in runs.items():
+        for part, tol in tols.items():
+            worst[f"{dev}.lazy_vs_eager.{part}"] = _held_to(
+                f"lazy_reference {dev} lazy vs eager {part}",
+                r["lazy"][part], r["eager"][part], tol)
+    worst["amp"] = _held_to("lazy_reference amp", gpu["amp"], cpu["amp"],
+                            LAZY_AMP_TOL)
+    if not gpu["amp"]["inf_step_skipped"]:
+        raise AssertionError("lazy_reference: the GradScaler did not skip "
+                             "the inf step on the card")
+    shared = {k: v for k, v in gpu["lazy"]["counters"].items()
+              if k in cpu["lazy"]["counters"]}
+    if shared != cpu["lazy"]["counters"]:
+        raise AssertionError(f"lazy_reference: lazy counters {shared} on "
+                             f"the card, {cpu['lazy']['counters']} on the "
+                             f"CPU")
+    lazy.clear_graphs()
+    emit({"phase": "lazy_reference", "tol": LAZY_REF_TOL,
+          "param_tol": LAZY_PARAM_TOL,
+          "amp_tol": LAZY_AMP_TOL, "max_abs_err": worst,
+          "lazy_counters": {"gpu": gpu["lazy"]["counters"],
+                            "cpu": cpu["lazy"]["counters"]},
+          "amp": {k: v for k, v in gpu["amp"].items()
+                  if not isinstance(v, (np.ndarray, list))},
+          "launches": launches})
+    release()
+    return launches
+
+
+def _lazy_llama_run(paddle, lw, lazy_on):
+    model, opt, ids, labels = lw.llama_workload(paddle, seed=0)
+    r = lw.run_steps(paddle, model, opt, ids, labels, lazy_on,
+                     torch.cuda.synchronize, _launch_delta)
+    del model, opt, ids, labels
+    return r
+
+
+def phase_lazy_llama(kind, smi):
+    """Llama-2-7B width at LAYERS of its 32 layers as paddle Layers
+    (`lazy_workload.llama_workload`: bf16 by `amp.decorate(level="O2")`
+    under `auto_cast(level="O2")`, AdamW(multi_precision), B 1 x S 2048):
+    2 warm-up and 3 timed steps eagerly, the eager model freed, then the
+    same from the same seed under lazy mode. Gates: finite, falling
+    losses; lazy losses and first-step gradients within LAZY_LLAMA_TOL
+    norm-relative of eager (bit-equality printed); no capture after the
+    warm-up and no uncaptured card replay in the timed steps; LAZY_STEP
+    launches every timed step, eager and lazy. Step ms are host time
+    around a synchronised step; host ms end when the step returns."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import lazy_workload as lw
+
+    torch.cuda.reset_peak_memory_stats()
+    _launch_delta()
+    runs = {}
+    with place.device_scope("gpu"):
+        for mode in ("eager", "lazy"):
+            runs[mode] = _lazy_llama_run(paddle, lw, mode == "lazy")
+            if mode == "lazy":
+                graph_bytes = sum(lazy.graph_bytes())
+                reserved_gb = torch.cuda.memory_reserved() / 2 ** 30
+                lazy.clear_graphs()
+            release()
+    eager, lz = runs["eager"], runs["lazy"]
+    totals = {}
+    for mode, r in runs.items():
+        losses = r["losses"]
+        if not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"lazy_llama {mode}: losses {losses}")
+        for i, got in enumerate(r["launches"]):
+            if got != LAZY_STEP:
+                raise AssertionError(f"lazy_llama {mode} timed step {i}: "
+                                     f"launches {got} != {LAZY_STEP}")
+        for d in [r["warmup_launches"], *r["launches"]]:
+            for k, v in d.items():
+                totals[k] = totals.get(k, 0) + v
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(lz["losses"], eager["losses"]))
+    grad_err = {n: _norm_rel(lz["grads"][n], eager["grads"][n])
+                for n in eager["grads"]}
+    worst = max(grad_err, key=grad_err.get)
+    if not loss_err <= LAZY_LLAMA_TOL or \
+            not grad_err[worst] <= LAZY_LLAMA_TOL:
+        raise AssertionError(f"lazy_llama: lazy off eager: loss {loss_err}, "
+                             f"{worst} {grad_err[worst]}")
+    bit_equal = {"losses": lz["losses"] == eager["losses"],
+                 "grads": sorted(n for n in eager["grads"] if torch.equal(
+                     lz["grads"][n], eager["grads"][n]))}
+    timed = lz["timed_counters"]
+    if timed.get("lazy.graph_captures", 0) or \
+            timed.get("lazy.uncaptured_replays", 0) or \
+            timed.get("lazy.graph_replays") != lw.TIMED_STEPS:
+        raise AssertionError(f"lazy_llama: timed steps moved {timed}")
+    emit({"phase": "lazy_llama",
+          "model": f"Llama-2-7B width in paddle Layers, {lw.LAYERS} of 32 "
+                   f"layers, amp O2 bf16 (norms f32), AdamW(multi_precision)",
+          "batch": lw.BATCH, "seq": lw.SEQ, "launches_per_step": LAZY_STEP,
+          "losses": {"eager": eager["losses"], "lazy": lz["losses"]},
+          "loss_norm_rel": loss_err, "grad_norm_rel_worst": [
+              worst, grad_err[worst]], "tol_norm_rel": LAZY_LLAMA_TOL,
+          "lazy_bit_equal_to_eager": {"losses": bit_equal["losses"],
+                                      "grads": len(bit_equal["grads"]),
+                                      "of": len(eager["grads"])},
+          "step_ms": {m: statistics.median(r["wall_ms"])
+                      for m, r in runs.items()},
+          "host_ms": {m: statistics.median(r["host_ms"])
+                      for m, r in runs.items()},
+          "step_ms_all": {m: r["wall_ms"] for m, r in runs.items()},
+          "host_ms_all": {m: r["host_ms"] for m, r in runs.items()},
+          "lazy_counters": {"warmup": lz["warmup_counters"],
+                            "timed": timed},
+          "graph_static_bytes": graph_bytes,
+          "reserved_gb_with_graph": reserved_gb,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "device": kind, "nvidia_smi": smi})
+    del runs, eager, lz
+    release()
+    return totals
+
+
 # ---- the fused-op surface (incubate.nn.functional) ----
 
 ROPE_SRC = "paddle_tpu_torch/csrc/rope.cu"
@@ -4557,6 +4765,8 @@ ONLY = {
     "eager_attention": phase_eager_attention,
     "jit_reference": lambda kind, smi: phase_jit_reference(),
     "jit_layer": phase_jit_layer,
+    "lazy_reference": lambda kind, smi: phase_lazy_reference(),
+    "lazy_llama": phase_lazy_llama,
 }
 # the TP phases by `phase_tp` task: `--only` runs them in one world
 TP_ONLY = {"tp_reference": "reference", "serve_tp": "serve"}
@@ -4614,6 +4824,8 @@ def main(argv=()):
     eager_launches = phase_eager_attention(kind, smi)
     phase_jit_reference()
     jit_launches = phase_jit_layer(kind, smi)
+    lazy_ref_launches = phase_lazy_reference()
+    lazy_launches = phase_lazy_llama(kind, smi)
     fused = phase_incubate_kernels()
     layer_launches = phase_incubate_layer(kind, smi)
     incubate_decode_launches = phase_incubate_serve(kind, smi)
@@ -4674,7 +4886,8 @@ def main(argv=()):
              splits=int4["qkv_int4"]["splits"]),
         *[_row(name, FLASH_SRC, f"{FA_PY}:{line}",
                train_launches[name] + eager_launches[name]
-               + jit_launches[name],
+               + jit_launches[name] + lazy_ref_launches[name]
+               + lazy_launches[name],
                flash["train_mha"][name], also_replaces=f"{FA_PY}:{also}")
           for name, line, also in (("flash_attention_fwd", 49, 424),
                                    ("flash_attention_dq", 100, 537),
@@ -4682,7 +4895,8 @@ def main(argv=()):
         _row("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
              "paddle_tpu/ops/pallas/rms_norm.py:18",
              train_launches["rms_norm"] + eager_launches["rms_norm"]
-             + jit_launches["rms_norm"],
+             + jit_launches["rms_norm"] + lazy_ref_launches["rms_norm"]
+             + lazy_launches["rms_norm"],
              rms["bf16"]),
         _row("fused_rope", ROPE_SRC, f"{ROPE_PY}:20",
              layer_launches["fused_rope"], fused["rope_bf16"]),

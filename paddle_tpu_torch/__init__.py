@@ -32,6 +32,12 @@ The paddle-style model path: `nn.Layer` and its core layers over
 `jit.to_static` (a `torch.export` capture per input signature),
 `jit.save` / `jit.load` and `inference.create_predictor`; captured and
 loaded programs reach the flash and RMSNorm kernels as custom ops.
+
+Lazy eager mode (`core.lazy_guard()`, `FLAGS_lazy_mode`) records ops and
+runs them at a barrier, on the card as CUDA graphs; `amp` is automatic
+mixed precision (`auto_cast`, `decorate`, `GradScaler`); and
+`models.llama_layers` is the JAX package's Llama written in paddle
+Layers.
 """
 from .framework.dtype import (DType, bfloat16, complex64, complex128,
                               float8_e4m3fn, float8_e5m2, float16, float32,
@@ -50,7 +56,7 @@ from . import ops
 from .ops import *  # noqa: F401,F403
 from . import autograd
 from .framework.io import load, save
-from . import nn, optimizer, jit
+from . import amp, nn, optimizer, jit
 from .nn.parameter import ParamAttr, create_parameter
 from .convert import from_jax_state, mlp_from_jax_params, moe_from_jax_state
 from . import inference
@@ -69,7 +75,8 @@ __all__ = ops.__all__ + [
            "get_device", "is_compiled_with_cuda", "set_device", "get_flags",
            "set_flags", "get_rng_state", "seed", "set_rng_state", "Tensor",
            "enable_grad", "grad", "is_grad_enabled", "no_grad",
-           "set_grad_enabled", "autograd", "load", "save", "nn", "optimizer", "jit",
+           "set_grad_enabled", "autograd", "load", "save", "amp", "nn",
+           "optimizer", "jit",
            "ParamAttr", "create_parameter", "from_jax_state", "mlp_from_jax_params", "moe_from_jax_state",
            "LlamaInferenceEngine", "LlamaConfig", "LlamaForCausalLM",
            "llama_7b_shaped", "llama_tiny", "MLPLMEngine", "RequestHandle",

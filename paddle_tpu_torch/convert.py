@@ -16,7 +16,8 @@ import torch
 
 from .models.llama import LlamaConfig, LlamaForCausalLM
 
-__all__ = ["from_jax_state", "moe_from_jax_state", "mlp_from_jax_params"]
+__all__ = ["from_jax_state", "layers_from_jax_state", "moe_from_jax_state",
+           "mlp_from_jax_params"]
 
 
 @torch.no_grad()
@@ -44,6 +45,20 @@ def from_jax_state(state: Dict[str, np.ndarray], config: LlamaConfig,
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
         p.copy_(torch.tensor(arr))
+    return model
+
+
+def layers_from_jax_state(state: Dict[str, np.ndarray], model):
+    """Load `state` (name -> numpy array, as for `from_jax_state`) into a
+    Layer model (`models.llama_layers.LlamaForCausalLM`) in place, each
+    value in its parameter's dtype and on its device, and return it.
+    Every parameter must be present with its exact shape, and nothing
+    else."""
+    missing, unexpected = model.set_state_dict(
+        {k: np.asarray(v) for k, v in state.items()})
+    if missing or unexpected:
+        raise KeyError(f"state does not match the model: missing "
+                       f"{sorted(missing)}, unexpected {sorted(unexpected)}")
     return model
 
 

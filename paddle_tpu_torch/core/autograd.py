@@ -97,12 +97,17 @@ def _cotangent(t, g):
 
 def run_backward(tensors, grad_tensors=None, retain_graph=False):
     """`Tensor.backward` / `paddle.autograd.backward`: accumulate into
-    the `.grad` of every leaf the outputs reach."""
+    the `.grad` of every leaf the outputs reach. Pending lazy outputs are
+    flushed first (a `backward` barrier); the seeds whose backward that
+    flush already ran in a CUDA graph are not run again."""
+    from . import lazy
+
     tensors = _as_list(tensors)
     grads = [None] * len(tensors) if grad_tensors is None \
         else _as_list(grad_tensors)
+    done = lazy.sync_backward(tensors, grads, retain_graph)
     live = [(t._data, _cotangent(t, g)) for t, g in zip(tensors, grads)
-            if t._data.requires_grad]
+            if id(t) not in done and t._data.requires_grad]
     if live:
         torch.autograd.backward([d for d, _ in live], [g for _, g in live],
                                 retain_graph=retain_graph)
@@ -131,8 +136,12 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
     if no_grad_vars:
         raise NotImplementedError("paddle.grad: no_grad_vars is not "
                                   "supported")
+    from . import lazy
+
     outputs = _as_list(outputs)
     inputs = _as_list(inputs)
+    # a barrier that cuts the pending region at requested intermediates
+    lazy.sync_for_grad(outputs, inputs, create_graph)
     gouts = [None] * len(outputs) if grad_outputs is None \
         else _as_list(grad_outputs)
     for idx, t in enumerate(inputs):

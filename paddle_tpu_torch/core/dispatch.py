@@ -6,8 +6,10 @@ the function under torch's grad mode (torch autograd records it when an
 input requires grad), and wraps the outputs: an output stops gradient
 unless torch recorded it, so integer and bool outputs always stop. The
 hook points of the JAX dispatcher stay: the AMP input rewrite
-(`set_amp_hook`), the op observers (`add_op_observer`) and the
-`FLAGS_check_nan_inf` check.
+(`set_amp_hook`), the lazy recorder (`core/lazy.py`: with lazy mode on,
+`apply` records the op and returns pending Tensors; an op it declines
+runs now, and reading a pending input's `_data` flushes it first), the
+op observers (`add_op_observer`) and the `FLAGS_check_nan_inf` check.
 
 The JAX dispatcher caches one compiled executable per op signature
 (`cache_stats`, `clear_caches`); an eager PyTorch op has nothing to
@@ -21,6 +23,7 @@ import torch
 
 from ..framework import flags
 from ..framework.dtype import is_inexact
+from . import lazy as _lazy
 from .tensor import Tensor
 
 __all__ = ["OpDef", "register_op", "get_op", "op_registry", "apply",
@@ -92,8 +95,18 @@ def apply(op_name: str, tensor_inputs: Sequence, attrs: Optional[dict] = None):
     op = _OP_REGISTRY[op_name]
     if _amp_hook is not None:
         tensor_inputs = _amp_hook(op_name, tensor_inputs)
-    out = op.fn(*[t._data if isinstance(t, Tensor) else t
-                  for t in tensor_inputs], **(attrs or {}))
+    if _lazy._ACTIVE:
+        if _lazy.is_lazy_enabled():
+            out = _lazy.try_record(op, tensor_inputs, attrs or {})
+            if out is not _lazy.NOT_HANDLED:
+                return out
+        # a pending input consumed here runs its graph first (with its
+        # own stop_gradient)
+        out = op.fn(*[_lazy.materialize(t) if isinstance(t, Tensor) else t
+                      for t in tensor_inputs], **(attrs or {}))
+    else:
+        out = op.fn(*[t._data if isinstance(t, Tensor) else t
+                      for t in tensor_inputs], **(attrs or {}))
     if isinstance(out, (tuple, list)):
         res = [Tensor._wrap(o) for o in out]
         _check_outputs(op_name, res)

@@ -14,6 +14,13 @@ port's engines, which hand plain tensors around. Autograd is torch's:
   array of the same bits where `ml_dtypes` imports (as the JAX package's does),
   and raises otherwise, naming `astype`: it never converts silently.
 
+Under lazy mode (`core/lazy.py`) an op's output is a pending Tensor:
+its `_data` is a `lazy.LazyArray`, which answers shape, dtype, device
+and the like without running anything and runs the pending graph when
+anything else reads it (a torch function, a method, `numpy()`); the
+flush then swaps the value into every Tensor that holds it. A pending
+Tensor keeps its own stop_gradient until then.
+
 The op methods and dunders are attached by `paddle_tpu_torch.ops`.
 """
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 from ..framework import dtype as dtype_mod
 from ..framework.place import Place, expected_device
 from . import autograd
+from .lazy import LazyArray as _LazyArray
 
 __all__ = ["Tensor", "DataDependentError"]
 
@@ -64,6 +72,8 @@ class Tensor:
                  name: Optional[str] = None, place=None):
         if isinstance(data, Tensor):
             data = data._data.detach()
+        elif isinstance(data, _LazyArray):
+            data = data.materialize().detach()
         elif not isinstance(data, torch.Tensor):
             data = _to_torch(data, place)
         else:
@@ -113,12 +123,19 @@ class Tensor:
 
     @property
     def stop_gradient(self) -> bool:
-        return self._sg and not self._data.requires_grad
+        d = self._data
+        if type(d) is _LazyArray:
+            return self._sg     # a pending Tensor's own flag
+        return self._sg and not d.requires_grad
 
     @stop_gradient.setter
     def stop_gradient(self, v: bool):
         v = bool(v)
         d = self._data
+        if type(d) is _LazyArray:
+            # applied to the value when the graph flushes
+            self._sg = v
+            return
         if v and d.requires_grad:
             if d.grad_fn is None:
                 d.requires_grad_(False)
@@ -131,6 +148,8 @@ class Tensor:
 
     @property
     def is_leaf(self) -> bool:
+        if type(self._data) is _LazyArray:
+            return self._sg
         return self._data.grad_fn is None
 
     # -- grad --------------------------------------------------------------
@@ -164,6 +183,12 @@ class Tensor:
         """Call `hook(grad)` with this tensor's cotangent; a Tensor it
         returns replaces the cotangent. Returns a handle with
         `remove()`."""
+        if type(self._data) is _LazyArray:
+            # a hooked intermediate must be a region output with a real
+            # tape edge
+            from . import lazy
+
+            lazy.sync(reason="hook")
         if self.stop_gradient:
             raise RuntimeError("cannot register hook on a tensor that stops "
                                "gradient")
@@ -238,7 +263,10 @@ class Tensor:
         return a.astype(dtype) if dtype is not None else a
 
     def detach(self) -> "Tensor":
-        return Tensor._wrap(self._data.detach())
+        d = self._data
+        if type(d) is _LazyArray and d._concrete is None:
+            return d.new_owner(stop_gradient=True)
+        return Tensor._wrap(d.detach())
 
     def detach_(self):
         self.stop_gradient = True

@@ -6,14 +6,18 @@ default, a `FLAGS_name=value` environment variable read when the flag is
 defined overrides that default, and `set_flags` / `get_flags` /
 `flag_value` read and write the values. Names may be given with or
 without the `FLAGS_` prefix. The modules that read a flag define it
-(`ops/kernels/fused_moe.py` defines `fused_moe_kernels`).
+(`ops/kernels/fused_moe.py` defines `fused_moe_kernels`); the lazy eager
+mode's two flags are defined here, as `core/lazy.py` reads them before
+anything else imports it, and `watch_flag` calls a function whenever
+`set_flags` writes a flag (lazy mode turns its dispatch hook on so).
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict
 
-__all__ = ["define_flag", "set_flags", "get_flags", "flag_value"]
+__all__ = ["define_flag", "set_flags", "get_flags", "flag_value",
+           "watch_flag"]
 
 
 class _Flag:
@@ -34,6 +38,7 @@ class _Flag:
 
 
 _REGISTRY: Dict[str, _Flag] = {}
+_WATCHERS: Dict[str, list] = {}
 
 
 def _key(name: str) -> str:
@@ -55,6 +60,13 @@ def set_flags(flags: Dict[str, Any]):
         else:
             f = _REGISTRY[key]
             f.value = f.type(v) if not isinstance(v, f.type) else v
+        for fn in _WATCHERS.get(key, ()):
+            fn(_REGISTRY[key].value)
+
+
+def watch_flag(name: str, fn):
+    """Call `fn(value)` after every `set_flags` of flag `name`."""
+    _WATCHERS.setdefault(_key(name), []).append(fn)
 
 
 def get_flags(flags) -> Dict[str, Any]:
@@ -71,3 +83,9 @@ def get_flags(flags) -> Dict[str, Any]:
 
 def flag_value(name: str):
     return _REGISTRY[_key(name)].value
+
+
+define_flag("lazy_mode", False,
+            "batch eager ops into lazily flushed regions (core/lazy.py)")
+define_flag("lazy_max_ops", 4096,
+            "flush the pending lazy micro-graph at this many ops")

@@ -7,7 +7,10 @@ any Pallas kernel). `dropout` draws its mask as the JAX package does:
 generator (`framework/random.py`, `next_key`), which is
 `uniform(key, shape, float64) < 1 - p` under the JAX package's
 `jax_enable_x64`, with the port's threefry bits, so the same seed drops
-the same elements in both packages.
+the same elements in both packages. The key is a tensor input of the op
+(its two uint32 words in an int64 tensor), not an attribute: a lazy
+region replayed as a CUDA graph reads each call's key, and draws a new
+mask every time.
 """
 from __future__ import annotations
 
@@ -67,21 +70,23 @@ def embedding(x, weight, padding_idx=None, sparse=False, name=None):
                           {"padding_idx": padding_idx})
 
 
-def _dropout_fn(x, *, key, p, mode, axis):
+def _dropout_fn(x, key, *, p, mode, axis):
     if axis is None:
         mask_shape = tuple(x.shape)
     else:
         axes = (axis,) if isinstance(axis, int) else tuple(axis)
         mask_shape = tuple(s if i in axes else 1
                            for i, s in enumerate(x.shape))
-    u = random_mod.uniform(key, mask_shape, torch.float64, 0.0, 1.0,
-                           x.device)
+    # uniform(key, shape, float64, 0, 1) is its unit floats exactly
+    u = random_mod._unit_floats(key, mask_shape, torch.float64, x.device)
     keep = u < 1.0 - p
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     if mode == "upscale_in_train":
         scale = 1.0 / (1.0 - p) if p < 1.0 else 0.0
-        return torch.where(keep, x * torch.tensor(scale, dtype=x.dtype,
-                                                  device=x.device), zero)
+        # the scale in x's dtype (as JAX's weak-typed scalar), filled on
+        # x's device: no host copy, so a CUDA graph can capture the op
+        return torch.where(keep, x * torch.full((), scale, dtype=x.dtype,
+                                                device=x.device), zero)
     # downscale_in_infer: training multiplies by the mask only
     return torch.where(keep, x, zero)
 
@@ -101,6 +106,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         return x
     if axis is not None and not isinstance(axis, int):
         axis = tuple(int(a) for a in axis)
-    return dispatch.apply("dropout", [x], {"key": random_mod.next_key(),
-                                           "p": p, "mode": mode,
-                                           "axis": axis})
+    key = torch.tensor(random_mod.next_key(), dtype=torch.int64,
+                       device=x.place.torch_device)
+    return dispatch.apply("dropout", [x, key], {"p": p, "mode": mode,
+                                                "axis": axis})

@@ -44,12 +44,9 @@ def rms_norm(x, weight, epsilon=1e-6):
     return _rms_norm(x, weight, epsilon=epsilon)
 
 
-def _ln_fn(x, *rest, has_w, has_b, norm_ndim, epsilon):
+def _ln_fn(x, w, b, *, norm_ndim, epsilon):
     """`norm.py:136-148`: mean and biased variance over the last
     `norm_ndim` axes, a division by `sqrt`, then weight and bias."""
-    rest = list(rest)
-    w = rest.pop(0) if has_w else None
-    b = rest.pop(0) if has_b else None
     axes = tuple(range(x.dim() - norm_ndim, x.dim()))
     mean = x.mean(dim=axes, keepdim=True)
     var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
@@ -61,15 +58,28 @@ def _ln_fn(x, *rest, has_w, has_b, norm_ndim, epsilon):
     return y
 
 
+# the JAX package's four ops (its AMP lists name each)
 dispatch.register_op("layer_norm", _ln_fn)
+dispatch.register_op("layer_norm_now", lambda x, b, **kw: _ln_fn(
+    x, None, b, **kw))
+dispatch.register_op("layer_norm_nob", lambda x, w, **kw: _ln_fn(
+    x, w, None, **kw))
+dispatch.register_op("layer_norm_nowb", lambda x, **kw: _ln_fn(
+    x, None, None, **kw))
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
                name=None):
+    x = as_tensor(x)
     if isinstance(normalized_shape, int):
         normalized_shape = [normalized_shape]
-    inputs = [as_tensor(x)] + [as_tensor(t) for t in (weight, bias)
-                               if t is not None]
-    return dispatch.apply("layer_norm", inputs, {
-        "has_w": weight is not None, "has_b": bias is not None,
-        "norm_ndim": len(list(normalized_shape)), "epsilon": float(epsilon)})
+    attrs = {"norm_ndim": len(list(normalized_shape)),
+             "epsilon": float(epsilon)}
+    if weight is not None and bias is not None:
+        return dispatch.apply("layer_norm",
+                              [x, as_tensor(weight), as_tensor(bias)], attrs)
+    if weight is not None:
+        return dispatch.apply("layer_norm_nob", [x, as_tensor(weight)], attrs)
+    if bias is not None:
+        return dispatch.apply("layer_norm_now", [x, as_tensor(bias)], attrs)
+    return dispatch.apply("layer_norm_nowb", [x], attrs)

@@ -17,10 +17,10 @@ from .creation import (arange, assign, clone, eye, full, linspace, normal,
                        ones, rand, randint, randn, to_tensor, uniform, zeros)
 from .linalg import matmul
 from .manipulation import (astype, cast, concat, gather, reshape, split,
-                           squeeze, stack, where)
-from .math import (abs, add, add_, divide, exp, floor_divide, log, multiply,
-                   neg, pow, remainder, round, scale, sin, sqrt, subtract,
-                   tanh)
+                           squeeze, stack, transpose, where)
+from .math import (abs, add, add_, clip, divide, exp, floor_divide, log,
+                   maximum, minimum, multiply, neg, pow, remainder, round,
+                   scale, sigmoid, sin, sqrt, subtract, tanh)
 from .reduction import all, any, argmax, max, mean, min, sum
 
 __all__ = ["softmax", "bitwise_and", "bitwise_not", "bitwise_or",
@@ -30,18 +30,20 @@ __all__ = ["softmax", "bitwise_and", "bitwise_not", "bitwise_or",
            "assign", "clone", "eye", "full", "linspace", "normal", "ones",
            "rand", "randint", "randn", "to_tensor", "uniform", "zeros",
            "matmul", "astype", "cast", "concat", "gather", "reshape",
-           "split", "squeeze", "stack", "where", "abs", "add", "add_",
-           "divide", "exp", "floor_divide", "log", "multiply", "neg", "pow",
-           "remainder", "round", "scale", "sin", "sqrt", "subtract", "tanh",
+           "split", "squeeze", "stack", "transpose", "where", "abs", "add",
+           "add_", "clip", "divide", "exp", "floor_divide", "log",
+           "maximum", "minimum", "multiply", "neg", "pow", "remainder",
+           "round", "scale", "sigmoid", "sin", "sqrt", "subtract", "tanh",
            "all", "any", "argmax", "max", "mean", "min", "sum"]
 
 _METHODS = dict(
     add=math.add, subtract=math.subtract, multiply=math.multiply,
     divide=math.divide, floor_divide=math.floor_divide,
     remainder=math.remainder, mod=math.remainder, pow=math.pow,
+    maximum=math.maximum, minimum=math.minimum, clip=math.clip,
     exp=math.exp, log=math.log, sqrt=math.sqrt, sin=math.sin,
-    tanh=math.tanh, abs=math.abs, neg=math.neg, round=math.round,
-    scale=math.scale, add_=math.add_,
+    tanh=math.tanh, sigmoid=math.sigmoid, abs=math.abs, neg=math.neg,
+    round=math.round, scale=math.scale, add_=math.add_,
     sum=reduction.sum, mean=reduction.mean, max=reduction.max,
     min=reduction.min, all=reduction.all, any=reduction.any,
     argmax=reduction.argmax,
@@ -53,6 +55,7 @@ _METHODS = dict(
     logical_not=comparison.logical_not, equal_all=comparison.equal_all,
     matmul=linalg.matmul,
     reshape=manipulation.reshape, squeeze=manipulation.squeeze,
+    transpose=manipulation.transpose,
     cast=manipulation.cast,
     astype=manipulation.cast, split=manipulation.split,
     gather=manipulation.gather, where=manipulation.where,

@@ -1,6 +1,7 @@
-"""Activations: `swiglu` on torch tensors, the plain
-`paddle_tpu/ops/activation.py:193-202` the Llama model calls (its MLP does
-not reach the Pallas `bias_act` kernels); and on eager Tensors `softmax`,
+"""Activations: `swiglu`, the plain `paddle_tpu/ops/activation.py:193-202`
+the Llama models call (their MLP does not reach the Pallas `bias_act`
+kernels), on torch tensors as it is and on eager Tensors as the ops
+`swiglu` / `swiglu_packed`; and on eager Tensors `softmax`,
 `relu`, `sigmoid`, `silu` / `swish`, `gelu` (the erf form unless
 `approximate`), `leaky_relu`, `elu`, `hardswish`, `mish`, `softplus` and
 `prelu`, the formulas of `paddle_tpu/ops/activation.py:13-165` (an
@@ -12,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import dispatch
+from ..core.tensor import Tensor
 from ..framework import dtype as dtype_mod
 from ._helpers import as_tensor, cast_to, make_float_unary
 
@@ -19,12 +21,25 @@ __all__ = ["swiglu", "softmax", "relu", "sigmoid", "silu", "swish", "gelu",
            "leaky_relu", "elu", "hardswish", "mish", "softplus", "prelu"]
 
 
-def swiglu(x, y=None):
-    """`silu(x) * y`; with `y=None`, x is split in two halves along its
-    last axis first."""
+def _swiglu(x, y=None):
     if y is None:
         x, y = torch.chunk(x, 2, dim=-1)
     return F.silu(x) * y
+
+
+dispatch.register_op("swiglu", _swiglu)
+dispatch.register_op("swiglu_packed", _swiglu)
+
+
+def swiglu(x, y=None, name=None):
+    """`silu(x) * y`; with `y=None`, x is split in two halves along its
+    last axis first. Eager Tensors go through the op, torch tensors give a
+    torch tensor."""
+    if isinstance(x, Tensor) or isinstance(y, Tensor):
+        if y is None:
+            return dispatch.apply("swiglu_packed", [x])
+        return dispatch.apply("swiglu", [as_tensor(x), as_tensor(y)])
+    return _swiglu(x, y)
 
 
 dispatch.register_op("softmax", lambda x, *, axis: torch.softmax(x, dim=axis))

@@ -7,9 +7,20 @@ under `build/paddle_tpu_torch/` at the repository root the first time a
 wrapper launches it, and the library is loaded with `ctypes`. Nothing here
 needs `nvcc` or a card at import time: the CPU tests import every module,
 and a wrapper given CPU tensors runs its plain PyTorch version instead.
+
+Launch accounting under CUDA graphs: a replayed graph runs no Python, so
+no wrapper counts its launches. While a `LaunchRecord` is recording (a
+graph's capture) every `LaunchCounter.add` is noted against the record
+instead of counted, and `LaunchRecord.replayed()` adds the noted counts
+each time the graph is replayed; `launches_discarded()` drops the adds of
+a warm-up run. So a region captured once and replayed N times counts the
+launches of N eager runs. Both are host mechanisms: the record is global
+(the autograd engine launches a capture's backward kernels from its own
+thread) and needs no card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -23,6 +34,7 @@ from typing import Dict, Iterable, Optional
 import torch
 
 __all__ = ["resolve_device", "launch_counter", "reset_launch_counts",
+           "LaunchRecord", "launches_discarded",
            "KernelNotDifferentiableError",
            "build", "load_library", "sm_count", "CSRC_DIR", "BUILD_DIR"]
 
@@ -57,9 +69,13 @@ class LaunchCounter:
         self.count = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
+        rec = _RECORDING
+        if rec is not None:
+            rec.note(self.name, n)
+            return
         with self._lock:
-            self.count += 1
+            self.count += n
 
 
 _COUNTERS: Dict[str, LaunchCounter] = {}
@@ -75,6 +91,45 @@ def launch_counter(name: str) -> LaunchCounter:
 def reset_launch_counts() -> None:
     for c in _COUNTERS.values():
         c.count = 0
+
+
+# the record the counters' adds go to while a graph is captured, else None
+_RECORDING: Optional["LaunchRecord"] = None
+
+
+class LaunchRecord:
+    """The kernel launches one replay of a captured graph makes:
+    `{counter name: launches}`, noted while `recording()`, added to the
+    counters by `replayed()`. With `discard=True` the notes are dropped
+    (a warm-up run whose work is thrown away)."""
+
+    def __init__(self, discard: bool = False):
+        self.counts: Dict[str, int] = {}
+        self._discard = discard
+        self._lock = threading.Lock()
+
+    def note(self, name: str, n: int) -> None:
+        if not self._discard:
+            with self._lock:
+                self.counts[name] = self.counts.get(name, 0) + n
+
+    @contextlib.contextmanager
+    def recording(self):
+        global _RECORDING
+        prev, _RECORDING = _RECORDING, self
+        try:
+            yield self
+        finally:
+            _RECORDING = prev
+
+    def replayed(self) -> None:
+        for name, n in self.counts.items():
+            launch_counter(name).add(n)
+
+
+def launches_discarded():
+    """A context in which no launch is counted (a capture's warm-up)."""
+    return LaunchRecord(discard=True).recording()
 
 
 class KernelNotDifferentiableError(RuntimeError):

@@ -1,6 +1,6 @@
 """Shape and index manipulation (the port's subset of
 `paddle_tpu/ops/manipulation.py`): `cast` / `astype`, `reshape`,
-`squeeze`, `flatten`, `concat`, `stack`, `split`,
+`squeeze`, `flatten`, `transpose`, `concat`, `stack`, `split`,
 `gather`, `where`, and `__getitem__` / `__setitem__`.
 
 Indexing takes ints, slices with steps, None, Ellipsis, integer tensors
@@ -24,7 +24,8 @@ from ..framework import dtype as dtype_mod
 from ._helpers import (as_tensor, inplace_rebind, normalize_axis,
                        prep_binary, result_dtype, shape_to_tuple)
 
-__all__ = ["cast", "astype", "reshape", "squeeze", "flatten", "concat", "stack",
+__all__ = ["cast", "astype", "reshape", "squeeze", "flatten", "transpose",
+           "concat", "stack",
            "split", "gather", "where", "getitem", "setitem"]
 
 dispatch.register_op("cast", lambda x, *, dtype: x.to(dtype))
@@ -75,6 +76,17 @@ def flatten(x, start_axis=0, stop_axis=-1, name=None):
     return dispatch.apply("flatten", [x], {
         "start": normalize_axis(start_axis, x.ndim),
         "stop": normalize_axis(stop_axis, x.ndim)})
+
+
+dispatch.register_op("transpose", lambda x, *, perm: x.permute(perm))
+
+
+def transpose(x, perm=None, name=None):
+    x = as_tensor(x)
+    if perm is None:
+        perm = tuple(reversed(range(x.ndim)))
+    return dispatch.apply("transpose", [x],
+                          {"perm": tuple(int(p) for p in perm)})
 
 
 dispatch.register_op("concat", lambda *xs, axis: torch.cat(xs, dim=axis))

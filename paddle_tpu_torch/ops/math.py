@@ -4,7 +4,11 @@
 as the JAX package writes it: `trunc(|x| + 0.5) * sign(x)`, after a
 shift by 10^decimals; `torch.round` rounds half to even and is not used.
 `divide` casts integer operands to the default float dtype first. The
-in-place `add_` rebinds as `_helpers.inplace_rebind` says.
+in-place `add_` rebinds as `_helpers.inplace_rebind` says. `maximum` /
+`minimum` and `clip` (ops `clip`, `clip_min`, `clip_max`, bounds
+promoted against x as `paddle_tpu/ops/math.py:140-155` does, `jnp.clip`'s
+`minimum(maximum(x, lo), hi)`) split a tie's gradient equally, as
+`jnp.maximum` does.
 """
 from __future__ import annotations
 
@@ -15,8 +19,9 @@ from ._helpers import (as_tensor, inplace_rebind, make_binary,
                        make_float_unary, make_unary, prep_binary)
 
 __all__ = ["add", "subtract", "multiply", "divide", "floor_divide",
-           "remainder", "pow", "exp", "log", "sqrt", "sin", "tanh", "abs",
-           "neg", "round", "scale", "add_"]
+           "remainder", "maximum", "minimum", "pow", "exp", "log", "sqrt",
+           "sin", "tanh", "sigmoid", "abs", "neg", "round", "scale", "clip",
+           "add_"]
 
 add = make_binary("add", torch.add)
 subtract = make_binary("subtract", torch.sub)
@@ -24,12 +29,15 @@ multiply = make_binary("multiply", torch.mul)
 divide = make_binary("divide", torch.true_divide, float_only=True)
 floor_divide = make_binary("floor_divide", torch.floor_divide)
 remainder = make_binary("remainder", torch.remainder)
+maximum = make_binary("maximum", torch.maximum)
+minimum = make_binary("minimum", torch.minimum)
 
 exp = make_float_unary("exp", torch.exp)
 log = make_float_unary("log", torch.log)
 sqrt = make_float_unary("sqrt", torch.sqrt)
 sin = make_float_unary("sin", torch.sin)
 tanh = make_float_unary("tanh", torch.tanh)
+sigmoid = make_float_unary("sigmoid", torch.sigmoid)
 abs = make_unary("abs", torch.abs)
 neg = make_unary("neg", torch.neg)
 
@@ -72,6 +80,27 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
 
         out = getattr(activation, act)(out)
     return out
+
+
+dispatch.register_op("clip", lambda x, lo, hi: torch.minimum(
+    torch.maximum(x, lo), hi))
+dispatch.register_op("clip_min", lambda x, lo: torch.maximum(x, lo))
+dispatch.register_op("clip_max", lambda x, hi: torch.minimum(x, hi))
+
+
+def clip(x, min=None, max=None, name=None):
+    x = as_tensor(x)
+    if min is not None and max is not None:
+        _, lo = prep_binary(x, min)
+        _, hi = prep_binary(x, max)
+        return dispatch.apply("clip", [x, lo, hi])
+    if min is not None:
+        _, lo = prep_binary(x, min)
+        return dispatch.apply("clip_min", [x, lo])
+    if max is not None:
+        _, hi = prep_binary(x, max)
+        return dispatch.apply("clip_max", [x, hi])
+    return x
 
 
 def add_(x, y):

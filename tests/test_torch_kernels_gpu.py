@@ -2061,3 +2061,134 @@ def test_to_static_training_step_on_card_launches_and_matches_eager():
     for a, b in zip(gs, ge):
         np.testing.assert_allclose(a, b, rtol=0,
                                    atol=1e-5 * np.abs(b).max())
+
+
+def test_lazy_region_replayed_on_card_equals_eager_with_exact_launches():
+    """A two-layer Llama in paddle Layers (f32, head dim 16) trained three
+    AdamW steps eagerly and three under lazy mode from the same seed: the
+    lazy step is one region, run eagerly at its first sight, captured as
+    one CUDA graph (forward and backward) at its second and replayed at
+    its third; every step launches the flash forward, dQ and dK/dV once a
+    layer and the RMSNorm kernel twice a layer and once more, and the
+    losses and gradients match the eager run's."""
+    _card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.framework import monitor, place
+    from paddle_tpu_torch.models.llama_layers import llama_tiny
+
+    rng = np.random.default_rng(3)
+    ids_np, labs_np = (rng.integers(0, 256, (2, 16)) for _ in range(2))
+    want = {"flash_attention_fwd": 2, "flash_attention_dq": 2,
+            "flash_attention_dkv": 2, "rms_norm": 5}
+    runs = {}
+    with place.device_scope("gpu"):
+        for on in (False, True):
+            lazy.clear_graphs()
+            paddle.seed(7)
+            model = llama_tiny(seq=16)
+            opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                         parameters=model.parameters())
+            ids, labs = paddle.to_tensor(ids_np), paddle.to_tensor(labs_np)
+            losses, grads = [], []
+            c0 = monitor.snapshot("lazy.")
+            with lazy.lazy_guard(on):
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    _launched()
+                    loss, _ = model(ids, labels=labs)
+                    loss.backward()
+                    grads.append([p.grad.numpy() for p in model.parameters()])
+                    opt.step()
+                    opt.clear_grad()
+                    torch.cuda.synchronize()
+                    assert _launched() == want
+                    # kept with its tape: the next capture must not touch
+                    # the parameters' accumulators this tape holds
+                    losses.append(loss)
+            c1 = monitor.snapshot("lazy.")
+            runs[on] = [float(v) for v in losses], grads, {
+                k: v - c0.get(k, 0) for k, v in c1.items()}
+    (le, ge, _), (ll, gl, moved) = runs[False], runs[True]
+    np.testing.assert_allclose(ll, le, rtol=1e-5)
+    for step_e, step_l in zip(ge, gl):
+        for a, b in zip(step_l, step_e):
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=1e-5 * np.abs(b).max())
+    assert moved.get("lazy.graph_first_sight") == 1
+    assert moved.get("lazy.graph_captures") == 1
+    assert moved.get("lazy.graph_replays") == 2
+    assert moved.get("lazy.uncaptured_replays") == 1
+    lazy.clear_graphs()
+
+
+def test_graph_evicted_from_the_bounded_cache_frees_its_memory():
+    """With room for one graph, capturing a second region evicts the
+    first: the first graph's static output (64 MiB) is freed, and with
+    every graph cleared the pool goes back to the card."""
+    _card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.framework import place
+
+    lazy.clear_graphs()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    limit = lazy.GRAPH_LIMIT
+    lazy.GRAPH_LIMIT = 1
+    try:
+        with place.device_scope("gpu"):
+            big = paddle.ones([4096, 4096])
+            small = paddle.ones([8])
+            with lazy.lazy_guard():
+                for _ in range(2):      # seen twice: captured
+                    (big * 2.0).numpy()
+            (nbytes,) = lazy.graph_bytes()
+            assert nbytes >= 4096 * 4096 * 4
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            with lazy.lazy_guard():
+                for _ in range(2):
+                    (small + 1.0).numpy()
+            torch.cuda.synchronize()
+            assert len(lazy.graph_bytes()) == 1
+            assert torch.cuda.memory_allocated() <= before - 4096 * 4096 * 4
+        lazy.clear_graphs()
+        del big, small
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_reserved() <= reserved0 + (2 << 20)
+    finally:
+        lazy.GRAPH_LIMIT = limit
+
+
+def test_lazy_dropout_replays_draw_the_eager_masks_on_card():
+    """Dropout under lazy mode on the card, four calls: run eagerly at the
+    region's first sight, captured at its second, replayed after. Its key
+    is an input of the graph, so every call draws a new mask, the one an
+    eager call from the same seed draws."""
+    _card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.framework import monitor, place
+
+    outs, moved = {}, {}
+    with place.device_scope("gpu"):
+        x = paddle.ones([64, 128])
+        for on in (False, True):
+            lazy.clear_graphs()
+            paddle.seed(11)
+            c0 = monitor.snapshot("lazy.")
+            with lazy.lazy_guard(on):
+                outs[on] = [paddle.nn.functional.dropout(x, 0.5).numpy()
+                            for _ in range(4)]
+            c1 = monitor.snapshot("lazy.")
+            moved[on] = {k: v - c0.get(k, 0) for k, v in c1.items()}
+    for a, b in zip(outs[False], outs[True]):
+        np.testing.assert_array_equal(b, a)
+    assert len({m.tobytes() for m in outs[True]}) == 4
+    assert moved[True].get("lazy.graph_first_sight") == 1
+    assert moved[True].get("lazy.graph_captures") == 1
+    assert moved[True].get("lazy.graph_replays") == 3
+    lazy.clear_graphs()

@@ -1,0 +1,708 @@
+"""Lazy eager mode of the port (`paddle_tpu_torch/core/lazy.py`) against
+the JAX package's (`paddle_tpu/core/lazy.py`): every scenario of
+`tests/test_lazy_eager.py` runs on both packages, the port in immediate
+and in lazy mode, and the port's results (values, gradients, pending
+counts, flags and the `lazy.*` counters it moved) are held to the JAX
+package's lazy run (`torch_eager_common.py`: f32 within rtol 1e-5 / atol
+1e-6, the rest exact). The executable-cache cases (`:380-434`) become
+region-signature reuse: after the warm-up no new region signature, one
+flush a step, in both packages. Left out: `test_profiler_sees_lazy_region
+_spans` (the profiler is not ported yet). Then what is the port's own:
+the rule that keeps a region off a CUDA graph, launch accounting under a
+replayed graph (a stub graph on the CPU), a leaf written in place while
+pending, dropout under lazy mode, and the smoke run's `lazy_reference`
+phase rehearsed on the CPU through `tools/lazy_workload.py`."""
+import numpy as np
+import pytest
+
+from torch_eager_common import (assert_same, fresh, jpaddle,  # noqa: F401
+                                port_on_cpu, tpaddle)
+
+PKGS = {"jax": jpaddle, "torch": tpaddle}
+_X = np.linspace(0.1, 2.4, 12).astype(np.float32).reshape(3, 4)
+_Y = (np.linspace(-1.0, 1.0, 12).astype(np.float32).reshape(3, 4) + 1.5)
+
+
+@pytest.fixture(autouse=True)
+def _lazy_off_after():
+    yield
+    for p in PKGS.values():
+        p.core.lazy.set_lazy_mode(False)
+
+
+def _t(paddle, a, requires_grad=False):
+    t = paddle.to_tensor(fresh(np.asarray(a)))
+    t.stop_gradient = not requires_grad
+    return t
+
+
+def _counters(paddle):
+    return dict(paddle.framework.monitor.snapshot("lazy."))
+
+
+def _begin(paddle):
+    """The counters before a run, with the `lazy.max_region_ops` gauge
+    zeroed (it holds the largest region of the process so far)."""
+    paddle.framework.monitor.reset("lazy.max_region_ops")
+    return _counters(paddle)
+
+
+def _moved(paddle, before):
+    after = _counters(paddle)
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def _np(t):
+    return None if t is None else np.asarray(t.numpy())
+
+
+def _held(scenario, modes=("imm", "lazy")):
+    """The scenario's port results in each mode held to the JAX
+    package's lazy run (the counters and pending counts, which only lazy
+    mode moves, for the lazy run only)."""
+    want = scenario(jpaddle, True)
+    for mode in modes:
+        got = scenario(tpaddle, mode == "lazy")
+        w = want
+        if mode == "imm":
+            got, w = ({k: v for k, v in d.items()
+                       if not k.startswith(("counters", "pending"))}
+                      for d in (got, want))
+        assert_same(w, got, f"{scenario.__name__}[{mode}]")
+
+
+# ---------------------------------------------------------------------------
+# numeric parity across ops
+# ---------------------------------------------------------------------------
+
+_OPS = {
+    "add": lambda p, x, y: x + y,
+    "sub": lambda p, x, y: x - y,
+    "mul": lambda p, x, y: x * y,
+    "div": lambda p, x, y: x / y,
+    "pow": lambda p, x, y: x ** 2.0,
+    "matmul": lambda p, x, y: x @ y.transpose([1, 0]),
+    "exp": lambda p, x, y: p.exp(x),
+    "log": lambda p, x, y: p.log(x),
+    "sqrt": lambda p, x, y: p.sqrt(x),
+    "tanh": lambda p, x, y: p.tanh(x),
+    "sigmoid": lambda p, x, y: p.sigmoid(x),
+    "relu": lambda p, x, y: p.nn.functional.relu(x - 1.0),
+    "gelu": lambda p, x, y: p.nn.functional.gelu(x),
+    "softmax": lambda p, x, y: p.nn.functional.softmax(x, axis=-1),
+    "mean": lambda p, x, y: p.mean(x, axis=0),
+    "sum": lambda p, x, y: p.sum(x * y, axis=1),
+    "max": lambda p, x, y: p.maximum(x, y),
+    "reshape": lambda p, x, y: p.reshape(x * y, [4, 3]),
+    "transpose": lambda p, x, y: p.transpose(x, [1, 0]) @ y,
+    "concat": lambda p, x, y: p.concat([x, y], axis=0),
+    "stack": lambda p, x, y: p.stack([x, y], axis=0),
+    "where": lambda p, x, y: p.where(x > 1.0, x, y),
+    "clip": lambda p, x, y: p.clip(x * y, 0.5, 2.0),
+    "chain": lambda p, x, y: p.tanh(x @ y.transpose([1, 0])) @ (x + y),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_OPS))
+def test_op_parity_forward_and_grad(name):
+    fn = _OPS[name]
+
+    def op_parity(paddle, lazy_on):
+        x, y = _t(paddle, _X, True), _t(paddle, _Y, True)
+        before = _begin(paddle)
+        with paddle.core.lazy_guard(lazy_on):
+            out = fn(paddle, x, y)
+            out.sum().backward()
+        return {"out": out, "gx": _np(x.grad), "gy": _np(y.grad),
+                "counters": _moved(paddle, before)}
+
+    _held(op_parity)
+
+
+def test_multi_output_op_parity():
+    def multi_output(paddle, lazy_on):
+        x = _t(paddle, _X, True)
+        with paddle.core.lazy_guard(lazy_on):
+            a, b = paddle.split(x, 2, axis=1)
+            (a * b).sum().backward()
+        return {"a": a, "b": b, "gx": x.grad}
+
+    _held(multi_output)
+
+
+def test_int_ops_stay_lazy_and_match():
+    def int_ops(paddle, lazy_on):
+        x = _t(paddle, np.arange(12, dtype=np.int64).reshape(3, 4))
+        with paddle.core.lazy_guard(lazy_on):
+            out = (x * 2 + 1).sum()
+            pending = paddle.core.lazy.pending_ops()
+            return {"out": out.numpy(), "pending": pending}
+
+    _held(int_ops)
+
+
+# ---------------------------------------------------------------------------
+# laziness mechanics: metadata without execution, flush barriers
+# ---------------------------------------------------------------------------
+
+
+def _pending(paddle, t):
+    """Whether `t` is pending, in either package's terms."""
+    if paddle is tpaddle:
+        return paddle.core.lazy.is_pending(t)
+    return type(t._data) is paddle.core.lazy.LazyArray
+
+
+def test_shape_queries_never_flush():
+    def shape_queries(paddle, lazy_on):
+        lazy = paddle.core.lazy
+        x = _t(paddle, _X)
+        lazy.set_lazy_mode(lazy_on)
+        y = paddle.reshape(x * 2.0, [4, 3])
+        r = {"pending_type": _pending(paddle, y),
+             "pending": lazy.pending_ops(), "shape": y.shape,
+             "dtype": y.dtype.name, "ndim": y.ndim, "size": y.size,
+             "len": len(y)}
+        r["pending_after"] = lazy.pending_ops()
+        r["value"] = y.numpy()
+        r["pending_end"] = lazy.pending_ops()
+        lazy.set_lazy_mode(False)
+        return r
+
+    _held(shape_queries, modes=("lazy",))
+
+
+def _data_barrier(paddle, y):
+    """Reading the raw value: `jnp.asarray(y._data)` in the JAX package,
+    a torch function given `y._data` in the port."""
+    if paddle is tpaddle:
+        import torch
+
+        return float(torch.mul(y._data, 1.0))
+    import jax.numpy as jnp
+
+    return float(jnp.asarray(y._data))
+
+
+@pytest.mark.parametrize("barrier", ["numpy", "item", "print", "bool",
+                                     "float", "data"])
+def test_value_barriers_flush(barrier):
+    def value_barrier(paddle, lazy_on):
+        x = _t(paddle, np.float32(3.0))
+        before = _begin(paddle)
+        paddle.core.lazy.set_lazy_mode(True)
+        y = x * x
+        pending = paddle.core.lazy.pending_ops()
+        if barrier == "numpy":
+            v = float(y.numpy())
+        elif barrier == "item":
+            v = y.item()
+        elif barrier == "print":
+            v = "9." in repr(y)
+        elif barrier == "bool":
+            v = bool(y > 1.0)
+        elif barrier == "float":
+            v = float(y)
+        else:
+            v = _data_barrier(paddle, y)
+        r = {"pending": pending, "v": v,
+             "after": paddle.core.lazy.pending_ops(),
+             "counters": _moved(paddle, before)}
+        paddle.core.lazy.set_lazy_mode(False)
+        return r
+
+    _held(value_barrier, modes=("lazy",))
+
+
+def test_threshold_flush():
+    def threshold(paddle, lazy_on):
+        flags = paddle.framework.flags
+        old = flags.get_flags("lazy_max_ops")["lazy_max_ops"]
+        flags.set_flags({"lazy_max_ops": 4})
+        before = _begin(paddle)
+        try:
+            x = _t(paddle, _X)
+            paddle.core.lazy.set_lazy_mode(True)
+            y = x
+            for _ in range(9):
+                y = y + 1.0
+            pending = paddle.core.lazy.pending_ops()
+            return {"pending": pending, "y": y.numpy(),
+                    "counters": _moved(paddle, before)}
+        finally:
+            flags.set_flags({"lazy_max_ops": old})
+
+    _held(threshold, modes=("lazy",))
+
+
+def test_explicit_sync():
+    def explicit_sync(paddle, lazy_on):
+        x = _t(paddle, _X)
+        before = _begin(paddle)
+        paddle.core.lazy.set_lazy_mode(True)
+        y = x * 3.0
+        p0 = paddle.core.lazy.pending_ops()
+        paddle.core.sync()
+        return {"p0": p0, "p1": paddle.core.lazy.pending_ops(),
+                "swapped": not _pending(paddle, y), "y": y,
+                "counters": _moved(paddle, before)}
+
+    _held(explicit_sync, modes=("lazy",))
+
+
+def test_disable_flushes_pending():
+    def disable(paddle, lazy_on):
+        x = _t(paddle, _X)
+        before = _begin(paddle)
+        paddle.core.lazy.set_lazy_mode(True)
+        y = x + 5.0
+        p0 = paddle.core.lazy.pending_ops()
+        paddle.core.lazy.set_lazy_mode(False)
+        return {"p0": p0, "p1": paddle.core.lazy.pending_ops(), "y": y,
+                "counters": _moved(paddle, before)}
+
+    _held(disable, modes=("lazy",))
+
+
+def test_dead_outputs_are_dropped():
+    def dead(paddle, lazy_on):
+        x = _t(paddle, _X)
+        before = _begin(paddle)
+        paddle.core.lazy.set_lazy_mode(True)
+        y = x * 7.0
+        del y
+        paddle.core.sync()
+        return {"counters": _moved(paddle, before)}
+
+    _held(dead, modes=("lazy",))
+
+
+# ---------------------------------------------------------------------------
+# autograd composition
+# ---------------------------------------------------------------------------
+
+
+def test_backward_uses_fused_fwd_grad_program():
+    def fused(paddle, lazy_on):
+        x = _t(paddle, [2.0, 3.0], True)
+        before = _begin(paddle)
+        with paddle.core.lazy_guard(lazy_on):
+            (x * x * x).sum().backward()
+        return {"gx": x.grad, "counters": _moved(paddle, before)}
+
+    _held(fused)
+
+
+def test_retain_graph_backward_twice():
+    def retain(paddle, lazy_on):
+        x = _t(paddle, [2.0, 3.0], True)
+        with paddle.core.lazy_guard(lazy_on):
+            y = (x * x).sum()
+            y.backward(retain_graph=True)
+            g1 = x.grad.numpy().copy()
+            x.clear_gradient()
+            y.backward()
+        return {"g1": g1, "g2": x.grad}
+
+    _held(retain)
+
+
+def test_second_backward_raises_like_immediate():
+    def second(paddle, lazy_on):
+        x = _t(paddle, [2.0], True)
+        with paddle.core.lazy_guard(lazy_on):
+            y = (x * x).sum()
+            y.backward()
+            with pytest.raises(RuntimeError, match="retain_graph"):
+                y.backward()
+        return {"gx": x.grad}
+
+    _held(second)
+
+
+def test_custom_seed_cotangent():
+    def seed(paddle, lazy_on):
+        x = _t(paddle, _X, True)
+        with paddle.core.lazy_guard(lazy_on):
+            y = x * x
+            y.backward(paddle.to_tensor(np.full((3, 4), 2.0, np.float32)))
+        return {"gx": x.grad}
+
+    _held(seed)
+
+
+def test_grad_wrt_intermediate_cuts_region():
+    def cut(paddle, lazy_on):
+        x = _t(paddle, [2.0, 3.0], True)
+        before = _begin(paddle)
+        with paddle.core.lazy_guard(lazy_on):
+            y = x * x
+            z = (y * 3.0).sum()
+            (gy,) = paddle.grad(z, [y], retain_graph=True)
+        return {"gy": gy, "counters": _moved(paddle, before)}
+
+    _held(cut)
+
+
+def test_double_backward_under_lazy():
+    def double(paddle, lazy_on):
+        x = _t(paddle, [2.0, 3.0], True)
+        with paddle.core.lazy_guard(lazy_on):
+            y = (x * x * x).sum()
+            (g,) = paddle.grad(y, [x], create_graph=True)
+            gg = paddle.grad(g.sum(), [x])[0]
+        return {"g": g, "gg": gg}
+
+    _held(double)
+
+
+def test_hook_fires_with_region_gradient():
+    def hook(paddle, lazy_on):
+        seen = []
+        x = _t(paddle, np.ones(3, np.float32), True)
+        before = _begin(paddle)
+        with paddle.core.lazy_guard(lazy_on):
+            z = x * 2.0
+            z.register_hook(lambda g: seen.append(g.numpy().copy()))
+            (z * 3.0).sum().backward()
+        return {"seen": seen, "gx": x.grad,
+                "counters": _moved(paddle, before)}
+
+    _held(hook)
+
+
+def test_no_grad_boundary_keeps_leaf_semantics():
+    def boundary(paddle, lazy_on):
+        w = _t(paddle, [1.0, 2.0], True)
+        before = _begin(paddle)
+        with paddle.core.lazy_guard(lazy_on):
+            with paddle.no_grad():
+                w2 = w * 0.5
+            w2.stop_gradient = False
+            (w2 * w2).sum().backward()
+        return {"w_grad_none": w.grad is None, "gw2": w2.grad,
+                "counters": _moved(paddle, before)}
+
+    _held(boundary)
+
+
+def test_detach_under_lazy():
+    def detach(paddle, lazy_on):
+        x = _t(paddle, [2.0, 3.0], True)
+        before = _begin(paddle)
+        with paddle.core.lazy_guard(lazy_on):
+            y = x * x
+            d = y.detach()
+            (y * d).sum().backward()
+        return {"gx": x.grad, "d_sg": d.stop_gradient,
+                "counters": _moved(paddle, before)}
+
+    _held(detach)
+
+
+# ---------------------------------------------------------------------------
+# steady state (region-signature reuse) and the Llama train step
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_llama_lazy():
+    from paddle_tpu_torch.tools import lazy_workload as lw
+
+    with jpaddle.core.lazy_guard(False):
+        return lw.tiny_llama_steps(jpaddle, True)
+
+
+@pytest.fixture(scope="module")
+def port_reference():
+    """The smoke run's `lazy_reference` body, run once on the CPU: the
+    Layer Llama from `paddle.seed(7)` (the JAX package's weights bit for
+    bit, `test_torch_llama_layers.py`), eager and lazy, and the AMP
+    cases."""
+    from paddle_tpu_torch.tools import lazy_workload as lw
+
+    return lw.reference_run(tpaddle)
+
+
+@pytest.mark.parametrize("mode", ["imm", "lazy"])
+def test_llama_train_step_parity(jax_llama_lazy, port_reference, mode):
+    got = port_reference["lazy" if mode == "lazy" else "eager"]
+    want = jax_llama_lazy
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5,
+                               atol=1e-6)
+    assert set(got["grads"]) == set(want["grads"]) and want["grads"]
+    for k in want["grads"]:
+        np.testing.assert_allclose(got["grads"][k], want["grads"][k],
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+    # two AdamW steps: eps-dominated early updates amplify association
+    # noise, so this is the JAX test's bound of one lr step
+    for k in want["params"]:
+        np.testing.assert_allclose(got["params"][k], want["params"][k],
+                                   atol=1e-3, err_msg=k)
+    if mode == "lazy":
+        assert got["counters"] == want["counters"]
+
+
+def _region_count(paddle):
+    return len(paddle.core.lazy._region_sigs)
+
+
+def test_steady_state_reuses_one_region():
+    """After the warm-up, identical steps flush one region each and
+    register no new region signature (the JAX package: no compile)."""
+    def steady(paddle, lazy_on):
+        x = _t(paddle, _X, True)
+        y = _t(paddle, _Y)
+
+        def step():
+            z = paddle.tanh(x @ paddle.transpose(y, [1, 0])) @ (x + y)
+            z.sum().backward()
+            x.clear_gradient()
+
+        paddle.core.lazy.set_lazy_mode(True)
+        step()
+        regions = _region_count(paddle)
+        before = _begin(paddle)
+        for _ in range(5):
+            step()
+        return {"new_regions": _region_count(paddle) - regions,
+                "counters": _moved(paddle, before)}
+
+    _held(steady, modes=("lazy",))
+
+
+def test_llama_steady_state_registers_no_new_region():
+    def llama_steady(paddle, lazy_on):
+        models = paddle.models.llama_layers if paddle is tpaddle \
+            else paddle.models
+        paddle.seed(0)
+        model = models.llama_tiny(seq=16)
+        model.train()
+        opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                     parameters=model.parameters())
+        rng = np.random.default_rng(0)
+        vocab = model.config.vocab_size
+        ids = paddle.to_tensor(rng.integers(0, vocab, (2, 16)))
+        labs = paddle.to_tensor(rng.integers(0, vocab, (2, 16)))
+        paddle.core.lazy.set_lazy_mode(True)
+
+        def step():
+            loss, _ = model(ids, labels=labs)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+
+        for _ in range(2):
+            step()
+        regions = _region_count(paddle)
+        before = _begin(paddle)
+        for _ in range(3):
+            step()
+        return {"new_regions": _region_count(paddle) - regions,
+                "counters": _moved(paddle, before)}
+
+    _held(llama_steady, modes=("lazy",))
+
+
+def test_flush_reason_counters_accounted():
+    """A scripted run: `snapshot("lazy.")` equal in both packages. The
+    JAX package alone has `lazy.flush_fallbacks` (its un-jitted retry)
+    and the port alone its card counters (`lazy.graph_*`,
+    `lazy.uncaptured_replays`); neither moves on the CPU."""
+    def reasons(paddle, lazy_on):
+        paddle.framework.monitor.reset_prefix("lazy.")
+        x = _t(paddle, _X, True)
+        paddle.core.lazy.set_lazy_mode(True)
+        (x * 2.0).numpy()
+        (x * x).sum().backward()
+        y = x + 1.0
+        paddle.core.sync()
+        return {"snapshot": _counters(paddle), "y": y}
+
+    _held(reasons, modes=("lazy",))
+
+
+def test_lazy_tensor_into_non_lazy_dispatch_materializes():
+    def non_lazy(paddle, lazy_on):
+        lazy = paddle.core.lazy
+        x = _t(paddle, _X)
+        lazy.set_lazy_mode(True)
+        y = x * 2.0
+        lazy.set_lazy_mode(False)
+        z = y + 1.0
+        lazy.set_lazy_mode(True)
+        w = z * 2.0
+        lazy.set_lazy_mode(False)
+        return {"w": w}
+
+    _held(non_lazy, modes=("lazy",))
+
+
+def test_amp_composes_with_lazy():
+    def amp_lazy(paddle, lazy_on):
+        with paddle.amp.auto_cast(enable=True, level="O1"):
+            paddle.core.lazy.set_lazy_mode(lazy_on)
+            a = _t(paddle, np.ones((4, 4), np.float32))
+            b = _t(paddle, np.ones((4, 4), np.float32))
+            c = a @ b
+            got = c.astype("float32").numpy()
+            paddle.core.lazy.set_lazy_mode(False)
+        return {"c": got, "dtype": c.dtype.name}
+
+    _held(amp_lazy)
+
+
+def test_shared_buffer_tensors_get_separate_grads():
+    def shared(paddle, lazy_on):
+        a = _t(paddle, [3.0], True)
+        b = paddle.Tensor(a._data, stop_gradient=False)
+        with paddle.core.lazy_guard(lazy_on):
+            (a * 2.0 + b * 5.0).sum().backward()
+        return {"ga": a.grad, "gb": b.grad}
+
+    _held(shared)
+
+
+def test_region_registry_is_bounded():
+    for paddle in PKGS.values():
+        lazy = paddle.core.lazy
+        assert len(lazy._region_sigs) <= lazy._REGION_LIMIT
+    assert tpaddle.core.lazy._REGION_LIMIT == jpaddle.core.lazy._REGION_LIMIT
+
+
+def test_leaf_key_survives_tensor_id_reuse():
+    def reuse(paddle, lazy_on):
+        paddle.core.lazy.set_lazy_mode(True)
+        outs = []
+        for _ in range(20):
+            a = paddle.Tensor(np.ones(3, np.float32), stop_gradient=False)
+            keep = a * 2.0  # noqa: F841 (keeps the graph pending)
+            del a
+            b = paddle.Tensor(np.full(3, 7.0, np.float32),
+                              stop_gradient=False)
+            outs.append((b * 3.0).numpy())
+        return {"outs": outs}
+
+    _held(reuse, modes=("lazy",))
+
+
+# ---------------------------------------------------------------------------
+# the port's own: the capture rule, launch accounting under replay
+# ---------------------------------------------------------------------------
+
+
+def test_capture_rule():
+    from paddle_tpu_torch.core.lazy import capture_rule
+
+    assert capture_rule(requires=False, fused=False) is None
+    assert capture_rule(requires=True, fused=True) is None
+    assert capture_rule(requires=True, fused=False) == "grad_region"
+    assert capture_rule(requires=True, fused=True,
+                        create_graph=True) == "create_graph"
+    assert capture_rule(requires=False, fused=False,
+                        create_graph=True) == "create_graph"
+
+
+def test_an_op_reading_host_values_is_not_recorded():
+    """`equal_all` reads its result on the host: its meta-tensor run
+    fails, so it runs at once (a `record_fallbacks`), after its pending
+    inputs are flushed, and no region ever holds a host read."""
+    lazy = tpaddle.core.lazy
+    x = tpaddle.to_tensor(fresh(_X))
+    before = _begin(tpaddle)
+    with lazy.lazy_guard():
+        y = x * 2.0
+        same = tpaddle.equal_all(y, y)
+        assert lazy.pending_ops() == 0
+    assert bool(same.numpy())
+    moved = _moved(tpaddle, before)
+    assert moved["lazy.record_fallbacks"] == 1
+    assert moved["lazy.flushes.value"] == 1
+
+
+class _StubGraph:
+    """Stands in for `torch.cuda.CUDAGraph`: replay runs nothing."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+def test_launch_accounting_under_a_replayed_graph():
+    """The launches noted during a capture are added by each replay, and
+    a warm-up's are dropped: N replays count N eager runs."""
+    from paddle_tpu_torch.core.lazy import _RegionGraph
+    from paddle_tpu_torch.ops.kernels import _support
+
+    fwd = _support.launch_counter("flash_attention_fwd")
+    rms = _support.launch_counter("rms_norm")
+
+    def kernels_of_one_run():
+        fwd.add()
+        rms.add()
+        rms.add()
+
+    start = (fwd.count, rms.count)
+    with _support.launches_discarded():
+        kernels_of_one_run()            # the warm-up
+    rec = _support.LaunchRecord()
+    with rec.recording():
+        kernels_of_one_run()            # the capture
+    assert (fwd.count, rms.count) == start
+    assert rec.counts == {"flash_attention_fwd": 1, "rms_norm": 2}
+    stub = _StubGraph()
+    rg = _RegionGraph(stub, rec, [], [], [], [], [], [], None)
+    for _ in range(3):
+        rg.replay()
+    assert stub.replays == 3
+    assert (fwd.count - start[0], rms.count - start[1]) == (3, 6)
+    kernels_of_one_run()                # an eager run counts as before
+    assert (fwd.count - start[0], rms.count - start[1]) == (4, 8)
+
+
+def test_leaf_written_in_place_while_pending_raises():
+    import torch
+
+    x = tpaddle.to_tensor(fresh(_X))
+    tpaddle.core.lazy.set_lazy_mode(True)
+    y = x * 2.0
+    with torch.no_grad():
+        x._data.add_(1.0)
+    with pytest.raises(RuntimeError, match="written in place"):
+        y.numpy()
+
+
+def test_dropout_under_lazy_draws_the_eager_masks():
+    """A key is an input of the recorded op: two lazy dropout calls draw
+    the same two masks as eager calls from the same seed, and the JAX
+    package's."""
+    def masks(paddle, lazy_on):
+        x = paddle.ones([4, 8])
+        paddle.seed(3)
+        with paddle.core.lazy_guard(lazy_on):
+            a = paddle.nn.functional.dropout(x, 0.5)
+            b = paddle.nn.functional.dropout(x, 0.5)
+            return {"a": a.numpy(), "b": b.numpy()}
+
+    _held(masks)
+
+
+def test_smoke_lazy_reference_rehearsed_on_the_cpu(port_reference):
+    """`chip_smoke.py`'s `lazy_reference` gates on its CPU run: lazy
+    within 1e-5 of eager (losses, first gradients, parameters), AMP's O1
+    dtypes, O2's bf16 weights beside the f32 norm, and the GradScaler
+    skipping the inf step and halving its scale. (Its results against the
+    JAX package: `test_llama_train_step_parity`, `test_torch_amp.py`.)"""
+    r = port_reference
+    for part in ("losses", "grads", "params"):
+        assert_same(r["eager"][part], r["lazy"][part], part)
+    amp = r["amp"]
+    assert (amp["o1_matmul_dtype"], amp["o1_softmax_dtype"]) \
+        == ("bfloat16", "float32")
+    assert amp["o2_param_dtypes"] == ["bfloat16", "bfloat16", "float32",
+                                      "bfloat16", "bfloat16"]
+    assert amp["inf_step_skipped"] and amp["scale_after_inf"] == 512.0
+    assert r["eager"]["counters"] == {}

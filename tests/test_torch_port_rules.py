@@ -75,7 +75,10 @@ def test_port_files_exist():
                  "framework/io.py", "framework/safetensors.py",
                  "jit/functional.py", "jit/to_static.py",
                  "jit/save_load.py", "inference/predictor.py",
-                 "tools/jit_workload.py"):
+                 "tools/jit_workload.py", "core/lazy.py",
+                 "amp/__init__.py", "amp/amp_lists.py", "amp/auto_cast.py",
+                 "amp/grad_scaler.py", "amp/debugging.py",
+                 "models/llama_layers.py", "tools/lazy_workload.py"):
         assert f"paddle_tpu_torch/{name}" in rel, name
 
 
@@ -147,7 +150,13 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.framework.io, "
             "paddle_tpu_torch.framework.safetensors, "
             "paddle_tpu_torch.inference.predictor, "
-            "paddle_tpu_torch.tools.jit_workload\n"
+            "paddle_tpu_torch.tools.jit_workload, "
+            "paddle_tpu_torch.core.lazy, paddle_tpu_torch.amp, "
+            "paddle_tpu_torch.amp.auto_cast, "
+            "paddle_tpu_torch.amp.grad_scaler, "
+            "paddle_tpu_torch.amp.debugging, "
+            "paddle_tpu_torch.models.llama_layers, "
+            "paddle_tpu_torch.tools.lazy_workload\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n")
@@ -198,6 +207,14 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
 
     with pytest.raises(RuntimeError, match="device='cpu'|CUDA"):
         train_workload(device=None)
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import lazy_workload
+
+    # lazy_llama's workload on the default place: the card, or a raise
+    with place.device_scope(None):
+        with pytest.raises(RuntimeError, match="set_device"):
+            lazy_workload.llama_workload(paddle)
     from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
