@@ -102,7 +102,18 @@ against the CPU, with AMP O1 / O2 and a GradScaler skip
 bf16, one sequence of 2048 tokens) two warm-up and three timed steps
 eagerly and again under lazy mode: lazy within 1e-3 of eager, no capture
 after the warm-up, no uncaptured replay, exact launches a step
-(`lazy_llama`).
+(`lazy_llama`). Then the op surface and the training loop
+(`tools/loop_workload.py`): the op harness over every ported export of
+`paddle`, `Tensor`, `nn.functional` and `nn` on the card against the
+CPU, and `flash_attention` / `flash_attn_qkvpacked` bit-equal to
+`scaled_dot_product_attention` at the training shape, a causal bool mask
+taking the composite (`ops_reference`); the loop PaddleNLP's Trainer
+builds (AdamW with decay off the norms, a global-norm clip, warm-up +
+cosine) on a small Llama, and the eight new optimizers, on the card
+against the CPU (`train_loop_reference`); then that loop at Llama-2-7B
+width (4 layers, O2 bf16, 2048 tokens with the last 256 labels ignored)
+eagerly and under lazy mode: scheduled learning rates, clipped norms,
+lazy within 1e-3 of eager, exact launches a step (`train_loop`).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve_lora,serve_migrate
@@ -111,6 +122,7 @@ after the warm-up, no uncaptured replay, exact launches a step
     python3 chip_smoke.py --only eager_reference,eager_attention
     python3 chip_smoke.py --only jit_reference,jit_layer
     python3 chip_smoke.py --only lazy_reference,lazy_llama
+    python3 chip_smoke.py --only ops_reference,train_loop_reference,train_loop
 
 Each phase prints one JSON line. `--only` runs the device check and the
 named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
@@ -118,7 +130,8 @@ named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
 two are one run: the disaggregated run sits between the clean and the
 chaos fleet runs), `tp_reference`, `serve_tp`, `eager_reference`,
 `eager_attention`, `jit_reference`, `jit_layer`, `lazy_reference`,
-`lazy_llama`), with no kernels line and
+`lazy_llama`, `ops_reference`, `train_loop_reference`, `train_loop`),
+with no kernels line and
 no last line: a measurement of those phases without the whole run. The TP
 phases start their rank processes as `chip_smoke.py --tp-rank ...`. Any failure raises, so the script exits
 non-zero and never prints the last line, which on success is exactly
@@ -4045,6 +4058,238 @@ def phase_lazy_llama(kind, smi):
     return totals
 
 
+# ---- the op surface and the training loop (tools/loop_workload.py) ----
+
+# the attention routes at the training shape (B, S, H, D), causal bf16
+ROUTE_SHAPE = (4, 2048, 32, 128)
+# the causal bool mask's composite against the kernel, norm-relative
+ROUTE_MASK_TOL = 2e-2
+LOOP_REF_TOL = 1e-5
+LOOP_LR_TOL = 1e-7
+LOOP_CLIP_TOL = 1e-2
+LOOP_LAZY_TOL = 1e-3
+
+
+def _attention_routes():
+    """`loop_workload.attention_routes` at ROUTE_SHAPE (causal, bf16).
+    Returns its report and launches."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import loop_workload as lw
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v, dout = (torch.randn(ROUTE_SHAPE, generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for _ in range(4))
+    return lw.attention_routes(paddle, q, k, v, dout,
+                               torch.cuda.synchronize, _launch_delta,
+                               ROUTE_MASK_TOL)
+
+
+def phase_ops_reference():
+    """The op harness (`testing/op_harness.py`) over the manifest's
+    `paddle`, `Tensor`, `paddle.nn.functional` and `paddle.nn` exports on
+    the card and on the CPU (`loop_workload.ops_sweep`), the card held to
+    the CPU (`compare_sweeps`: the same exports ran, outputs on the card,
+    float64 within 1e-9 relative, float32 within 1e-5, integers, bools
+    and seeded draws bit-equal, the same finite-difference verdicts); then
+    the attention routes at the training shape (`_attention_routes`).
+    Returns the kernel launches of its card run."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import loop_workload as lw
+
+    _launch_delta()
+    t0 = time.perf_counter()
+    card = lw.ops_sweep(paddle, "gpu")
+    torch.cuda.synchronize()
+    launches = _launch_delta()
+    t1 = time.perf_counter()
+    cpu = lw.ops_sweep(paddle, "cpu")
+    t2 = time.perf_counter()
+    stats = lw.compare_sweeps(card, cpu, device="cuda")
+    routes, route_launches = _attention_routes()
+    for n, c in route_launches.items():
+        launches[n] = launches.get(n, 0) + c
+    emit({"phase": "ops_reference", "per_namespace": stats["per_namespace"],
+          "max_abs_err": stats["max_abs_err"],
+          "tol": {"float64": lw.TOL64, "float32": lw.TOL32},
+          "sweep_s": {"card": t1 - t0, "cpu": t2 - t1},
+          "attention_routes": routes, "launches": launches})
+    release()
+    return launches
+
+
+def _held_rel(label, got, want, tol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+    if not err <= tol:
+        raise AssertionError(f"{label}: relative {err} > {tol}")
+    return err
+
+
+def phase_train_loop_reference():
+    """`loop_workload.reference_run` on the card and on the CPU: the
+    Trainer's loop (AdamW with decay off the norms, a global-norm clip,
+    warm-up + cosine) on `llama_tiny` Layers (f32, seed 7) for 3 steps,
+    the card within LOOP_REF_TOL of the CPU for the losses, pre-clip
+    norms and learning rates and (norm-relative) each parameter after;
+    and each of Adagrad, Adadelta, RMSProp, Adamax, Lamb, NAdam, RAdam
+    and LBFGS two steps on a small Layer model, card within LOOP_REF_TOL
+    of the CPU. Returns the kernel launches of its card run."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import loop_workload as lw
+
+    runs = {}
+    _launch_delta()
+    for dev in ("gpu", "cpu"):
+        with place.device_scope(dev):
+            runs[dev] = lw.reference_run(paddle)
+        if dev == "gpu":
+            torch.cuda.synchronize()
+            launches = _launch_delta()
+    gpu, cpu = runs["gpu"]["loop"], runs["cpu"]["loop"]
+    worst = {p: _held_rel(f"train_loop_reference {p}", gpu[p], cpu[p],
+                          LOOP_REF_TOL) for p in ("losses", "norms", "lrs")}
+    worst["params"] = max(_norm_rel(torch.from_numpy(gpu["params"][n]),
+                                    torch.from_numpy(w))
+                          for n, w in cpu["params"].items())
+    for dev, r in runs.items():
+        lr_err = max(abs(a - lw.lr_at(i))
+                     for i, a in enumerate(r["loop"]["lrs"]))
+        if not lr_err <= LOOP_LR_TOL:
+            raise AssertionError(f"train_loop_reference {dev}: lr off the "
+                                 f"schedule by {lr_err}")
+    opt_err = {}
+    for name, w in runs["cpu"]["optimizers"].items():
+        g = runs["gpu"]["optimizers"][name]
+        opt_err[name] = max([_held_rel(f"train_loop_reference {name}",
+                                       g["losses"], w["losses"],
+                                       LOOP_REF_TOL)]
+                            + [_norm_rel(torch.from_numpy(a),
+                                         torch.from_numpy(b))
+                               for a, b in zip(g["params"], w["params"])])
+    if not max([worst["params"], *opt_err.values()]) <= LOOP_REF_TOL:
+        raise AssertionError(f"train_loop_reference: {worst} {opt_err}")
+    emit({"phase": "train_loop_reference", "tol": LOOP_REF_TOL,
+          "max_rel_err": worst, "optimizers_rel_err": opt_err,
+          "losses": {"gpu": gpu["losses"], "cpu": cpu["losses"]},
+          "launches": launches})
+    release()
+    return launches
+
+
+def _train_loop_run(paddle, lw, lazy_on):
+    work = lw.loop_workload(paddle, seed=0)
+    r = lw.run_loop(paddle, work, lazy_on, torch.cuda.synchronize,
+                    _launch_delta,
+                    lambda: torch.cuda.Event(enable_timing=True))
+    del work
+    return r
+
+
+def phase_train_loop(kind, smi):
+    """The loop PaddleNLP's Trainer builds, at Llama-2-7B width
+    (`loop_workload.loop_workload`: LAYERS of 32 layers as paddle Layers,
+    bf16 by `amp.decorate(level="O2")`, B 1 x S 2048 with the last 256
+    labels ignored, AdamW(multi_precision, beta2 0.95, decay 0.01 off the
+    norms) with ClipGradByGlobalNorm(1.0) over LinearWarmup(
+    CosineAnnealingDecay(3e-4, 8), 2)): 2 warm-up and 4 timed steps
+    eagerly, the model freed, then the same from the same seed under lazy
+    mode. Gates: finite losses, the last timed loss below the first; each
+    step's learning rate the schedule's closed form within LOOP_LR_TOL;
+    in the warm-up the clipped gradients' norm min(pre-clip, 1) within
+    LOOP_CLIP_TOL; lazy within LOOP_LAZY_TOL norm-relative of eager
+    (losses, pre-clip norms; bit-equality printed); no capture and no
+    uncaptured replay in the timed steps and the same replays in each;
+    LAZY_STEP launches every timed step, eager and lazy. Returns the
+    launches of both runs."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import loop_workload as lw
+
+    torch.cuda.reset_peak_memory_stats()
+    _launch_delta()
+    runs, totals = {}, {}
+    with place.device_scope("gpu"):
+        for mode in ("eager", "lazy"):
+            runs[mode] = _train_loop_run(paddle, lw, mode == "lazy")
+            for d in [runs[mode]["warmup_launches"],
+                      *runs[mode]["launches"]]:
+                for n, c in d.items():
+                    totals[n] = totals.get(n, 0) + c
+            if mode == "lazy":
+                lazy.clear_graphs()
+            release()
+    n_warm = lw.WARMUP_STEPS
+    for mode, r in runs.items():
+        losses = r["losses"]
+        if not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[n_warm]:
+            raise AssertionError(f"train_loop {mode}: losses {losses}")
+        lr_err = max(abs(a - lw.lr_at(i)) for i, a in enumerate(r["lrs"]))
+        if not lr_err <= LOOP_LR_TOL:
+            raise AssertionError(f"train_loop {mode}: lr {r['lrs']}")
+        for pre, post in zip(r["norms"], r["post_norms"]):
+            if not abs(post - min(pre, 1.0)) <= LOOP_CLIP_TOL * min(pre,
+                                                                    1.0):
+                raise AssertionError(f"train_loop {mode}: clipped norm "
+                                     f"{post} of {pre}")
+        for i, got in enumerate(r["launches"]):
+            if got != LAZY_STEP:
+                raise AssertionError(f"train_loop {mode} timed step {i}: "
+                                     f"launches {got} != {LAZY_STEP}")
+    eager, lz = runs["eager"], runs["lazy"]
+    err = {p: _norm_rel(torch.tensor(lz[p]), torch.tensor(eager[p]))
+           for p in ("losses", "norms")}
+    if not max(err.values()) <= LOOP_LAZY_TOL:
+        raise AssertionError(f"train_loop: lazy off eager {err}")
+    timed = lz["timed_counters"]
+    replays = [c.get("lazy.graph_replays", 0) for c in lz["step_counters"]]
+    if timed.get("lazy.graph_captures", 0) or \
+            timed.get("lazy.uncaptured_replays", 0) or \
+            len(set(replays)) != 1 or not replays[0]:
+        raise AssertionError(f"train_loop: timed steps moved {timed}, "
+                             f"replays {replays}")
+
+    def med(r, key):
+        return statistics.median(r[key])
+
+    emit({"phase": "train_loop",
+          "model": f"Llama-2-7B width in paddle Layers, {lw.LAYERS} of 32 "
+                   f"layers, amp O2 bf16, AdamW(multi_precision, beta2 "
+                   f"0.95, wd 0.01 off the norms), ClipGradByGlobalNorm"
+                   f"(1.0), LinearWarmup(CosineAnnealingDecay(3e-4, 8), 2)",
+          "batch": lw.BATCH, "seq": lw.SEQ, "ignored_labels": lw.IGNORED,
+          "launches_per_step": LAZY_STEP,
+          "losses": {"eager": eager["losses"], "lazy": lz["losses"]},
+          "lrs": eager["lrs"],
+          "pre_clip_norms": {"eager": eager["norms"], "lazy": lz["norms"]},
+          "warmup_post_clip_norms": {"eager": eager["post_norms"],
+                                     "lazy": lz["post_norms"]},
+          "lazy_norm_rel": err, "tol_norm_rel": LOOP_LAZY_TOL,
+          "lazy_bit_equal_to_eager": {
+              "losses": lz["losses"] == eager["losses"],
+              "norms": lz["norms"] == eager["norms"]},
+          "step_ms": {m: med(r, "wall_ms") for m, r in runs.items()},
+          "host_ms": {m: med(r, "host_ms") for m, r in runs.items()},
+          "clip_ms": {m: med(r, "clip_ms") for m, r in runs.items()},
+          "optimizer_ms": {m: med(r, "opt_ms") for m, r in runs.items()},
+          "clip_share": {m: med(r, "clip_ms") / med(r, "wall_ms")
+                         for m, r in runs.items()},
+          "optimizer_share": {m: med(r, "opt_ms") / med(r, "wall_ms")
+                              for m, r in runs.items()},
+          "step_ms_all": {m: r["wall_ms"] for m, r in runs.items()},
+          "host_ms_all": {m: r["host_ms"] for m, r in runs.items()},
+          "lazy_counters": {"warmup": lz["warmup_counters"],
+                            "timed": timed, "replays_per_step": replays},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "device": kind, "nvidia_smi": smi})
+    del runs, eager, lz
+    release()
+    return totals
+
+
 # ---- the fused-op surface (incubate.nn.functional) ----
 
 ROPE_SRC = "paddle_tpu_torch/csrc/rope.cu"
@@ -4767,6 +5012,9 @@ ONLY = {
     "jit_layer": phase_jit_layer,
     "lazy_reference": lambda kind, smi: phase_lazy_reference(),
     "lazy_llama": phase_lazy_llama,
+    "ops_reference": lambda kind, smi: phase_ops_reference(),
+    "train_loop_reference": lambda kind, smi: phase_train_loop_reference(),
+    "train_loop": phase_train_loop,
 }
 # the TP phases by `phase_tp` task: `--only` runs them in one world
 TP_ONLY = {"tp_reference": "reference", "serve_tp": "serve"}
@@ -4826,6 +5074,9 @@ def main(argv=()):
     jit_launches = phase_jit_layer(kind, smi)
     lazy_ref_launches = phase_lazy_reference()
     lazy_launches = phase_lazy_llama(kind, smi)
+    ops_ref_launches = phase_ops_reference()
+    loop_ref_launches = phase_train_loop_reference()
+    loop_launches = phase_train_loop(kind, smi)
     fused = phase_incubate_kernels()
     layer_launches = phase_incubate_layer(kind, smi)
     incubate_decode_launches = phase_incubate_serve(kind, smi)
@@ -4887,7 +5138,8 @@ def main(argv=()):
         *[_row(name, FLASH_SRC, f"{FA_PY}:{line}",
                train_launches[name] + eager_launches[name]
                + jit_launches[name] + lazy_ref_launches[name]
-               + lazy_launches[name],
+               + lazy_launches[name] + ops_ref_launches.get(name, 0)
+               + loop_ref_launches.get(name, 0) + loop_launches[name],
                flash["train_mha"][name], also_replaces=f"{FA_PY}:{also}")
           for name, line, also in (("flash_attention_fwd", 49, 424),
                                    ("flash_attention_dq", 100, 537),
@@ -4896,7 +5148,10 @@ def main(argv=()):
              "paddle_tpu/ops/pallas/rms_norm.py:18",
              train_launches["rms_norm"] + eager_launches["rms_norm"]
              + jit_launches["rms_norm"] + lazy_ref_launches["rms_norm"]
-             + lazy_launches["rms_norm"],
+             + lazy_launches["rms_norm"]
+             + ops_ref_launches.get("rms_norm", 0)
+             + loop_ref_launches.get("rms_norm", 0)
+             + loop_launches["rms_norm"],
              rms["bf16"]),
         _row("fused_rope", ROPE_SRC, f"{ROPE_PY}:20",
              layer_launches["fused_rope"], fused["rope_bf16"]),

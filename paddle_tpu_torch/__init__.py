@@ -18,8 +18,9 @@ CUDA card unless the caller passes `device="cpu"`. The package imports
 neither jax nor paddle_tpu.
 
 The eager API: `paddle.Tensor` over one `torch.Tensor`, `to_tensor` and
-the creation ops, the elementwise, manipulation, comparison and
-reduction ops with paddle's promotion, `paddle.grad`, hooks, `no_grad`,
+the creation ops, the elementwise, manipulation, comparison, reduction
+and activation ops with paddle's promotion (bound as Tensor methods
+under the reference's method names, `tensor_method_names.py`), `paddle.grad`, hooks, `no_grad`,
 `autograd.PyLayer` and `jacobian` / `hessian`, seeded draws with the JAX
 package's bits (`seed`, `rand`, `randint`), over torch autograd; new
 tensors go to the card unless `set_device("cpu")`.
@@ -56,7 +57,7 @@ from . import ops
 from .ops import *  # noqa: F401,F403
 from . import autograd
 from .framework.io import load, save
-from . import amp, nn, optimizer, jit
+from . import amp, nn, optimizer, jit, regularizer
 from .nn.parameter import ParamAttr, create_parameter
 from .convert import from_jax_state, mlp_from_jax_params, moe_from_jax_state
 from . import inference
@@ -76,9 +77,30 @@ __all__ = ops.__all__ + [
            "set_flags", "get_rng_state", "seed", "set_rng_state", "Tensor",
            "enable_grad", "grad", "is_grad_enabled", "no_grad",
            "set_grad_enabled", "autograd", "load", "save", "amp", "nn",
-           "optimizer", "jit",
+           "optimizer", "jit", "regularizer",
            "ParamAttr", "create_parameter", "from_jax_state", "mlp_from_jax_params", "moe_from_jax_state",
            "LlamaInferenceEngine", "LlamaConfig", "LlamaForCausalLM",
            "llama_7b_shaped", "llama_tiny", "MLPLMEngine", "RequestHandle",
            "ServingFrontend", "FleetRouter", "FleetHandle", "ReplicaHandle",
            "DisaggRouter", "HandoffState", "HandoffError"]
+
+
+def _bind_tensor_methods():
+    """Bind each reference Tensor-method name that is not yet a `Tensor`
+    attribute to the same-named function of this package
+    (`paddle_tpu/__init__.py:92-117`); a name whose function is not
+    ported stays unbound and raises AttributeError."""
+    import sys
+
+    from .tensor_method_names import TENSOR_METHOD_NAMES
+
+    me = sys.modules[__name__]
+    for name in TENSOR_METHOD_NAMES:
+        if hasattr(Tensor, name):
+            continue
+        fn = getattr(me, name, None)
+        if callable(fn) and not isinstance(fn, type):
+            setattr(Tensor, name, fn)
+
+
+_bind_tensor_methods()

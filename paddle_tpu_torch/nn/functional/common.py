@@ -1,5 +1,7 @@
-"""`linear`, `embedding` and `dropout` on eager Tensors: the port of
-`paddle_tpu/nn/functional/common.py:29-175`.
+"""`linear`, `embedding`, `dropout` and `cosine_similarity` on eager
+Tensors: the port of `paddle_tpu/nn/functional/common.py:29-175` and
+`:460-474`, with `pairwise_distance` (`nn/functional/extended.py:276`),
+which the losses call.
 
 `linear` is a plain `torch.matmul` (the JAX package computes it outside
 any Pallas kernel). `dropout` draws its mask as the JAX package does:
@@ -20,7 +22,8 @@ from ...core import dispatch
 from ...framework import random as random_mod
 from ...ops._helpers import as_tensor
 
-__all__ = ["linear", "embedding", "dropout"]
+__all__ = ["linear", "embedding", "dropout", "cosine_similarity",
+           "pairwise_distance"]
 
 
 def _linear_fn(x, w, b=None):
@@ -110,3 +113,31 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
                        device=x.place.torch_device)
     return dispatch.apply("dropout", [x, key], {"p": p, "mode": mode,
                                                 "axis": axis})
+
+
+def _cos_sim_fn(x1, x2, *, axis, eps):
+    dot = (x1 * x2).sum(dim=axis)
+    n1 = torch.sqrt((x1 * x1).sum(dim=axis))
+    n2 = torch.sqrt((x2 * x2).sum(dim=axis))
+    return dot / torch.clamp(n1 * n2, min=eps)
+
+
+dispatch.register_op("cosine_similarity", _cos_sim_fn)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    return dispatch.apply("cosine_similarity", [as_tensor(x1), as_tensor(x2)],
+                          {"axis": int(axis), "eps": float(eps)})
+
+
+dispatch.register_op("pairwise_distance", lambda x, y, *, p, eps, keepdim:
+                     torch.linalg.vector_norm(
+                         (x - y + eps).to(torch.float32), ord=p, dim=-1,
+                         keepdim=keepdim).to(x.dtype))
+
+
+def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+    """`||x - y + eps||_p` over the last axis, in f32."""
+    return dispatch.apply("pairwise_distance", [as_tensor(x), as_tensor(y)],
+                          {"p": float(p), "eps": float(epsilon),
+                           "keepdim": bool(keepdim)})

@@ -1,17 +1,19 @@
-"""Activation layers: the port of `paddle_tpu/nn/layer/activation.py` for
-the activations of `nn.functional` (`ReLU`, `GELU`, `Silu` / `Swish`,
-`Sigmoid`, `Tanh`, `LeakyReLU`, `ELU`, `Hardswish`, `Mish`, `Softplus`),
-`Softmax` and `PReLU`."""
+"""Activation layers: the port of `paddle_tpu/nn/layer/activation.py`
+(the reference's `python/paddle/nn/layer/activation.py`), one Layer per
+activation of `nn.functional`; `PReLU` holds its slopes as a parameter,
+`RReLU` draws its slopes in training."""
 from __future__ import annotations
 
 from ...ops import activation as _act
-from ...ops import math as _math
 from .. import functional as F
 from ..initializer import Constant
 from .layers import Layer
 
-__all__ = ["ELU", "GELU", "Hardswish", "LeakyReLU", "Mish", "PReLU", "ReLU",
-           "Sigmoid", "Silu", "Softmax", "Softplus", "Swish", "Tanh"]
+__all__ = ["CELU", "ELU", "GELU", "GLU", "Hardshrink", "Hardsigmoid",
+           "Hardswish", "Hardtanh", "LeakyReLU", "LogSigmoid", "LogSoftmax",
+           "Maxout", "Mish", "PReLU", "ReLU", "ReLU6", "RReLU", "SELU",
+           "Sigmoid", "Silu", "Softmax", "Softplus", "Softshrink", "Softsign",
+           "Swish", "Tanh", "Tanhshrink", "ThresholdedReLU"]
 
 
 def _simple(name, fn, **default_kw):
@@ -28,6 +30,15 @@ def _simple(name, fn, **default_kw):
     _Act.__name__ = name
     _Act.__qualname__ = name
     return _Act
+
+
+class CELU(Layer):
+    def __init__(self, alpha=1.0, name=None):
+        super().__init__()
+        self.alpha = alpha
+
+    def forward(self, x):
+        return F.celu(x, self.alpha)
 
 
 class ELU(Layer):
@@ -48,7 +59,35 @@ class GELU(Layer):
         return F.gelu(x, self.approximate)
 
 
+class GLU(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return F.glu(x, self.axis)
+
+
+class Hardshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
+        super().__init__()
+        self.threshold = threshold
+
+    def forward(self, x):
+        return F.hardshrink(x, self.threshold)
+
+
+Hardsigmoid = _simple("Hardsigmoid", _act.hardsigmoid)
 Hardswish = _simple("Hardswish", _act.hardswish)
+
+
+class Hardtanh(Layer):
+    def __init__(self, min=-1.0, max=1.0, name=None):
+        super().__init__()
+        self.min, self.max = min, max
+
+    def forward(self, x):
+        return F.hardtanh(x, self.min, self.max)
 
 
 class LeakyReLU(Layer):
@@ -58,6 +97,27 @@ class LeakyReLU(Layer):
 
     def forward(self, x):
         return F.leaky_relu(x, self.negative_slope)
+
+
+LogSigmoid = _simple("LogSigmoid", _act.log_sigmoid)
+
+
+class LogSoftmax(Layer):
+    def __init__(self, axis=-1, name=None):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return F.log_softmax(x, self.axis)
+
+
+class Maxout(Layer):
+    def __init__(self, groups, axis=1, name=None):
+        super().__init__()
+        self.groups, self.axis = groups, axis
+
+    def forward(self, x):
+        return F.maxout(x, self.groups, self.axis)
 
 
 class Mish(Layer):
@@ -82,9 +142,21 @@ class PReLU(Layer):
 
 
 ReLU = _simple("ReLU", _act.relu)
+ReLU6 = _simple("ReLU6", _act.relu6)
+
+
+class RReLU(Layer):
+    def __init__(self, lower=1.0 / 8.0, upper=1.0 / 3.0, name=None):
+        super().__init__()
+        self.lower, self.upper = lower, upper
+
+    def forward(self, x):
+        return F.rrelu(x, self.lower, self.upper, training=self.training)
+
+
+SELU = _simple("SELU", _act.selu)
 Sigmoid = _simple("Sigmoid", _act.sigmoid)
 Silu = _simple("Silu", _act.silu)
-Swish = _simple("Swish", _act.swish)
 
 
 class Softmax(Layer):
@@ -105,4 +177,28 @@ class Softplus(Layer):
         return F.softplus(x, self.beta, self.threshold)
 
 
+class Softshrink(Layer):
+    def __init__(self, threshold=0.5, name=None):
+        super().__init__()
+        self.threshold = threshold
+
+    def forward(self, x):
+        return F.softshrink(x, self.threshold)
+
+
+Softsign = _simple("Softsign", _act.softsign)
+Swish = _simple("Swish", _act.swish)
+
+from ...ops import math as _math  # noqa: E402
+
 Tanh = _simple("Tanh", lambda x: _math.tanh(x))
+Tanhshrink = _simple("Tanhshrink", _act.tanhshrink)
+
+
+class ThresholdedReLU(Layer):
+    def __init__(self, threshold=1.0, name=None):
+        super().__init__()
+        self.threshold = threshold
+
+    def forward(self, x):
+        return F.thresholded_relu(x, self.threshold)

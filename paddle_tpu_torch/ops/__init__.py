@@ -1,66 +1,157 @@
 """Operators of the port: the eager ops over `Tensor` (creation, math,
-manipulation, comparison, reduction, `matmul`, `softmax`), attached to
+manipulation, comparison, reduction, activation, `matmul`), attached to
 `Tensor` as methods and dunders here as the JAX package's
-`ops/__init__.py` attaches them; the serving sampler (`ops.sampling`);
-and the hand-written kernels (`ops.kernels`)."""
+`ops/__init__.py` attaches them, with the in-place `_` forms of
+`paddle_tpu/ops/extended.py`'s table (`_INPLACE`) whose out-of-place op
+is ported; the serving sampler (`ops.sampling`); and the hand-written
+kernels (`ops.kernels`)."""
 from __future__ import annotations
 
 from ..core.tensor import Tensor
 from . import (activation, comparison, creation, linalg, manipulation, math,
                reduction)
-from .activation import softmax
-from .comparison import (bitwise_and, bitwise_not, bitwise_or, bitwise_xor,
-                         equal, equal_all, greater_equal, greater_than,
-                         is_tensor, less_equal, less_than, logical_and,
-                         logical_not, logical_or, not_equal)
-from .creation import (arange, assign, clone, eye, full, linspace, normal,
-                       ones, rand, randint, randn, to_tensor, uniform, zeros)
+from ._helpers import inplace_rebind
+from .comparison import *  # noqa: F401,F403
+from .creation import *  # noqa: F401,F403
 from .linalg import matmul
-from .manipulation import (astype, cast, concat, gather, reshape, split,
-                           squeeze, stack, transpose, where)
-from .math import (abs, add, add_, clip, divide, exp, floor_divide, log,
-                   maximum, minimum, multiply, neg, pow, remainder, round,
-                   scale, sigmoid, sin, sqrt, subtract, tanh)
-from .reduction import all, any, argmax, max, mean, min, sum
+from .manipulation import *  # noqa: F401,F403
+from .math import *  # noqa: F401,F403
+from .reduction import *  # noqa: F401,F403
 
-__all__ = ["softmax", "bitwise_and", "bitwise_not", "bitwise_or",
-           "bitwise_xor", "equal", "equal_all", "greater_equal",
-           "greater_than", "is_tensor", "less_equal", "less_than",
-           "logical_and", "logical_not", "logical_or", "not_equal", "arange",
-           "assign", "clone", "eye", "full", "linspace", "normal", "ones",
-           "rand", "randint", "randn", "to_tensor", "uniform", "zeros",
-           "matmul", "astype", "cast", "concat", "gather", "reshape",
-           "split", "squeeze", "stack", "transpose", "where", "abs", "add",
-           "add_", "clip", "divide", "exp", "floor_divide", "log",
-           "maximum", "minimum", "multiply", "neg", "pow", "remainder",
-           "round", "scale", "sigmoid", "sin", "sqrt", "subtract", "tanh",
-           "all", "any", "argmax", "max", "mean", "min", "sum"]
+# the activations after math's names: `paddle.sigmoid` is the
+# activation's (op `sigmoid_act`), as in the JAX package, and
+# `paddle.tanh` stays math's
+_ACTIVATIONS = [n for n in activation.__all__ if n != "tanh"]
+globals().update({n: getattr(activation, n) for n in _ACTIVATIONS})
+_INTERNAL = {"getitem", "setitem"}
+
+
+def _make_inplace(fn):
+    def api(x, *args, **kwargs):
+        return inplace_rebind(x, fn(x, *args, **kwargs))
+
+    api.__name__ = fn.__name__ + "_"
+    return api
+
+
+def _build_inplace_table():
+    """`paddle_tpu/ops/extended.py:_build_inplace_table` over the ported
+    ops: each `<op>_` computes out of place and rebinds."""
+    unary = ("abs", "acos", "asin", "atan", "sin", "cos", "tan", "sinh",
+             "cosh", "tanh", "asinh", "acosh", "atanh", "erf", "exp",
+             "expm1", "floor", "ceil", "round", "trunc", "sqrt", "rsqrt",
+             "square", "reciprocal", "neg", "log", "log2", "log10", "log1p",
+             "sigmoid", "digamma", "lgamma", "frac", "i0", "nan_to_num",
+             "erfinv")
+    binary = ("pow", "divide", "floor_divide", "remainder", "gcd", "lcm",
+              "hypot", "copysign", "heaviside")
+    table = {n + "_": _make_inplace(getattr(math, n))
+             for n in unary + binary}
+    table["mod_"] = _make_inplace(math.remainder)
+    for n in ("bitwise_and", "bitwise_or", "bitwise_xor",
+              "bitwise_left_shift", "bitwise_right_shift", "logical_and",
+              "logical_or", "logical_xor", "equal", "not_equal",
+              "greater_equal", "greater_than", "less_equal", "less_than",
+              "bitwise_not", "logical_not"):
+        table[n + "_"] = _make_inplace(getattr(comparison, n))
+    for n in ("masked_fill", "flatten", "cast", "t", "transpose", "scatter",
+              "put_along_axis"):
+        table[n + "_"] = _make_inplace(getattr(manipulation, n))
+    for n in ("cumsum", "cumprod", "lerp"):
+        table[n + "_"] = _make_inplace(getattr(math, n))
+    for n in ("tril", "triu"):
+        table[n + "_"] = _make_inplace(getattr(creation, n))
+    table["floor_mod_"] = table["mod_"]
+    return table
+
+
+_INPLACE = _build_inplace_table()
+globals().update(_INPLACE)
+
+__all__ = sorted((set(math.__all__) | set(comparison.__all__)
+                  | set(creation.__all__) | set(manipulation.__all__)
+                  | set(reduction.__all__) | set(_ACTIVATIONS) | {"matmul"}
+                  | set(_INPLACE)) - _INTERNAL)
 
 _METHODS = dict(
+    # math
     add=math.add, subtract=math.subtract, multiply=math.multiply,
     divide=math.divide, floor_divide=math.floor_divide,
     remainder=math.remainder, mod=math.remainder, pow=math.pow,
-    maximum=math.maximum, minimum=math.minimum, clip=math.clip,
-    exp=math.exp, log=math.log, sqrt=math.sqrt, sin=math.sin,
-    tanh=math.tanh, sigmoid=math.sigmoid, abs=math.abs, neg=math.neg,
-    round=math.round, scale=math.scale, add_=math.add_,
+    maximum=math.maximum, minimum=math.minimum, exp=math.exp, log=math.log,
+    log2=math.log2, log10=math.log10, log1p=math.log1p, sqrt=math.sqrt,
+    rsqrt=math.rsqrt, abs=math.abs, sign=math.sign, floor=math.floor,
+    ceil=math.ceil, round=math.round, trunc=math.trunc, square=math.square,
+    reciprocal=math.reciprocal, neg=math.neg, sin=math.sin, cos=math.cos,
+    tan=math.tan, asin=math.asin, acos=math.acos, atan=math.atan,
+    sinh=math.sinh, cosh=math.cosh, tanh=math.tanh, asinh=math.asinh,
+    acosh=math.acosh, atanh=math.atanh, erf=math.erf, sigmoid=math.sigmoid,
+    isnan=math.isnan, isinf=math.isinf, isfinite=math.isfinite,
+    clip=math.clip, clip_=math.clip_, scale=math.scale, scale_=math.scale_,
+    lerp=math.lerp, cumsum=math.cumsum, cumprod=math.cumprod,
+    logcumsumexp=math.logcumsumexp, add_=math.add_,
+    subtract_=math.subtract_, multiply_=math.multiply_, kron=math.kron,
+    outer=math.outer, atan2=math.atan2, digamma=math.digamma,
+    lgamma=math.lgamma, angle=math.angle, conj=math.conj, real=math.real,
+    imag=math.imag, deg2rad=math.deg2rad, rad2deg=math.rad2deg,
+    diff=math.diff, nan_to_num=math.nan_to_num, addmm=math.addmm,
+    # reduction
     sum=reduction.sum, mean=reduction.mean, max=reduction.max,
-    min=reduction.min, all=reduction.all, any=reduction.any,
-    argmax=reduction.argmax,
+    min=reduction.min, amax=reduction.amax, amin=reduction.amin,
+    prod=reduction.prod, all=reduction.all, any=reduction.any,
+    argmax=reduction.argmax, argmin=reduction.argmin,
+    logsumexp=reduction.logsumexp, std=reduction.std, var=reduction.var,
+    median=reduction.median, nanmean=reduction.nanmean,
+    nansum=reduction.nansum, nanmedian=reduction.nanmedian,
+    count_nonzero=reduction.count_nonzero, quantile=reduction.quantile,
+    # comparison
     equal=comparison.equal, not_equal=comparison.not_equal,
     greater_than=comparison.greater_than,
     greater_equal=comparison.greater_equal,
     less_than=comparison.less_than, less_equal=comparison.less_equal,
     logical_and=comparison.logical_and, logical_or=comparison.logical_or,
-    logical_not=comparison.logical_not, equal_all=comparison.equal_all,
-    matmul=linalg.matmul,
-    reshape=manipulation.reshape, squeeze=manipulation.squeeze,
-    transpose=manipulation.transpose,
-    cast=manipulation.cast,
-    astype=manipulation.cast, split=manipulation.split,
-    gather=manipulation.gather, where=manipulation.where,
-    softmax=activation.softmax,
+    logical_xor=comparison.logical_xor,
+    logical_not=comparison.logical_not,
+    bitwise_and=comparison.bitwise_and, bitwise_or=comparison.bitwise_or,
+    bitwise_xor=comparison.bitwise_xor,
+    bitwise_not=comparison.bitwise_not, isclose=comparison.isclose,
+    allclose=comparison.allclose, equal_all=comparison.equal_all,
+    bitwise_left_shift=comparison.bitwise_left_shift,
+    bitwise_right_shift=comparison.bitwise_right_shift,
+    is_empty=comparison.is_empty,
+    # linalg
+    matmul=linalg.matmul, t=manipulation.t,
+    # manipulation
+    reshape=manipulation.reshape, reshape_=manipulation.reshape_,
+    transpose=manipulation.transpose, flatten=manipulation.flatten,
+    squeeze=manipulation.squeeze, squeeze_=manipulation.squeeze_,
+    unsqueeze=manipulation.unsqueeze, unsqueeze_=manipulation.unsqueeze_,
+    cast=manipulation.cast, astype=manipulation.cast,
+    split=manipulation.split, chunk=manipulation.chunk,
+    unbind=manipulation.unbind, tile=manipulation.tile,
+    expand=manipulation.expand, expand_as=manipulation.expand_as,
+    broadcast_to=manipulation.broadcast_to, flip=manipulation.flip,
+    roll=manipulation.roll, gather=manipulation.gather,
+    gather_nd=manipulation.gather_nd, scatter=manipulation.scatter,
+    scatter_nd_add=manipulation.scatter_nd_add,
+    index_select=manipulation.index_select,
+    index_sample=manipulation.index_sample,
+    masked_select=manipulation.masked_select,
+    masked_fill=manipulation.masked_fill, where=manipulation.where,
+    topk=manipulation.topk, sort=manipulation.sort,
+    argsort=manipulation.argsort, nonzero=manipulation.nonzero,
+    unique=manipulation.unique, numel=manipulation.numel,
+    take_along_axis=manipulation.take_along_axis,
+    put_along_axis=manipulation.put_along_axis,
+    diagonal=manipulation.diagonal, moveaxis=manipulation.moveaxis,
+    swapaxes=manipulation.swapaxes,
+    repeat_interleave=manipulation.repeat_interleave, pad=manipulation.pad,
+    slice=manipulation.slice, select_scatter=manipulation.select_scatter,
+    where_=manipulation.where_,
+    # activations as methods (paddle has some)
+    softmax=activation.softmax, relu=activation.relu,
 )
+_METHODS.update(_INPLACE)
 
 for _name, _fn in _METHODS.items():
     setattr(Tensor, _name, _fn)

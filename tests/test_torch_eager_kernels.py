@@ -133,9 +133,13 @@ def test_plain_tensors_stay_plain_and_cpu_launches_nothing():
     y = TF.rms_norm(torch.randn(4, 32), torch.ones(32))
     assert type(out) is torch.Tensor and type(y) is torch.Tensor
     assert tflash.LAUNCHES_FWD.count == 0
-    with pytest.raises(NotImplementedError, match="attn_mask"):
-        TF.scaled_dot_product_attention(tpaddle.to_tensor(q.numpy()), q, q,
-                                        attn_mask=q)
+    # a masked attention is the plain composite on a Tensor too
+    masked = TF.scaled_dot_product_attention(
+        tpaddle.to_tensor(q.numpy()), q, q, attn_mask=torch.ones(
+            (16, 16), dtype=torch.bool).tril())
+    np.testing.assert_allclose(masked.numpy(), out.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert tflash.LAUNCHES_FWD.count == 0
 
 
 def test_second_derivative_through_the_flash_kernels_raises_typed():

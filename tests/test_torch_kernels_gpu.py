@@ -2192,3 +2192,62 @@ def test_lazy_dropout_replays_draw_the_eager_masks_on_card():
     assert moved[True].get("lazy.graph_captures") == 1
     assert moved[True].get("lazy.graph_replays") == 3
     lazy.clear_graphs()
+
+
+def _launch_delta():
+    from paddle_tpu_torch.ops.kernels import _support
+
+    counts = {c.name: c.count for c in _support._COUNTERS.values()}
+    _support.reset_launch_counts()
+    return {n: k for n, k in counts.items() if k}
+
+
+def test_flash_attention_apis_bit_equal_to_sdpa_on_card():
+    """`flash_attention` and `flash_attn_qkvpacked` (B 2, S 256, 4 heads
+    of 64, causal bf16): outputs and gradients bit-equal to
+    `scaled_dot_product_attention`, one launch each of the flash forward,
+    dQ and dK/dV; a causal bool mask takes the composite, launching
+    nothing, within 2e-2 of the kernel."""
+    dev = _card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import loop_workload as lw
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v, dout = (torch.randn((2, 256, 4, 64), generator=g,
+                                 device=dev).to(torch.bfloat16)
+                     for _ in range(4))
+    with place.device_scope("gpu"):
+        report, total = lw.attention_routes(paddle, q, k, v, dout,
+                                            torch.cuda.synchronize,
+                                            _launch_delta, 2e-2)
+    assert total == dict.fromkeys(lw.ROUTE_ONE, 3)
+    assert report["masked_causal"]["launches"] == 0
+
+
+def test_train_loop_small_on_card_equals_cpu():
+    """The Trainer loop on `llama_tiny` Layers (3 steps) and the eight new
+    optimizers (2 steps each) on the card against the CPU: losses,
+    pre-clip norms and learning rates within 1e-5 relative, parameters
+    within 1e-5 norm-relative."""
+    _card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import loop_workload as lw
+
+    runs = {}
+    for dev in ("gpu", "cpu"):
+        with place.device_scope(dev):
+            runs[dev] = lw.reference_run(paddle)
+    gpu, cpu = runs["gpu"], runs["cpu"]
+    for part in ("losses", "norms", "lrs"):
+        np.testing.assert_allclose(gpu["loop"][part], cpu["loop"][part],
+                                   rtol=1e-5, atol=1e-7, err_msg=part)
+    for n, w in cpu["loop"]["params"].items():
+        assert np.linalg.norm(gpu["loop"]["params"][n] - w) \
+            <= 1e-5 * np.linalg.norm(w), n
+    for name, w in cpu["optimizers"].items():
+        g = gpu["optimizers"][name]
+        np.testing.assert_allclose(g["losses"], w["losses"], rtol=1e-5)
+        for a, b in zip(g["params"], w["params"]):
+            assert np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b), name

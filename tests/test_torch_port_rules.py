@@ -78,7 +78,12 @@ def test_port_files_exist():
                  "tools/jit_workload.py", "core/lazy.py",
                  "amp/__init__.py", "amp/amp_lists.py", "amp/auto_cast.py",
                  "amp/grad_scaler.py", "amp/debugging.py",
-                 "models/llama_layers.py", "tools/lazy_workload.py"):
+                 "models/llama_layers.py", "tools/lazy_workload.py",
+                 "tensor_method_names.py", "testing/__init__.py",
+                 "testing/op_harness.py", "nn/functional/loss.py",
+                 "nn/functional/attention.py", "nn/layer/loss.py",
+                 "nn/clip.py", "regularizer.py", "optimizer/lr.py",
+                 "optimizer/optimizer.py", "tools/loop_workload.py"):
         assert f"paddle_tpu_torch/{name}" in rel, name
 
 
@@ -156,7 +161,14 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.amp.grad_scaler, "
             "paddle_tpu_torch.amp.debugging, "
             "paddle_tpu_torch.models.llama_layers, "
-            "paddle_tpu_torch.tools.lazy_workload\n"
+            "paddle_tpu_torch.tools.lazy_workload, "
+            "paddle_tpu_torch.tensor_method_names, "
+            "paddle_tpu_torch.testing, paddle_tpu_torch.testing.op_harness, "
+            "paddle_tpu_torch.nn.functional.loss, "
+            "paddle_tpu_torch.nn.functional.attention, "
+            "paddle_tpu_torch.nn.layer.loss, paddle_tpu_torch.nn.clip, "
+            "paddle_tpu_torch.regularizer, paddle_tpu_torch.optimizer.lr, "
+            "paddle_tpu_torch.tools.loop_workload\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n")
@@ -215,6 +227,14 @@ def test_entry_points_need_the_card_unless_asked_for_cpu():
     with place.device_scope(None):
         with pytest.raises(RuntimeError, match="set_device"):
             lazy_workload.llama_workload(paddle)
+    # train_loop's workload likewise, and the harness sweep's default
+    from paddle_tpu_torch.tools import loop_workload
+
+    with place.device_scope(None):
+        with pytest.raises(RuntimeError, match="set_device"):
+            loop_workload.loop_workload(paddle)
+        with pytest.raises(RuntimeError, match="set_device"):
+            loop_workload.tiny_loop(paddle)
     from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
 
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -238,33 +238,57 @@ def test_adamw_decay_order_under_multi_precision():
 
 
 def test_adamw_get_set_lr_and_refusals():
+    """A float learning rate is set and read back; an LRScheduler's is
+    read from it and cannot be set; a clip runs inside the step; a
+    SelectedRows gradient, not ported yet, is refused with a typed
+    error."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.clip import SelectedRowsNotPortedError
+    from paddle_tpu_torch.optimizer.lr import StepDecay
+
     p = torch.nn.Parameter(torch.zeros(3))
     opt = AdamW(0.5, parameters=[p])
     assert opt.get_lr() == 0.5
     opt.set_lr(0.25)
     assert opt.get_lr() == 0.25
-    with pytest.raises(NotImplementedError):
-        AdamW(lambda: 0.1, parameters=[p])
-    with pytest.raises(NotImplementedError):
-        AdamW(0.1, parameters=[p], grad_clip=object())
+    sched = StepDecay(0.1, step_size=1, gamma=0.5)
+    opt = AdamW(sched, parameters=[p], weight_decay=0.0,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    assert opt.get_lr() == 0.1
+    sched.step()
+    assert opt.get_lr() == 0.05
+    with pytest.raises(RuntimeError, match="LRScheduler"):
+        opt.set_lr(0.2)
+    p.grad = torch.full((3,), 10.0)
+    opt.step()
+    assert torch.isfinite(p).all() and (p < 0).all()
+
+    class _Rows:
+        is_selected_rows = True
+
+    with pytest.raises(SelectedRowsNotPortedError):
+        ClipGradByGlobalNorm(1.0)([(p, _Rows())])
 
 
 def test_functional_options_not_ported_raise():
-    """Only what the model calls is ported: a mean cross entropy and an
-    unmasked attention; the rest raises instead of running."""
+    """The options the model does not call now run on plain tensors too:
+    the sum and unreduced cross entropy agree with the mean, and a masked
+    attention with a causal bool mask equals the causal attention."""
     from paddle_tpu_torch.nn.functional import (cross_entropy,
                                                 scaled_dot_product_attention)
 
     logits = torch.zeros((2, 3, 5))
     label = torch.zeros((2, 3), dtype=torch.int64)
     assert float(cross_entropy(logits, label)) == pytest.approx(np.log(5))
-    for reduction in ("sum", "none"):
-        with pytest.raises(NotImplementedError, match="reduction"):
-            cross_entropy(logits, label, reduction=reduction)
-    q = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError, match="attn_mask"):
-        scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(
-            (4, 4), dtype=torch.bool))
+    assert float(cross_entropy(logits, label, reduction="sum")) \
+        == pytest.approx(6 * np.log(5))
+    assert tuple(cross_entropy(logits, label, reduction="none").shape) \
+        == (2, 3)
+    q = torch.randn((1, 4, 2, 16))
+    masked = scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(
+        (4, 4), dtype=torch.bool).tril())
+    torch.testing.assert_close(masked, scaled_dot_product_attention(
+        q, q, q, is_causal=True))
 
 
 def test_adamw_state_dict_round_trip():
