@@ -113,7 +113,17 @@ cosine) on a small Llama, and the eight new optimizers, on the card
 against the CPU (`train_loop_reference`); then that loop at Llama-2-7B
 width (4 layers, O2 bf16, 2048 tokens with the last 256 labels ignored)
 eagerly and under lazy mode: scheduled learning rates, clipped norms,
-lazy within 1e-3 of eager, exact launches a step (`train_loop`).
+lazy within 1e-3 of eager, exact launches a step (`train_loop`). Then
+the `paddle.nn` layer surface (`tools/encoder_workload.py`): a conv net
+with BatchNorm2D and pools, bidirectional LSTM and GRU stacks with
+inter-layer dropout, the encoder-decoder Transformer and `bert_tiny`'s
+two AdamW steps on the card against the CPU (f32 within 1e-4
+norm-relative, dropout masks bit-equal; `nn_reference`); then BERT-base
+(12 layers, 768 / 12 x 64 / 3072, dropout 0.1) built from
+`nn.TransformerEncoder`, B 32 x S 512, O2 bf16, 2 warm-up and 4 timed
+pre-training steps eagerly and again under lazy mode: exactly 12 / 12 /
+12 flash launches a step, lazy bit-equal to eager, falling losses
+(`encoder_train`).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve_lora,serve_migrate
@@ -123,6 +133,7 @@ lazy within 1e-3 of eager, exact launches a step (`train_loop`).
     python3 chip_smoke.py --only jit_reference,jit_layer
     python3 chip_smoke.py --only lazy_reference,lazy_llama
     python3 chip_smoke.py --only ops_reference,train_loop_reference,train_loop
+    python3 chip_smoke.py --only nn_reference,encoder_train
 
 Each phase prints one JSON line. `--only` runs the device check and the
 named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
@@ -130,7 +141,8 @@ named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
 two are one run: the disaggregated run sits between the clean and the
 chaos fleet runs), `tp_reference`, `serve_tp`, `eager_reference`,
 `eager_attention`, `jit_reference`, `jit_layer`, `lazy_reference`,
-`lazy_llama`, `ops_reference`, `train_loop_reference`, `train_loop`),
+`lazy_llama`, `ops_reference`, `train_loop_reference`, `train_loop`,
+`nn_reference`, `encoder_train`),
 with no kernels line and
 no last line: a measurement of those phases without the whole run. The TP
 phases start their rank processes as `chip_smoke.py --tp-rank ...`. Any failure raises, so the script exits
@@ -3066,7 +3078,7 @@ FA_PY = "paddle_tpu/ops/pallas/flash_attention.py"
 # (e) past the length where the JAX package streams K/V
 # (2 * Sk * D * 2 bytes = 8.9 MB > 8 MiB), (f) several 128-row tiles with
 # a ragged last one (the forward's heaviest-first order), (g) the 64-column
-# instance at the training length
+# instance at the training length, (h) BERT-base's non-causal attention
 FLASH_CASES = {
     "train_mha": (4, 2048, 32, 32, 128, True, torch.bfloat16, None),
     "train_gqa": (4, 2048, 32, 8, 128, True, torch.bfloat16, None),
@@ -3077,6 +3089,7 @@ FLASH_CASES = {
     "stream_17408": (1, 17408, 2, 1, 128, True, torch.bfloat16, None),
     "edge_bf16": (2, 1000, 8, 2, 128, True, torch.bfloat16, None),
     "d64_bf16": (4, 2048, 16, 16, 64, True, torch.bfloat16, None),
+    "bert_d64": (32, 512, 12, 12, 64, False, torch.bfloat16, None),
 }
 # out, per row, relative to the row's largest |out|. bf16: 2^-6, two to
 # four bf16 ulps of that largest value: the kernel rounds P to bf16 for
@@ -4085,6 +4098,10 @@ def _attention_routes():
                                ROUTE_MASK_TOL)
 
 
+# every export of the manifest's nn namespaces runs on the card
+OPS_NS_RAN = {"paddle.nn.functional": 128, "paddle.nn": 140}
+
+
 def phase_ops_reference():
     """The op harness (`testing/op_harness.py`) over the manifest's
     `paddle`, `Tensor`, `paddle.nn.functional` and `paddle.nn` exports on
@@ -4106,6 +4123,10 @@ def phase_ops_reference():
     cpu = lw.ops_sweep(paddle, "cpu")
     t2 = time.perf_counter()
     stats = lw.compare_sweeps(card, cpu, device="cuda")
+    for ns, n in OPS_NS_RAN.items():
+        if stats["per_namespace"].get(ns, {}).get("ran", 0) < n:
+            raise AssertionError(f"ops_reference: {ns} ran "
+                                 f"{stats['per_namespace'].get(ns)}, < {n}")
     routes, route_launches = _attention_routes()
     for n, c in route_launches.items():
         launches[n] = launches.get(n, 0) + c
@@ -4279,6 +4300,220 @@ def phase_train_loop(kind, smi):
                          for m, r in runs.items()},
           "optimizer_share": {m: med(r, "opt_ms") / med(r, "wall_ms")
                               for m, r in runs.items()},
+          "step_ms_all": {m: r["wall_ms"] for m, r in runs.items()},
+          "host_ms_all": {m: r["host_ms"] for m, r in runs.items()},
+          "lazy_counters": {"warmup": lz["warmup_counters"],
+                            "timed": timed, "replays_per_step": replays},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "device": kind, "nvidia_smi": smi})
+    del runs, eager, lz
+    release()
+    return totals
+
+
+# ---- the nn layer surface and the BERT encoder ----
+
+# card against CPU, norm-relative, for every float result of
+# `encoder_workload.reference_run` (f32; dropout masks bit-equal)
+NN_REF_TOL = 1e-4
+# the key projections' biases get no gradient in exact arithmetic
+# (softmax ignores a per-query shift): their gradients and AdamW's
+# updates of them (rounding noise scaled to the learning rate) are held
+# absolutely, at 2 % of one step's learning rate
+NN_REF_ZERO_GRAD_ATOL = 1e-6
+# each timed BERT-base step: one forward, dQ and dK/dV launch a layer
+ENC_STEP = {"flash_attention_fwd": 12, "flash_attention_dq": 12,
+            "flash_attention_dkv": 12}
+
+
+def _rel_tree(label, got, want, tol):
+    """Every float array of `want` (nested dicts / lists) within `tol`
+    norm-relative of `got`'s; everything else equal. Returns the largest
+    error."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{label}: keys "
+                                 f"{sorted(set(got) ^ set(want))}")
+        return max([_rel_tree(f"{label}.{k}", got[k], want[k], tol)
+                    for k in want] or [0.0])
+    if isinstance(want, (list, tuple)):
+        return max([_rel_tree(f"{label}[{i}]", g, w, tol)
+                    for i, (g, w) in enumerate(zip(got, want))] or [0.0])
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{label}: {got.dtype}{got.shape} on the card, "
+                             f"{want.dtype}{want.shape} on the CPU")
+    if want.dtype.kind != "f":
+        np.testing.assert_array_equal(got, want, err_msg=label)
+        return 0.0
+    if label.endswith("k_proj.bias"):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=NN_REF_ZERO_GRAD_ATOL, err_msg=label)
+        return 0.0
+    err = _norm_rel(torch.from_numpy(got.astype(np.float64)),
+                    torch.from_numpy(want.astype(np.float64)))
+    if not err <= tol:
+        raise AssertionError(f"{label}: card off the CPU by {err} "
+                             f"norm-relative > {tol}")
+    return err
+
+
+def phase_nn_reference():
+    """`encoder_workload.reference_run` on the card and on the CPU (f32):
+    a conv net with BatchNorm2D and pools two AdamW steps (losses,
+    parameters, running statistics, the eval forward), bidirectional
+    two-layer LSTM and GRU stacks with inter-layer dropout (outputs,
+    states, gradients), the encoder-decoder Transformer in training with a
+    square subsequent mask (output, gradients), and `bert_tiny`'s two
+    AdamW steps; card within NN_REF_TOL norm-relative of the CPU, and
+    dropout masks (dropout, alpha, feature alpha, dropout2d) bit-equal.
+    Returns the kernel launches of its card run."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import encoder_workload as ew
+
+    assert not torch.backends.cudnn.allow_tf32
+    runs, secs = {}, {}
+    _launch_delta()
+    for dev in ("gpu", "cpu"):
+        t0 = time.perf_counter()
+        with place.device_scope(dev):
+            runs[dev] = ew.reference_run(paddle)
+        if dev == "gpu":
+            torch.cuda.synchronize()
+            launches = _launch_delta()
+        secs[dev] = time.perf_counter() - t0
+    gpu, cpu = runs["gpu"], runs["cpu"]
+    for name, want in cpu["masks"].items():
+        if not np.array_equal(gpu["masks"][name], want):
+            raise AssertionError(f"nn_reference: {name} mask differs on "
+                                 f"the card")
+    worst = {part: _rel_tree(f"nn_reference {part}", gpu[part], cpu[part],
+                             NN_REF_TOL)
+             for part in ("conv", "rnn", "transformer", "bert")}
+    if not all(launches.get(n) for n in ENC_STEP):
+        raise AssertionError(f"nn_reference: the unmasked attention of the "
+                             f"Transformer and bert_tiny launched {launches}")
+    emit({"phase": "nn_reference", "tol_norm_rel": NN_REF_TOL,
+          "max_norm_rel_err": worst, "masks_bit_equal": True,
+          "losses": {"conv": {d: [float(v) for v in r["conv"]["losses"]]
+                              for d, r in runs.items()},
+                     "bert": {d: r["bert"]["losses"]
+                              for d, r in runs.items()}},
+          "run_s": secs, "launches": launches})
+    release()
+    return launches
+
+
+def _encoder_run(paddle, ew, lazy_on):
+    work = ew.encoder_workload(paddle)
+    r = ew.run_encoder(paddle, work, lazy_on, torch.cuda.synchronize,
+                       _launch_delta,
+                       lambda: torch.cuda.Event(enable_timing=True))
+    del work
+    return r
+
+
+def phase_encoder_train(kind, smi):
+    """BERT-base pre-training steps through `nn.TransformerEncoder`
+    (`encoder_workload.encoder_workload`: 12 layers, 768 / 12 x 64 / 3072,
+    vocab 30522, dropout 0.1, the tied MLM head over 15 % labelled
+    positions, bf16 by `amp.decorate(level="O2")`, AdamW(1e-4, eps 1e-6,
+    decay 0.01 off biases and norms, multi_precision) with
+    ClipGradByGlobalNorm(1.0) over a linear warm-up), one batch of B 32 x
+    S 512 with no padding and no mask: 2 warm-up and 4 timed steps
+    eagerly, the model freed, then the same from the same seed under lazy
+    mode. Gates: finite losses, the last timed loss below the first; each
+    step's learning rate the schedule's within LOOP_LR_TOL; ENC_STEP
+    launches (12 / 12 / 12 of rows 5 / 6 / 7, no RMSNorm) every timed
+    step, eager and lazy; lazy losses and pre-clip norms bit-equal to
+    eager (dropout on: each replay draws its own keys); no capture and no
+    uncaptured replay in the timed steps, the same replays in each.
+    Returns the launches of both runs."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import encoder_workload as ew
+
+    torch.cuda.reset_peak_memory_stats()
+    _launch_delta()
+    runs, totals = {}, {}
+    with place.device_scope("gpu"):
+        for mode in ("eager", "lazy"):
+            runs[mode] = _encoder_run(paddle, ew, mode == "lazy")
+            for d in [runs[mode]["warmup_launches"],
+                      *runs[mode]["launches"]]:
+                for n, c in d.items():
+                    totals[n] = totals.get(n, 0) + c
+            if mode == "lazy":
+                lazy.clear_graphs()
+            release()
+    n_warm = ew.WARMUP_STEPS
+    for mode, r in runs.items():
+        losses = r["losses"]
+        if not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[n_warm]:
+            raise AssertionError(f"encoder_train {mode}: losses {losses}")
+        lr_err = max(abs(a - ew.lr_at(i)) for i, a in enumerate(r["lrs"]))
+        if not lr_err <= LOOP_LR_TOL:
+            raise AssertionError(f"encoder_train {mode}: lr {r['lrs']}")
+        for i, got in enumerate(r["launches"]):
+            if got != ENC_STEP:
+                raise AssertionError(f"encoder_train {mode} timed step {i}: "
+                                     f"launches {got} != {ENC_STEP}")
+    # one dropout of the hidden shape (its threefry mask and the select),
+    # times the dropouts a step: the embeddings', and per layer the
+    # attention output's and both residual branches'
+    cfg = ew.CONFIGS["bert_base"]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    with place.device_scope("gpu"):
+        h = paddle.Tensor(torch.randn(ew.BATCH, ew.SEQ, cfg["hidden"],
+                                      device="cuda").to(torch.bfloat16))
+        drop_ms = time_ms(lambda: paddle.nn.functional.dropout(
+            h, cfg["dropout"]), flush, reps=10)
+    del h, flush
+    n_drop = 1 + 3 * cfg["layers"]
+    eager, lz = runs["eager"], runs["lazy"]
+    bit_equal = {"losses": lz["losses"] == eager["losses"],
+                 "norms": lz["norms"] == eager["norms"]}
+    if not all(bit_equal.values()):
+        raise AssertionError(f"encoder_train: lazy not bit-equal to eager: "
+                             f"losses {lz['losses']} / {eager['losses']}, "
+                             f"norms {lz['norms']} / {eager['norms']}")
+    timed = lz["timed_counters"]
+    replays = [c.get("lazy.graph_replays", 0) for c in lz["step_counters"]]
+    if timed.get("lazy.graph_captures", 0) or \
+            timed.get("lazy.uncaptured_replays", 0) or \
+            len(set(replays)) != 1 or not replays[0]:
+        raise AssertionError(f"encoder_train: timed steps moved {timed}, "
+                             f"replays {replays}")
+
+    def med(r, key):
+        return statistics.median(r[key])
+
+    tokens = ew.BATCH * ew.SEQ
+    emit({"phase": "encoder_train",
+          "model": "BERT-base (google-bert/bert-base-uncased widths) built "
+                   "from nn.TransformerEncoderLayer x 12, MLM head tied to "
+                   "the word embedding, no NSP head; amp O2 bf16, AdamW("
+                   "1e-4, eps 1e-6, wd 0.01 off biases and norms, "
+                   "multi_precision), ClipGradByGlobalNorm(1.0), "
+                   "LinearWarmup(PolynomialDecay)",
+          "batch": ew.BATCH, "seq": ew.SEQ, "mlm_rate": ew.MLM_RATE,
+          "launches_per_step": ENC_STEP,
+          "losses": {"eager": eager["losses"], "lazy": lz["losses"]},
+          "lrs": eager["lrs"],
+          "pre_clip_norms": {"eager": eager["norms"], "lazy": lz["norms"]},
+          "lazy_bit_equal_to_eager": bit_equal,
+          "step_ms": {m: med(r, "wall_ms") for m, r in runs.items()},
+          "host_ms": {m: med(r, "host_ms") for m, r in runs.items()},
+          "tokens_per_s": {m: tokens / (med(r, "wall_ms") / 1e3)
+                           for m, r in runs.items()},
+          "clip_ms": {m: med(r, "clip_ms") for m, r in runs.items()},
+          "optimizer_ms": {m: med(r, "opt_ms") for m, r in runs.items()},
+          "dropout_ms": drop_ms, "dropouts_per_step": n_drop,
+          "dropout_share": {m: n_drop * drop_ms / med(r, "wall_ms")
+                            for m, r in runs.items()},
           "step_ms_all": {m: r["wall_ms"] for m, r in runs.items()},
           "host_ms_all": {m: r["host_ms"] for m, r in runs.items()},
           "lazy_counters": {"warmup": lz["warmup_counters"],
@@ -5015,6 +5250,8 @@ ONLY = {
     "ops_reference": lambda kind, smi: phase_ops_reference(),
     "train_loop_reference": lambda kind, smi: phase_train_loop_reference(),
     "train_loop": phase_train_loop,
+    "nn_reference": lambda kind, smi: phase_nn_reference(),
+    "encoder_train": phase_encoder_train,
 }
 # the TP phases by `phase_tp` task: `--only` runs them in one world
 TP_ONLY = {"tp_reference": "reference", "serve_tp": "serve"}
@@ -5077,6 +5314,8 @@ def main(argv=()):
     ops_ref_launches = phase_ops_reference()
     loop_ref_launches = phase_train_loop_reference()
     loop_launches = phase_train_loop(kind, smi)
+    nn_ref_launches = phase_nn_reference()
+    enc_launches = phase_encoder_train(kind, smi)
     fused = phase_incubate_kernels()
     layer_launches = phase_incubate_layer(kind, smi)
     incubate_decode_launches = phase_incubate_serve(kind, smi)
@@ -5139,8 +5378,13 @@ def main(argv=()):
                train_launches[name] + eager_launches[name]
                + jit_launches[name] + lazy_ref_launches[name]
                + lazy_launches[name] + ops_ref_launches.get(name, 0)
-               + loop_ref_launches.get(name, 0) + loop_launches[name],
-               flash["train_mha"][name], also_replaces=f"{FA_PY}:{also}")
+               + loop_ref_launches.get(name, 0) + loop_launches[name]
+               + nn_ref_launches.get(name, 0) + enc_launches[name],
+               flash["train_mha"][name], also_replaces=f"{FA_PY}:{also}",
+               bert_d64_ms=flash["bert_d64"][name]["kernel_ms"],
+               bert_d64_bound_ms=flash["bert_d64"][name]["bound_ms"],
+               bert_d64_library_ms=flash["bert_d64"][name]["library_ms"],
+               bert_d64_plain_ms=flash["bert_d64"][name]["plain_ms"])
           for name, line, also in (("flash_attention_fwd", 49, 424),
                                    ("flash_attention_dq", 100, 537),
                                    ("flash_attention_dkv", 149, 594))],

@@ -50,10 +50,11 @@ def from_jax_state(state: Dict[str, np.ndarray], config: LlamaConfig,
 
 def layers_from_jax_state(state: Dict[str, np.ndarray], model):
     """Load `state` (name -> numpy array, as for `from_jax_state`) into a
-    Layer model (`models.llama_layers.LlamaForCausalLM`) in place, each
-    value in its parameter's dtype and on its device, and return it.
-    Every parameter must be present with its exact shape, and nothing
-    else."""
+    Layer model (`models.llama_layers.LlamaForCausalLM`, or any Layer) in
+    place, each value in its tensor's dtype and on its device, and return
+    it. The state is the model's `state_dict`: every parameter and
+    persistable buffer (BatchNorm's `_mean` / `_variance`) must be
+    present with its exact shape, and nothing else."""
     missing, unexpected = model.set_state_dict(
         {k: np.asarray(v) for k, v in state.items()})
     if missing or unexpected:

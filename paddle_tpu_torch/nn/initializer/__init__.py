@@ -6,7 +6,8 @@ expected place. It draws on the host from
 generator (`framework/random.py`, `next_key`), in float64 as the JAX
 package draws, rounds to the dtype, then moves the result to the device.
 So `paddle.seed(s)` followed by building a layer gives the JAX package's
-weights bit for bit. `Orthogonal` and `Dirac` are not ported yet.
+weights bit for bit. `Orthogonal` takes numpy's QR of a float64
+normal draw, as the JAX package does; `Dirac` draws nothing.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from ...framework.place import expected_device
 
 __all__ = ["Initializer", "Constant", "Normal", "TruncatedNormal", "Uniform",
            "XavierNormal", "XavierUniform", "KaimingNormal", "KaimingUniform",
-           "Assign", "calculate_gain"]
+           "Assign", "Dirac", "Orthogonal", "calculate_gain"]
 
 
 def _np_rng():
@@ -177,3 +178,39 @@ class Assign(Initializer):
         if isinstance(v, Tensor):
             v = v.numpy()
         return _finalize(np.asarray(v).reshape(_shape(shape)), dtype)
+
+
+class Dirac(Initializer):
+    """The identity-preserving conv weight: a 1 at the kernel's centre of
+    each group's (i, i) channel pair."""
+
+    def __init__(self, groups=1):
+        self.groups = groups
+
+    def __call__(self, shape, dtype):
+        shape = _shape(shape)
+        if len(shape) < 3:
+            raise ValueError("Dirac initializer needs a conv weight "
+                             "(>=3 dims)")
+        out = np.zeros(shape)
+        out_per_group = shape[0] // self.groups
+        centers = tuple(s // 2 for s in shape[2:])
+        for g in range(self.groups):
+            for i in range(min(out_per_group, shape[1])):
+                out[(g * out_per_group + i, i) + centers] = 1.0
+        return _finalize(out, dtype)
+
+
+class Orthogonal(Initializer):
+    def __init__(self, gain=1.0):
+        self.gain = gain
+
+    def __call__(self, shape, dtype):
+        r = _np_rng()
+        shape = _shape(shape)
+        rows, cols = shape[0], int(np.prod(shape[1:]))
+        flat = r.normal(size=(max(rows, cols), min(rows, cols)))
+        q, rr = np.linalg.qr(flat)
+        q = q * np.sign(np.diag(rr))
+        q = q.T if rows < cols else q
+        return _finalize(self.gain * q[:rows, :cols].reshape(shape), dtype)

@@ -1,8 +1,14 @@
 """The port's layers (`paddle_tpu/nn/layer`): `Layer`, the containers,
-the common, activation, loss and norm layers."""
+and the common, activation, loss, norm, conv, pooling, recurrent,
+transformer and extended layers."""
 from .activation import *  # noqa: F401,F403
-from .common import Dropout, Embedding, Flatten, Identity, Linear, LinearNoBias
+from .common import *  # noqa: F401,F403
 from .container import LayerDict, LayerList, ParameterList, Sequential
+from .conv import *  # noqa: F401,F403
+from .extended import *  # noqa: F401,F403
 from .layers import Layer
 from .loss import *  # noqa: F401,F403
-from .norm import LayerNorm, RMSNorm
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
+from .rnn import *  # noqa: F401,F403
+from .transformer import *  # noqa: F401,F403

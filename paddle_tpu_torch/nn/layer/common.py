@@ -1,17 +1,19 @@
-"""Common layers: the port of `paddle_tpu/nn/layer/common.py` as far as
-`Linear`, `LinearNoBias`, `Embedding`, `Dropout`, `Flatten` and
-`Identity` (the padding, upsampling, bilinear, fold and shuffle layers
-are not ported yet)."""
+"""Common layers: the port of `paddle_tpu/nn/layer/common.py`, each a
+thin Layer over its functional."""
 from __future__ import annotations
 
 import torch
 
 from .. import functional as F
-from ..initializer import XavierUniform
+from ..initializer import Normal, XavierUniform
 from .layers import Layer
 
-__all__ = ["Linear", "LinearNoBias", "Embedding", "Dropout", "Flatten",
-           "Identity"]
+__all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
+           "AlphaDropout", "Flatten", "Identity", "Pad1D", "Pad2D", "Pad3D",
+           "ZeroPad2D", "Upsample", "UpsamplingBilinear2D",
+           "UpsamplingNearest2D", "Bilinear", "CosineSimilarity", "Unfold",
+           "Fold", "PixelShuffle", "PixelUnshuffle", "ChannelShuffle",
+           "LinearNoBias"]
 
 
 class Linear(Layer):
@@ -106,3 +108,182 @@ class Identity(Layer):
 
     def forward(self, x):
         return x
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p, self.data_format = p, data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, p=self.p, training=self.training)
+
+
+class _PadNd(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self._pad = padding if isinstance(padding, (list, tuple)) \
+            else [padding] * 2
+        self._mode, self._value, self._data_format = mode, value, \
+            data_format
+
+    def forward(self, x):
+        return F.pad(x, self._pad, mode=self._mode, value=self._value,
+                     data_format=self._data_format)
+
+    def extra_repr(self):
+        return f"padding={self._pad}, mode={self._mode}"
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        if isinstance(padding, int):
+            padding = [padding] * 2
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        if isinstance(padding, int):
+            padding = [padding] * 4
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        if isinstance(padding, int):
+            padding = [padding] * 6
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, mode="constant", value=0.0,
+                         data_format=data_format)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format=None,
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.align_mode, self.data_format = align_mode, data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0,
+                         data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0,
+                         data_format)
+
+
+class Bilinear(Layer):
+    """`x1^T W x2 + b`, weight `[out, in1, in2]` drawn from N(0, 0.02)."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr,
+            default_initializer=Normal(0, 0.02))
+        self.bias = None if bias_attr is False else self.create_parameter(
+            [out_features], attr=bias_attr, is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor, self.data_format = upscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor, self.data_format = downscale_factor, \
+            data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups, self.data_format = groups, data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)

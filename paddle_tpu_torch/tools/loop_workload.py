@@ -438,9 +438,10 @@ def _step(paddle, model, opt, sched, ids, labels, events=None):
     return loss
 
 
-def run_loop(paddle, work, lazy_on, sync, launches, event=None):
+def run_loop(paddle, work, lazy_on, sync, launches, event=None, step=None):
     """`WARMUP_STEPS` + `TIMED_STEPS` steps of `work` (`loop_workload`),
-    eagerly or under lazy mode. `sync()` waits for the card, `launches()`
+    eagerly or under lazy mode; `step` replaces the Llama's step
+    (`_step`'s signature) for another model. `sync()` waits for the card, `launches()`
     returns (and zeroes) the kernel launches since its last call, and
     `event()` makes a timing event (None: no events). Returns the losses,
     learning rates, pre-clip norms and warm-up post-clip norms (floats,
@@ -451,6 +452,7 @@ def run_loop(paddle, work, lazy_on, sync, launches, event=None):
     step, and the `lazy.*` counters of the warm-up, of the timed steps
     and of each timed step."""
     model, opt, sched, clip, ids, labels = work
+    step = step or _step
     lazy = paddle.core.lazy
     monitor = paddle.framework.monitor
     losses, lrs, per_step, host_ms, wall_ms, spans = [], [], [], [], [], []
@@ -461,7 +463,7 @@ def run_loop(paddle, work, lazy_on, sync, launches, event=None):
         clip.post_norms = []
         for _ in range(WARMUP_STEPS):
             lrs.append(opt.get_lr())
-            losses.append(_step(paddle, model, opt, sched, ids, labels)
+            losses.append(step(paddle, model, opt, sched, ids, labels)
                           .detach())
         post = clip.post_norms
         clip.post_norms = None
@@ -473,8 +475,8 @@ def run_loop(paddle, work, lazy_on, sync, launches, event=None):
             clip.events = None if ev is None else ev[2:]
             lrs.append(opt.get_lr())
             t0 = time.perf_counter()
-            losses.append(_step(paddle, model, opt, sched, ids, labels,
-                                None if ev is None else ev[:2]).detach())
+            losses.append(step(paddle, model, opt, sched, ids, labels,
+                               None if ev is None else ev[:2]).detach())
             t1 = time.perf_counter()
             sync()
             t2 = time.perf_counter()

@@ -698,6 +698,8 @@ FLASH_CASES = {
     # Sq not a multiple of the 128-row q tile, an empty sequence (its dq
     # exactly 0), D padded to 128 columns
     "ragged_empty_d80": (3, 200, 200, 8, 4, 80, True, [200, 0, 77]),
+    # BERT-base's attention in `encoder_train`: D 64, S 512, non-causal
+    "bert_d64": (32, 512, 512, 12, 12, 64, False, None),
 }
 
 
@@ -2251,3 +2253,30 @@ def test_train_loop_small_on_card_equals_cpu():
         np.testing.assert_allclose(g["losses"], w["losses"], rtol=1e-5)
         for a, b in zip(g["params"], w["params"]):
             assert np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b), name
+
+
+def test_embedding_backward_repeats_bit_for_bit():
+    """`nn.functional.embedding`'s backward on the card sums duplicate ids
+    in a fixed order (torch's own varied from run to run on BERT's two
+    token types), so two runs give the same bits."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    ids = torch.randint(0, 2, (32, 512), generator=g, device=dev)
+    dout = torch.randn((32, 512, 768), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    w0 = torch.randn((2, 768), generator=g, device=dev).to(torch.bfloat16)
+    grads = []
+    with place.device_scope("gpu"):
+        for _ in range(3):
+            w = paddle.Tensor(w0, stop_gradient=False)
+            out = paddle.nn.functional.embedding(paddle.Tensor(ids), w)
+            out.backward(paddle.Tensor(dout))
+            grads.append(w.grad._data.clone())
+    want = (dout.float().reshape(-1, 768).T
+            @ torch.nn.functional.one_hot(ids.reshape(-1), 2).float()).T
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0],
+                                                           grads[2])
+    assert _rel(grads[0], want) <= 1e-2

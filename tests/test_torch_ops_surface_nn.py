@@ -10,9 +10,9 @@ from torch_ops_surface_common import one_thread, port_on_cpu  # noqa: F401
 
 NAMESPACES = ['paddle.nn.functional', 'paddle.nn']
 # exports each namespace resolves at least
-TARGETS = {'paddle.nn.functional': 60, 'paddle.nn': 55}
+TARGETS = {'paddle.nn.functional': 128, 'paddle.nn': 140}
 # (ran, matched the recipe's numpy reference, finite-difference verified)
-FLOORS = {'paddle.nn.functional': (69, 6, 40), 'paddle.nn': (59, 0, 44)}
+FLOORS = {'paddle.nn.functional': (128, 11, 80), 'paddle.nn': (140, 0, 92)}
 
 CASES = sum([
     [("paddle.nn.functional", n) for n in compared("paddle.nn.functional")],

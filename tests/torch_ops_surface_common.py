@@ -36,6 +36,9 @@ TOL32 = dict(rtol=1e-5, atol=1e-6)
 F32_INSIDE = {
     "pairwise_distance": "the norm of the f32 difference (XLA's CPU sum "
                          "fuses the squares into FMAs, torch's rounds each)",
+    "gumbel_softmax": "the Gumbel noise is a float32 draw and its float32 "
+                      "-log(-log(u)) (one ulp apart in XLA's and torch's "
+                      "log)",
 }
 
 # exports with a numpy reference that are held to the JAX package all
@@ -80,6 +83,17 @@ def spec_of(ns, name):
             or JH.NON_OP.get(name))
     if spec is None and name.endswith("_"):
         spec = JH.SPEC.get(name[:-1])
+    return spec
+
+
+def _port_spec(ns, name):
+    """The port harness's recipe of the export (`spec_of`'s lookup)."""
+    from paddle_tpu_torch.testing import op_harness as TH
+
+    spec = (TH.NS_SPEC.get((ns, name)) or TH.SPEC.get(name)
+            or TH.NON_OP.get(name))
+    if spec is None and name.endswith("_"):
+        spec = TH.SPEC.get(name[:-1])
     return spec
 
 
@@ -182,8 +196,10 @@ def compare(ns, name):
         _compare_to_reference(ns, name, spec)
         return
     if spec is not None and "check" in spec:
+        # each package's own harness check: the JAX harness's checks read
+        # `._data` as an array, which is a JAX internal
         assert spec["check"](jpaddle), name
-        assert spec["check"](tpaddle), name
+        assert _port_spec(ns, name)["check"](tpaddle), name
         return
     if spec is not None:
         build = spec.get("build")
