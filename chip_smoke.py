@@ -123,7 +123,20 @@ norm-relative, dropout masks bit-equal; `nn_reference`); then BERT-base
 `nn.TransformerEncoder`, B 32 x S 512, O2 bf16, 2 warm-up and 4 timed
 pre-training steps eagerly and again under lazy mode: exactly 12 / 12 /
 12 flash launches a step, lazy bit-equal to eager, falling losses
-(`encoder_train`).
+(`encoder_train`). The op harness of `ops_reference` covers
+`paddle.linalg`, `paddle.fft` and `paddle.signal` too (decompositions by
+their sign-free invariants), and two realistic-size cases run on the
+card against the CPU: Whisper's STFT front end over 8 x 30 s of 16 kHz
+audio and back through `istft`, and 1024 x 1024 `cholesky`, `solve`,
+`eigh`, `svd`, `qr` and `lu` in f32 and f64 by reconstruction residual.
+Then FNet through `paddle.fft` (`tools/fnet_workload.py`): `fnet_tiny`
+two AdamW steps on the card against the CPU (f32 within 1e-4
+norm-relative, dropout masks bit-equal; `fnet_reference`); then
+FNet-base (google/fnet-base widths, 12 layers), B 32 x S 512, O2 bf16,
+2 warm-up and 4 timed pre-training steps eagerly and again under lazy
+mode: no flash or RMSNorm launch (FNet has no attention and LayerNorm
+norms), lazy bit-equal to eager, falling losses, the Fourier sublayers'
+share of the step (`fnet_train`).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve_lora,serve_migrate
@@ -134,6 +147,7 @@ pre-training steps eagerly and again under lazy mode: exactly 12 / 12 /
     python3 chip_smoke.py --only lazy_reference,lazy_llama
     python3 chip_smoke.py --only ops_reference,train_loop_reference,train_loop
     python3 chip_smoke.py --only nn_reference,encoder_train
+    python3 chip_smoke.py --only ops_reference,fnet_reference,fnet_train
 
 Each phase prints one JSON line. `--only` runs the device check and the
 named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
@@ -142,7 +156,7 @@ two are one run: the disaggregated run sits between the clean and the
 chaos fleet runs), `tp_reference`, `serve_tp`, `eager_reference`,
 `eager_attention`, `jit_reference`, `jit_layer`, `lazy_reference`,
 `lazy_llama`, `ops_reference`, `train_loop_reference`, `train_loop`,
-`nn_reference`, `encoder_train`),
+`nn_reference`, `encoder_train`, `fnet_reference`, `fnet_train`),
 with no kernels line and
 no last line: a measurement of those phases without the whole run. The TP
 phases start their rank processes as `chip_smoke.py --tp-rank ...`. Any failure raises, so the script exits
@@ -193,6 +207,11 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
     """Median device time of one call with a cold L2: a large write
     evicts the cache before each timed call, and keeps the card busy
     while the host enqueues the call."""
+    return statistics.median(times_ms(fn, flush, reps))
+
+
+def times_ms(fn, flush: torch.Tensor, reps: int) -> list:
+    """`time_ms`'s device time of each of `reps` calls."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -206,7 +225,7 @@ def time_ms(fn, flush: torch.Tensor, reps: int = 30) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
 
 
 def bound(nbytes, flops, peak):
@@ -4098,19 +4117,45 @@ def _attention_routes():
                                ROUTE_MASK_TOL)
 
 
-# every export of the manifest's nn namespaces runs on the card
-OPS_NS_RAN = {"paddle.nn.functional": 128, "paddle.nn": 140}
+# the exports of each manifest namespace the harness runs on the card,
+# and of those the ones whose outputs are held to the CPU's by value (the
+# rest run on inputs of no recipe, or are layers, checks or samplers the
+# harness keeps no output of): all of the nn, fft and signal namespaces;
+# all of paddle.linalg but `lu_unpack` and `ormqr` and of `paddle` /
+# `Tensor` but the names the harness skips (held instead by the
+# realistic-size decompositions and the CPU tests)
+OPS_NS_HELD = {"paddle.nn.functional": (128, 111), "paddle.nn": (140, 120),
+               "paddle.linalg": (31, 31), "paddle.fft": (22, 22),
+               "paddle.signal": (2, 2), "paddle": (410, 356),
+               "Tensor": (371, 359)}
+# the realistic-size cases, card against CPU: Whisper's spectrum and log
+# power norm-relative, the reconstruction of the audio absolutely
+WHISPER_TOL = 1e-5
+# each factorisation's reconstruction residual (norm-relative, in float64
+# on the host; `solve` by its backward error) on both devices, and the
+# eigen- / singular values card against CPU relative to the largest. The
+# float32 limits lie between the sound readings on an H100 and those of
+# cuSOLVER's default SVD driver, which the port's `svd` does not take:
+# residual 4.6e-6 sound, 3.2e-4 default; singular values card / CPU
+# 1.28e-5 sound (the card's own distance from float64), 1.69e-4 default
+DECOMP_N = 1024
+DECOMP_RESIDUAL = {"float32": 3e-5, "float64": 1e-12}
+DECOMP_VALUES = {"float32": 3e-5, "float64": 1e-10}
 
 
 def phase_ops_reference():
     """The op harness (`testing/op_harness.py`) over the manifest's
-    `paddle`, `Tensor`, `paddle.nn.functional` and `paddle.nn` exports on
-    the card and on the CPU (`loop_workload.ops_sweep`), the card held to
-    the CPU (`compare_sweeps`: the same exports ran, outputs on the card,
-    float64 within 1e-9 relative, float32 within 1e-5, integers, bools
-    and seeded draws bit-equal, the same finite-difference verdicts); then
-    the attention routes at the training shape (`_attention_routes`).
-    Returns the kernel launches of its card run."""
+    `paddle`, `Tensor`, `paddle.nn.functional`, `paddle.nn`,
+    `paddle.linalg`, `paddle.fft` and `paddle.signal` exports on the card
+    and on the CPU (`loop_workload.ops_sweep`), the card held to the CPU
+    (`compare_sweeps`: the same exports ran, at least OPS_NS_HELD of each
+    namespace run and compared by value, outputs on the card, float64
+    within 1e-9 relative, float32 within 1e-5, integers, bools and seeded
+    draws bit-equal, the same finite-difference verdicts, the
+    decompositions by their sign-free invariants); then the attention routes at the training shape
+    (`_attention_routes`) and the two realistic-size cases
+    (`_whisper_case`, `_decomposition_case` in f32 and f64). Returns the
+    kernel launches of its card run."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.tools import loop_workload as lw
 
@@ -4123,20 +4168,87 @@ def phase_ops_reference():
     cpu = lw.ops_sweep(paddle, "cpu")
     t2 = time.perf_counter()
     stats = lw.compare_sweeps(card, cpu, device="cuda")
-    for ns, n in OPS_NS_RAN.items():
-        if stats["per_namespace"].get(ns, {}).get("ran", 0) < n:
-            raise AssertionError(f"ops_reference: {ns} ran "
-                                 f"{stats['per_namespace'].get(ns)}, < {n}")
+    for ns, (ran, held) in OPS_NS_HELD.items():
+        got = stats["per_namespace"].get(ns, {})
+        if got.get("ran", 0) < ran or got.get("compared", 0) < held:
+            raise AssertionError(f"ops_reference: {ns} {got}, asked for "
+                                 f"{ran} run and {held} compared")
     routes, route_launches = _attention_routes()
     for n, c in route_launches.items():
         launches[n] = launches.get(n, 0) + c
+    t3 = time.perf_counter()
+    whisper = _whisper_case(paddle, lw)
+    decomp = {dt: _decomposition_case(paddle, lw, dt)
+              for dt in ("float32", "float64")}
     emit({"phase": "ops_reference", "per_namespace": stats["per_namespace"],
           "max_abs_err": stats["max_abs_err"],
           "tol": {"float64": lw.TOL64, "float32": lw.TOL32},
           "sweep_s": {"card": t1 - t0, "cpu": t2 - t1},
-          "attention_routes": routes, "launches": launches})
+          "attention_routes": routes, "whisper_stft": whisper,
+          "decompositions": decomp,
+          "realistic_cases_s": time.perf_counter() - t3,
+          "launches": launches})
     release()
     return launches
+
+
+def _whisper_case(paddle, lw):
+    """`loop_workload.whisper_front_end` on the card and on the CPU: the
+    spectrum and log power within WHISPER_TOL norm-relative, and each
+    device's `istft` within WHISPER_TOL of the audio."""
+    from paddle_tpu_torch.framework import place
+
+    runs, secs = {}, {}
+    for dev in ("gpu", "cpu"):
+        t0 = time.perf_counter()
+        with place.device_scope(dev):
+            runs[dev] = lw.whisper_front_end(paddle)
+        secs[dev] = time.perf_counter() - t0
+    gpu, cpu = runs["gpu"], runs["cpu"]
+    err = {k: float(np.linalg.norm(gpu[k] - cpu[k])
+                    / np.linalg.norm(cpu[k])) for k in ("spec", "log_spec")}
+    err.update({f"istft_{d}": float(np.abs(r["back"] - r["audio"]).max())
+                for d, r in runs.items()})
+    if not max(err.values()) <= WHISPER_TOL:
+        raise AssertionError(f"ops_reference whisper stft: {err}")
+    return {"batch": lw.WHISPER_BATCH, "samples": cpu["audio"].shape[-1],
+            "n_fft": lw.WHISPER_N_FFT, "hop": lw.WHISPER_HOP,
+            "spec_shape": list(cpu["spec"].shape), "err": err,
+            "tol": WHISPER_TOL, "run_s": secs}
+
+
+def _decomposition_case(paddle, lw, dtype):
+    """`loop_workload.decompositions` at DECOMP_N on the card and on the
+    CPU: every residual within DECOMP_RESIDUAL on both, the eigen- and
+    singular values card against CPU within DECOMP_VALUES of the
+    largest. Reports each device's values against numpy's float64 ones
+    (`float64_values`), which says which device the difference is on."""
+    from paddle_tpu_torch.framework import place
+
+    runs = {}
+    for dev in ("gpu", "cpu"):
+        with place.device_scope(dev):
+            runs[dev] = lw.decompositions(paddle, DECOMP_N, dtype)
+    worst = max(v for r in runs.values() for v in r["residuals"].values())
+    keys = ("eigenvalues", "singular_values")
+
+    def rel(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    values = {k: rel(runs["gpu"][k], runs["cpu"][k]) for k in keys}
+    exact = lw.float64_values(DECOMP_N, dtype)
+    off64 = {d: {k: rel(r[k], exact[k]) for k in keys}
+             for d, r in runs.items()}
+    if not worst <= DECOMP_RESIDUAL[dtype] or \
+            not max(values.values()) <= DECOMP_VALUES[dtype]:
+        raise AssertionError(f"ops_reference decompositions {dtype}: "
+                             f"{ {d: r['residuals'] for d, r in runs.items()} }"
+                             f" {values}")
+    return {"n": DECOMP_N, "residuals": {d: r["residuals"]
+                                         for d, r in runs.items()},
+            "values_rel_err": values, "values_off_float64": off64,
+            "tol": {"residual": DECOMP_RESIDUAL[dtype],
+                    "values": DECOMP_VALUES[dtype]}}
 
 
 def _held_rel(label, got, want, tol):
@@ -4519,6 +4631,205 @@ def phase_encoder_train(kind, smi):
           "lazy_counters": {"warmup": lz["warmup_counters"],
                             "timed": timed, "replays_per_step": replays},
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "device": kind, "nvidia_smi": smi})
+    del runs, eager, lz
+    release()
+    return totals
+
+
+# ---- FNet through paddle.fft (tools/fnet_workload.py) ----
+
+# card against CPU, norm-relative, for `fnet_workload.reference_run`
+FNET_REF_TOL = 1e-4
+# the kernels FNet must not reach: rows 5-7 (flash) and 13 (RMSNorm)
+FNET_NO_LAUNCH = ("flash_attention_fwd", "flash_attention_dq",
+                  "flash_attention_dkv", "rms_norm")
+# timed calls of one Fourier sublayer's forward and backward (a call is
+# ~1 ms; the median of ten read 0.68 in one run and 1.17 in another)
+FOURIER_REPS = 100
+
+
+def phase_fnet_reference():
+    """`fnet_workload.reference_run` on the card and on the CPU (f32):
+    dropout masks at FNet's rate bit-equal, and `fnet_tiny`'s two AdamW
+    steps (dropout on) within FNET_REF_TOL norm-relative for the losses
+    and every parameter after. Returns the kernel launches of its card
+    run (none of FNET_NO_LAUNCH)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import fnet_workload as fw
+
+    t0 = time.perf_counter()
+    runs = {}
+    _launch_delta()
+    for dev in ("gpu", "cpu"):
+        with place.device_scope(dev):
+            runs[dev] = fw.reference_run(paddle)
+        if dev == "gpu":
+            torch.cuda.synchronize()
+            launches = _launch_delta()
+    gpu, cpu = runs["gpu"], runs["cpu"]
+    for name, want in cpu["masks"].items():
+        if not np.array_equal(gpu["masks"][name], want):
+            raise AssertionError(f"fnet_reference: {name} mask differs")
+    worst = _rel_tree("fnet_reference", gpu["fnet"], cpu["fnet"],
+                      FNET_REF_TOL)
+    if any(launches.get(n) for n in FNET_NO_LAUNCH):
+        raise AssertionError(f"fnet_reference: launches {launches}")
+    secs = time.perf_counter() - t0
+    emit({"phase": "fnet_reference", "tol_norm_rel": FNET_REF_TOL,
+          "max_norm_rel_err": worst, "masks_bit_equal": True,
+          "losses": {d: r["fnet"]["losses"] for d, r in runs.items()},
+          "launches": launches, "phase_s": secs})
+    release()
+    return launches
+
+
+def _fnet_run(paddle, fw, lazy_on):
+    work = fw.fnet_workload(paddle)
+    r = fw.run_fnet(paddle, work, lazy_on, torch.cuda.synchronize,
+                    _launch_delta,
+                    lambda: torch.cuda.Event(enable_timing=True))
+    del work
+    return r
+
+
+def _fourier_ms(paddle, fw, cfg, flush):
+    """Device ms of one Fourier sublayer's forward and backward at the
+    step's shape: `fftn(h, axes=(1, 2)).real()` of the O2 bf16 hidden
+    state (widened to f32 inside), and its gradient; the median of
+    FOURIER_REPS calls and their spread."""
+    h = paddle.Tensor(torch.randn(fw.BATCH, fw.SEQ, cfg["hidden"],
+                                  device="cuda").to(torch.bfloat16),
+                      stop_gradient=False)
+    g = torch.randn(fw.BATCH, fw.SEQ, cfg["hidden"], device="cuda")
+
+    def fwd_bwd():
+        out = fw.fourier(paddle, h)
+        out._data.backward(g)
+        h._data.grad = None
+
+    times = sorted(times_ms(fwd_bwd, flush, FOURIER_REPS))
+    return statistics.median(times), {
+        "reps": len(times), "min": times[0], "max": times[-1],
+        "p10": times[len(times) // 10],
+        "p90": times[len(times) * 9 // 10]}
+
+
+def phase_fnet_train(kind, smi):
+    """FNet-base pre-training steps through `paddle.fft`
+    (`fnet_workload.fnet_workload`: google/fnet-base widths, 12 layers of
+    `fftn(h, axes=(1, 2)).real()` + LayerNorm + a 768 / 3072 / 768 tanh-
+    gelu MLP, dropout 0.1, the tied MLM head over 15 % labelled positions,
+    bf16 by `amp.decorate(level="O2")`, AdamW(1e-4, eps 1e-6, decay 0.01
+    off biases and norms, multi_precision), ClipGradByGlobalNorm(1.0),
+    linear warm-up and decay), one batch of B 32 x S 512: 2 warm-up and 4
+    timed steps eagerly, the model freed, then the same from the same seed
+    under lazy mode. Gates: finite losses, the last timed loss below the
+    first; each step's learning rate the schedule's within LOOP_LR_TOL;
+    no launch of FNET_NO_LAUNCH (the flash and RMSNorm kernels) in any
+    step, eager or lazy; lazy losses and pre-clip norms bit-equal to
+    eager; no capture and no uncaptured replay in the timed steps, one
+    replay a step. Reports the step, host and Fourier sublayers' times,
+    tokens/s, the dropouts' share and the peak memory. Returns the
+    launches of both runs."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import fnet_workload as fw
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    _launch_delta()
+    runs, totals = {}, {}
+    with place.device_scope("gpu"):
+        for mode in ("eager", "lazy"):
+            runs[mode] = _fnet_run(paddle, fw, mode == "lazy")
+            for d in [runs[mode]["warmup_launches"],
+                      *runs[mode]["launches"]]:
+                for n, c in d.items():
+                    totals[n] = totals.get(n, 0) + c
+            if mode == "lazy":
+                lazy.clear_graphs()
+            release()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_warm = fw.WARMUP_STEPS
+    for mode, r in runs.items():
+        losses = r["losses"]
+        if not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[n_warm]:
+            raise AssertionError(f"fnet_train {mode}: losses {losses}")
+        lr_err = max(abs(a - fw.lr_at(i)) for i, a in enumerate(r["lrs"]))
+        if not lr_err <= LOOP_LR_TOL:
+            raise AssertionError(f"fnet_train {mode}: lr {r['lrs']}")
+    if any(totals.get(n) for n in FNET_NO_LAUNCH):
+        raise AssertionError(f"fnet_train: launches {totals}")
+    eager, lz = runs["eager"], runs["lazy"]
+    bit_equal = {"losses": lz["losses"] == eager["losses"],
+                 "norms": lz["norms"] == eager["norms"]}
+    if not all(bit_equal.values()):
+        raise AssertionError(f"fnet_train: lazy not bit-equal to eager: "
+                             f"losses {lz['losses']} / {eager['losses']}, "
+                             f"norms {lz['norms']} / {eager['norms']}")
+    timed = lz["timed_counters"]
+    replays = [c.get("lazy.graph_replays", 0) for c in lz["step_counters"]]
+    if timed.get("lazy.graph_captures", 0) or \
+            timed.get("lazy.uncaptured_replays", 0) or \
+            replays != [1] * fw.TIMED_STEPS:
+        raise AssertionError(f"fnet_train: timed steps moved {timed}, "
+                             f"replays {replays}")
+    cfg = fw.CONFIGS["fnet_base"]
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    with place.device_scope("gpu"):
+        fourier_ms, fourier_spread = _fourier_ms(paddle, fw, cfg, flush)
+        h = paddle.Tensor(torch.randn(fw.BATCH, fw.SEQ, cfg["hidden"],
+                                      device="cuda").to(torch.bfloat16))
+        drop_ms = time_ms(lambda: paddle.nn.functional.dropout(
+            h, cfg["dropout"]), flush, reps=10)
+    del h, flush
+    release()
+    # the embeddings' dropout and one a layer
+    n_drop = 1 + cfg["layers"]
+
+    def med(r, key):
+        return statistics.median(r[key])
+
+    tokens = fw.BATCH * fw.SEQ
+    emit({"phase": "fnet_train",
+          "model": "FNet-base (google/fnet-base widths) as PaddleNLP's "
+                   "FNetForPreTraining builds it, 12 layers of "
+                   "paddle.fft.fftn(h, axes=(1, 2)).real(), MLM head tied "
+                   "to the word embedding, no NSP head; amp O2 bf16, AdamW("
+                   "1e-4, eps 1e-6, wd 0.01 off biases and norms, "
+                   "multi_precision), ClipGradByGlobalNorm(1.0), "
+                   "LinearWarmup(PolynomialDecay)",
+          "batch": fw.BATCH, "seq": fw.SEQ,
+          "launches": totals, "no_launch_of": list(FNET_NO_LAUNCH),
+          "losses": {"eager": eager["losses"], "lazy": lz["losses"]},
+          "lrs": eager["lrs"],
+          "pre_clip_norms": {"eager": eager["norms"], "lazy": lz["norms"]},
+          "lazy_bit_equal_to_eager": bit_equal,
+          "step_ms": {m: med(r, "wall_ms") for m, r in runs.items()},
+          "host_ms": {m: med(r, "host_ms") for m, r in runs.items()},
+          "tokens_per_s": {m: tokens / (med(r, "wall_ms") / 1e3)
+                           for m, r in runs.items()},
+          "fourier_fwd_bwd_ms": fourier_ms,
+          "fourier_fwd_bwd_ms_spread": fourier_spread,
+          "fourier_sublayers": cfg["layers"],
+          "fourier_share": {m: cfg["layers"] * fourier_ms
+                            / med(r, "wall_ms") for m, r in runs.items()},
+          "dropout_ms": drop_ms, "dropouts_per_step": n_drop,
+          "dropout_share": {m: n_drop * drop_ms / med(r, "wall_ms")
+                            for m, r in runs.items()},
+          "clip_ms": {m: med(r, "clip_ms") for m, r in runs.items()},
+          "optimizer_ms": {m: med(r, "opt_ms") for m, r in runs.items()},
+          "step_ms_all": {m: r["wall_ms"] for m, r in runs.items()},
+          "host_ms_all": {m: r["host_ms"] for m, r in runs.items()},
+          "lazy_counters": {"warmup": lz["warmup_counters"],
+                            "timed": timed, "replays_per_step": replays},
+          "cufft_plan_cache_size":
+              torch.backends.cuda.cufft_plan_cache.size,
+          "peak_mem_gb": peak_gb, "phase_s": time.perf_counter() - t0,
           "device": kind, "nvidia_smi": smi})
     del runs, eager, lz
     release()
@@ -5252,6 +5563,8 @@ ONLY = {
     "train_loop": phase_train_loop,
     "nn_reference": lambda kind, smi: phase_nn_reference(),
     "encoder_train": phase_encoder_train,
+    "fnet_reference": lambda kind, smi: phase_fnet_reference(),
+    "fnet_train": phase_fnet_train,
 }
 # the TP phases by `phase_tp` task: `--only` runs them in one world
 TP_ONLY = {"tp_reference": "reference", "serve_tp": "serve"}
@@ -5316,6 +5629,8 @@ def main(argv=()):
     loop_launches = phase_train_loop(kind, smi)
     nn_ref_launches = phase_nn_reference()
     enc_launches = phase_encoder_train(kind, smi)
+    phase_fnet_reference()
+    phase_fnet_train(kind, smi)
     fused = phase_incubate_kernels()
     layer_launches = phase_incubate_layer(kind, smi)
     incubate_decode_launches = phase_incubate_serve(kind, smi)

@@ -39,6 +39,13 @@ runs them at a barrier, on the card as CUDA graphs; `amp` is automatic
 mixed precision (`auto_cast`, `decorate`, `GradScaler`); and
 `models.llama_layers` is the JAX package's Llama written in paddle
 Layers.
+
+The rest of the tensor ops: `paddle.linalg` (products, norms, counts,
+decompositions, solvers), `paddle.fft` (differentiable transforms over
+`torch.fft`), `paddle.signal` (`stft` / `istft`) and the extended
+surface (`ops/extended.py`: the stack / split families, the scatters by
+index, special functions, seeded draws, in-place forms), all bound as
+Tensor methods.
 """
 from .framework.dtype import (DType, bfloat16, complex64, complex128,
                               float8_e4m3fn, float8_e5m2, float16, float32,
@@ -50,11 +57,14 @@ from .framework.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place,
                               is_compiled_with_cuda, set_device)
 from .framework.flags import get_flags, set_flags
 from .framework.random import get_rng_state, seed, set_rng_state
+from .framework.dtype import DType as dtype
 from .core.tensor import Tensor
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                             set_grad_enabled)
 from . import ops
 from .ops import *  # noqa: F401,F403
+from .ops import linalg
+from . import fft, signal
 from . import autograd
 from .framework.io import load, save
 from . import amp, nn, optimizer, jit, regularizer
@@ -82,25 +92,45 @@ __all__ = ops.__all__ + [
            "LlamaInferenceEngine", "LlamaConfig", "LlamaForCausalLM",
            "llama_7b_shaped", "llama_tiny", "MLPLMEngine", "RequestHandle",
            "ServingFrontend", "FleetRouter", "FleetHandle", "ReplicaHandle",
-           "DisaggRouter", "HandoffState", "HandoffError"]
+           "DisaggRouter", "HandoffState", "HandoffError", "linalg", "fft",
+           "signal", "dtype", "get_cuda_rng_state", "set_cuda_rng_state",
+           "LazyGuard"]
+
+# the CUDA-named RNG state calls are the default generator's
+get_cuda_rng_state = get_rng_state
+set_cuda_rng_state = set_rng_state
+
+
+class LazyGuard:
+    """A no-op context (`nn/initializer/lazy_init.py`'s guard, which
+    defers parameter materialisation): parameters here are made when
+    their Layer is built."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
 
 
 def _bind_tensor_methods():
     """Bind each reference Tensor-method name that is not yet a `Tensor`
-    attribute to the same-named function of this package
-    (`paddle_tpu/__init__.py:92-117`); a name whose function is not
-    ported stays unbound and raises AttributeError."""
+    attribute to the same-named function of this package, or else of its
+    `linalg`, `fft` or `signal` namespace (`paddle_tpu/__init__.py:92-117`);
+    a name with no such function stays unbound."""
     import sys
 
     from .tensor_method_names import TENSOR_METHOD_NAMES
 
-    me = sys.modules[__name__]
+    search = [sys.modules[__name__], linalg, fft, signal]
     for name in TENSOR_METHOD_NAMES:
         if hasattr(Tensor, name):
             continue
-        fn = getattr(me, name, None)
-        if callable(fn) and not isinstance(fn, type):
-            setattr(Tensor, name, fn)
+        for mod in search:
+            fn = getattr(mod, name, None)
+            if callable(fn) and not isinstance(fn, type):
+                setattr(Tensor, name, fn)
+                break
 
 
 _bind_tensor_methods()

@@ -1,22 +1,22 @@
 """Operators of the port: the eager ops over `Tensor` (creation, math,
-manipulation, comparison, reduction, activation, `matmul`), attached to
-`Tensor` as methods and dunders here as the JAX package's
-`ops/__init__.py` attaches them, with the in-place `_` forms of
-`paddle_tpu/ops/extended.py`'s table (`_INPLACE`) whose out-of-place op
-is ported; the serving sampler (`ops.sampling`); and the hand-written
-kernels (`ops.kernels`)."""
+manipulation, comparison, reduction, activation, linear algebra and the
+extended surface of `paddle_tpu/ops/extended.py`), attached to `Tensor`
+as methods and dunders here as the JAX package's `ops/__init__.py`
+attaches them, with the in-place `_` forms of the JAX package's table
+(`extended._INPLACE`); the serving sampler (`ops.sampling`); and the
+hand-written kernels (`ops.kernels`)."""
 from __future__ import annotations
 
 from ..core.tensor import Tensor
-from . import (activation, comparison, creation, linalg, manipulation, math,
-               reduction)
-from ._helpers import inplace_rebind
+from . import (activation, comparison, creation, extended, linalg,
+               manipulation, math, reduction)
 from .comparison import *  # noqa: F401,F403
 from .creation import *  # noqa: F401,F403
-from .linalg import matmul
 from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
 from .reduction import *  # noqa: F401,F403
+from .extended import *  # noqa: F401,F403
+from .extended import _INPLACE
 
 # the activations after math's names: `paddle.sigmoid` is the
 # activation's (op `sigmoid_act`), as in the JAX package, and
@@ -24,54 +24,21 @@ from .reduction import *  # noqa: F401,F403
 _ACTIVATIONS = [n for n in activation.__all__ if n != "tanh"]
 globals().update({n: getattr(activation, n) for n in _ACTIVATIONS})
 _INTERNAL = {"getitem", "setitem"}
-
-
-def _make_inplace(fn):
-    def api(x, *args, **kwargs):
-        return inplace_rebind(x, fn(x, *args, **kwargs))
-
-    api.__name__ = fn.__name__ + "_"
-    return api
-
-
-def _build_inplace_table():
-    """`paddle_tpu/ops/extended.py:_build_inplace_table` over the ported
-    ops: each `<op>_` computes out of place and rebinds."""
-    unary = ("abs", "acos", "asin", "atan", "sin", "cos", "tan", "sinh",
-             "cosh", "tanh", "asinh", "acosh", "atanh", "erf", "exp",
-             "expm1", "floor", "ceil", "round", "trunc", "sqrt", "rsqrt",
-             "square", "reciprocal", "neg", "log", "log2", "log10", "log1p",
-             "sigmoid", "digamma", "lgamma", "frac", "i0", "nan_to_num",
-             "erfinv")
-    binary = ("pow", "divide", "floor_divide", "remainder", "gcd", "lcm",
-              "hypot", "copysign", "heaviside")
-    table = {n + "_": _make_inplace(getattr(math, n))
-             for n in unary + binary}
-    table["mod_"] = _make_inplace(math.remainder)
-    for n in ("bitwise_and", "bitwise_or", "bitwise_xor",
-              "bitwise_left_shift", "bitwise_right_shift", "logical_and",
-              "logical_or", "logical_xor", "equal", "not_equal",
-              "greater_equal", "greater_than", "less_equal", "less_than",
-              "bitwise_not", "logical_not"):
-        table[n + "_"] = _make_inplace(getattr(comparison, n))
-    for n in ("masked_fill", "flatten", "cast", "t", "transpose", "scatter",
-              "put_along_axis"):
-        table[n + "_"] = _make_inplace(getattr(manipulation, n))
-    for n in ("cumsum", "cumprod", "lerp"):
-        table[n + "_"] = _make_inplace(getattr(math, n))
-    for n in ("tril", "triu"):
-        table[n + "_"] = _make_inplace(getattr(creation, n))
-    table["floor_mod_"] = table["mod_"]
-    return table
-
-
-_INPLACE = _build_inplace_table()
-globals().update(_INPLACE)
+# the linalg functions the top level exports too, as the JAX package's
+# `ops/__init__.py` imports them
+_LINALG_TOP = ["bincount", "bmm", "cholesky", "cholesky_solve", "cond",
+               "corrcoef", "cov", "cross", "det", "dist", "dot", "eig",
+               "eigh", "eigvals", "eigvalsh", "einsum", "histogram", "inv",
+               "inverse", "lstsq", "lu", "matmul", "matrix_power",
+               "matrix_rank", "matrix_transpose", "mm", "multi_dot", "mv",
+               "norm", "pinv", "qr", "slogdet", "solve", "svd",
+               "triangular_solve"]
+globals().update({n: getattr(linalg, n) for n in _LINALG_TOP})
 
 __all__ = sorted((set(math.__all__) | set(comparison.__all__)
                   | set(creation.__all__) | set(manipulation.__all__)
-                  | set(reduction.__all__) | set(_ACTIVATIONS) | {"matmul"}
-                  | set(_INPLACE)) - _INTERNAL)
+                  | set(reduction.__all__) | set(_ACTIVATIONS)
+                  | set(_LINALG_TOP) | set(extended.__all__)) - _INTERNAL)
 
 _METHODS = dict(
     # math
@@ -120,7 +87,10 @@ _METHODS = dict(
     bitwise_right_shift=comparison.bitwise_right_shift,
     is_empty=comparison.is_empty,
     # linalg
-    matmul=linalg.matmul, t=manipulation.t,
+    matmul=linalg.matmul, mm=linalg.mm, bmm=linalg.bmm, dot=linalg.dot,
+    norm=linalg.norm, dist=linalg.dist, cross=linalg.cross,
+    cholesky=linalg.cholesky, inverse=linalg.inverse, det=linalg.det,
+    t=manipulation.t, matrix_power=linalg.matrix_power,
     # manipulation
     reshape=manipulation.reshape, reshape_=manipulation.reshape_,
     transpose=manipulation.transpose, flatten=manipulation.flatten,

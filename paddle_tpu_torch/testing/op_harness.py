@@ -644,6 +644,86 @@ def _build_spec() -> Dict[str, dict]:
     return sp
 
 
+def _c(rng, shape):
+    return _f(rng, shape, -1.0, 1.0) + 1j * _f(rng, shape, -1.0, 1.0)
+
+
+def _np_hfftn(x, s=None, axes=None, norm=None):
+    """paddle.fft.hfftn: fftn over the leading axes, hfft over the last
+    (numpy has no N-D hermitian transform)."""
+    axes = tuple(range(x.ndim)) if axes is None else tuple(axes)
+    if len(axes) > 1:
+        x = np.fft.fftn(x, None if s is None else s[:-1], axes[:-1], norm)
+    return np.fft.hfft(x, None if s is None else s[-1], axes[-1], norm)
+
+
+def _np_ihfftn(x, s=None, axes=None, norm=None):
+    """paddle.fft.ihfftn: ihfft over the last axis, ifftn over the
+    leading ones."""
+    axes = tuple(range(x.ndim)) if axes is None else tuple(axes)
+    x = np.fft.ihfft(x, None if s is None else s[-1], axes[-1], norm)
+    if len(axes) > 1:
+        x = np.fft.ifftn(x, None if s is None else s[:-1], axes[:-1], norm)
+    return x
+
+
+def _fft_specs(sp):
+    """The transforms of paddle.fft, each on numpy's function of the same
+    arguments: c2c on complex input, r2c on real input, and c2r on the
+    hermitian spectrum of a real signal (a c2r transform of a spectrum
+    that is not hermitian has no one answer), over a length (`n`, `s`),
+    an axis and a `norm` other than the default."""
+    sp["fft"] = RAW(lambda rng: ([_c(rng, (4, 8))],
+                                 {"n": 6, "axis": 0, "norm": "ortho"}),
+                    ref=np.fft.fft)
+    sp["ifft"] = RAW(lambda rng: ([_c(rng, (4, 8))], {"norm": "forward"}),
+                     ref=np.fft.ifft)
+    sp["rfft"] = RAW(lambda rng: ([_f(rng, (4, 8))], {"n": 10}),
+                     ref=np.fft.rfft)
+    sp["irfft"] = RAW(lambda rng: ([np.fft.rfft(_f(rng, (4, 8)))],
+                                   {"n": 8, "norm": "ortho"}),
+                      ref=np.fft.irfft)
+    sp["hfft"] = RAW(lambda rng: ([np.fft.ihfft(_f(rng, (8, 4)), axis=0)],
+                                  {"n": 8, "axis": 0}), ref=np.fft.hfft)
+    sp["ihfft"] = RAW(lambda rng: ([_f(rng, (4, 8))], {"norm": "ortho"}),
+                      ref=np.fft.ihfft)
+    sp["fft2"] = RAW(lambda rng: ([_c(rng, (2, 4, 6))],
+                                  {"s": [4, 8], "norm": "forward"}),
+                     ref=np.fft.fft2)
+    sp["ifft2"] = RAW(lambda rng: ([_c(rng, (4, 3, 6))], {"axes": (0, 2)}),
+                      ref=np.fft.ifft2)
+    sp["fftn"] = RAW(lambda rng: ([_c(rng, (2, 4, 6))],
+                                  {"axes": (1, 2), "norm": "ortho"}),
+                     ref=np.fft.fftn)
+    sp["ifftn"] = RAW(lambda rng: ([_c(rng, (2, 4, 6))],
+                                   {"s": [3, 4, 8], "axes": (0, 1, 2)}),
+                      ref=np.fft.ifftn)
+    sp["rfft2"] = RAW(lambda rng: ([_f(rng, (2, 4, 6))], {"norm": "ortho"}),
+                      ref=np.fft.rfft2)
+    sp["irfft2"] = RAW(lambda rng: ([np.fft.rfft2(_f(rng, (2, 4, 6)))],
+                                    {"s": [4, 6]}), ref=np.fft.irfft2)
+    sp["rfftn"] = RAW(lambda rng: ([_f(rng, (2, 4, 6))],
+                                   {"s": [4, 8], "axes": (0, 2)}),
+                      ref=np.fft.rfftn)
+    sp["irfftn"] = RAW(
+        lambda rng: ([np.fft.rfftn(_f(rng, (2, 4, 6)))],
+                     {"s": [2, 4, 6], "axes": (0, 1, 2),
+                      "norm": "forward"}), ref=np.fft.irfftn)
+    sp["hfft2"] = RAW(
+        lambda rng: ([_np_ihfftn(_f(rng, (2, 4, 6)), axes=(1, 2))],
+                     {"s": [4, 6]}),
+        ref=lambda x, s: _np_hfftn(x, s, axes=(-2, -1)))
+    sp["ihfft2"] = RAW(lambda rng: ([_f(rng, (2, 4, 6))], {"norm": "ortho"}),
+                       ref=lambda x, norm: _np_ihfftn(x, axes=(-2, -1),
+                                                      norm=norm))
+    sp["hfftn"] = RAW(
+        lambda rng: ([_np_ihfftn(_f(rng, (2, 4, 6)))],
+                     {"s": [2, 4, 6], "norm": "forward"}), ref=_np_hfftn)
+    sp["ihfftn"] = RAW(lambda rng: ([_f(rng, (2, 4, 6))],
+                                    {"s": [4, 8], "axes": (0, 2)}),
+                       ref=_np_ihfftn)
+
+
 def CLS(ctor=(), kw=None, inp=None, fd=True, n_inp=1):
     """nn.Layer class spec: construct with ctor args, run forward on
     synthesized inputs in eval mode, FD-check the input gradient."""
@@ -1242,6 +1322,7 @@ def _build_nn_specs(sp: Dict[str, dict]):
                          ref=np.fft.fftshift, fd=False)
     sp["ifftshift"] = RAW(lambda rng: ([_f(rng, (8,))], {}),
                           ref=np.fft.ifftshift, fd=False)
+    _fft_specs(sp)
 
     # --- misc fixups ---
     sp["top_p_sampling"] = RAW(

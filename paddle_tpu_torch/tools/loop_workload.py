@@ -3,12 +3,19 @@
 `train_loop` phases) and the tests that rehearse them on the CPU.
 
 - `ops_sweep(paddle, device)`: the op harness (`testing/op_harness.py`)
-  over the manifest's `paddle`, `Tensor`, `paddle.nn.functional` and
-  `paddle.nn` exports on one device, keeping every forward output;
+  over the manifest's `paddle`, `Tensor`, `paddle.nn.functional`,
+  `paddle.nn`, `paddle.linalg`, `paddle.fft` and `paddle.signal` exports
+  on one device, keeping every forward output;
   `compare_sweeps(card, cpu)` holds one run to another: the same exports
   ran, every output on the device asked for, float64 outputs within
   `TOL64` relative, float32 within `TOL32`, integer, bool and seeded
-  draws bit-equal, the same finite-difference verdicts.
+  draws bit-equal, the same finite-difference verdicts; the
+  decompositions whose vectors are unique only up to sign (`svd`, `qr`,
+  `eig`, `eigh`, the low-rank SVDs) by their values and the products the
+  signs leave alone. `whisper_front_end` (Whisper's STFT at its real
+  size) and `decompositions` (1024 x 1024 factorisations by residual,
+  their values beside numpy's float64 ones, `float64_values`) are the
+  two realistic-size cases the card is held to the CPU on.
   `attention_routes` holds `flash_attention` / `flash_attn_qkvpacked` to
   `scaled_dot_product_attention` on the card, bit for bit with one launch
   of each flash kernel, and the masked composite near them.
@@ -45,20 +52,42 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["NAMESPACES", "TOL64", "TOL32", "load_manifest", "ops_sweep",
-           "compare_sweeps", "attention_routes", "BASE_LR", "T_MAX", "WARMUP", "IGNORE", "lr_at",
+           "compare_sweeps", "whisper_front_end", "decompositions",
+           "float64_values",
+           "attention_routes", "BASE_LR", "T_MAX", "WARMUP", "IGNORE", "lr_at",
            "decay_names", "build_optimizer", "tiny_loop", "optimizer_cases",
            "reference_run", "loop_workload", "run_loop",
            "LAYERS", "BATCH", "SEQ", "VOCAB", "IGNORED", "WARMUP_STEPS",
            "TIMED_STEPS"]
 
-NAMESPACES = ("paddle", "Tensor", "paddle.nn.functional", "paddle.nn")
+NAMESPACES = ("paddle", "Tensor", "paddle.nn.functional", "paddle.nn",
+              "paddle.linalg", "paddle.fft", "paddle.signal")
 TOL64 = dict(rtol=1e-9, atol=1e-12)
 TOL32 = dict(rtol=1e-5, atol=1e-6)
 # seeded draws whose values are the generator's bits: bit-equal across
 # devices (`randn` / `normal` go through erfinv and take the float
 # tolerance)
 RANDOM_BITS = {"rand", "uniform", "randint", "randperm", "bernoulli",
-               "multinomial"}
+               "multinomial", "bernoulli_", "uniform_", "randint_like"}
+# float64 outputs of float32 arithmetic: a float32 draw (normal_,
+# log_normal_) or softmax (top_p_sampling's probabilities) cast to the
+# input's dtype, held at the float32 tolerance
+F32_INSIDE = {"normal_", "log_normal_", "top_p_sampling"}
+# decompositions whose vectors are unique up to sign or phase: cuSOLVER
+# need not pick LAPACK's, so the card is held to the CPU on what the
+# signs leave alone
+_INVARIANTS = {
+    "svd": lambda u, s, vh: [s, (u[..., :, :s.shape[-1]] * s[..., None, :])
+                             @ vh[..., :s.shape[-1], :]],
+    "svd_lowrank": lambda u, s, v: [s, (u * s[..., None, :])
+                                    @ np.swapaxes(v, -1, -2)],
+    "eigh": lambda w, v: [w, (v * w[..., None, :])
+                          @ np.swapaxes(v, -1, -2).conj()],
+    "qr": lambda q, r: [q[..., :, :r.shape[-2]] @ r],
+    "eig": lambda w, v: [np.sort_complex(w), (v * w[..., None, :])
+                         @ np.linalg.inv(v)],
+}
+_INVARIANTS["pca_lowrank"] = _INVARIANTS["svd_lowrank"]
 
 BASE_LR, T_MAX, WARMUP, IGNORE = 3e-4, 8, 2, -100
 LAYERS, BATCH, SEQ, VOCAB, IGNORED = 4, 1, 2048, 32000, 256
@@ -83,13 +112,14 @@ def ops_sweep(paddle, device, manifest=None):
                             record=True)
 
 
-def _same(label, got, want, bits):
+def _same(label, got, want, bits, f32=False):
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{label}: {got.dtype}{got.shape} != "
                              f"{want.dtype}{want.shape}")
     if want.dtype.kind in "fc" and not bits:
-        tol = TOL64 if want.dtype.itemsize >= 8 and want.dtype.kind == "f" \
-            or want.dtype == np.complex128 else TOL32
+        tol = TOL64 if (want.dtype.itemsize >= 8 and want.dtype.kind == "f"
+                        or want.dtype == np.complex128) and not f32 \
+            else TOL32
         np.testing.assert_allclose(got, want, err_msg=label,
                                    equal_nan=True, **tol)
         return float(np.nanmax(np.abs(got.astype(np.complex128)
@@ -130,9 +160,14 @@ def compare_sweeps(card, cpu, device="cuda"):
             if len(got["outs"]) != len(want["outs"]):
                 raise AssertionError(f"{len(got['outs'])} outputs, CPU "
                                      f"{len(want['outs'])}")
-            for i, (g, w) in enumerate(zip(got["outs"], want["outs"])):
+            g_outs, w_outs = got["outs"], want["outs"]
+            if name in _INVARIANTS:
+                g_outs = _INVARIANTS[name](*g_outs)
+                w_outs = _INVARIANTS[name](*w_outs)
+            for i, (g, w) in enumerate(zip(g_outs, w_outs)):
                 worst = max(worst, _same(f"[{i}]", g, w,
-                                         name in RANDOM_BITS))
+                                         name in RANDOM_BITS,
+                                         name in F32_INSIDE))
         except AssertionError as e:
             bad.append(f"{key}: {' '.join(str(e).split())[:300]}")
             continue
@@ -141,6 +176,90 @@ def compare_sweeps(card, cpu, device="cuda"):
         raise AssertionError(f"{len(bad)} exports off the CPU:\n"
                              + "\n".join(bad))
     return {"per_namespace": stats, "max_abs_err": worst}
+
+
+# the Whisper log-spectrogram front end (openai/whisper `audio.py`: 16 kHz
+# audio in 30 s chunks, a 400-point periodic Hann window every 160
+# samples), over a batch of chunks
+WHISPER_RATE, WHISPER_SECONDS, WHISPER_N_FFT, WHISPER_HOP = 16000, 30, \
+    400, 160
+WHISPER_BATCH = 8
+# the seed of the realistic-size cases' numpy inputs
+CASE_SEED = 0
+
+
+def whisper_front_end(paddle):
+    """`stft` of WHISPER_BATCH chunks of seeded noise (centred, reflect
+    padded), the log10 power of every frame but the last clamped at
+    1e-10 (whisper's `log_mel_spectrogram` before its mel filters), and
+    `istft` back to the audio. Returns numpy arrays: the audio, the
+    spectrum, the log power and the reconstruction."""
+    n = WHISPER_RATE * WHISPER_SECONDS
+    audio = (np.random.default_rng(CASE_SEED).standard_normal(
+        (WHISPER_BATCH, n)) * 0.1).astype(np.float32)
+    x = paddle.to_tensor(audio)
+    window = paddle.to_tensor(
+        np.hanning(WHISPER_N_FFT + 1)[:-1].astype(np.float32))
+    spec = paddle.signal.stft(x, WHISPER_N_FFT, WHISPER_HOP, window=window)
+    power = spec[..., :-1].abs() ** 2
+    log_spec = paddle.log10(paddle.clip(power, min=1e-10))
+    back = paddle.signal.istft(spec, WHISPER_N_FFT, WHISPER_HOP,
+                               window=window, length=n)
+    return {"audio": audio, "spec": spec.numpy(),
+            "log_spec": log_spec.numpy(), "back": back.numpy()}
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+
+def decompositions(paddle, n, dtype):
+    """`cholesky`, `solve`, `eigh`, `svd`, `qr` and `lu` / `lu_unpack`
+    of seeded n x n matrices (a Gaussian A, an SPD S = A A^T / n + I) in
+    `dtype`, each by its reconstruction residual (norm-relative, in
+    float64 on the host), with S's eigenvalues and A's singular values.
+    """
+    a, spd, b = _case_matrices(n)
+    A, S, B = (paddle.to_tensor(v, dtype=dtype) for v in (a, spd, b))
+    a, spd, b = (t.numpy().astype(np.float64) for t in (A, S, B))
+    lo = paddle.linalg.cholesky(S).numpy().astype(np.float64)
+    x = paddle.linalg.solve(A, B).numpy().astype(np.float64)
+    w, v = (t.numpy().astype(np.float64) for t in paddle.linalg.eigh(S))
+    u, s, vh = (t.numpy().astype(np.float64) for t in paddle.linalg.svd(A))
+    q, r = (t.numpy().astype(np.float64) for t in paddle.linalg.qr(A))
+    packed, piv = paddle.linalg.lu(A)
+    p, lf, uf = (t.numpy().astype(np.float64)
+                 for t in paddle.linalg.lu_unpack(packed, piv))
+    eye = np.eye(n)
+    return {"residuals": {
+        "cholesky": _rel(lo @ lo.T, spd),
+        # the backward error ||Ax - b|| / (||A|| ||x||)
+        "solve": float(np.linalg.norm(a @ x - b)
+                       / (np.linalg.norm(a) * np.linalg.norm(x))),
+        "eigh": _rel((v * w) @ v.T, spd),
+        "eigh_orthonormal": _rel(v.T @ v, eye),
+        "svd": _rel((u * s) @ vh, a),
+        "qr": _rel(q @ r, a),
+        "qr_orthonormal": _rel(q.T @ q, eye),
+        "lu": _rel(p @ lf @ uf, a)},
+        "eigenvalues": w, "singular_values": s}
+
+
+def _case_matrices(n):
+    rng = np.random.default_rng(CASE_SEED)
+    a = rng.standard_normal((n, n))
+    return a, a @ a.T / n + np.eye(n), rng.standard_normal((n, 4))
+
+
+def float64_values(n, dtype):
+    """numpy's float64 eigenvalues of S and singular values of A, the
+    matrices of `decompositions(paddle, n, dtype)` rounded to `dtype`,
+    each sorted as `decompositions` gives them."""
+    a, spd, _ = (v.astype(dtype).astype(np.float64)
+                 for v in _case_matrices(n))
+    return {"eigenvalues": np.linalg.eigvalsh(spd),
+            "singular_values": np.linalg.svd(a, compute_uv=False)}
 
 
 ROUTE_ONE = {"flash_attention_fwd": 1, "flash_attention_dq": 1,

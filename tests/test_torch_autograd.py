@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 
 from torch_eager_common import Scenarios, fresh, port_on_cpu  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 SC = Scenarios()
 PKGS = ("jax", "torch")

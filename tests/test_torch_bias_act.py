@@ -29,6 +29,7 @@ from paddle_tpu.framework import flags
 from paddle_tpu.ops.pallas import bias_act as jba
 import paddle_tpu_torch.incubate.nn.functional as PF
 from paddle_tpu_torch.ops.kernels import bias_act as ba
+from torch_threads import one_thread  # noqa: F401
 
 ROWS, H = 6, 32
 ACTS = sorted(ba.ACT_CODES)

@@ -25,6 +25,7 @@ from paddle_tpu_torch.ops.kernels import _support
 from paddle_tpu_torch.ops.kernels import flash_attention as tflash
 
 from torch_eager_common import fresh, port_on_cpu  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 TOL2 = dict(rtol=1e-4, atol=1e-4)

@@ -1,7 +1,9 @@
 """The port's flash attention (`paddle_tpu_torch.ops.kernels.flash_attention`)
 against the JAX package's Pallas kernels, run in interpret mode on the CPU:
-the same numpy inputs through `_fa_forward` / `jax.grad` of
-`flash_attention_bhsd` (JAX, `[B, H, S, D]`) and through the port's plain
+the same numpy inputs through the forward and backward rules of
+`flash_attention_bhsd`'s custom VJP (JAX, `[B, H, S, D]`; the backward
+at the cotangent is `jax.grad` of sum(out * ct), each kernel run once)
+and through the port's plain
 versions and autograd Function (`[B, S, H, D]`), in f32.
 
 Tolerance 1e-5: both sides compute in f32 and differ only in summation
@@ -14,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
 from paddle_tpu.framework import flags
@@ -24,6 +25,7 @@ from paddle_tpu.core.tensor import Tensor
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.functional import attention
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-5
 B, H = 2, 4
@@ -76,14 +78,12 @@ def _jax_reference(q, k, v, ct, kv_lens, causal):
     scale = 1.0 / float(np.sqrt(d))
     lens = None if kv_lens is None else jnp.asarray(kv_lens)
     qt, kt, vt, ctt = _bhsd(q), _bhsd(k), _bhsd(v), _bhsd(ct)
-    out, lse = jfa._fa_forward(qt, kt, vt, causal, scale, lens)
-
-    def loss(q_, k_, v_):
-        return (jfa.flash_attention_bhsd(q_, k_, v_, causal=causal,
-                                         kv_lens=lens) * ctt).sum()
-
-    grads = jax.grad(loss, argnums=(0, 1, 2))(qt, kt, vt)
-    sw = [np.swapaxes(np.asarray(x), 1, 2) for x in (out,) + grads]
+    # the custom VJP's own rules, each kernel run once: the gradient of
+    # sum(out * ct) is the backward rule at the cotangent ct
+    out, res = jfa._flash_fwd_rule(qt, kt, vt, lens, causal, scale)
+    lse = res[-1]
+    grads = jfa._flash_bwd_rule(causal, scale, res, ctt)[:3]
+    sw = [np.swapaxes(np.asarray(x), 1, 2) for x in (out,) + tuple(grads)]
     return sw[0], np.asarray(lse)[..., 0], sw[1], sw[2], sw[3]
 
 

@@ -24,6 +24,7 @@ from paddle_tpu.framework import flags as jflags
 from paddle_tpu.ops.pallas import fused_moe as jfm
 from paddle_tpu_torch.framework import flags
 from paddle_tpu_torch.ops.kernels import fused_moe as fm
+from torch_threads import one_thread  # noqa: F401
 
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16),

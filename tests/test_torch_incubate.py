@@ -26,6 +26,7 @@ from paddle_tpu.core.tensor import Tensor
 from paddle_tpu.framework import flags
 import paddle_tpu_torch.incubate.nn.functional as PF
 from paddle_tpu_torch.ops.kernels import _support
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

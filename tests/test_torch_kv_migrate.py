@@ -28,6 +28,7 @@ import paddle_tpu_torch.serving as tserving
 from paddle_tpu_torch import LlamaConfig, LlamaInferenceEngine, from_jax_state
 from paddle_tpu_torch.framework import monitor as tmonitor
 from paddle_tpu_torch.inference import kv_migrate as tmig
+from torch_threads import one_thread  # noqa: F401
 
 MLP_KW = dict(vocab_size=64, hidden=16, max_batch_size=4, num_blocks=32,
               block_size=4, max_blocks_per_seq=8, seed=3)

@@ -17,6 +17,7 @@ import pytest
 
 from torch_eager_common import (assert_same, fresh, jpaddle,  # noqa: F401
                                 port_on_cpu, tpaddle)
+from torch_threads import one_thread  # noqa: F401
 
 PKGS = {"jax": jpaddle, "torch": tpaddle}
 _X = np.linspace(0.1, 2.4, 12).astype(np.float32).reshape(3, 4)

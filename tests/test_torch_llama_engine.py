@@ -17,6 +17,7 @@ from paddle_tpu.models import llama_tiny as jax_llama_tiny
 from paddle_tpu.serving.quant import quantize_engine as jax_quantize_engine
 from paddle_tpu_torch import LlamaConfig, LlamaInferenceEngine, from_jax_state
 from paddle_tpu_torch.serving.quant import quantize_engine
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = RTOL = 1e-4   # f32 logits after two layers of matmuls
 B, BS, MAXB, NB = 3, 4, 16, 32

@@ -19,6 +19,7 @@ from torch_eager_common import (fresh, jpaddle, port_on_cpu,  # noqa: F401
 
 from paddle_tpu_torch.convert import from_jax_state, layers_from_jax_state
 from paddle_tpu_torch.models import llama_layers as tl
+from torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # one tiny configuration for most cases: the JAX package compiles each

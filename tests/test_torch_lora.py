@@ -33,6 +33,7 @@ from paddle_tpu_torch.framework import monitor as tmonitor
 from paddle_tpu_torch.resilience import faults as tfaults
 from paddle_tpu_torch.serving import lora as tlora
 from paddle_tpu_torch.serving.quant import greedy_agreement, quantize_engine
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = RTOL = 1e-4   # f32 logits after two layers of matmuls
 

@@ -14,6 +14,7 @@ import pytest
 
 from torch_eager_common import (Scenarios, fresh, jpaddle,  # noqa: F401
                                 port_on_cpu, tpaddle)
+from torch_threads import one_thread  # noqa: F401
 
 SC = Scenarios()
 PKGS = ("jax", "torch")

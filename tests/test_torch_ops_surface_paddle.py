@@ -10,9 +10,9 @@ from torch_ops_surface_common import one_thread, port_on_cpu  # noqa: F401
 
 NAMESPACES = ['paddle']
 # exports each namespace resolves at least
-TARGETS = {'paddle': 235}
+TARGETS = {'paddle': 415}
 # (ran, matched the recipe's numpy reference, finite-difference verified)
-FLOORS = {'paddle': (293, 211, 104)}
+FLOORS = {'paddle': (410, 250, 123)}
 
 CASES = sum([
     [("paddle", n) for n in compared("paddle")]], [])

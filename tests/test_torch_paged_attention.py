@@ -6,11 +6,13 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.framework import flags
 from paddle_tpu.ops.pallas import paged_attention as jpa
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = RTOL = 1e-5   # f32: the two differ only in summation order
 
@@ -87,6 +89,13 @@ def _case(name, rng):
     raise KeyError(name)
 
 
+# the Pallas kernel (interpret mode) and its reference under one
+# `jax.jit` a call: the interpreter's grid loop compiles once instead of
+# running op by op
+_ragged = jax.jit(jpa.paged_attention_ragged)
+_ragged_ref = jax.jit(jpa.paged_attention_ragged_ref)
+
+
 def _pool(rng, nb, kvh, bs, d):
     return (rng.normal(size=(nb, kvh, bs, d)).astype(np.float32),
             rng.normal(size=(nb, kvh, bs, d)).astype(np.float32))
@@ -98,8 +107,8 @@ def _run_all(q, kc, vc, tables, kv_lens, q_lens):
     jargs = (jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
              jnp.asarray(tables, jnp.int32), jnp.asarray(kv_lens, jnp.int32),
              jnp.asarray(jl), jnp.asarray(jp))
-    kern = np.asarray(jpa.paged_attention_ragged(*jargs))
-    ref = np.asarray(jpa.paged_attention_ragged_ref(*jargs))
+    kern = np.asarray(_ragged(*jargs))
+    ref = np.asarray(_ragged_ref(*jargs))
     port = tpa.paged_attention_ragged(
         torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
         torch.tensor(tables, dtype=torch.int32),
@@ -213,8 +222,8 @@ def _run_all_q(q, kc, vc, ks, vs, tables, kv_lens, q_lens):
              jnp.asarray(tables, jnp.int32), jnp.asarray(kv_lens, jnp.int32),
              jnp.asarray(jl), jnp.asarray(jp))
     jscales = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
-    kern = np.asarray(jpa.paged_attention_ragged(*jargs, **jscales))
-    ref = np.asarray(jpa.paged_attention_ragged_ref(*jargs, **jscales))
+    kern = np.asarray(_ragged(*jargs, **jscales))
+    ref = np.asarray(_ragged_ref(*jargs, **jscales))
     before = tpa.LAUNCHES_Q.count
     port = tpa.paged_attention_ragged(
         torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),

@@ -6,11 +6,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.framework import flags
 from paddle_tpu.ops.pallas import paged_attention as jpa
 from paddle_tpu_torch.ops.kernels import paged_attention as tpa
+from torch_threads import one_thread  # noqa: F401
+
+# the Pallas kernels (interpret mode) under one `jax.jit` a call: the
+# interpreter's grid loop compiles once instead of running op by op
+_decode = jax.jit(jpa.paged_attention)
+_verify = jax.jit(jpa.paged_attention_verify)
 
 # f32: the two differ only in summation order. bf16: both sum in f32 and
 # round the output once, so a value may sit one bf16 ulp apart (2^-8
@@ -64,8 +71,8 @@ def test_decode_plain_matches_pallas(case, dtype, interpret):
                                                dtype)
     q = rng.normal(size=(len(lens), h, d)).astype(np.float32)
     jd, td = DTYPES[dtype]
-    want = np.asarray(jpa.paged_attention(jnp.array(q, dtype=jd), jk, jv,
-                                          jt, jl), np.float32)
+    want = np.asarray(_decode(jnp.array(q, dtype=jd), jk, jv, jt, jl),
+                      np.float32)
     got = tpa.paged_attention(torch.tensor(q).to(td), tk, tv, tt, tl)
     assert got.dtype == td and got.shape == (len(lens), h, d)
     got = got.float().numpy()
@@ -88,8 +95,8 @@ def test_verify_plain_matches_pallas(case, s, dtype, interpret):
                                                dtype)
     q = rng.normal(size=(len(lens), s, h, d)).astype(np.float32)
     jd, td = DTYPES[dtype]
-    want = np.asarray(jpa.paged_attention_verify(
-        jnp.array(q, dtype=jd), jk, jv, jt, jl), np.float32)
+    want = np.asarray(_verify(jnp.array(q, dtype=jd), jk, jv, jt, jl),
+                      np.float32)
     got = tpa.paged_attention_verify(torch.tensor(q).to(td), tk, tv, tt, tl)
     assert got.dtype == td and got.shape == (len(lens), s, h, d)
     got = got.float().numpy()

@@ -83,7 +83,9 @@ def test_port_files_exist():
                  "testing/op_harness.py", "nn/functional/loss.py",
                  "nn/functional/attention.py", "nn/layer/loss.py",
                  "nn/clip.py", "regularizer.py", "optimizer/lr.py",
-                 "optimizer/optimizer.py", "tools/loop_workload.py"):
+                 "optimizer/optimizer.py", "tools/loop_workload.py",
+                 "ops/extended.py", "fft.py", "signal.py",
+                 "tools/fnet_workload.py", "tools/smoke_clock.py"):
         assert f"paddle_tpu_torch/{name}" in rel, name
 
 
@@ -168,13 +170,37 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.nn.functional.attention, "
             "paddle_tpu_torch.nn.layer.loss, paddle_tpu_torch.nn.clip, "
             "paddle_tpu_torch.regularizer, paddle_tpu_torch.optimizer.lr, "
-            "paddle_tpu_torch.tools.loop_workload\n"
+            "paddle_tpu_torch.tools.loop_workload, "
+            "paddle_tpu_torch.ops.extended, paddle_tpu_torch.fft, "
+            "paddle_tpu_torch.signal, paddle_tpu_torch.tools.fnet_workload\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_tensor_op_slice_entry_points_need_the_card():
+    """`paddle.fft`, `paddle.signal`, the extended draws and the FNet
+    workload make their tensors on the default place: the card, or a
+    raise naming `set_device`."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default place is the card")
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import fnet_workload
+
+    calls = [lambda: paddle.fft.fftfreq(8), lambda: paddle.fft.rfftfreq(8),
+             lambda: paddle.logspace(0, 2, 5),
+             lambda: paddle.standard_normal([3]),
+             lambda: paddle.tril_indices(3),
+             lambda: fnet_workload.fnet_workload(paddle),
+             lambda: fnet_workload.tiny_steps(paddle)]
+    with place.device_scope(None):
+        for call in calls:
+            with pytest.raises(RuntimeError, match="set_device"):
+                call()
 
 
 def _tiny_model():

@@ -39,6 +39,7 @@ from paddle_tpu_torch.framework import monitor as tmonitor
 from paddle_tpu_torch.inference.cache import BlockCacheManager as TMgr
 from paddle_tpu_torch.inference.prefix_cache import RadixPrefixCache as TTree
 from paddle_tpu_torch.resilience import faults as tfaults
+from torch_threads import one_thread  # noqa: F401
 
 VOCAB = 64
 BS = 4
@@ -813,22 +814,12 @@ def test_copy_kv_block_moves_every_plane(jax_llama, kv_bits):
                                       np.asarray(getattr(je, n)))
 
 
-@pytest.fixture
-def one_thread():
-    """Run the test on one intra-op thread. Its time goes to ops over the
-    [40, 32000] logits of every step (the head's matmul, the scheduler's
-    finiteness screen) and the plain attention; with torch's default of
-    one thread a core in every test worker, six workers' thread pools
-    oversubscribe the cores and the trace took 100 s in a 6-worker run
-    (about 220 s for each of 6 concurrent copies on an 8-core machine,
-    against about 7 s each on one thread)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-def test_prefix_workload_trace_meets_the_card_gates(one_thread):
+# The trace's time goes to ops over the [40, 32000] logits of every step
+# (the head's matmul, the scheduler's finiteness screen) and the plain
+# attention; on torch's default of one thread a core in each of six test
+# workers it took 100 s in a 6-worker run, about 7 s on one thread
+# (`one_thread`, which every test of this file runs under).
+def test_prefix_workload_trace_meets_the_card_gates():
     """The card's `serve_prefix` trace (`tools/serve_workload.py`
     `prefix_workload`: 42 requests, a 192-token shared prefix, a pool of
     128 blocks of 16) at a tiny width on the CPU: the scheduler's integer

@@ -15,6 +15,7 @@ from paddle_tpu.ops.pallas import quant_matmul as jqm
 from paddle_tpu_torch.inference import kv_quant as tkv
 from paddle_tpu_torch.nn import quant as tq
 from paddle_tpu_torch.ops.kernels import quant_matmul as tqm
+from torch_threads import one_thread  # noqa: F401
 
 _TORCH_OF = {"int8": torch.int8, "float8_e4m3fn": torch.float8_e4m3fn,
              "float8_e5m2": torch.float8_e5m2}

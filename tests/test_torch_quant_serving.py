@@ -26,6 +26,7 @@ from paddle_tpu_torch.framework import monitor
 from paddle_tpu_torch.serving import ServingMetrics
 from paddle_tpu_torch.serving.quant import (greedy_agreement, quant_summary,
                                             quantize_engine)
+from torch_threads import one_thread  # noqa: F401
 
 VOCAB = 128
 GEO = dict(max_batch_size=4, num_blocks=64, block_size=8,

@@ -13,6 +13,7 @@ import paddle_tpu as jpaddle
 import paddle_tpu_torch as tpaddle
 
 from torch_eager_common import port_on_cpu  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 
 def _both(fn, seed):

@@ -27,6 +27,7 @@ from paddle_tpu.framework import flags
 from paddle_tpu.ops.pallas import rope as jrope
 import paddle_tpu_torch.incubate.nn.functional as PF
 from paddle_tpu_torch.ops.kernels import rope as rk
+from torch_threads import one_thread  # noqa: F401
 
 SHAPE = (2, 6, 3, 16)           # B, S, H, D
 T = 9                           # table rows

@@ -19,6 +19,7 @@ from paddle_tpu.serving import ServingMetrics as JaxMetrics
 from paddle_tpu_torch import (LlamaConfig, LlamaInferenceEngine,
                               ServingFrontend, from_jax_state)
 from paddle_tpu_torch.serving import ServingMetrics
+from torch_threads import one_thread  # noqa: F401
 
 VOCAB = 256
 

@@ -23,6 +23,7 @@ from paddle_tpu_torch.framework import monitor as tmonitor
 from paddle_tpu_torch.resilience import faults as tfaults
 from paddle_tpu_torch.serving import scheduler as tscheduler
 from paddle_tpu_torch.serving.fault_tolerance import OverloadController as TOC
+from torch_threads import one_thread  # noqa: F401
 
 VOCAB = 64
 

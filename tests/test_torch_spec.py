@@ -27,6 +27,7 @@ from paddle_tpu_torch.framework import monitor
 from paddle_tpu_torch.inference.cache import KVCacheExhausted
 from paddle_tpu_torch.serving import (DraftEngineProposer, NGramProposer,
                                       ServingMetrics, SpecDecodeConfig)
+from torch_threads import one_thread  # noqa: F401
 
 VOCAB = 64
 GEO = dict(block_size=4, max_blocks_per_seq=16)

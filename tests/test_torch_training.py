@@ -29,6 +29,7 @@ from paddle_tpu_torch import (LlamaConfig, LlamaInferenceEngine,
                               from_jax_state, llama_tiny)
 from paddle_tpu_torch.ops.kernels import _support
 from paddle_tpu_torch.optimizer import AdamW
+from torch_threads import one_thread  # noqa: F401
 
 VARIANTS = {"mha": {}, "gqa": {"num_key_value_heads": 2},
             "tied": {"tie_word_embeddings": True}}

@@ -16,23 +16,11 @@ import pytest
 
 from torch_eager_common import (assert_same, fresh, jpaddle,  # noqa: F401
                                 port_on_cpu, to_np, tpaddle)
+from torch_threads import one_thread  # noqa: F401
 
 PKGS = ("jax", "torch")
 GRAD_TOL = 1e-4
 ZERO_GRAD_ATOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the port's tensors: they are tiny, and six
-    test workers' default thread pools (one thread a core each)
-    oversubscribe the cores."""
-    import torch
-
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def norm_rel(got, want):

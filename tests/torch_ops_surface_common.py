@@ -24,6 +24,7 @@ import pytest
 import paddle_tpu as jpaddle
 import paddle_tpu_torch as tpaddle
 from paddle_tpu.testing import op_harness as JH
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MANIFEST = json.load(open(os.path.join(REPO, "OPS_PARITY.json")))
@@ -39,12 +40,26 @@ F32_INSIDE = {
     "gumbel_softmax": "the Gumbel noise is a float32 draw and its float32 "
                       "-log(-log(u)) (one ulp apart in XLA's and torch's "
                       "log)",
+    "normal_": "a float32 normal draw (erfinv, within float32's tolerance "
+               "as randn) cast to the float64 input's dtype",
+    "log_normal_": "exp of a float32 normal draw, cast to the float64 "
+                   "input's dtype",
 }
+
+# float64 exports held to a wider relative tolerance, and why
+TOL64_WIDER = {
+    "polygamma": (1e-9, "XLA's Hurwitz zeta (chlo.zeta) and torch's Cephes "
+                        "zeta differ by ~5e-10 relative"),
+}
+TOL64_WIDER["polygamma_"] = TOL64_WIDER["polygamma"]
 
 # exports with a numpy reference that are held to the JAX package all
 # the same, and why
 JAX_HELD = {(ns, n): "the recipe's reference takes no keyword arguments"
             for ns in ("paddle", "Tensor") for n in ("cumsum", "cumprod")}
+JAX_HELD.update({(ns, "cross"): "the reference crosses the last axis; "
+                 "paddle's default axis=9 is the first axis of size 3"
+                 for ns in ("paddle", "Tensor")})
 
 # exports the comparison leaves out, with the reason
 NOT_COMPARED = {
@@ -54,6 +69,17 @@ NOT_COMPARED = {
     ("paddle", "shape"): "the harness skips it (exercised everywhere)",
     ("Tensor", "shape"): "a property of Tensor in both packages",
 }
+# decompositions compared by their invariants, and the Householder /
+# LU unpacking calls compared on factors of a real factorisation
+# (`test_torch_ops_surface_linalg_fft.py`)
+for _ns, _names in (("paddle.linalg", ("svd", "eigh", "svd_lowrank",
+                                       "pca_lowrank", "lu_unpack", "ormqr")),
+                    ("Tensor", ("svd_lowrank", "pca_lowrank", "lu_unpack",
+                                "ormqr"))):
+    for _n in _names:
+        NOT_COMPARED[(_ns, _n)] = ("compared by invariants or on real "
+                                   "factors in test_torch_ops_surface_"
+                                   "linalg_fft.py")
 # list-first functions as methods (self would be the whole list)
 for _n in JH.SKIP_AS_METHOD:
     if hasattr(tpaddle.Tensor, _n):
@@ -146,13 +172,13 @@ def _call(pkg, ns, name, spec, build):
     return fn(*a, **k)
 
 
-def assert_close(want, got, label, f32_inside=False):
+def assert_close(want, got, label, f32_inside=False, tol64=None):
     assert len(want) == len(got), (label, len(want), len(got))
     for i, (w, g) in enumerate(zip(want, got)):
         assert (w.dtype, w.shape) == (g.dtype, g.shape), \
             (label, i, w.dtype, w.shape, g.dtype, g.shape)
         if w.dtype.kind in "fc":
-            tol = TOL64 if w.dtype in (np.float64, np.complex128) \
+            tol = (tol64 or TOL64) if w.dtype in (np.float64, np.complex128) \
                 and not f32_inside else TOL32
             np.testing.assert_allclose(g, w, equal_nan=True,
                                        err_msg=f"{label}[{i}]", **tol)
@@ -215,7 +241,9 @@ def compare(ns, name):
             raise AssertionError(f"{name}: no generic strategy runs on JAX")
     want = _flat(jpaddle, _call(jpaddle, ns, name, spec, build))
     got = _flat(tpaddle, _call(tpaddle, ns, name, spec, build))
-    assert_close(want, got, f"{ns}:{name}", name in F32_INSIDE)
+    wider = TOL64_WIDER.get(name)
+    assert_close(want, got, f"{ns}:{name}", name in F32_INSIDE,
+                 dict(rtol=wider[0], atol=1e-12) if wider else None)
 
 
 def compared(ns):
@@ -253,14 +281,3 @@ def port_on_cpu():
     with place.device_scope("cpu"):
         yield
 
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the ops here are tiny, and six test workers'
-    default thread pools would oversubscribe the cores."""
-    import torch
-
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
