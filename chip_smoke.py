@@ -136,7 +136,29 @@ FNet-base (google/fnet-base widths, 12 layers), B 32 x S 512, O2 bf16,
 2 warm-up and 4 timed pre-training steps eagerly and again under lazy
 mode: no flash or RMSNorm launch (FNet has no attention and LayerNorm
 norms), lazy bit-equal to eager, falling losses, the Fourier sublayers'
-share of the step (`fnet_train`).
+share of the step (`fnet_train`). Then sparse embeddings, quantization
+and guarded training (`tools/resilience_workload.py`,
+`tools/quant_workload.py`): the Layer Llama (small, f32) with
+`Embedding(sparse=True)` under SGD, Adam (lazy and not), AdamW (lazy,
+multi_precision) and Momentum with a global-norm clip and under a
+GradScaler, the weight-only (int8, fp8, int4) and LLM.int8 products, the
+int8 gemm's gradient, QAT and PTQ, on the card against the CPU; the
+SelectedRows merge repeating bit for bit; a CheckpointManager save on
+the card restored on the CPU and back bit for bit; a torn and a
+bit-flipped directory quarantined (`resilience_reference`). Then
+Llama-2-7B width (4 layers, O2 bf16, 2048 tokens) with a dense and then
+a sparse word embedding under the Trainer loop's AdamW in lazy_mode:
+exact launches, no dense embedding gradient, untouched rows
+bit-unchanged, losses near the dense run's (`sparse_train`); at 1
+layer, 8 steps under `StepGuard` over an async CheckpointManager, the
+step function returning NaN once: one rollback, the replay and the
+final state bit-equal to an uninterrupted run, then a corrupted newest
+checkpoint quarantined and the previous one restored bit for bit
+(`resilient_train`); the trained 4-layer model deployed by PTQ through
+the int8 and int4 weight-only gemms at B 1 x S 2048 (29 launches a
+forward, each Linear against its plain version, logits near the bf16
+model's), two QAT steps, and both gemms timed at M 2,048 over the five
+serving shapes (`quant_deploy`).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve_lora,serve_migrate
@@ -148,6 +170,7 @@ share of the step (`fnet_train`).
     python3 chip_smoke.py --only ops_reference,train_loop_reference,train_loop
     python3 chip_smoke.py --only nn_reference,encoder_train
     python3 chip_smoke.py --only ops_reference,fnet_reference,fnet_train
+    python3 chip_smoke.py --only resilience_reference,sparse_train,resilient_train,quant_deploy
 
 Each phase prints one JSON line. `--only` runs the device check and the
 named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
@@ -156,8 +179,9 @@ two are one run: the disaggregated run sits between the clean and the
 chaos fleet runs), `tp_reference`, `serve_tp`, `eager_reference`,
 `eager_attention`, `jit_reference`, `jit_layer`, `lazy_reference`,
 `lazy_llama`, `ops_reference`, `train_loop_reference`, `train_loop`,
-`nn_reference`, `encoder_train`, `fnet_reference`, `fnet_train`),
-with no kernels line and
+`nn_reference`, `encoder_train`, `fnet_reference`, `fnet_train`,
+`resilience_reference`, `sparse_train`, `resilient_train`,
+`quant_deploy`), with no kernels line and
 no last line: a measurement of those phases without the whole run. The TP
 phases start their rank processes as `chip_smoke.py --tp-rank ...`. Any failure raises, so the script exits
 non-zero and never prints the last line, which on success is exactly
@@ -637,7 +661,7 @@ def phase_paged():
 
 
 def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16,
-                table=GEMM_SHAPES):
+                table=GEMM_SHAPES, m=GEMM_M):
     from paddle_tpu_torch.nn import quant as nq
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
 
@@ -649,7 +673,7 @@ def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16,
     for name in shapes:
         n, k = table[name]
         w = torch.randn((n, k), generator=gen, device="cuda") * 0.02
-        x = torch.randn((GEMM_M, k), generator=gen,
+        x = torch.randn((m, k), generator=gen,
                         device="cuda").to(x_dtype)
         algo = {"int8": "weight_only_int8", "int4": "weight_only_int4"}.get(
             fmt, "fp8")
@@ -684,20 +708,20 @@ def _gemm_cases(fmt, shapes, gen, flush, x_dtype=torch.bfloat16,
             x.to(torch.bfloat16), w16.t()), flush)
         w_bytes = wq.numel() * wq.element_size()
         nbytes = (x.numel() * x.element_size() + w_bytes + 4 * n
-                  + GEMM_M * n * x.element_size())
-        flops = 2 * GEMM_M * n * k
+                  + m * n * x.element_size())
+        flops = 2 * m * n * k
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS
                                    if x_dtype == torch.bfloat16 else
                                    F32_FLOPS)
         split_k = x_dtype == torch.bfloat16
         results[f"{name}_{fmt}" + ("" if x_dtype == torch.bfloat16
                                    else "_f32")] = {
-            "N": n, "K": k, "M": GEMM_M, "tol": tol,
+            "N": n, "K": k, "M": m, "tol": tol,
             "max_abs_err": err, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "weight_bytes": w_bytes, "bytes": nbytes, "flops": flops,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "splits": qm.gemm_plan(GEMM_M, n, k, sms, int4).splits
+            "splits": qm.gemm_plan(m, n, k, sms, int4).splits
             if split_k else 1,
             "gb_per_s": nbytes / kernel_ms / 1e6,
             "bound_fraction": bound_ms / kernel_ms,
@@ -5529,6 +5553,674 @@ def phase_moe_layer(kind, smi, group):
     return launches["ep_kernels"]
 
 
+# ---- SelectedRows, quantization and guarded training ----
+
+# card against CPU on the small cases (`resilience_workload.reference_run`),
+# norm-relative for each f32 array: the sparse trajectories' losses, the
+# weight-only products and the int8 gradient, QAT and PTQ within
+# RES_REF_TOL; the tiny Llama's parameters after three steps at lr 0.01
+# within RES_PARAM_TOL: Adam and AdamW normalise each gradient by its
+# own magnitude, so an element whose gradient is near rounding noise
+# (the card's flash kernel against SDPA's plain version on the CPU)
+# moves by a different fraction of lr (an H100 gave 1.1e-5 on a gate_proj
+# weight after 3 Adam steps; lazy_reference holds parameters at 1e-3
+# for the same reason)
+RES_REF_TOL = 1e-5
+RES_PARAM_TOL = 1e-4
+# sparse_train: Llama-2-7B width at LAYERS layers, SPARSE_STEPS steps each
+# way; the sparse run's losses within SPARSE_LOSS_TOL (relative) of the
+# dense run's
+SPARSE_STEPS = 4
+SPARSE_LOSS_TOL = 1e-3
+# resilient_train: 1 of 32 layers (at 2, each 9.3 GB checkpoint written,
+# verified and read back made the phase ~180 s on an H100), 8 steps, a
+# checkpoint every 3 steps (after steps 2 and 5), NaN returned once at
+# step 6
+RESILIENT_LAYERS, RESILIENT_STEPS, RESILIENT_NAN_AT = 1, 8, 6
+RESILIENT_SAVE_EVERY = 3
+# quant_deploy: each WeightOnlyLinear's kernel output against its plain
+# version on the forward's own input (norm-relative), and the deployed
+# logits against the bf16 model's. The logit bounds are those the CPU
+# rehearsal holds at 4 layers of random (Xavier) weights, where the
+# absmax quantizer sits at its worst: int8 0.020 and int4 0.26-0.30 of
+# the logits' norm at hidden 256-1024
+QUANT_KERNEL_TOL = 1e-2
+QUANT_LOGIT_TOL = {"weight_only_int8": 3e-2, "weight_only_int4": 4e-1}
+# a forward at 4 layers: 7 Linears a layer and the head through row 11
+# (int8) or 12 (int4), one flash forward a layer, 2 RMSNorms a layer and
+# the final one
+DEPLOY_GEMMS = 7 * 4 + 1
+
+
+def _state_equal(label, got, want):
+    """Every array / value of `want` equal to `got`'s, bit for bit."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {sorted(set(got) ^ set(want))}")
+    for k, w in want.items():
+        g = got[k]
+        same = np.array_equal(g, w) if isinstance(w, np.ndarray) \
+            else g == w
+        if not same:
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def _max_abs_tree(got, want):
+    """The largest elementwise difference over the float arrays of two
+    nested results."""
+    if isinstance(want, dict):
+        return max([_max_abs_tree(got[k], want[k]) for k in want] or [0.0])
+    if isinstance(want, (list, tuple)):
+        return max([_max_abs_tree(g, w) for g, w in zip(got, want)]
+                   or [0.0])
+    want = np.asarray(want)
+    if want.dtype.kind != "f" or not want.size:
+        return 0.0
+    return float(np.abs(np.asarray(got, np.float64) - want).max())
+
+
+def _checkpoint_cross_device(paddle, rw, root):
+    """A CheckpointManager save of the sparse tiny Llama (AdamW lazy,
+    masters, GradScaler, RNG) made on the card restores on the CPU, and
+    the CPU's save of that restores on the card: every tensor, scalar
+    and counter equal."""
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    with place.device_scope("gpu"):
+        model, opt, scaler = rw.tiny_trained(paddle)
+        want = rw.checkpoint_state(paddle, model, opt, scaler)
+        CheckpointManager(f"{root}/card").save(2, model=model,
+                                               optimizer=opt, scaler=scaler)
+    for dev, src, dst in (("cpu", "card", "cpu"), ("gpu", "cpu", None)):
+        with place.device_scope(dev):
+            model, opt, scaler = rw.tiny_trained(paddle, seed=99, steps=1)
+            res = CheckpointManager(f"{root}/{src}").restore_latest(
+                model=model, optimizer=opt, scaler=scaler)
+            if res is None or res.step != 2:
+                raise AssertionError(f"resilience_reference: restore on "
+                                     f"{dev} gave {res}")
+            _state_equal(f"resilience_reference checkpoint {src} -> {dev}",
+                         rw.checkpoint_state(paddle, model, opt, scaler),
+                         want)
+            if dst is not None:
+                CheckpointManager(f"{root}/{dst}").save(
+                    2, model=model, optimizer=opt, scaler=scaler)
+    return {"card_to_cpu": True, "cpu_to_card": True,
+            "tensors": sum(isinstance(v, np.ndarray) for v in want.values())}
+
+
+def _quarantine_cases(paddle, root):
+    """A torn directory (no COMPLETE) and a bit-flipped shard of card
+    saves are each quarantined, and the newest good step restores."""
+    from paddle_tpu_torch.framework import monitor, place
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    with place.device_scope("gpu"):
+        st = {"w": paddle.randn([64, 64]), "b": paddle.randn([64])}
+        cm = CheckpointManager(root, keep_last_n=10)
+        for step in range(3):
+            cm.save(step, state_dict=st)
+    q0 = monitor.get("resilience.quarantines")
+    Path(root, "step_000002", "COMPLETE").unlink()
+    torn = cm.latest_valid()
+    shard = Path(root, "step_000001", "0_0.distcp")
+    raw = bytearray(shard.read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    shard.write_bytes(bytes(raw))
+    flipped = cm.latest_valid()
+    quarantined = sorted(p.name for p in Path(root).iterdir()
+                         if p.name.startswith("QUARANTINED-"))
+    if torn[0] != 1 or flipped[0] != 0 or quarantined != [
+            "QUARANTINED-step_000001", "QUARANTINED-step_000002"] or \
+            monitor.get("resilience.quarantines") - q0 != 2:
+        raise AssertionError(f"resilience_reference: quarantine gave "
+                             f"{torn} {flipped} {quarantined}")
+    return {"torn_to": torn[0], "bit_flip_to": flipped[0],
+            "quarantined": quarantined}
+
+
+def phase_resilience_reference():
+    """`resilience_workload.reference_run` on the card and on the CPU:
+    the Layer Llama (`llama_tiny`, f32) with `Embedding(sparse=True)`
+    three steps of SGD, Adam(lazy_mode True / False), AdamW(lazy_mode,
+    multi_precision) and Momentum under ClipGradByGlobalNorm(1.0), and
+    Adam under a GradScaler, the SelectedRows' rows equal, losses
+    within RES_REF_TOL and parameters within RES_PARAM_TOL norm-relative
+    of the CPU's; `weight_only_linear` int8 / fp8 / int4,
+    `llm_int8_linear` and the int8 gemm's gradient to x, QAT (Linear,
+    Conv2D) two steps and PTQ in both convert forms within RES_REF_TOL
+    (the largest elementwise differences printed). Then the merge of a 2,048 x 4,096
+    bf16 SelectedRows repeats bit for bit on the card; a CheckpointManager
+    save on the card restores on the CPU and back, bit for bit; a torn
+    directory and a bit-flipped shard are quarantined. Returns the
+    card run's launches."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.selected_rows import merge_rows
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import resilience_workload as rw
+
+    runs = {}
+    _launch_delta()
+    for dev in ("gpu", "cpu"):
+        with place.device_scope(dev):
+            runs[dev] = rw.reference_run(paddle)
+        if dev == "gpu":
+            torch.cuda.synchronize()
+            launches = _launch_delta()
+    gpu, cpu = runs["gpu"], runs["cpu"]
+    worst = {part: _rel_tree(f"resilience_reference {part}", gpu[part],
+                             cpu[part], RES_REF_TOL)
+             for part in ("quant", "qat_ptq")}
+    for key, run in cpu["sparse"].items():
+        got = gpu["sparse"][key]
+        worst[f"sparse.{key}.losses"] = _rel_tree(
+            f"resilience_reference {key} losses", got["losses"],
+            run["losses"], RES_REF_TOL)
+        worst[f"sparse.{key}.rows"] = _rel_tree(
+            f"resilience_reference {key} rows", got["rows"], run["rows"],
+            RES_REF_TOL)
+        worst[f"sparse.{key}.params"] = _rel_tree(
+            f"resilience_reference {key} params", got["params"],
+            run["params"], RES_PARAM_TOL)
+    max_abs = {part: _max_abs_tree(gpu[part], cpu[part])
+               for part in ("sparse", "quant", "qat_ptq")}
+    if not launches.get("quant_matmul", 0) >= 4 or \
+            not launches.get("quant_matmul_int4", 0) >= 1:
+        raise AssertionError(f"resilience_reference: launches {launches}")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = torch.randint(0, 32000, (2048,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    vals = torch.randn((2048, 4096), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    merges = [merge_rows(rows, vals, 32000) for _ in range(5)]
+    if not all(torch.equal(u, merges[0][0]) and torch.equal(m, merges[0][1])
+               for u, m in merges[1:]):
+        raise AssertionError("resilience_reference: the merge does not "
+                             "repeat bit for bit")
+    root = tempfile.mkdtemp(prefix="resilience_reference_")
+    try:
+        ckpt = _checkpoint_cross_device(paddle, rw, root)
+        quarantine = _quarantine_cases(paddle, f"{root}/quarantine")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "resilience_reference", "tol_norm_rel": RES_REF_TOL,
+          "param_tol_norm_rel": RES_PARAM_TOL,
+          "norm_rel": worst, "max_abs_err": max_abs,
+          "merge_repeats_bit_equal": True, "merge_rows": 2048,
+          "checkpoint": ckpt, "quarantine": quarantine,
+          "launches": launches})
+    del runs, gpu, cpu, merges
+    release()
+    return launches
+
+
+def _sparse_run(paddle, rw, lw, sparse, timer):
+    """SPARSE_STEPS Trainer steps of `sparse_workload` at LAYERS layers;
+    returns the report, the embedding's touched rows (param, master,
+    moments) after each step, and (sparse) the work."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows, merge_rows
+
+    torch.cuda.reset_peak_memory_stats()
+    work = rw.sparse_workload(paddle, sparse)
+    model, opt, sched, ids, labels = work
+    w = model.llama.embed_tokens.weight
+    idx = torch.unique(ids._data.reshape(-1)).long()
+    untouched = torch.ones(w.shape[0], dtype=torch.bool, device="cuda")
+    untouched[idx] = False
+    w0 = w._data.detach().clone()
+    losses, launches, step_ms, rows, merge_ms = [], [], [], [], None
+    _launch_delta()
+    for step in range(SPARSE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with paddle.amp.auto_cast(level="O2"):
+            logits = model(ids)
+        loss = lw._loss(paddle, logits, labels, model.config.vocab_size)
+        del logits
+        loss.backward()
+        g = w.grad
+        if sparse:
+            if not isinstance(g, SelectedRows) or w._data.grad is not None \
+                    or list(g.values.shape) != [lw.BATCH * lw.SEQ, 4096]:
+                raise AssertionError(f"sparse_train: the embedding's "
+                                     f"gradient is {g!r}, dense "
+                                     f"{w._data.grad is not None}")
+        elif list(g.shape) != [lw.VOCAB, 4096]:
+            raise AssertionError(f"sparse_train: dense gradient {g.shape}")
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(_launch_delta())
+        if sparse and merge_ms is None:
+            merge_ms = timer(lambda: merge_rows(g.rows, g.values, g.height))
+            _launch_delta()
+        del g
+        losses.append(float(loss.astype("float32").item()))
+        accs = {k: opt._accumulators[k][id(w)] for k in ("moment1",
+                                                         "moment2")}
+        master = opt._master_weights[id(w)]
+        rows.append({"param": w._data.detach()[idx].float().cpu(),
+                     "master": master[idx].cpu(),
+                     **{k: a[idx].cpu() for k, a in accs.items()}})
+        if sparse:
+            same = {"param": torch.equal(w._data[untouched], w0[untouched]),
+                    "master": torch.equal(master[untouched],
+                                          w0[untouched].float()),
+                    **{k: not bool(a[untouched].any())
+                       for k, a in accs.items()}}
+            if not all(same.values()):
+                raise AssertionError(f"sparse_train step {step}: untouched "
+                                     f"rows moved {same}")
+    report = {"losses": losses, "launches": launches, "step_ms": step_ms,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "touched_rows": int(idx.numel()), "merge_ms": merge_ms}
+    del w0, untouched
+    if not sparse:
+        del work, model, opt, w
+        return report, rows, None
+    return report, rows, work
+
+
+def phase_sparse_train(kind, smi):
+    """Llama-2-7B width at LAYERS layers (`resilience_workload.
+    sparse_workload`: the Trainer loop's AdamW with lazy_mode=True, clip
+    and schedule, O2 bf16, B 1 x S 2048), SPARSE_STEPS eager steps with a
+    dense word embedding, the model freed, then the same from the same
+    seed with `Embedding(sparse=True)`. Gates: LAZY_STEP launches every
+    step both ways; the sparse run's embedding gradient a SelectedRows of
+    2,048 rows x 4,096 and no dense [32000, 4096] gradient; rows the
+    batch did not touch bit-unchanged in the parameter, the f32 master
+    and both moments after every step; the touched rows of the parameter
+    after step 1 the dense run's within one bf16 ulp (bit-equality
+    reported); losses within SPARSE_LOSS_TOL of the dense run's, finite
+    and falling. Returns the launches and the sparse run's work (its
+    trained model feeds quant_deploy)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import loop_workload as lw
+    from paddle_tpu_torch.tools import resilience_workload as rw
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timer = lambda fn: time_ms(fn, flush, reps=10)  # noqa: E731
+    runs, rows = {}, {}
+    with place.device_scope("gpu"):
+        runs["dense"], rows["dense"], _ = _sparse_run(paddle, rw, lw, False,
+                                                      timer)
+        release()
+        runs["sparse"], rows["sparse"], work = _sparse_run(
+            paddle, rw, lw, True, timer)
+    del flush
+    totals = {}
+    for mode, r in runs.items():
+        for i, got in enumerate(r["launches"]):
+            if got != LAZY_STEP:
+                raise AssertionError(f"sparse_train {mode} step {i}: "
+                                     f"launches {got} != {LAZY_STEP}")
+            for n, c in got.items():
+                totals[n] = totals.get(n, 0) + c
+        losses = r["losses"]
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"sparse_train {mode}: losses {losses}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["sparse"]["losses"],
+                                                 runs["dense"]["losses"]))
+    if not rel <= SPARSE_LOSS_TOL:
+        raise AssertionError(f"sparse_train: losses {runs['sparse']} off "
+                             f"the dense run's {runs['dense']}")
+    first = {}
+    for k in rows["dense"][0]:
+        a, b = rows["sparse"][0][k], rows["dense"][0][k]
+        first[k] = {"bit_equal": bool(torch.equal(a, b)),
+                    "max_abs_diff": float((a - b).abs().max())}
+    p_s = rows["sparse"][0]["param"].to(torch.bfloat16)
+    p_d = rows["dense"][0]["param"].to(torch.bfloat16)
+    ulps = int((p_s.view(torch.int16).int() - p_d.view(torch.int16).int())
+               .abs().max())
+    if ulps > 1:
+        raise AssertionError(f"sparse_train: touched rows after step 1 "
+                             f"{ulps} bf16 ulps off the dense run's")
+    later = [{k: float((s[k] - d[k]).abs().max()) for k in s}
+             for s, d in zip(rows["sparse"][1:], rows["dense"][1:])]
+    emit({"phase": "sparse_train",
+          "model": f"Llama-2-7B width in paddle Layers, {lw.LAYERS} of 32 "
+                   f"layers, amp O2 bf16, Embedding(32000, 4096, "
+                   f"sparse=True), AdamW(lazy_mode, multi_precision, "
+                   f"beta2 0.95, wd 0.01), ClipGradByGlobalNorm(1.0), "
+                   f"LinearWarmup(CosineAnnealingDecay(3e-4, 8), 2)",
+          "batch": lw.BATCH, "seq": lw.SEQ, "steps": SPARSE_STEPS,
+          "launches_per_step": LAZY_STEP,
+          "losses": {m: r["losses"] for m, r in runs.items()},
+          "loss_rel_max": rel, "tol": SPARSE_LOSS_TOL,
+          "touched_rows_after_step_1": first,
+          "touched_param_ulps_after_step_1": ulps,
+          "touched_rows_max_abs_diff_later_steps": later,
+          "untouched_rows_bit_unchanged": True,
+          "embedding_grad": {"rows": lw.BATCH * lw.SEQ, "width": 4096,
+                             "dense_grad_made": False},
+          "step_ms": {m: r["step_ms"] for m, r in runs.items()},
+          "step_ms_median": {m: statistics.median(r["step_ms"][1:])
+                             for m, r in runs.items()},
+          "merge_ms": runs["sparse"]["merge_ms"],
+          "touched_rows": runs["sparse"]["touched_rows"],
+          "peak_mem_gb": {m: r["peak_mem_gb"] for m, r in runs.items()},
+          "device": kind, "nvidia_smi": smi})
+    trained = (work[0], work[3])
+    work[1].clear_grad()
+    del work, runs, rows
+    release()
+    return totals, trained
+
+
+def _timed_manager(root, **kw):
+    """A CheckpointManager whose snapshots and writes are timed into its
+    `times`."""
+    from paddle_tpu_torch.resilience import CheckpointManager
+
+    class Timed(CheckpointManager):
+        def _snapshot(self, *a, **k):
+            t0 = time.perf_counter()
+            out = super()._snapshot(*a, **k)
+            self.times["snapshot_ms"].append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+
+        def _write(self, path, *a, **k):
+            t0 = time.perf_counter()
+            super()._write(path, *a, **k)
+            self.times["write_ms"].append((time.perf_counter() - t0) * 1e3)
+            self.times["bytes"].append(sum(
+                p.stat().st_size for p in Path(path).iterdir()))
+
+    m = Timed(root, **kw)
+    m.times = {"snapshot_ms": [], "write_ms": [], "bytes": []}
+    return m
+
+
+def _host_state(rw, work):
+    return {k: v.detach().cpu() for k, v in
+            rw.model_state(work[0], work[1]).items()}
+
+
+def _state_matches(label, rw, work, want):
+    got = rw.model_state(work[0], work[1])
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: keys {sorted(set(got) ^ set(want))}")
+    bad = [k for k, v in want.items() if not torch.equal(got[k].cpu(), v)]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} tensors differ, e.g. "
+                             f"{bad[:3]}")
+
+
+def phase_resilient_train(kind, smi):
+    """`StepGuard` around the sparse Trainer loop at Llama-2-7B width
+    (RESILIENT_LAYERS of 32 layers, B 1 x S 2048): first RESILIENT_STEPS
+    steps uninterrupted (the state after step 2 and at the end kept on
+    the host), then the same from the same seed under
+    `StepGuard(save_every=3)` over `CheckpointManager(keep_last_n=2,
+    async_save=True)` in a temporary directory, the step function
+    returning NaN once at step 6. Gates: one non-finite trip and one
+    rollback, to step 5; every step's loss and the final parameters,
+    masters and moments bit-equal to the uninterrupted run's. Then one
+    byte of the newest checkpoint's shard is flipped: `latest_valid()`
+    quarantines it and `restore_latest` restores step 2 bit for bit
+    against the uninterrupted run's state after step 2. Reports the
+    snapshot and write ms, GB and GB/s, the verify and restore ms, peak
+    memory. Returns the launches of its steps."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import monitor, place
+    from paddle_tpu_torch.tools import resilience_workload as rw
+
+    root = tempfile.mkdtemp(prefix="resilient_train_")
+    _launch_delta()
+    free_gb = shutil.disk_usage(root).free / 1e9
+    print(f"resilient_train: {free_gb:.1f} GB free under {root}",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with place.device_scope("gpu"):
+            work = rw.sparse_workload(paddle, True, layers=RESILIENT_LAYERS)
+            plain, at2 = [], None
+            for i in range(RESILIENT_STEPS):
+                plain.append(float(rw.f32(rw.train_step(paddle, work))))
+                if i == 2:
+                    at2 = _host_state(rw, work)
+            final = _host_state(rw, work)
+            del work
+            release()
+            work = rw.sparse_workload(paddle, True, layers=RESILIENT_LAYERS)
+            cm = _timed_manager(root, keep_last_n=2, async_save=True)
+            m0 = monitor.snapshot("resilience.")
+            losses, rollbacks, _ = rw.guarded_run(
+                paddle, work, cm, RESILIENT_STEPS, RESILIENT_NAN_AT,
+                RESILIENT_SAVE_EVERY)
+            counters = {k: v - m0.get(k, 0) for k, v in
+                        monitor.snapshot("resilience.").items()
+                        if v != m0.get(k, 0)}
+            if rollbacks != [RESILIENT_NAN_AT - 1] or \
+                    counters.get("resilience.rollbacks") != 1 or \
+                    counters.get("resilience.trips.non_finite_loss") != 1:
+                raise AssertionError(f"resilient_train: rollbacks "
+                                     f"{rollbacks}, counters {counters}")
+            if [losses[i] for i in range(RESILIENT_STEPS)] != plain:
+                raise AssertionError(f"resilient_train: losses {losses} "
+                                     f"!= the uninterrupted {plain}")
+            _state_matches("resilient_train final state", rw, work, final)
+            newest = Path(root, "step_000005", "0_0.distcp")
+            with open(newest, "r+b") as f:
+                f.seek(newest.stat().st_size // 2)
+                b = f.read(1)
+                f.seek(newest.stat().st_size // 2)
+                f.write(bytes([b[0] ^ 0xFF]))
+            t0 = time.perf_counter()
+            found = cm.latest_valid()
+            verify_ms = (time.perf_counter() - t0) * 1e3
+            if found is None or found[0] != 2 or not Path(
+                    root, "QUARANTINED-step_000005").is_dir():
+                raise AssertionError(f"resilient_train: latest_valid "
+                                     f"{found}")
+            t0 = time.perf_counter()
+            res = cm.restore_latest(model=work[0], optimizer=work[1])
+            torch.cuda.synchronize()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            if res.step != 2:
+                raise AssertionError(f"resilient_train: restored {res}")
+            _state_matches("resilient_train restored step 2", rw, work, at2)
+            times = cm.times
+            del work, at2, final
+        torch.cuda.synchronize()
+        launches = _launch_delta()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release()
+    gb = [b / 1e9 for b in times["bytes"]]
+    emit({"phase": "resilient_train",
+          "model": f"Llama-2-7B width, {RESILIENT_LAYERS} of 32 layers, "
+                   f"sparse embedding, AdamW(lazy_mode, multi_precision), "
+                   f"O2 bf16, B 1 x S 2048",
+          "steps": RESILIENT_STEPS, "nan_at": RESILIENT_NAN_AT,
+          "save_every": RESILIENT_SAVE_EVERY, "rollback_to": rollbacks,
+          "counters": counters, "losses": plain,
+          "replay_bit_equal": True, "final_state_bit_equal": True,
+          "corrupted": "step_000005/0_0.distcp, one byte",
+          "quarantined_and_restored": 2, "restored_bit_equal": True,
+          "free_gb_before": free_gb,
+          "snapshot_ms": times["snapshot_ms"], "write_ms": times["write_ms"],
+          "checkpoint_gb": gb,
+          "write_gb_per_s": [g / (t / 1e3) for g, t in
+                             zip(gb, times["write_ms"])],
+          "verify_ms": verify_ms, "restore_ms": restore_ms,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": launches, "device": kind, "nvidia_smi": smi})
+    return launches
+
+
+def _norm_rel_t(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _deploy_case(paddle, qw, model, backend, calib, ids, ref, timer):
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+
+    row = {"weight_only_int8": "quant_matmul",
+           "weight_only_int4": "quant_matmul_int4"}[backend]
+    dm = qw.deploy(paddle, model, backend, calib)
+    inputs, remove = qw.capture_inputs(dm)
+    _launch_delta()
+    out = qw.logits(paddle, dm, ids)
+    torch.cuda.synchronize()
+    launches = _launch_delta()
+    remove()
+    want = {row: DEPLOY_GEMMS, "flash_attention_fwd": 4, "rms_norm": 9}
+    if launches != want:
+        raise AssertionError(f"quant_deploy {backend}: launches {launches} "
+                             f"!= {want}")
+    logit_err = _norm_rel_t(out._data, ref)
+    if not logit_err <= QUANT_LOGIT_TOL[backend]:
+        raise AssertionError(f"quant_deploy {backend}: logits "
+                             f"{logit_err} off the bf16 model's")
+    int4 = backend.endswith("int4")
+    fn = qm.quant_matmul_int4 if int4 else qm.quant_matmul
+    ref_fn = qm.quant_matmul_int4_ref if int4 else qm.quant_matmul_ref
+    kernel_err = {}
+    with torch.no_grad():
+        for name, layer in qw.weight_only_layers(dm):
+            x = inputs[name].to(torch.bfloat16)
+            x2d = x.reshape(-1, x.shape[-1])
+            wq, s = layer.weight._data, layer.weight_scale._data
+            kernel_err[name] = _norm_rel_t(fn(x2d, wq, s),
+                                           ref_fn(x2d, wq, s))
+    _launch_delta()
+    if not max(kernel_err.values()) <= QUANT_KERNEL_TOL:
+        raise AssertionError(f"quant_deploy {backend}: kernel off its plain "
+                             f"version {kernel_err}")
+    forward_ms = timer(lambda: qw.logits(paddle, dm, ids))
+    _launch_delta()
+    del dm, inputs, out
+    release()
+    return {"launches": launches, "logits_norm_rel": logit_err,
+            "tol": QUANT_LOGIT_TOL[backend],
+            "kernel_norm_rel_max": max(kernel_err.values()),
+            "kernel_tol": QUANT_KERNEL_TOL, "forward_ms": forward_ms}
+
+
+def phase_quant_deploy(kind, smi, trained=None):
+    """sparse_train's trained 4-layer model (a fresh one under `--only`)
+    in eval: `PTQ(QuantConfig(), AbsmaxObserver)` calibrated on 2
+    batches, then `convert(deploy_backend="weight_only_int8")` and
+    `("weight_only_int4")`, each with an eval forward at B 1 x S 2048.
+    Gates: DEPLOY_GEMMS launches of row 11 (int8) or 12 (int4) a
+    forward, 4 of the flash forward and 9 of RMSNorm, nothing else; each
+    WeightOnlyLinear's kernel output within QUANT_KERNEL_TOL of its plain
+    version on the forward's own input; logits within QUANT_LOGIT_TOL of
+    the bf16 model's. Then two QAT (fake-quant) AdamW steps on the same
+    model: finite losses. Reports the forward ms in bf16 / int8 / int4,
+    and both gemms at M 2,048 over the five serving shapes (ms, bound,
+    cuBLAS bf16 ms). Returns the launches of the deployed forwards and
+    the M 2,048 gemm cases."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.tools import loop_workload as lw
+    from paddle_tpu_torch.tools import quant_workload as qw
+    from paddle_tpu_torch.tools import resilience_workload as rw
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timer = lambda fn: time_ms(fn, flush, reps=5)  # noqa: E731
+    with place.device_scope("gpu"):
+        if trained is None:
+            work = rw.sparse_workload(paddle, True)
+            trained = (work[0], work[3])
+            del work
+        model, ids = trained
+        model.eval()
+        rng = np.random.default_rng(1)
+        calib = [ids, paddle.to_tensor(rng.integers(0, lw.VOCAB,
+                                                    (lw.BATCH, lw.SEQ)))]
+        _launch_delta()
+        ref = qw.logits(paddle, model, ids)._data
+        bf16_ms = timer(lambda: qw.logits(paddle, model, ids))
+        _launch_delta()
+        cases = {b: _deploy_case(paddle, qw, model, b, calib, ids, ref,
+                                 timer)
+                 for b in ("weight_only_int8", "weight_only_int4")}
+        del ref
+        q = paddle.quantization
+        qat = q.QAT(q.QuantConfig()).quantize(model)
+        del model, trained
+        qat.train()
+        opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                     parameters=qat.parameters(),
+                                     multi_precision=True)
+        labels = paddle.to_tensor(rng.integers(0, lw.VOCAB,
+                                               (lw.BATCH, lw.SEQ)))
+        qat_losses, qat_launches = [], []
+        for _ in range(2):
+            with paddle.amp.auto_cast(level="O2"):
+                logits = qat(ids)
+            loss = lw._loss(paddle, logits, labels, lw.VOCAB)
+            del logits
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            qat_launches.append(_launch_delta())
+            qat_losses.append(float(loss.astype("float32").item()))
+        if not all(math.isfinite(v) for v in qat_losses) or any(
+                d.get("flash_attention_fwd") != 4 or d.get("rms_norm") != 9
+                for d in qat_launches):
+            raise AssertionError(f"quant_deploy QAT: losses {qat_losses}, "
+                                 f"launches {qat_launches}")
+        del qat, opt
+    release()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    gemms = {"int8": _gemm_cases("int8", list(GEMM_SHAPES), gen, flush,
+                                 m=2048),
+             "int4": _gemm_cases("int4", list(GEMM_SHAPES), gen, flush,
+                                 m=2048)}
+    _launch_delta()
+    del flush
+    release()
+    emit({"phase": "quant_deploy",
+          "model": "sparse_train's Llama-2-7B-width model, 4 of 32 layers, "
+                   "PTQ(QuantConfig(), AbsmaxObserver) on 2 batches, "
+                   "deployed as WeightOnlyLinear (row 11 / 12)",
+          "batch": lw.BATCH, "seq": lw.SEQ, "cases": cases,
+          "forward_ms": {"bf16": bf16_ms,
+                         **{b: c["forward_ms"] for b, c in cases.items()}},
+          "qat": {"losses": qat_losses, "launches": qat_launches},
+          "gemm_m2048": {f: {n: {k: c[k] for k in (
+              "N", "K", "M", "kernel_ms", "plain_ms", "library_ms",
+              "bound_ms", "bound_by", "splits", "max_abs_err",
+              "bound_fraction")} for n, c in cs.items()}
+              for f, cs in gemms.items()},
+          "library": "torch.matmul(x, w_bf16.T) (cuBLAS bf16)",
+          "device": kind, "nvidia_smi": smi})
+    launches = {}
+    for c in cases.values():
+        for n, k in c["launches"].items():
+            launches[n] = launches.get(n, 0) + k
+    for d in qat_launches:
+        for n, k in d.items():
+            launches[n] = launches.get(n, 0) + k
+    return launches, gemms
+
+
+def _m2048(cases):
+    """A gemm's times at M 2,048 by serving shape: kernel, bound and
+    cuBLAS bf16 ms."""
+    return {n: {"ms": c["kernel_ms"], "bound_ms": c["bound_ms"],
+                "library_ms": c["library_ms"], "plain_ms": c["plain_ms"]}
+            for n, c in cases.items()}
+
+
 def _row(name, source, replaces, launches, case, **extra):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, **extra, "launches": launches,
@@ -5565,6 +6257,10 @@ ONLY = {
     "encoder_train": phase_encoder_train,
     "fnet_reference": lambda kind, smi: phase_fnet_reference(),
     "fnet_train": phase_fnet_train,
+    "resilience_reference": lambda kind, smi: phase_resilience_reference(),
+    "sparse_train": phase_sparse_train,
+    "resilient_train": phase_resilient_train,
+    "quant_deploy": phase_quant_deploy,
 }
 # the TP phases by `phase_tp` task: `--only` runs them in one world
 TP_ONLY = {"tp_reference": "reference", "serve_tp": "serve"}
@@ -5631,6 +6327,12 @@ def main(argv=()):
     enc_launches = phase_encoder_train(kind, smi)
     phase_fnet_reference()
     phase_fnet_train(kind, smi)
+    res_ref_launches = phase_resilience_reference()
+    sparse_launches, trained = phase_sparse_train(kind, smi)
+    resilient_launches = phase_resilient_train(kind, smi)
+    deploy_launches, gemm_m2048 = phase_quant_deploy(kind, smi, trained)
+    del trained
+    release()
     fused = phase_incubate_kernels()
     layer_launches = phase_incubate_layer(kind, smi)
     incubate_decode_launches = phase_incubate_serve(kind, smi)
@@ -5681,20 +6383,29 @@ def main(argv=()):
                            "reaches the verify kernel)"),
         _row("quant_matmul", gemm_src,
              "paddle_tpu/ops/pallas/quant_matmul.py:29",
-             l8["quant_matmul"], int8["qkv_int8"],
-             splits=int8["qkv_int8"]["splits"]),
+             l8["quant_matmul"] + res_ref_launches["quant_matmul"]
+             + deploy_launches["quant_matmul"], int8["qkv_int8"],
+             splits=int8["qkv_int8"]["splits"],
+             deploy_launches=deploy_launches["quant_matmul"],
+             m2048=_m2048(gemm_m2048["int8"])),
         _row("quant_matmul_int4", gemm_src,
              "paddle_tpu/ops/pallas/quant_matmul.py:115",
              l4["quant_matmul_int4"] + lora_q_launches["quant_matmul_int4"]
-             + tp_launches["quant_matmul_int4"],
+             + tp_launches["quant_matmul_int4"]
+             + res_ref_launches["quant_matmul_int4"]
+             + deploy_launches["quant_matmul_int4"],
              int4["qkv_int4"],
-             splits=int4["qkv_int4"]["splits"]),
+             splits=int4["qkv_int4"]["splits"],
+             deploy_launches=deploy_launches["quant_matmul_int4"],
+             m2048=_m2048(gemm_m2048["int4"])),
         *[_row(name, FLASH_SRC, f"{FA_PY}:{line}",
                train_launches[name] + eager_launches[name]
                + jit_launches[name] + lazy_ref_launches[name]
                + lazy_launches[name] + ops_ref_launches.get(name, 0)
                + loop_ref_launches.get(name, 0) + loop_launches[name]
-               + nn_ref_launches.get(name, 0) + enc_launches[name],
+               + nn_ref_launches.get(name, 0) + enc_launches[name]
+               + res_ref_launches.get(name, 0) + sparse_launches[name]
+               + resilient_launches[name] + deploy_launches.get(name, 0),
                flash["train_mha"][name], also_replaces=f"{FA_PY}:{also}",
                bert_d64_ms=flash["bert_d64"][name]["kernel_ms"],
                bert_d64_bound_ms=flash["bert_d64"][name]["bound_ms"],
@@ -5710,7 +6421,10 @@ def main(argv=()):
              + lazy_launches["rms_norm"]
              + ops_ref_launches.get("rms_norm", 0)
              + loop_ref_launches.get("rms_norm", 0)
-             + loop_launches["rms_norm"],
+             + loop_launches["rms_norm"]
+             + res_ref_launches.get("rms_norm", 0)
+             + sparse_launches["rms_norm"] + resilient_launches["rms_norm"]
+             + deploy_launches["rms_norm"],
              rms["bf16"]),
         _row("fused_rope", ROPE_SRC, f"{ROPE_PY}:20",
              layer_launches["fused_rope"], fused["rope_bf16"]),

@@ -68,6 +68,7 @@ from . import fft, signal
 from . import autograd
 from .framework.io import load, save
 from . import amp, nn, optimizer, jit, regularizer
+from . import quantization
 from .nn.parameter import ParamAttr, create_parameter
 from .convert import from_jax_state, mlp_from_jax_params, moe_from_jax_state
 from . import inference
@@ -87,7 +88,7 @@ __all__ = ops.__all__ + [
            "set_flags", "get_rng_state", "seed", "set_rng_state", "Tensor",
            "enable_grad", "grad", "is_grad_enabled", "no_grad",
            "set_grad_enabled", "autograd", "load", "save", "amp", "nn",
-           "optimizer", "jit", "regularizer",
+           "optimizer", "jit", "regularizer", "quantization",
            "ParamAttr", "create_parameter", "from_jax_state", "mlp_from_jax_params", "moe_from_jax_state",
            "LlamaInferenceEngine", "LlamaConfig", "LlamaForCausalLM",
            "llama_7b_shaped", "llama_tiny", "MLPLMEngine", "RequestHandle",

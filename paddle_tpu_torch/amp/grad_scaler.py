@@ -4,7 +4,9 @@
 The unscale and the found-inf check run on the device over every
 gradient (`grad * (1 / scale)` in the gradient's dtype, then one
 all-finite reduction); only the final flag crosses to the host, once a
-step, to decide whether the optimizer steps or the step is skipped.
+step, to decide whether the optimizer steps or the step is skipped. A
+SelectedRows gradient (`Embedding(sparse=True)`) has its values
+unscaled, and their finite flag joins the dense ones in that one read.
 """
 from __future__ import annotations
 
@@ -70,20 +72,32 @@ class AmpScaler:
             raise RuntimeError(
                 "unscale_() has already been called on this optimizer "
                 "since the last update()")
-        grads = [g for g in (_grad_of(p) for p in optimizer._params)
-                 if g is not None]
-        found = False
-        if grads:
-            with torch.no_grad():
+        finite = []
+        with torch.no_grad():
+            for p in optimizer._params:
+                sr = p._sr if isinstance(p, Tensor) else None
+                if sr is None:
+                    continue
+                inv = torch.tensor(1.0 / self._loss_scaling,
+                                   dtype=torch.float32)
+                # beside a dense part of the same gradient, which the
+                # loop below unscales
+                p._sr = sr = sr.scaled(inv)
+                finite.append(torch.isfinite(sr.values).all())
+            grads = [g for g in (_grad_of(p) for p in optimizer._params)
+                     if g is not None]
+            if grads:
                 inv = torch.tensor(1.0 / self._loss_scaling,
                                    dtype=torch.float32,
                                    device=grads[0].device)
-                finite = []
-                for g in grads:
-                    g.mul_(inv.to(g.dtype))
-                    finite.append(torch.isfinite(g).all())
-                # the one host read of the step
-                found = not bool(torch.stack(finite).all())
+            for g in grads:
+                g.mul_(inv.to(g.dtype))
+                finite.append(torch.isfinite(g).all())
+        found = False
+        if finite:
+            # the one host read of the step
+            found = not bool(torch.stack(
+                [f.to(finite[0].device) for f in finite]).all())
         self._found_inf = found
         self._opt_states[id(optimizer)] = OptimizerState.UNSCALED
 

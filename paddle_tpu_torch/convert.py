@@ -5,7 +5,10 @@ Linear weights `[in, out]`), so the state exported by
 `paddle_tpu.jit.state_arrays` as numpy arrays loads as it is: a Llama
 model with `from_jax_state`, an MoE layer with `moe_from_jax_state`. A
 JAX `MLPLMEngine`'s `params` (embed, w1, b1, w2, b2) load into the port's
-`MLPLMEngine` with `mlp_from_jax_params`.
+`MLPLMEngine` with `mlp_from_jax_params`. A Layer model loads the JAX
+model's `state_dict()` with `layers_from_jax_state`, buffers included:
+a quantized model's `WeightOnlyLinear`s carry their int8 / packed int4
+/ fp8 `weight` and f32 `weight_scale` under the JAX package's names.
 """
 from __future__ import annotations
 
@@ -53,7 +56,8 @@ def layers_from_jax_state(state: Dict[str, np.ndarray], model):
     Layer model (`models.llama_layers.LlamaForCausalLM`, or any Layer) in
     place, each value in its tensor's dtype and on its device, and return
     it. The state is the model's `state_dict`: every parameter and
-    persistable buffer (BatchNorm's `_mean` / `_variance`) must be
+    persistable buffer (BatchNorm's `_mean` / `_variance`, a
+    `WeightOnlyLinear`'s quantized `weight` and `weight_scale`) must be
     present with its exact shape, and nothing else."""
     missing, unexpected = model.set_state_dict(
         {k: np.asarray(v) for k, v in state.items()})

@@ -17,6 +17,11 @@ and paddle's semantics are kept at its edges:
   them with a zero derivative, as the JAX tape's backward op takes every
   primal as an input, so a second `paddle.grad` gives zeros, not
   "unused".
+A row-sparse embedding gradient (`Embedding(sparse=True)`) is
+accumulated beside the leaf as a `SelectedRows` (`core/tensor.py`);
+inside `paddle.grad` (`sparse_densified()`) and for a leaf with hooks
+the embedding's backward gives torch a dense cotangent instead, as the
+JAX tape densifies one for `paddle.grad` and for hooks.
 """
 from __future__ import annotations
 
@@ -25,7 +30,15 @@ import functools
 import torch
 
 __all__ = ["no_grad", "enable_grad", "set_grad_enabled", "is_grad_enabled",
-           "run_backward", "grad"]
+           "run_backward", "grad", "sparse_densified"]
+
+# > 0 while `paddle.grad` runs: a sparse embedding backward then hands
+# torch a dense cotangent and accumulates nothing beside the leaf
+_dense_depth = 0
+
+
+def sparse_densified() -> bool:
+    return _dense_depth > 0
 
 
 def is_grad_enabled() -> bool:
@@ -152,11 +165,16 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
     slots = [i for i, t in enumerate(inputs) if t._data.requires_grad]
     found = [None] * len(inputs)
     if live_out and slots:
-        gs = torch.autograd.grad(
-            [d for d, _ in live_out], [inputs[i]._data for i in slots],
-            grad_outputs=[g for _, g in live_out],
-            retain_graph=True if retain_graph is None else retain_graph,
-            create_graph=create_graph, allow_unused=True)
+        global _dense_depth
+        _dense_depth += 1
+        try:
+            gs = torch.autograd.grad(
+                [d for d, _ in live_out], [inputs[i]._data for i in slots],
+                grad_outputs=[g for _, g in live_out],
+                retain_graph=True if retain_graph is None else retain_graph,
+                create_graph=create_graph, allow_unused=True)
+        finally:
+            _dense_depth -= 1
         for i, g in zip(slots, gs):
             if create_graph and g is not None and not g.requires_grad:
                 g = _ZeroLink.apply(g, *[inputs[j]._data for j in slots])

@@ -903,13 +903,21 @@ def _attr_key(attrs):
     return tuple(sorted(attrs.items()))
 
 
+# ops that always run now: the sparse embedding's backward writes a
+# SelectedRows beside its weight, outside any region's tape (JAX's lazy
+# mode records the lookup but keeps its grad node its own)
+_EAGER_OPS = frozenset({"embedding_sparse"})
+
+
 def try_record(op, tensor_inputs, attrs):
     """Record one op into the pending graph; returns its pending output
-    Tensor(s), or NOT_HANDLED when the op must run now (an input that is
-    not a tensor, unhashable attrs, or an op whose shapes cannot be found
-    without running it)."""
+    Tensor(s), or NOT_HANDLED when the op must run now (an op of
+    `_EAGER_OPS`, an input that is not a tensor, unhashable attrs, or an
+    op whose shapes cannot be found without running it)."""
     from .tensor import Tensor
 
+    if op.name in _EAGER_OPS:
+        return NOT_HANDLED
     graph = _graph()
 
     # pass 1: classify the inputs (no graph mutation yet)

@@ -7,8 +7,9 @@ port's engines, which hand plain tensors around. Autograd is torch's:
   tensors; setting it True on a non-leaf swaps `_data` for a detached
   view, which cuts the graph there. Integer tensors never carry
   gradients and keep the flag alone.
-- `grad` is the leaf's accumulated `_data.grad`, wrapped;
-  `register_hook` wraps torch's hook (a leaf hook's return value
+- `grad` is the leaf's accumulated `_data.grad`, wrapped, or the
+  `SelectedRows` that `Embedding(sparse=True)` accumulates beside it
+  (`_sr`); `register_hook` wraps torch's hook (a leaf hook's return value
   replaces the cotangent before accumulation).
 - `numpy()` gives a copy; of a bfloat16 tensor an `ml_dtypes.bfloat16`
   array of the same bits where `ml_dtypes` imports (as the JAX package's does),
@@ -153,9 +154,22 @@ class Tensor:
         return self._data.grad_fn is None
 
     # -- grad --------------------------------------------------------------
+    # a row-sparse gradient (`core/selected_rows.py`) accumulated by
+    # `Embedding(sparse=True)`'s backward beside the leaf's dense `.grad`
+    _sr = None
+
     @property
-    def grad(self) -> Optional["Tensor"]:
+    def grad(self):
+        """The accumulated gradient: a Tensor, or a `SelectedRows` when
+        only sparse lookups reached this leaf. Sparse and dense
+        contributions together densify (the dense sum plus the rows)."""
         g = self._data.grad if self._data.is_leaf else None
+        sr = self._sr
+        if sr is not None:
+            if g is None:
+                return sr
+            self._data.grad = g = g + sr.to_dense().to(g.dtype)
+            self._sr = None
         if g is None:
             return None
         w = self._grad_wrap
@@ -165,6 +179,11 @@ class Tensor:
 
     @grad.setter
     def grad(self, g):
+        if getattr(g, "is_selected_rows", False):
+            self._sr = g
+            self._data.grad = None
+            return
+        self._sr = None
         self._data.grad = None if g is None else (
             g._data if isinstance(g, Tensor) else torch.as_tensor(g))
 
@@ -173,7 +192,13 @@ class Tensor:
                               retain_graph=retain_graph)
 
     def clear_gradient(self, set_to_zero: bool = False):
+        """Drop the gradient, or (`set_to_zero`) zero it; a SelectedRows
+        gradient zeroes to dense zeros of the full shape."""
+        sr, self._sr = self._sr, None
         g = self._data.grad
+        if set_to_zero and g is None and sr is not None:
+            g = torch.zeros(sr.shape, dtype=sr.values.dtype,
+                            device=sr.values.device)
         self._data.grad = torch.zeros_like(g) \
             if set_to_zero and g is not None else None
 

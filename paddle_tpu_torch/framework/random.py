@@ -9,8 +9,11 @@ the counter and returns `fold_in(key(seed), counter)`, a raw threefry key
 `jax_threefry_partitionable` mode: the threefry hash of each element's
 flat index (`ops/sampling.py`'s `threefry2x32`), mantissa-filled floats,
 and randint's two draws reduced modulo the span. `normal` goes through
-`torch.erfinv`, so its values agree with JAX's within a float tolerance,
-not bit for bit.
+`erf_inv`, XLA's own f32 / f64 `ErfInv` polynomial (not `torch.erfinv`,
+which rounds otherwise) over XLA's `log1p`, each Horner step one fused
+multiply-add as XLA's CPU build contracts it. One step stays torch's:
+`log(1 + x)` for |x| >= sqrt(2) - 1, where XLA's own `log` rounds
+otherwise in about one draw in a few thousand.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from ..ops.sampling import threefry2x32
 
 __all__ = ["Generator", "default_generator", "seed", "get_rng_state",
            "set_rng_state", "next_key", "key_of_seed", "fold_in",
-           "split", "random_bits", "uniform", "normal", "randint"]
+           "split", "random_bits", "uniform", "normal", "randint",
+           "erf_inv"]
 
 _M32 = 0xFFFFFFFF
 
@@ -122,8 +126,134 @@ def uniform(key, shape, dtype, minval, maxval, device):
     return torch.maximum(lo, y)
 
 
+def _fma(a, b, c):
+    """a * b + c rounded once (f32: exact in float64, then rounded; f64:
+    `_fma64`'s compensated sum); c a float or a tensor."""
+    if a.dtype == torch.float64:
+        p = a * b
+        ah, al = _split27(a)
+        bh, bl = _split27(b)
+        err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+        s = p + c
+        bb = s - p
+        return s + (((p - (s - bb)) + (c - bb)) + err)
+    return (a.double() * b.double() + (c.double() if torch.is_tensor(c)
+                                       else c)).to(a.dtype)
+
+
+def _split27(x):
+    t = x * 134217729.0             # 2^27 + 1
+    hi = t - (t - x)
+    return hi, x - hi
+
+
+# XLA's log1p for |x| < sqrt(2) - 1: x - x^2 / 2 + x^3 * P(x) / Q(x)
+# (Cephes), elemental_ir_emitter.cc EmitLog1p
+_LOG1P_NUM = (4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+              6.5787325942061044846969E0, 2.9911919328553073277375E1,
+              6.0949667980987787057556E1, 5.7112963590585538103336E1,
+              2.0039553499201281259648E1)
+_LOG1P_DEN = (1., 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+              2.2176239823732856465394E2, 3.0909872225312059774938E2,
+              2.1642788614495947685003E2, 6.0118660497603843919306E1)
+
+
+def _horner(x, coeffs):
+    r = torch.full_like(x, coeffs[0])
+    for c in coeffs[1:]:
+        r = _fma(r, x, c)
+    return r
+
+
+def _log1p_xla(x):
+    x2 = x * x
+    small = (x * x2) * (_horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN))
+    small = x + _fma(torch.full_like(x, -0.5), x2, small)
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       torch.log(x + 1.0))
+
+
+# XLA's ErfInv (chlo_legalize_to_hlo.cc, materializeErfInvF32 / F64):
+# Giles' polynomials in w = -log1p(-x^2)
+_ERFINV32 = ((2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941),
+             (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613,
+              0.00943887047, 1.00167406, 2.83297682))
+_ERFINV64_LT625 = (
+    -3.6444120640178196996e-21, -1.685059138182016589e-19,
+    1.2858480715256400167e-18, 1.115787767802518096e-17,
+    -1.333171662854620906e-16, 2.0972767875968561637e-17,
+    6.6376381343583238325e-15, -4.0545662729752068639e-14,
+    -8.1519341976054721522e-14, 2.6335093153082322977e-12,
+    -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+    1.051212273321532285e-09, -4.1126339803469836976e-09,
+    -2.9070369957882005086e-08, 4.2347877827932403518e-07,
+    -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+    0.0001867342080340571352, -0.00074070253416626697512,
+    -0.0060336708714301490533, 0.24015818242558961693,
+    1.6536545626831027356)
+_ERFINV64_LT16 = (
+    2.2137376921775787049e-09, 9.0756561938885390979e-08,
+    -2.7517406297064545428e-07, 1.8239629214389227755e-08,
+    1.5027403968909827627e-06, -4.013867526981545969e-06,
+    2.9234449089955446044e-06, 1.2475304481671778723e-05,
+    -4.7318229009055733981e-05, 6.8284851459573175448e-05,
+    2.4031110387097893999e-05, -0.0003550375203628474796,
+    0.00095328937973738049703, -0.0016882755560235047313,
+    0.0024914420961078508066, -0.0037512085075692412107,
+    0.005370914553590063617, 1.0052589676941592334,
+    3.0838856104922207635)
+_ERFINV64_GT16 = (
+    -2.7109920616438573243e-11, -2.5556418169965252055e-10,
+    1.5076572693500548083e-09, -3.7894654401267369937e-09,
+    7.6157012080783393804e-09, -1.4960026627149240478e-08,
+    2.9147953450901080826e-08, -6.7711997758452339498e-08,
+    2.2900482228026654717e-07, -9.9298272942317002539e-07,
+    4.5260625972231537039e-06, -1.9681778105531670567e-05,
+    7.5995277030017761139e-05, -0.00021503011930044477347,
+    -0.00013871931833623122026, 1.0103004648645343977,
+    4.8499064014085844221)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's `ErfInv` of a float tensor (f16 / bf16 through f32)."""
+    if x.dtype not in (torch.float32, torch.float64):
+        return erf_inv(x.float()).to(x.dtype)
+    w = -_log1p_xla(x * -x)
+    if x.dtype == torch.float32:
+        lo, hi = _ERFINV32
+        lt5 = w < 5.0
+        w = torch.where(lt5, w - 2.5, torch.sqrt(w) - 3.0)
+        p = torch.where(lt5, lo[0], hi[0]).to(x.dtype)
+        for a, b in zip(lo[1:], hi[1:]):
+            p = _fma(p, w, torch.where(lt5, a, b).to(x.dtype))
+    else:
+        a, b, c = _ERFINV64_LT625, _ERFINV64_LT16, _ERFINV64_GT16
+        lt625, lt16 = w < 6.25, w < 16.0
+
+        def coef(i):
+            k = torch.full_like(x, a[i])
+            if i < 19:
+                k = torch.where(lt625, k, b[i])
+            if i < 17:
+                k = torch.where(lt16, k, c[i])
+            return k
+        w = torch.where(lt625, w - 3.125,
+                        torch.sqrt(w) - torch.where(lt16, 3.25, 5.0))
+        p = coef(0)
+        for i in range(1, 17):
+            p = _fma(p, w, coef(i))
+        for i in range(17, 19):
+            p = torch.where(lt16, _fma(p, w, coef(i)), p)
+        for i in range(19, 23):
+            p = torch.where(lt625, _fma(p, w, coef(i)), p)
+    return torch.where(x.abs() == 1.0, torch.inf * x, p * x)
+
+
 def normal(key, shape, dtype, device):
-    """`jax.random.normal(key, shape, dtype)`: sqrt(2) * erfinv(u) for u
+    """`jax.random.normal(key, shape, dtype)`: sqrt(2) * erf_inv(u) for u
     uniform in (-1, 1)."""
     np_t = {torch.float16: np.float16, torch.float32: np.float32,
             torch.float64: np.float64}.get(dtype)
@@ -132,7 +262,7 @@ def normal(key, shape, dtype, device):
                                    torch.tensor(0.0, dtype=dtype)))
     u = uniform(key, shape, dtype, lo, 1.0, device)
     return torch.tensor(np.sqrt(2), dtype=dtype, device=device) \
-        * torch.erfinv(u)
+        * erf_inv(u)
 
 
 def _u64_const(c: int):

@@ -13,8 +13,11 @@ computation is JAX's, on each gradient's own device, with no host read:
 `clip_grad_norm_` / `clip_grad_value_` rescale the gradients of a list of
 parameters in place (torch's names, paddle's `nn.utils`).
 
-A SelectedRows gradient (row-sparse, from `Embedding(sparse=True)`) is
-not ported yet: reaching one raises `SelectedRowsNotPortedError`.
+A SelectedRows gradient (row-sparse, from `Embedding(sparse=True)`)
+takes JAX's sparse branch of each clip: `ClipGradByValue` clips the
+MERGED rows (JAX's padded layout), `ClipGradByNorm` scales the values by
+the merged rows' norm, and `ClipGradByGlobalNorm` adds the merged rows'
+square sum after the dense gradients' before scaling every gradient.
 """
 from __future__ import annotations
 
@@ -25,21 +28,15 @@ import torch
 from ..core.tensor import Tensor
 
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
-           "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_grad_value_",
-           "SelectedRowsNotPortedError"]
+           "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_grad_value_"]
 
 
-class SelectedRowsNotPortedError(NotImplementedError):
-    """A SelectedRows (row-sparse) gradient reached a clip or an
-    optimizer: the port has no SelectedRows yet."""
+def _sparse(g) -> bool:
+    return getattr(g, "is_selected_rows", False)
 
 
 def _dense(g):
-    """g's torch data; raises on a SelectedRows gradient."""
-    if getattr(g, "is_selected_rows", False):
-        raise SelectedRowsNotPortedError(
-            "SelectedRows gradients are not ported yet; use "
-            "Embedding(sparse=False)")
+    """A dense gradient's torch data."""
     return g._data if isinstance(g, Tensor) else g
 
 
@@ -72,11 +69,18 @@ class ClipGradByValue(ClipGradBase):
             if _skips(p, g):
                 out.append((p, g))
                 continue
-            d = _dense(g)
-            lo = torch.full((), self.min, dtype=d.dtype, device=d.device)
-            hi = torch.full((), self.max, dtype=d.dtype, device=d.device)
-            out.append((p, _like(g, torch.minimum(torch.maximum(d, lo), hi))))
+            if _sparse(g):
+                m = g.merged()      # the clip applies to the MERGED rows
+                m.values = self._clip(m.values)
+                out.append((p, m))
+                continue
+            out.append((p, _like(g, self._clip(_dense(g)))))
         return out
+
+    def _clip(self, d):
+        lo = torch.full((), self.min, dtype=d.dtype, device=d.device)
+        hi = torch.full((), self.max, dtype=d.dtype, device=d.device)
+        return torch.minimum(torch.maximum(d, lo), hi)
 
 
 class ClipGradByNorm(ClipGradBase):
@@ -89,11 +93,11 @@ class ClipGradByNorm(ClipGradBase):
             if _skips(p, g):
                 out.append((p, g))
                 continue
-            d = _dense(g)
-            norm = torch.sqrt(_sq_sum(d))
+            sq = g.sq_sum() if _sparse(g) else _sq_sum(_dense(g))
+            norm = torch.sqrt(sq)
             scale = torch.clamp(self.clip_norm / torch.clamp(norm, min=1e-12),
                                 max=1.0)
-            out.append((p, _like(g, d * scale.to(d.dtype))))
+            out.append((p, _scaled(g, scale)))
         return out
 
 
@@ -104,26 +108,40 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.group_name = group_name
 
     def global_norm(self, grads) -> torch.Tensor:
-        """The f32 norm of the gradients (torch data), summed in order."""
+        """The f32 norm of the gradients (torch data or SelectedRows): the
+        dense square sums in order, then the sparse ones (merged rows)."""
         total = 0
         for d in grads:
-            total = total + _sq_sum(d)
-        return torch.sqrt(total)
+            if not _sparse(d):
+                total = total + _sq_sum(d)
+        sparse = 0
+        for d in grads:
+            if _sparse(d):
+                sparse = sparse + d.sq_sum()
+        return torch.sqrt(total + sparse)
 
     def __call__(self, params_grads):
         active = [(p, g) for p, g in params_grads if not _skips(p, g)]
         if not active:
             return params_grads
-        norm = self.global_norm([_dense(g) for _, g in active])
+        norm = self.global_norm([g if _sparse(g) else _dense(g)
+                                 for _, g in active])
         scale = self.clip_norm / torch.clamp(norm, min=self.clip_norm)
         out = []
         for p, g in params_grads:
             if _skips(p, g):
                 out.append((p, g))
                 continue
-            d = _dense(g)
-            out.append((p, _like(g, d * scale.to(d.dtype))))
+            out.append((p, _scaled(g, scale)))
         return out
+
+
+def _scaled(g, scale):
+    """g times an f32 scalar cast to g's dtype."""
+    if _sparse(g):
+        return g.scaled(scale)
+    d = _dense(g)
+    return _like(g, d * scale.to(d.dtype))
 
 
 def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
@@ -133,20 +151,29 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
     `min(max_norm / (total + 1e-6), 1)`); returns the norm before."""
     if isinstance(parameters, Tensor):
         parameters = [parameters]
-    grads = [_dense(p.grad) for p in parameters if p.grad is not None]
+    grads = [p.grad for p in parameters if p.grad is not None]
+    sparse = [g.merged_static()[1] for g in grads if _sparse(g)]
+    dense = [_dense(g) for g in grads if not _sparse(g)]
     if not grads:
         return Tensor._wrap(torch.tensor(0.0))
     if norm_type == float("inf"):
-        total = torch.max(torch.stack([torch.abs(g).max() for g in grads]))
+        total = torch.max(torch.stack([torch.abs(g).max()
+                                       for g in dense + sparse]))
     else:
-        total = sum(torch.sum(torch.abs(g.float()) ** norm_type)
-                    for g in grads) ** (1.0 / norm_type)
+        total = (sum(torch.sum(torch.abs(g.float()) ** norm_type)
+                     for g in dense)
+                 + sum(torch.sum(torch.abs(g.float()) ** norm_type)
+                       for g in sparse)) ** (1.0 / norm_type)
     coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
     with torch.no_grad():
         for p in parameters:
-            if p.grad is not None:
-                p.grad = Tensor._wrap(p.grad._data * coef.to(
-                    p.grad._data.dtype))
+            g = p.grad
+            if g is None:
+                continue
+            if _sparse(g):
+                p.grad = g.scaled(coef)
+            else:
+                p.grad = Tensor._wrap(g._data * coef.to(g._data.dtype))
     return Tensor._wrap(total)
 
 

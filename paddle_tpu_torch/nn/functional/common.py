@@ -102,18 +102,63 @@ def _embedding_fn(ids, w, *, padding_idx):
 dispatch.register_op("embedding", _embedding_fn)
 
 
+class _SparseEmbedding(torch.autograd.Function):
+    """Rows of `w` at `ids` whose backward gives the weight a
+    `SelectedRows` (JAX's `_SparseEmbeddingGradNode`): rows the ids as
+    int32, values the arriving cotangent rows (padding rows zeroed,
+    kept), accumulated beside the leaf `owner` (`Tensor._sr`, later
+    lookups concatenated after earlier ones); the dense `[V, H]` gradient
+    is never built. Inside `paddle.grad`, or for a leaf with hooks, torch
+    gets the dense gradient instead."""
+
+    @staticmethod
+    def forward(ctx, ids, w, owner, padding_idx):
+        ctx.save_for_backward(ids)
+        ctx.owner, ctx.height = owner, int(w.shape[0])
+        ctx.padding_idx, ctx.w_dtype = padding_idx, w.dtype
+        return _embedding_fn(ids, w, padding_idx=padding_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ...core import autograd as autograd_mod
+        from ...core.selected_rows import SelectedRows
+
+        ids, = ctx.saved_tensors
+        rows = ids.reshape(-1).to(torch.int32)
+        vals = g.reshape(rows.shape[0], g.shape[-1])
+        if ctx.padding_idx is not None:
+            vals = torch.where((rows == ctx.padding_idx)[:, None],
+                               torch.zeros((), dtype=vals.dtype,
+                                           device=vals.device), vals)
+        sr = SelectedRows(rows, vals, ctx.height)
+        leaf = ctx.owner._data
+        if autograd_mod.sparse_densified() or leaf._backward_hooks:
+            return None, sr.to_dense().to(ctx.w_dtype), None, None
+        prev = ctx.owner._sr
+        ctx.owner._sr = sr if prev is None else prev.concat(sr)
+        return None, None, None, None
+
+
+dispatch.register_op("embedding_sparse",
+                     lambda ids, w, *, padding_idx, owner:
+                     _SparseEmbedding.apply(ids, w, owner, padding_idx))
+
+
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """Rows of `weight` at the ids `x`; ids equal to `padding_idx` give
-    zeros and no gradient. `sparse=True` (a SelectedRows gradient) is not
-    ported yet."""
-    if sparse:
-        raise NotImplementedError("embedding(sparse=True): SelectedRows "
-                                  "gradients are not ported yet")
+    zeros and no gradient. `sparse=True` gives a leaf weight a
+    `SelectedRows` gradient (JAX's `use_sparse` rule: a leaf that
+    requires grad, with grad enabled); any other weight takes the dense
+    path."""
     x, weight = as_tensor(x), as_tensor(weight)
     if padding_idx is not None:
         padding_idx = int(padding_idx)
         if padding_idx < 0:
             padding_idx += int(weight.shape[0])
+    if sparse and torch.is_grad_enabled() and not weight.stop_gradient \
+            and weight.is_leaf:
+        return dispatch.apply("embedding_sparse", [x, weight],
+                              {"padding_idx": padding_idx, "owner": weight})
     return dispatch.apply("embedding", [x, weight],
                           {"padding_idx": padding_idx})
 

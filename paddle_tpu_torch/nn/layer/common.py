@@ -50,15 +50,13 @@ class LinearNoBias(Linear):
 
 class Embedding(Layer):
     """A `[num_embeddings, embedding_dim]` table; the `padding_idx` row is
-    zero at construction and its lookups give zeros (no gradient). The
-    `sparse` (SelectedRows) gradient is not ported yet."""
+    zero at construction and its lookups give zeros (no gradient).
+    `sparse=True` gives the weight a `SelectedRows` gradient."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None):
         super().__init__()
-        if sparse:
-            raise NotImplementedError("Embedding(sparse=True): SelectedRows "
-                                      "gradients are not ported yet")
+        self._sparse = bool(sparse)
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
         self._padding_idx = padding_idx
@@ -72,7 +70,8 @@ class Embedding(Layer):
                 self.weight._data[pi] = 0
 
     def forward(self, x):
-        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
 
     def extra_repr(self):
         return f"{self._num_embeddings}, {self._embedding_dim}"

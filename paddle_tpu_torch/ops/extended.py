@@ -926,7 +926,7 @@ def _scalar_normal(k, dtype):
     np_t = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
     lo = float(np.nextafter(np_t(-1.0), np_t(0.0)))
     return torch.tensor(np.sqrt(2), dtype=dtype, device=k.device) \
-        * torch.erfinv(_scalar_uniform(k, dtype, lo, 1.0))
+        * random_mod.erf_inv(_scalar_uniform(k, dtype, lo, 1.0))
 
 
 def _gamma_one(keys, alpha):
@@ -963,7 +963,7 @@ def _gamma_one(keys, alpha):
             s = _split_keys(kk, 2)
             kk2, sub = s[:, 0], s[:, 1]
             xn = _scalar_normal(sub, dt)
-            vn = one + xn * c
+            vn = random_mod._fma(xn, c, one)
             kk = torch.where(inner[:, None], kk2, kk)
             x = torch.where(inner, xn, x)
             v = torch.where(inner, vn, v)

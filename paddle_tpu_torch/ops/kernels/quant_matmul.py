@@ -17,6 +17,16 @@ over the CTAs of a thread-block cluster; `gemm_plan` chooses the split on
 the host from the shape, the format's weight tile and the card's SM
 count alone (never from `out_dtype`), and the cluster sums its partial
 tiles in a fixed order, so a call gives the same bits every time.
+
+`quant_matmul` is differentiable in x as JAX's `custom_vjp` is
+(`quant_matmul.py:49-72`): the cotangent of x is
+`g @ (wq.to(g.dtype) * scale[:, None].to(g.dtype))`, a plain matmul on
+both devices (XLA computes it in the JAX package, outside Pallas), and
+the weights and scale get none. `quant_matmul_int4` is forward-only in
+the JAX package (a deploy format): on a CUDA tensor that requires grad
+its backward raises `KernelNotDifferentiableError`; on CPU tensors its
+plain version differentiates through ordinary torch ops, as JAX's CPU
+path does.
 """
 from __future__ import annotations
 
@@ -128,22 +138,67 @@ def quant_matmul_int4_ref(x2d, wq_packed, scale, out_dtype=None):
     return quant_matmul_ref(x2d, unpack_int4(wq_packed), scale, out_dtype)
 
 
-def quant_matmul(x2d, wq, scale, out_dtype=None):
-    """`x2d [M, K] @ dequant(wq [N, K], scale [N]).T -> [M, N]`, wq int8,
-    float8_e4m3fn or float8_e5m2. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (K a multiple of 16) or raise."""
+def _forward(x2d, wq, scale, out_dtype):
     if x2d.device.type == "cpu":
         return quant_matmul_ref(x2d, wq, scale, out_dtype)
     return _launch(x2d, wq, scale, out_dtype, int4=False)
+
+
+class _QuantMatmul(torch.autograd.Function):
+    """The int8 / fp8 gemm with JAX's VJP: x's cotangent is `g` times the
+    weight dequantized in g's dtype; wq and scale get none."""
+
+    @staticmethod
+    def forward(ctx, x2d, wq, scale, out_dtype):
+        ctx.save_for_backward(wq, scale)
+        return _forward(x2d, wq, scale, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq, scale = ctx.saved_tensors
+        wf = wq.to(g.dtype) * scale[:, None].to(g.dtype)       # [N, K]
+        return torch.matmul(g, wf), None, None, None
+
+
+class _Int4NoGrad(torch.autograd.Function):
+    """The int4 kernel's output on the tape, with a backward that
+    refuses: JAX's int4 gemm has no VJP."""
+
+    @staticmethod
+    def forward(ctx, x2d, wq_packed, scale, out_dtype):
+        return _launch(x2d, wq_packed, scale, out_dtype, int4=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise _support.KernelNotDifferentiableError(
+            "quant_matmul_int4 (a deploy format: JAX's int4 gemm has no "
+            "VJP)")
+
+
+def _wants_grad(x2d):
+    return torch.is_grad_enabled() and x2d.requires_grad
+
+
+def quant_matmul(x2d, wq, scale, out_dtype=None):
+    """`x2d [M, K] @ dequant(wq [N, K], scale [N]).T -> [M, N]`, wq int8,
+    float8_e4m3fn or float8_e5m2. CPU tensors take the plain version;
+    CUDA tensors launch the kernel (K a multiple of 16) or raise.
+    Differentiable in x by JAX's rule."""
+    if _wants_grad(x2d):
+        return _QuantMatmul.apply(x2d, wq, scale, out_dtype)
+    return _forward(x2d, wq, scale, out_dtype)
 
 
 def quant_matmul_int4(x2d, wq_packed, scale, out_dtype=None):
     """`x2d [M, K] @ dequant(wq_packed [N, K/2], scale [N]).T -> [M, N]`
     with split-half packed int4 weights (`nn.quant.pack_int4`). CPU
     tensors take the plain version; CUDA tensors launch the kernel (K a
-    positive multiple of 32) or raise."""
+    positive multiple of 32) or raise, and a backward through it
+    raises `KernelNotDifferentiableError`."""
     if x2d.device.type == "cpu":
         return quant_matmul_int4_ref(x2d, wq_packed, scale, out_dtype)
+    if _wants_grad(x2d):
+        return _Int4NoGrad.apply(x2d, wq_packed, scale, out_dtype)
     return _launch(x2d, wq_packed, scale, out_dtype, int4=True)
 
 

@@ -37,10 +37,20 @@ parameter's size). Each bias correction divides by a device tensor, not
 a host scalar: CUDA divides by a host scalar as a multiply by its
 reciprocal, one ulp off the JAX division.
 
+A SelectedRows gradient (`Embedding(sparse=True)`) follows JAX's
+`step` (`:200-231`): the clip runs first, on sparse and dense gradients
+together; then an optimizer with `lazy_mode=False` (Adam's and AdamW's
+default) densifies it, and every other one (`lazy_mode=True`, and the
+optimizers without the option) updates only the touched rows
+(`_sparse_apply`, `:233-302`): the duplicate rows merged in sorted-id
+order, the decay and `_update_one` run on those rows of the working copy
+(the f32 master rows under `multi_precision`) and of the row-shaped
+accumulators, and the rows written back; untouched rows, their masters
+and moments keep their bits. `LBFGS` refuses one with JAX's
+`RuntimeError`.
+
 `state_dict` holds the accumulators, the masters, `global_step` and, with
-a scheduler, its state under `LR_Scheduler`. A SelectedRows gradient
-(JAX's `_sparse_apply`, `:233-302`) is not ported yet: it raises
-`SelectedRowsNotPortedError`.
+a scheduler, its state under `LR_Scheduler`.
 """
 from __future__ import annotations
 
@@ -50,8 +60,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..core.selected_rows import merge_rows
 from ..core.tensor import Tensor, _to_torch
-from ..nn.clip import SelectedRowsNotPortedError
 from . import lr as lr_mod
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adadelta", "RMSProp",
@@ -209,14 +219,17 @@ class Optimizer:
 
     # -- the step ----------------------------------------------------------
     def _params_grads(self):
-        """(parameter, gradient Tensor) for every parameter with a
-        gradient."""
+        """(parameter, gradient) for every parameter with a gradient: a
+        Tensor, or a SelectedRows."""
         out = []
         for p in self._params:
             leaf = _leaf(p)
-            if leaf.requires_grad and leaf.grad is not None:
-                out.append((p, p.grad if isinstance(p, Tensor)
-                            else Tensor._wrap(leaf.grad)))
+            if not leaf.requires_grad:
+                continue
+            g = p.grad if isinstance(p, Tensor) else (
+                None if leaf.grad is None else Tensor._wrap(leaf.grad))
+            if g is not None:
+                out.append((p, g))
         return out
 
     @torch.no_grad()
@@ -224,27 +237,30 @@ class Optimizer:
         params_grads = self._params_grads()
         if not params_grads:
             return
-        for _, g in params_grads:
-            if getattr(g, "is_selected_rows", False):
-                raise SelectedRowsNotPortedError(
-                    "SelectedRows gradients are not ported yet; use "
-                    "Embedding(sparse=False)")
         params_grads = self._clip_grads(params_grads)
+        if not getattr(self, "_lazy_mode", True):
+            params_grads = [(p, Tensor._wrap(g.to_dense())
+                             if getattr(g, "is_selected_rows", False) else g)
+                            for p, g in params_grads]
+        sparse = [(p, g) for p, g in params_grads
+                  if getattr(g, "is_selected_rows", False)]
         self._global_step += 1
         lr = _f32(self.get_lr())
         for p, g in params_grads:
-            if g is None:
+            if g is None or getattr(g, "is_selected_rows", False):
                 continue
-            mult = self._lr_mult_of(p)
-            plr = lr if mult == 1.0 else _f32(np.float32(lr)
-                                              * np.float32(mult))
-            self._step_one(p, g._data if isinstance(g, Tensor) else g, plr)
+            self._step_one(p, g._data if isinstance(g, Tensor) else g,
+                           self._plr(p, lr))
+        for p, sr in sparse:
+            self._sparse_apply(p, sr, self._plr(p, lr))
 
-    def _step_one(self, p, g, lr):
-        self._ensure_state(p)
-        leaf = _leaf(p)
-        master = self._master_weights.get(id(p))
-        work = master if master is not None else leaf.detach()
+    def _plr(self, p, lr):
+        mult = self._lr_mult_of(p)
+        return lr if mult == 1.0 else _f32(np.float32(lr) * np.float32(mult))
+
+    def _decayed(self, p, work, g, lr):
+        """(working copy, gradient in its dtype) after the decay, and the
+        coefficient."""
         gg = g.to(work.dtype)
         wd, kind = self._wd_of(p)
         if wd and kind == "l2":
@@ -258,6 +274,14 @@ class Optimizer:
                  * torch.tensor(wd, dtype=torch.float64).to(work.dtype)
                  .float()).to(work.dtype)
             work = work - work * float(c)
+        return work, gg, wd
+
+    def _step_one(self, p, g, lr):
+        self._ensure_state(p)
+        leaf = _leaf(p)
+        master = self._master_weights.get(id(p))
+        work = master if master is not None else leaf.detach()
+        work, gg, wd = self._decayed(p, work, g, lr)
         accs = {k: self._accumulators[k][id(p)] for k in self._acc_names}
         new_work = self._update_one(work, gg, accs, lr, wd)
         if master is not None:
@@ -265,6 +289,29 @@ class Optimizer:
             leaf.copy_(new_work.to(leaf.dtype))
         else:
             leaf.copy_(new_work)
+
+    def _sparse_apply(self, p, sr, lr):
+        """The lazy update from a SelectedRows: only the merged rows of the
+        working copy and of the row-shaped accumulators change (scalar
+        accumulators, the beta powers, step as in the dense update)."""
+        self._ensure_state(p)
+        leaf = _leaf(p)
+        u_rows, merged = merge_rows(sr.rows, sr.values, sr.height)
+        idx = u_rows.long()
+        master = self._master_weights.get(id(p))
+        src = master if master is not None else leaf.detach()
+        work, gg, wd = self._decayed(p, src[idx], merged, lr)
+        full = {k: self._accumulators[k][id(p)] for k in self._acc_names}
+        rowwise = {k: tuple(a.shape[:1]) == tuple(leaf.shape[:1])
+                   and a.dim() > 0 for k, a in full.items()}
+        accs = {k: a[idx] if rowwise[k] else a for k, a in full.items()}
+        new_work = self._update_one(work, gg, accs, lr, wd)
+        for k, a in full.items():
+            if rowwise[k]:
+                a.index_copy_(0, idx, accs[k].to(a.dtype))
+        if master is not None:
+            master.index_copy_(0, idx, new_work.to(master.dtype))
+        leaf.index_copy_(0, idx, new_work.to(leaf.dtype))
 
     def clear_grad(self, set_to_zero=False):
         for p in self._params:
@@ -639,9 +686,10 @@ class LBFGS(Optimizer):
             loss = closure()
         pairs = self._params_grads()
         if any(getattr(g, "is_selected_rows", False) for _, g in pairs):
-            raise SelectedRowsNotPortedError(
-                "LBFGS keeps a dense curvature history; SelectedRows "
-                "gradients are not ported")
+            raise RuntimeError(
+                "LBFGS keeps dense curvature history and does not support "
+                "SelectedRows gradients; use Embedding(sparse=False) or a "
+                "first-order optimizer (SGD/Adam lazy_mode)")
         leaves = [_leaf(p) for p, _ in pairs]
         flat_grad = self._flat([g._data for _, g in pairs])
         if self._prev_flat_grad is not None:

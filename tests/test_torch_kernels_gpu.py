@@ -2280,3 +2280,118 @@ def test_embedding_backward_repeats_bit_for_bit():
     assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0],
                                                            grads[2])
     assert _rel(grads[0], want) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_quant_matmul_gradient_on_card_equals_cpu(dtype):
+    """Row 11 is differentiable in x by JAX's rule on the card as on the
+    CPU: the cotangent `g @ (wq * scale)` in g's dtype, a plain matmul;
+    the weights get none. The CPU's gradient is that formula's bits; the
+    card's is within one rounding of it (another gemm's summation)."""
+    dev = _card()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(48, 256, generator=g).to(dtype)
+    wq = torch.randint(-127, 128, (384, 256), generator=g,
+                       dtype=torch.int8)
+    s = torch.rand(384, generator=g) * 0.02 + 1e-3
+    ct = torch.randn(48, 384, generator=g).to(dtype)
+    grads = []
+    for d in ("cpu", dev):
+        xt = x.to(d).detach().clone().requires_grad_()
+        out = qm.quant_matmul(xt, wq.to(d), s.to(d))
+        out.backward(ct.to(d))
+        assert wq.grad is None
+        grads.append(xt.grad.float().cpu())
+    want = ct @ (wq.to(dtype) * s[:, None].to(dtype))
+    assert torch.equal(grads[0], want.float())
+    err = float((grads[1] - grads[0]).norm() / grads[0].norm())
+    assert err <= TOL[dtype], err
+
+
+def test_quant_matmul_int4_backward_raises_on_card():
+    """Row 12 is forward-only, as JAX's int4 gemm: a backward through the
+    kernel raises the typed error instead of losing x's gradient."""
+    from paddle_tpu_torch.ops.kernels import _support
+
+    dev = _card()
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(32, 256, generator=g).to(torch.bfloat16).to(dev)
+    q = torch.randint(-7, 8, (128, 256), generator=g, dtype=torch.int8)
+    wp = nq.pack_int4(q).to(dev)
+    s = (torch.rand(128, generator=g) * 0.02 + 1e-3).to(dev)
+    xt = x.requires_grad_()
+    out = qm.quant_matmul_int4(xt, wp, s)
+    with pytest.raises(_support.KernelNotDifferentiableError):
+        out.float().sum().backward()
+    with torch.no_grad():
+        torch.testing.assert_close(
+            qm.quant_matmul_int4(x, wp, s).float(),
+            qm.quant_matmul_int4_ref(x.cpu(), wp.cpu(), s.cpu()).float()
+            .to(dev), rtol=2e-2, atol=2e-2)
+
+
+def test_selected_rows_merge_repeats_bit_for_bit_on_card():
+    """The sparse embedding gradient's merge (duplicates summed in
+    sorted-id order by index_put_) gives the same bits on every call on
+    the card, and the CPU's sums within float rounding."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows, merge_rows
+
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    rows = torch.randint(0, 50, (4096,), generator=g, dtype=torch.int32)
+    vals = torch.randn(4096, 64, generator=g).to(torch.bfloat16)
+    runs = [merge_rows(rows.to(dev), vals.to(dev), 100) for _ in range(4)]
+    for u, m in runs[1:]:
+        assert torch.equal(u, runs[0][0]) and torch.equal(m, runs[0][1])
+    u_cpu, m_cpu = merge_rows(rows, vals, 100)
+    assert torch.equal(runs[0][0].cpu(), u_cpu)
+    torch.testing.assert_close(runs[0][1].float().cpu(), m_cpu.float(),
+                               rtol=1e-2, atol=1e-2)
+    dense = SelectedRows(rows.to(dev), vals.to(dev), 100).to_dense()
+    assert torch.equal(dense[u_cpu.long().to(dev)], runs[0][1])
+
+
+def test_sparse_embedding_under_lazy_mode_on_card_equals_eager():
+    """The small Layer Llama with `Embedding(sparse=True)` and
+    AdamW(lazy_mode=True), three steps eagerly and three under lazy mode
+    on the card: the sparse lookup runs at once, the rest of the step is
+    a region (captured as a CUDA graph at its second sight), the word
+    embedding's gradient is a SelectedRows either way, and the losses
+    and the parameters after the steps match the eager run's."""
+    _card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.framework import place
+    from paddle_tpu_torch.models.llama_layers import llama_tiny
+
+    rng = np.random.default_rng(4)
+    ids_np, labs_np = (rng.integers(0, 256, (2, 16)) for _ in range(2))
+    runs = {}
+    with place.device_scope("gpu"):
+        for on in (False, True):
+            lazy.clear_graphs()
+            paddle.seed(7)
+            model = llama_tiny(seq=16)
+            model.llama.embed_tokens._sparse = True
+            opt = paddle.optimizer.AdamW(learning_rate=1e-3, lazy_mode=True,
+                                         parameters=model.parameters())
+            ids, labs = paddle.to_tensor(ids_np), paddle.to_tensor(labs_np)
+            losses = []
+            with lazy.lazy_guard(on):
+                for _ in range(3):
+                    loss, _ = model(ids, labels=labs)
+                    loss.backward()
+                    assert isinstance(model.llama.embed_tokens.weight.grad,
+                                      SelectedRows)
+                    opt.step()
+                    opt.clear_grad()
+                    losses.append(loss)
+            runs[on] = ([float(v) for v in losses],
+                        [p.numpy() for p in model.parameters()])
+    (le, pe), (ll, pl) = runs[False], runs[True]
+    np.testing.assert_allclose(ll, le, rtol=1e-5)
+    for a, b in zip(pl, pe):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
+    lazy.clear_graphs()

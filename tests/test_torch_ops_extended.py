@@ -208,12 +208,35 @@ def test_top_p_sampling_ids_bit_equal(seed):
                                    [[0.7, 3.0], [0.01, 12.0]]])
 def test_standard_gamma_within_float64(alpha, seed):
     """`jax.random.gamma`'s Marsaglia-Tsang loop on the same keys: the
-    same accept / reject path, values within float64's tolerance. Not
-    bit-equal: the loop's float64 normal draws go through torch.erfinv,
-    which rounds otherwise than XLA's (ROADMAP Queue C); about a quarter
-    of the draws differ in their last bit."""
+    same accept / reject path, values within float64's tolerance. The
+    normal draws are XLA's bits; the boost's `pow` and a few of the
+    loop's products still round otherwise in the last bit (ROADMAP
+    Queue C)."""
     want, got = _both(lambda p: p.standard_gamma(_t(p, _f(alpha))), seed)
     _close(want, got)
+
+
+def test_standard_gamma_queue_c_element_bit_equal():
+    """The element ROADMAP Queue C named: at `paddle.seed(0)` element 2
+    of `standard_gamma([0.05, 0.3, 1.0, 2.5, 7.0, 40.0])` is JAX's
+    0.04900077673808186, and elements 1-5 are JAX's bits."""
+    alpha = _f([0.05, 0.3, 1.0, 2.5, 7.0, 40.0], "float64")
+    (want,), (got,) = _both(lambda p: p.standard_gamma(_t(p, alpha)), 0)
+    assert got[2] == want[2] == 0.04900077673808186
+    np.testing.assert_array_equal(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("seed", [0, 77])
+def test_standard_gamma_2000_draws_last_bit(seed):
+    """2,000 float64 draws over alpha in [1, 40]: the normal draws are
+    XLA's bits and `1 + x c` is fused as XLA fuses it, so at most 3 % of
+    the draws differ, each in its last bits only (ROADMAP Queue C names
+    the first)."""
+    alpha = np.linspace(1.0, 40.0, 2000)
+    (want,), (got,) = _both(lambda p: p.standard_gamma(_t(p, alpha)), seed)
+    differ = want != got
+    assert differ.mean() <= 0.03
+    np.testing.assert_allclose(got, want, rtol=4e-15, atol=0)
 
 
 @pytest.mark.parametrize("alpha", [0.4, 3.0])

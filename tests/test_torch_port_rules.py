@@ -85,7 +85,12 @@ def test_port_files_exist():
                  "nn/clip.py", "regularizer.py", "optimizer/lr.py",
                  "optimizer/optimizer.py", "tools/loop_workload.py",
                  "ops/extended.py", "fft.py", "signal.py",
-                 "tools/fnet_workload.py", "tools/smoke_clock.py"):
+                 "tools/fnet_workload.py", "tools/smoke_clock.py",
+                 "core/selected_rows.py", "quantization/__init__.py",
+                 "distributed/checkpoint/save_state_dict.py",
+                 "distributed/checkpoint/load_state_dict.py",
+                 "resilience/checkpoint_manager.py", "resilience/guard.py",
+                 "tools/resilience_workload.py", "tools/quant_workload.py"):
         assert f"paddle_tpu_torch/{name}" in rel, name
 
 
@@ -121,6 +126,10 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.tools.moe_profile, "
             "paddle_tpu_torch.framework.retry, "
             "paddle_tpu_torch.resilience.faults, "
+            "paddle_tpu_torch.resilience, paddle_tpu_torch.quantization, "
+            "paddle_tpu_torch.distributed.checkpoint, "
+            "paddle_tpu_torch.tools.resilience_workload, "
+            "paddle_tpu_torch.tools.quant_workload, "
             "paddle_tpu_torch.inference.prefix_cache, "
             "paddle_tpu_torch.serving.slo, "
             "paddle_tpu_torch.serving.fault_tolerance, "

@@ -241,10 +241,12 @@ def test_adamw_decay_order_under_multi_precision():
 def test_adamw_get_set_lr_and_refusals():
     """A float learning rate is set and read back; an LRScheduler's is
     read from it and cannot be set; a clip runs inside the step; a
-    SelectedRows gradient, not ported yet, is refused with a typed
-    error."""
+    SelectedRows gradient is clipped as the JAX package clips it (its
+    merged rows' square sum in the global norm, its values scaled)."""
+    from paddle_tpu.core.selected_rows import SelectedRows as JRows
+    from paddle_tpu.nn import ClipGradByGlobalNorm as JClip
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-    from paddle_tpu_torch.nn.clip import SelectedRowsNotPortedError
     from paddle_tpu_torch.optimizer.lr import StepDecay
 
     p = torch.nn.Parameter(torch.zeros(3))
@@ -264,11 +266,17 @@ def test_adamw_get_set_lr_and_refusals():
     opt.step()
     assert torch.isfinite(p).all() and (p < 0).all()
 
-    class _Rows:
-        is_selected_rows = True
-
-    with pytest.raises(SelectedRowsNotPortedError):
-        ClipGradByGlobalNorm(1.0)([(p, _Rows())])
+    rows = np.array([2, 0, 2], np.int32)
+    vals = np.random.default_rng(0).standard_normal((3, 4)).astype(
+        np.float32)
+    (_, got), = ClipGradByGlobalNorm(1.0)(
+        [(p, SelectedRows(torch.from_numpy(rows), torch.from_numpy(vals),
+                          5))])
+    (_, want), = JClip(1.0)([(p, JRows(jnp.asarray(rows),
+                                       jnp.asarray(vals), 5))])
+    np.testing.assert_array_equal(got.rows.numpy(), np.asarray(want.rows))
+    np.testing.assert_allclose(got.values.numpy(), np.asarray(want.values),
+                               rtol=1e-6, atol=1e-7)
 
 
 def test_functional_options_not_ported_raise():
