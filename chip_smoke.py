@@ -158,7 +158,20 @@ checkpoint quarantined and the previous one restored bit for bit
 the int8 and int4 weight-only gemms at B 1 x S 2048 (29 launches a
 forward, each Linear against its plain version, logits near the bf16
 model's), two QAT steps, and both gemms timed at M 2,048 over the five
-serving shapes (`quant_deploy`).
+serving shapes (`quant_deploy`). Then the single-controller distributed
+core and elastic training (`tools/elastic_workload.py`): the chaos
+scenario on `EmulatedTrainable` (world 8, the busiest pod killed
+mid-step, re-formed to 7, resumed), `shard_tensor` / `reshard` and
+every eager collective on rank-stacked tensors, and a dp2 x mp4
+checkpoint loaded at dp4 x mp2, on the card against the CPU, each device
+replaying itself bit for bit (`elastic_reference`); then Llama-2-7B
+width at 1 of 32 layers (O2 bf16, AdamW, GradScaler, B 1 x S 2048, its
+state placed over a `world` mesh by the leading-dim rule) under
+`ElasticTrainSupervisor` from world 4, a pod killed so it re-forms to 3
+(every tensor replicated), then to 2 (every tensor re-sliced): each
+resumed step's loss `repr`-equal to an uninterrupted run restored from
+the same checkpoint, the final state bit-equal to it, exact launches
+(`elastic_train`).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve_lora,serve_migrate
@@ -171,6 +184,7 @@ serving shapes (`quant_deploy`).
     python3 chip_smoke.py --only nn_reference,encoder_train
     python3 chip_smoke.py --only ops_reference,fnet_reference,fnet_train
     python3 chip_smoke.py --only resilience_reference,sparse_train,resilient_train,quant_deploy
+    python3 chip_smoke.py --only elastic_reference,elastic_train
 
 Each phase prints one JSON line. `--only` runs the device check and the
 named phases alone (`lora_reference`, `serve_lora`, `serve_lora_quant`,
@@ -181,7 +195,8 @@ chaos fleet runs), `tp_reference`, `serve_tp`, `eager_reference`,
 `lazy_llama`, `ops_reference`, `train_loop_reference`, `train_loop`,
 `nn_reference`, `encoder_train`, `fnet_reference`, `fnet_train`,
 `resilience_reference`, `sparse_train`, `resilient_train`,
-`quant_deploy`), with no kernels line and
+`quant_deploy`, `elastic_reference`, `elastic_train`), with no kernels
+line and
 no last line: a measurement of those phases without the whole run. The TP
 phases start their rank processes as `chip_smoke.py --tp-rank ...`. Any failure raises, so the script exits
 non-zero and never prints the last line, which on success is exactly
@@ -5936,8 +5951,21 @@ def _timed_manager(root, **kw):
             self.times["bytes"].append(sum(
                 p.stat().st_size for p in Path(path).iterdir()))
 
+        def _verify_dir(self, *a, **k):
+            t0 = time.perf_counter()
+            super()._verify_dir(*a, **k)
+            self.times["verify_ms"].append((time.perf_counter() - t0) * 1e3)
+
+        def load(self, *a, **k):
+            t0 = time.perf_counter()
+            out = super().load(*a, **k)
+            torch.cuda.synchronize()
+            self.times["load_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
     m = Timed(root, **kw)
-    m.times = {"snapshot_ms": [], "write_ms": [], "bytes": []}
+    m.times = {"snapshot_ms": [], "write_ms": [], "bytes": [],
+               "verify_ms": [], "load_ms": []}
     return m
 
 
@@ -6213,6 +6241,261 @@ def phase_quant_deploy(kind, smi, trained=None):
     return launches, gemms
 
 
+# elastic_reference: the chaos scenario's losses on the card within
+# ELASTIC_LOSS_TOL (relative) of the CPU's, the stacked collectives'
+# reductions within ELASTIC_RED_TOL; copies, reshards and checkpoint
+# round trips bit-equal
+ELASTIC_LOSS_TOL = 1e-6
+ELASTIC_RED_TOL = 1e-6
+ELASTIC_COPIES = ("shard", "s_to_r", "s_to_s", "r_to_p", "broadcast",
+                  "all_gather", "scatter", "alltoall", "alltoall_single",
+                  "shift", "send_recv")
+# elastic_train: Llama-2-7B width at elastic_workload.LAYERS of 32
+# layers (one 6.5 GB checkpoint a save), ELASTIC_STEPS steps from
+# ELASTIC_PODS pods, a save every elastic_workload.SAVE_EVERY steps
+# (after steps 1, 3 and 5: three saves); a pod killed 4 steps after the world-4 build (in step 4, back
+# to step 3) and 2 steps after the world-3 build (in step 6, back to
+# step 5)
+ELASTIC_STEPS, ELASTIC_PODS = 7, 4
+ELASTIC_KILLS = ((4, 4), (3, 2))
+
+
+def _elastic_device_run(paddle, ew, dev, root):
+    from paddle_tpu_torch.framework import place
+
+    with place.device_scope(dev):
+        chaos = ew.chaos_smoke(paddle, f"{root}/chaos")
+        coll = ew.collective_cases(paddle)
+        ck = ew.checkpoint_reshard(paddle, f"{root}/ckpt")
+    return chaos, coll, ck
+
+
+def phase_elastic_reference():
+    """`elastic_workload` on the card and on the CPU, twice on each: the
+    chaos scenario (`chaos_smoke`: world 8, the busiest pod killed in
+    step 7, re-formed to 7, every check of `tools/train_chaos_smoke.py`
+    on each device), `collective_cases` and `checkpoint_reshard`. Gates:
+    the host logic (victim, worlds, restored step, counters, dumps,
+    shard shapes) and integer results equal; copies, reshards and
+    checkpoint round trips bit-equal between the card and the CPU; the
+    losses and the collectives' reductions within 1e-6 relative; each
+    device's second run `repr`-equal to its first. Returns the card
+    runs' launches (none: the emulated step runs no kernel)."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.tools import elastic_workload as ew
+
+    root = tempfile.mkdtemp(prefix="elastic_reference_")
+    runs = {}
+    _launch_delta()
+    try:
+        for dev in ("gpu", "cpu"):
+            runs[dev] = [_elastic_device_run(paddle, ew, dev,
+                                             f"{root}/{dev}{i}")
+                         for i in range(2)]
+            if dev == "gpu":
+                torch.cuda.synchronize()
+                launches = _launch_delta()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for dev, (a, b) in runs.items():
+        if repr(a[0]["losses"]) != repr(b[0]["losses"]) or any(
+                not np.array_equal(a[1][k], b[1][k]) for k in a[1]):
+            raise AssertionError(f"elastic_reference: the {dev} does not "
+                                 f"replay itself")
+    (gchaos, gcoll, gck), (cchaos, ccoll, cck) = runs["gpu"][0], \
+        runs["cpu"][0]
+    host = ("victim", "world", "restored", "moved", "replayed",
+            "world4_shards", "header")
+    bad = [k for k in host if gchaos[k] != cchaos[k]]
+    if bad:
+        raise AssertionError(f"elastic_reference: host logic differs: "
+                             f"{[(k, gchaos[k], cchaos[k]) for k in bad]}")
+    gl = np.array([gchaos["losses"][i] for i in sorted(gchaos["losses"])])
+    cl = np.array([cchaos["losses"][i] for i in sorted(cchaos["losses"])])
+    loss_rel = float(np.max(np.abs(gl - cl) / np.abs(cl)))
+    state_rel = max(float(np.max(np.abs(gchaos["state"][k]
+                                        - cchaos["state"][k])))
+                    / max(float(np.max(np.abs(cchaos["state"][k]))), 1e-30)
+                    for k in cchaos["state"])
+    if loss_rel > ELASTIC_LOSS_TOL:
+        raise AssertionError(f"elastic_reference: losses {loss_rel} off")
+    red_rel = {}
+    for k, want in ccoll.items():
+        got = gcoll[k]
+        if k in ELASTIC_COPIES:
+            if not np.array_equal(got, want):
+                raise AssertionError(f"elastic_reference: {k} differs")
+            continue
+        red_rel[k] = float(np.max(np.abs(got - want))
+                           / max(float(np.max(np.abs(want))), 1e-30))
+        if red_rel[k] > ELASTIC_RED_TOL:
+            raise AssertionError(f"elastic_reference: {k} {red_rel[k]}")
+    for k, (saved, loaded, n_shards, files) in cck.items():
+        g = gck[k]
+        if not (np.array_equal(g[0], saved) and np.array_equal(g[1], loaded)
+                and np.array_equal(loaded, saved) and g[2] == n_shards == 8
+                and g[3] == files):
+            raise AssertionError(f"elastic_reference: checkpoint {k}")
+    emit({"phase": "elastic_reference", "loss_tol_rel": ELASTIC_LOSS_TOL,
+          "losses_max_rel": loss_rel, "state_max_rel": state_rel,
+          "chaos": {k: gchaos[k] for k in host},
+          "recovery_ms": {"gpu": gchaos["recovery_ms"],
+                          "cpu": cchaos["recovery_ms"]},
+          "collectives_bit_equal": list(ELASTIC_COPIES),
+          "reductions_max_rel": red_rel,
+          "checkpoint_dp2mp4_to_dp4mp2": {k: {"shards": v[2],
+                                              "files": len(v[3])}
+                                          for k, v in gck.items()},
+          "self_replay_repr_equal": True, "launches": launches})
+    del runs
+    release()
+    return launches
+
+
+def phase_elastic_train(kind, smi):
+    """`elastic_workload.elastic_run` at Llama-2-7B width
+    (elastic_workload.LAYERS of 32 layers, B 1 x S 2048, O2 bf16, AdamW with
+    lazy_mode and multi_precision, a GradScaler): an
+    `ElasticTrainSupervisor` over ELASTIC_PODS pods checkpointing every
+    elastic_workload.SAVE_EVERY steps through an async `CheckpointManager` in a
+    temporary directory, min_world 2, reform_budget 2; a pod killed in
+    step 4 (re-formed to 3: no dim of 4096, 11008 or 32000 divides by 3,
+    every tensor replicated) and another in step 6 (re-formed to 2: every
+    tensor re-sliced). Gates: `reforms == 2`, `elastic.lost_pods` up by
+    2; a heartbeat with a first-epoch incarnation rejected; both lost
+    pods in the forensics dumps with their last payloads; no
+    quarantined directory; each re-form's resumed losses `repr`-equal to
+    an uninterrupted run at the new world restored from the same
+    checkpoint, and the final parameters, masters and moments bit-equal
+    to the second reference's; one launch of rows 5, 6 and 7 a layer and
+    3 of row 13 a step run (the replayed steps and the references'
+    included). Reports the step ms, each re-form's recovery ms, the
+    checkpoints' snapshot / write / verify / restore ms and GB, and peak
+    memory. Returns the launches."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.auto_parallel.sharding_bridge import \
+        local_shards
+    from paddle_tpu_torch.framework import monitor, place
+    from paddle_tpu_torch.tools import elastic_workload as ew
+
+    root = tempfile.mkdtemp(prefix="elastic_train_")
+    _launch_delta()
+    free_gb = shutil.disk_usage(root).free / 1e9
+    print(f"elastic_train: {free_gb:.1f} GB free under {root}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    pods = [f"pod{i}" for i in range(ELASTIC_PODS)]
+    step_ms = []            # each trainable's step-ms list, by build
+
+    def build(world):
+        tr = ew.LlamaTrainable(paddle, world)
+        step_ms.append((len(world), tr.step_ms))
+        return tr
+
+    try:
+        with place.device_scope("gpu"):
+            lost0 = monitor.get("elastic.lost_pods")
+            cm = _timed_manager(f"{root}/ckpt", keep_last_n=4,
+                                async_save=True)
+            t0 = time.perf_counter()
+            sup, store, incs, losses, recovery = ew.elastic_run(
+                paddle, cm, build, pods, ELASTIC_STEPS, ELASTIC_KILLS,
+                f"{root}/flight")
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            n_sup = len(step_ms)        # the supervised run's builds
+            run_steps = sum(len(ms) for _, ms in step_ms)
+            dumps = ew.flight_dumps(f"{root}/flight")
+            lost = [h["lost_pods"] for h, _ in dumps]
+            restored = [h["restored_step"] for h, _ in dumps]
+            if sup.reforms != 2 or sorted(sup.world) != pods[:2] or \
+                    monitor.get("elastic.lost_pods") - lost0 != 2 or \
+                    sorted(losses) != list(range(ELASTIC_STEPS)):
+                raise AssertionError(f"elastic_train: reforms "
+                                     f"{sup.reforms}, world {sup.world}")
+            if store.heartbeat("pod0", incarnation=incs["pod0"]) \
+                    is not False:
+                raise AssertionError("elastic_train: a dead incarnation "
+                                     "beat")
+            if lost != [["pod3"], ["pod2"]] or restored != [3, 5] or [
+                    (f["lost_pod"], f["final_payload"]["step"],
+                     "loss" in f["final_payload"]) for _, f in dumps] != \
+                    [("pod3", 3, True), ("pod2", 5, True)]:
+                raise AssertionError(f"elastic_train: dumps {dumps}")
+            if any(d.name.startswith("QUARANTINED-")
+                   for d in Path(cm.root).iterdir()):
+                raise AssertionError("elastic_train: a quarantined dir")
+            worlds = [(pods[:3], 3, 6), (pods[:2], 5, ELASTIC_STEPS)]
+            refs = []
+            for world, back, end in worlds:
+                ref, tr = ew.reference_from_restored(cm, build, world, back,
+                                                     end)
+                bad = {i: (repr(losses[i]), repr(v)) for i, v in
+                       ref.items() if repr(losses[i]) != repr(v)}
+                if bad:
+                    raise AssertionError(f"elastic_train: world "
+                                         f"{len(world)} replay {bad}")
+                refs.append(ref)
+                # distinct shards a tensor: 1 at world 3 (replicated),
+                # 2 at world 2 (every tensor re-sliced), scalars whole
+                split = {len({o for _, o, _ in local_shards(t)})
+                         for t in tr.state_dict().values() if t.dim()}
+                if split != {2 if len(world) == 2 else 1}:
+                    raise AssertionError(f"elastic_train: world "
+                                         f"{len(world)} shards {split}")
+                if len(world) == 2:
+                    diff = ew.state_equal(sup.trainable, tr)
+                    if diff:
+                        raise AssertionError(f"elastic_train: final state "
+                                             f"differs at {diff[:3]}")
+                del tr
+                release()
+            torch.cuda.synchronize()
+            launches = _launch_delta()
+            n = run_steps + sum(len(r) for r in refs)
+            want = {"flash_attention_fwd": n * ew.LAYERS,
+                    "flash_attention_dq": n * ew.LAYERS,
+                    "flash_attention_dkv": n * ew.LAYERS,
+                    "rms_norm": n * (2 * ew.LAYERS + 1)}
+            if launches != want:
+                raise AssertionError(f"elastic_train: launches {launches} "
+                                     f"!= {want} over {n} step runs")
+            times = cm.times
+            del sup
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release()
+    gb = [b / 1e9 for b in times["bytes"]]
+    emit({"phase": "elastic_train",
+          "model": f"Llama-2-7B width, {ew.LAYERS} of 32 layers, "
+                   f"O2 bf16, AdamW(lazy_mode, multi_precision), "
+                   f"GradScaler, B 1 x S 2048, state Shard(0) over world "
+                   f"where the leading dim divides",
+          "worlds": "4->3->2", "steps": ELASTIC_STEPS,
+          "save_every": ew.SAVE_EVERY, "lost_pods": lost,
+          "restored_steps": restored,
+          "losses": {i: losses[i] for i in sorted(losses)},
+          "replays_repr_equal": True, "final_state_bit_equal": True,
+          "step_runs": n, "step_ms_by_world": [
+              {"world": w, "ms": ms} for w, ms in step_ms[:n_sup]],
+          "reference_step_ms_by_world": [
+              {"world": w, "ms": ms} for w, ms in step_ms[n_sup:]],
+          "recovery_ms": recovery, "run_s": run_s,
+          "free_gb_before": free_gb,
+          "snapshot_ms": times["snapshot_ms"], "write_ms": times["write_ms"],
+          "checkpoint_gb": gb, "verify_ms": times["verify_ms"],
+          "restore_ms": times["load_ms"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": launches, "device": kind, "nvidia_smi": smi})
+    return launches
+
+
 def _m2048(cases):
     """A gemm's times at M 2,048 by serving shape: kernel, bound and
     cuBLAS bf16 ms."""
@@ -6261,6 +6544,8 @@ ONLY = {
     "sparse_train": phase_sparse_train,
     "resilient_train": phase_resilient_train,
     "quant_deploy": phase_quant_deploy,
+    "elastic_reference": lambda kind, smi: phase_elastic_reference(),
+    "elastic_train": phase_elastic_train,
 }
 # the TP phases by `phase_tp` task: `--only` runs them in one world
 TP_ONLY = {"tp_reference": "reference", "serve_tp": "serve"}
@@ -6333,6 +6618,8 @@ def main(argv=()):
     deploy_launches, gemm_m2048 = phase_quant_deploy(kind, smi, trained)
     del trained
     release()
+    phase_elastic_reference()
+    elastic_launches = phase_elastic_train(kind, smi)
     fused = phase_incubate_kernels()
     layer_launches = phase_incubate_layer(kind, smi)
     incubate_decode_launches = phase_incubate_serve(kind, smi)
@@ -6405,7 +6692,8 @@ def main(argv=()):
                + loop_ref_launches.get(name, 0) + loop_launches[name]
                + nn_ref_launches.get(name, 0) + enc_launches[name]
                + res_ref_launches.get(name, 0) + sparse_launches[name]
-               + resilient_launches[name] + deploy_launches.get(name, 0),
+               + resilient_launches[name] + deploy_launches.get(name, 0)
+               + elastic_launches[name],
                flash["train_mha"][name], also_replaces=f"{FA_PY}:{also}",
                bert_d64_ms=flash["bert_d64"][name]["kernel_ms"],
                bert_d64_bound_ms=flash["bert_d64"][name]["bound_ms"],
@@ -6424,7 +6712,7 @@ def main(argv=()):
              + loop_launches["rms_norm"]
              + res_ref_launches.get("rms_norm", 0)
              + sparse_launches["rms_norm"] + resilient_launches["rms_norm"]
-             + deploy_launches["rms_norm"],
+             + deploy_launches["rms_norm"] + elastic_launches["rms_norm"],
              rms["bf16"]),
         _row("fused_rope", ROPE_SRC, f"{ROPE_PY}:20",
              layer_launches["fused_rope"], fused["rope_bf16"]),

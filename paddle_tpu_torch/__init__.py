@@ -77,6 +77,8 @@ from .models import LlamaConfig, LlamaForCausalLM, llama_7b_shaped, llama_tiny
 from .serving import (DisaggRouter, FleetHandle, FleetRouter, HandoffError,
                       HandoffState, MLPLMEngine, ReplicaHandle, RequestHandle,
                       ServingFrontend)
+from . import distributed
+from .distributed import DataParallel
 
 __all__ = ops.__all__ + [
            "DType", "bfloat16", "complex64", "complex128", "float8_e4m3fn",
@@ -95,7 +97,7 @@ __all__ = ops.__all__ + [
            "ServingFrontend", "FleetRouter", "FleetHandle", "ReplicaHandle",
            "DisaggRouter", "HandoffState", "HandoffError", "linalg", "fft",
            "signal", "dtype", "get_cuda_rng_state", "set_cuda_rng_state",
-           "LazyGuard"]
+           "LazyGuard", "distributed", "DataParallel"]
 
 # the CUDA-named RNG state calls are the default generator's
 get_cuda_rng_state = get_rng_state

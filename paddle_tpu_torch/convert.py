@@ -9,6 +9,10 @@ JAX `MLPLMEngine`'s `params` (embed, w1, b1, w2, b2) load into the port's
 model's `state_dict()` with `layers_from_jax_state`, buffers included:
 a quantized model's `WeightOnlyLinear`s carry their int8 / packed int4
 / fp8 `weight` and f32 `weight_scale` under the JAX package's names.
+JAX state whose arrays are sharded (DistTensors over a mesh, or arrays
+with a `NamedSharding`) becomes port DistTensors with the same mesh and
+placements with `dist_from_jax_state`, read by duck typing: the port
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 from .models.llama import LlamaConfig, LlamaForCausalLM
 
 __all__ = ["from_jax_state", "layers_from_jax_state", "moe_from_jax_state",
-           "mlp_from_jax_params"]
+           "mlp_from_jax_params", "dist_from_jax_state"]
 
 
 @torch.no_grad()
@@ -120,3 +124,55 @@ def mlp_from_jax_params(params: Dict[str, np.ndarray], engine):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
         p.copy_(torch.tensor(arr))
     return engine
+
+
+def _jax_meta(t):
+    """The port's `DistMeta` of a JAX package Tensor (its `_dist_meta`,
+    Partial included) or of a jax.Array with a `NamedSharding` (its mesh
+    and spec, as the JAX package's `infer_meta_from_array` reads them);
+    None for an array on one device."""
+    from .distributed import placement as pl
+    from .distributed.auto_parallel.sharding_bridge import DistMeta
+    from .distributed.process_mesh import ProcessMesh
+
+    meta = getattr(t, "_dist_meta", None)
+    if meta is not None:
+        mesh = ProcessMesh(np.asarray(meta.mesh.mesh), list(
+            meta.mesh.dim_names))
+        out = []
+        for p in meta.placements:
+            kind = type(p).__name__
+            out.append(pl.Shard(p.dim) if kind == "Shard" else
+                       pl.Partial(p.reduce_type) if kind == "Partial"
+                       else pl.Replicate())
+        return DistMeta(mesh, out)
+    arr = getattr(t, "_data", t)
+    sh = getattr(arr, "sharding", None)
+    jm = getattr(sh, "mesh", None)
+    if jm is None or not hasattr(sh, "spec"):
+        return None
+    ids = np.vectorize(lambda d: d.id)(jm.devices)
+    mesh = ProcessMesh(ids, list(jm.axis_names))
+    out = [pl.Replicate() for _ in range(mesh.ndim)]
+    for d, entry in enumerate(sh.spec):
+        if entry is None:
+            continue
+        for ax in (entry if isinstance(entry, tuple) else (entry,)):
+            out[mesh.dim_names.index(ax)] = pl.Shard(d)
+    return DistMeta(mesh, out)
+
+
+def dist_from_jax_state(state: Dict[str, object], device=None) -> dict:
+    """`{name: Tensor}` of `state` (name -> JAX package Tensor or
+    jax.Array): each value copied to `device` (None: the card), and a
+    sharded one a DistTensor with its mesh and placements, so every
+    rank's shard is the JAX device's of the same id."""
+    from .core.tensor import Tensor
+    from .distributed.auto_parallel.sharding_bridge import set_meta
+
+    out = {}
+    for name, t in state.items():
+        t_out = Tensor(np.asarray(getattr(t, "_data", t)), place=device)
+        set_meta(t_out, _jax_meta(t))
+        out[name] = t_out
+    return out

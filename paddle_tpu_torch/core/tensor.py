@@ -122,6 +122,15 @@ class Tensor:
     def place(self) -> Place:
         return Place.of(self._data.device)
 
+    def local_shards(self):
+        """`[(rank, global_offset, torch view)]`: every rank's shard of a
+        DistTensor in rank order, views of this global tensor (the
+        counterpart of `jax.Array.addressable_shards`; one shard, rank
+        0's, for a tensor without placements)."""
+        from ..distributed.auto_parallel.sharding_bridge import local_shards
+
+        return local_shards(self)
+
     @property
     def stop_gradient(self) -> bool:
         d = self._data

@@ -1,13 +1,16 @@
-"""Sharded checkpoint load: the port of
+"""Sharded checkpoint load with reshard-on-load: the port of
 `paddle_tpu/distributed/checkpoint/load_state_dict.py`.
 
-Each destination tensor is assembled whole from whatever shards were
-saved for it: the overlap of every saved shard with the destination
-(the reference's read-items plan), so a checkpoint the JAX package wrote
-from a sharded mesh loads whole here. The assembled host tensor is
-copied into the destination in place (a parameter keeps its identity,
-which the optimizer's state is keyed on), cast to its dtype and device.
-Placing the result onto a mesh is not ported yet.
+The destination's tensors carry their target placements at load time,
+which may differ from the saved ones (a dp2 x mp4 checkpoint loads onto
+dp4 x mp2, a world-8 one onto world 3 or 2). For each rank's shard of a
+DistTensor destination (replicated copies once) the loader takes the
+overlap of every saved shard of the same tensor (the reference's
+read-items plan) and copies just those bytes into that shard, a view of
+the destination's global tensor, in place. A destination without
+placements (a plain Tensor, torch tensor or numpy array) is assembled
+whole. A parameter keeps its identity (the optimizer's state is keyed on
+it); every value is cast to the destination's dtype and device.
 
 Every failure of a torn or rotted directory (no `0.metadata`, a missing
 or short shard file, a missing header entry, a crc mismatch) raises the
@@ -22,7 +25,9 @@ from typing import Dict
 
 import torch
 
+from ...core import lazy
 from ...core.tensor import Tensor
+from ..auto_parallel import sharding_bridge as sb
 from ...framework import dtype as dtype_mod
 from ...framework import safetensors as sft
 from .errors import CheckpointCorrupt
@@ -97,23 +102,29 @@ def _read_metadata(path: str) -> Metadata:
     return meta
 
 
-def _assemble(global_shape, saved_metas, storage, reader, key, dtype):
-    """The whole tensor of `global_shape`, filled from the overlapping
-    saved shards."""
-    out = torch.zeros(tuple(global_shape), dtype=dtype)
-    hi = list(global_shape)
+def _assemble(lo, shape, saved_metas, storage, reader, key, dtype,
+              cache=None):
+    """The block of `shape` at global offset `lo`, filled from the
+    overlapping saved shards (`cache` keeps this key's shards read)."""
+    out = torch.zeros(tuple(shape), dtype=dtype)
+    hi = [a + s for a, s in zip(lo, shape)]
     for m in saved_metas:
         s_lo = list(m.global_offset)
         s_hi = [o + s for o, s in zip(m.global_offset, m.local_shape)]
-        ilo = [max(0, b) for b in s_lo]
+        ilo = [max(a, b) for a, b in zip(lo, s_lo)]
         ihi = [min(a, b) for a, b in zip(hi, s_hi)]
         if any(a >= b for a, b in zip(ilo, ihi)):
             continue
-        fname = storage[LocalTensorIndex(key, tuple(m.global_offset))]
-        src = reader.blob(fname, key, m.global_offset)
+        off = tuple(m.global_offset)
+        src = None if cache is None else cache.get(off)
+        if src is None:
+            fname = storage[LocalTensorIndex(key, off)]
+            src = reader.blob(fname, key, m.global_offset)
+            if cache is not None:
+                cache[off] = src
         src_sl = tuple(slice(a - o, b - o)
                        for a, b, o in zip(ilo, ihi, s_lo))
-        dst_sl = tuple(slice(a, b) for a, b in zip(ilo, ihi))
+        dst_sl = tuple(slice(a - o, b - o) for a, b, o in zip(ilo, ihi, lo))
         # rank-normalise (0-d shards once stored as (1,))
         out[dst_sl] = src[src_sl].reshape(out[dst_sl].shape)
     return out
@@ -170,14 +181,24 @@ def load_state_dict(state_dict: Dict[str, object], path: str,
         if key not in meta.state_dict_metadata:
             raise KeyError(f"checkpoint at {path} has no tensor '{key}'")
         saved = meta.state_dict_metadata[key]
-        dest = t._data if isinstance(t, Tensor) else t
         dtype = dtype_mod.convert_dtype(saved[0].dtype).torch_dtype
-        full = _assemble(tuple(int(s) for s in dest.shape), saved,
-                         meta.storage_metadata, reader, key, dtype)
+        dest = lazy.materialize(t) if isinstance(t, Tensor) else t
         if isinstance(dest, torch.Tensor):
+            # each distinct shard of the destination (a plain tensor is
+            # one shard at offset 0), from the saved ones
+            cache: dict = {}
+            seen = set()
             with torch.no_grad():
-                dest.copy_(full)
-        else:
-            state_dict[key] = full.numpy() if full.dtype not in (
-                torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2) \
-                else full
+                for _rank, off, view in sb.local_shards(dest, sb.meta_of(t)):
+                    if off in seen:
+                        continue
+                    seen.add(off)
+                    view.copy_(_assemble(off, tuple(view.shape), saved,
+                                         meta.storage_metadata, reader, key,
+                                         dtype, cache))
+            continue
+        shape = tuple(int(s) for s in dest.shape)
+        full = _assemble((0,) * len(shape), shape, saved,
+                         meta.storage_metadata, reader, key, dtype)
+        state_dict[key] = full.numpy() if full.dtype not in (
+            torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2) else full

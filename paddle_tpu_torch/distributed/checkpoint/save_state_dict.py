@@ -2,10 +2,14 @@
 `paddle_tpu/distributed/checkpoint/save_state_dict.py`, in the same file
 layout.
 
-Each tensor of a state_dict is one shard at offset zero of the process's
-own file (`{rank}_0.distcp`: the port's tensors are whole on their
-device); the coordinator writes the global `0.metadata` index last. The
-layout is the JAX package's: safetensors shards (JSON header, raw bytes,
+A DistTensor (a Tensor or torch tensor carrying a `DistMeta`,
+`auto_parallel/sharding_bridge.py`) is saved shard by shard, each
+rank's shard into that rank's file (`{rank}_0.distcp`), replicated
+copies once: shards are deduplicated by `(key, global_offset)`, as the
+JAX package does with its devices' shards. A tensor without placements
+is one shard at offset zero of the process's own file. The coordinator
+writes the global `0.metadata` index last. The layout is the JAX
+package's: safetensors shards (JSON header, raw bytes,
 a crc32 per tensor, written atomically by rename,
 `framework/safetensors.py`) and a JSON index, no pickle; a checkpoint
 either package writes loads in the other.
@@ -27,7 +31,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ...core import lazy
 from ...core.tensor import Tensor
+from ..auto_parallel import sharding_bridge as sb
 from ...framework import safetensors as sft
 from .errors import AsyncSaveError
 from .metadata import LocalTensorIndex, LocalTensorMetadata, Metadata
@@ -104,31 +110,51 @@ class _Snapshot:
         self.per_device = per_device
 
 
-def _host_copy(t) -> object:
-    """A finished host copy of a Tensor, torch tensor or array."""
-    d = t._data if isinstance(t, Tensor) else t
+def _host_copy(d) -> object:
+    """A finished, contiguous host copy of a torch tensor or array."""
     if isinstance(d, torch.Tensor):
         d = d.detach()
-        return d.cpu() if d.device.type != "cpu" else d.clone()
+        return d.contiguous().cpu() if d.device.type != "cpu" \
+            else d.clone(memory_format=torch.contiguous_format)
     return np.array(d, copy=True)
 
 
+def _shards_of(t, rank: int):
+    """`[(rank, global_offset, torch tensor or array)]`: a DistTensor's
+    shards in rank order, else the whole value as `rank`'s one shard."""
+    placed = sb.meta_of(t)
+    if placed is not None:
+        return sb.local_shards(t, placed)
+    d = lazy.materialize(t) if isinstance(t, Tensor) else t
+    ndim = d.dim() if isinstance(d, torch.Tensor) else np.ndim(d)
+    return [(rank, (0,) * ndim, d)]
+
+
 def snapshot_state_dict(state_dict: Dict[str, object]) -> _Snapshot:
-    """Device-to-host snapshot of `state_dict`, on the caller's thread."""
+    """Device-to-host snapshot of `state_dict`, on the caller's thread:
+    every distinct shard copied to host memory."""
     meta = Metadata(state_dict_metadata={}, storage_metadata={},
                     flat_mapping=None)
-    rank = _rank()
-    fname = f"{rank}_0.distcp"
-    blobs: dict = {}
+    me = _rank()
+    per_device: Dict[int, dict] = {}
     for key, t in state_dict.items():
-        host = _host_copy(t)
-        offset = (0,) * host.ndim
-        blobs[(key, offset)] = host
-        meta.storage_metadata[LocalTensorIndex(key, offset)] = fname
-        meta.state_dict_metadata[key] = [LocalTensorMetadata(
-            offset, tuple(host.shape), sft.dtype_name(host),
-            tuple(host.shape))]
-    return _Snapshot(meta, {rank: blobs})
+        d = lazy.materialize(t) if isinstance(t, Tensor) else t
+        global_shape = tuple(int(s) for s in np.shape(d)) \
+            if not isinstance(d, torch.Tensor) else tuple(d.shape)
+        metas, seen = [], set()
+        for rank, offset, data in _shards_of(t, me):
+            if offset in seen:       # a replicated shard: saved once
+                continue
+            seen.add(offset)
+            host = _host_copy(data)
+            fname = f"{rank}_0.distcp"
+            per_device.setdefault(rank, {})[(key, offset)] = host
+            meta.storage_metadata[LocalTensorIndex(key, offset)] = fname
+            metas.append(LocalTensorMetadata(
+                offset, tuple(host.shape), sft.dtype_name(host),
+                global_shape))
+        meta.state_dict_metadata[key] = metas
+    return _Snapshot(meta, per_device)
 
 
 def write_snapshot(snap: _Snapshot, path: str,

@@ -1,11 +1,23 @@
 """ProcessMesh — the process topology of the auto-parallel API (the port
 of `paddle_tpu/distributed/process_mesh.py`).
 
-A mesh is an n-d array of `torch.distributed` global ranks with a name
-per axis; `serving.tp.shard_engine` reads a `(dp, tp)` mesh row-major,
-each dp row one tensor-parallel group. The JAX package's bridge to
-`jax.sharding.Mesh` and its global default mesh have no counterpart
-here: a rank runs its own program and names its group by ranks.
+A mesh is an n-d array of ranks with a name per axis. Two worlds read
+it:
+
+- the single-controller world of the auto-parallel API (DistTensors,
+  `reshard`, the eager collectives, `DataParallel`): one process plays
+  every rank of an *emulated world*, the counterpart of the JAX
+  package's virtual-device count. Its size is set explicitly by
+  `set_emulated_world(n)` (default: the number of cards the process
+  sees, at least 1); `default_mesh()` spans it, and `set_mesh` /
+  `get_mesh` keep the global default mesh, as in the JAX package;
+- `torch.distributed` worlds, one process a rank:
+  `serving.tp.shard_engine` reads a `(dp, tp)` mesh row-major, each dp
+  row one tensor-parallel group.
+
+The JAX package's `to_jax_mesh` (the bridge to `jax.sharding.Mesh`) has
+no counterpart here: a DistTensor's shards are slices of one global
+torch tensor (`auto_parallel/sharding_bridge.py`).
 """
 from __future__ import annotations
 
@@ -13,7 +25,11 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["ProcessMesh"]
+__all__ = ["ProcessMesh", "set_mesh", "get_mesh", "default_mesh",
+           "set_emulated_world", "emulated_world"]
+
+_global_mesh: Optional["ProcessMesh"] = None
+_emulated_world: Optional[int] = None
 
 
 class ProcessMesh:
@@ -111,3 +127,40 @@ class ProcessMesh:
         return {"shape": self.shape, "dim_names": self.dim_names,
                 "size": self.size, "processes": world,
                 "local_devices": torch.cuda.device_count()}
+
+
+def set_emulated_world(n: Optional[int]) -> None:
+    """Set the number of ranks the single-controller world emulates (the
+    counterpart of the JAX package's virtual-device count); None
+    restores the default, the number of cards this process sees."""
+    global _emulated_world
+    if n is not None and int(n) < 1:
+        raise ValueError(f"an emulated world needs at least one rank, "
+                         f"got {n}")
+    _emulated_world = None if n is None else int(n)
+
+
+def emulated_world() -> int:
+    """The ranks of the emulated world: as set, else the cards this
+    process sees (at least 1)."""
+    if _emulated_world is not None:
+        return _emulated_world
+    import torch
+
+    return max(torch.cuda.device_count(), 1)
+
+
+def set_mesh(mesh: Optional[ProcessMesh]):
+    """Set the global default mesh (reference `dist.auto_parallel.set_mesh`)."""
+    global _global_mesh
+    _global_mesh = mesh
+
+
+def get_mesh() -> Optional[ProcessMesh]:
+    return _global_mesh
+
+
+def default_mesh(ndev: Optional[int] = None) -> ProcessMesh:
+    """1-D world mesh over the emulated world's ranks."""
+    n = ndev or emulated_world()
+    return ProcessMesh(np.arange(n), ["world"])

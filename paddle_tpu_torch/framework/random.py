@@ -11,12 +11,14 @@ flat index (`ops/sampling.py`'s `threefry2x32`), mantissa-filled floats,
 and randint's two draws reduced modulo the span. `normal` goes through
 `erf_inv`, XLA's own f32 / f64 `ErfInv` polynomial (not `torch.erfinv`,
 which rounds otherwise) over XLA's `log1p`, each Horner step one fused
-multiply-add as XLA's CPU build contracts it. One step stays torch's:
-`log(1 + x)` for |x| >= sqrt(2) - 1, where XLA's own `log` rounds
-otherwise in about one draw in a few thousand.
+multiply-add as XLA's CPU build contracts it. Its `log(1 + x)` for
+|x| >= sqrt(2) - 1 is `xla_log`, XLA's CPU `log`: in float64 the C
+library's `log` (on a CPU tensor; torch's on the card), in float32 the
+Cephes polynomial XLA's CPU backend emits, each multiply-add fused.
 """
 from __future__ import annotations
 
+import math
 import threading
 
 import numpy as np
@@ -27,7 +29,7 @@ from ..ops.sampling import threefry2x32
 __all__ = ["Generator", "default_generator", "seed", "get_rng_state",
            "set_rng_state", "next_key", "key_of_seed", "fold_in",
            "split", "random_bits", "uniform", "normal", "randint",
-           "erf_inv"]
+           "erf_inv", "xla_log"]
 
 _M32 = 0xFFFFFFFF
 
@@ -128,7 +130,7 @@ def uniform(key, shape, dtype, minval, maxval, device):
 
 def _fma(a, b, c):
     """a * b + c rounded once (f32: exact in float64, then rounded; f64:
-    `_fma64`'s compensated sum); c a float or a tensor."""
+    `_fma64`'s compensated sum); b and c floats or tensors."""
     if a.dtype == torch.float64:
         p = a * b
         ah, al = _split27(a)
@@ -137,8 +139,8 @@ def _fma(a, b, c):
         s = p + c
         bb = s - p
         return s + (((p - (s - bb)) + (c - bb)) + err)
-    return (a.double() * b.double() + (c.double() if torch.is_tensor(c)
-                                       else c)).to(a.dtype)
+    return (a.double() * (b.double() if torch.is_tensor(b) else b)
+            + (c.double() if torch.is_tensor(c) else c)).to(a.dtype)
 
 
 def _split27(x):
@@ -169,8 +171,57 @@ def _log1p_xla(x):
     x2 = x * x
     small = (x * x2) * (_horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN))
     small = x + _fma(torch.full_like(x, -0.5), x2, small)
-    return torch.where(x.abs() < 0.41421356237309504880, small,
-                       torch.log(x + 1.0))
+    big = ~(x.abs() < 0.41421356237309504880)
+    if x.device.type != "cpu":          # no host sync on the card
+        return torch.where(big, xla_log(x + 1.0), small)
+    small[big] = xla_log(x[big] + 1.0)
+    return small
+
+
+# the Cephes log XLA's CPU backend emits for float32 (Eigen's
+# plog_float): log(m) of the mantissa m in [sqrt(1/2), sqrt(2)) by a
+# degree-8 polynomial in three parts, plus the exponent's log(2) in two
+# pieces; the constants rounded to float32, as the kernel holds them
+_LOG32_P = tuple(float(np.float32(v)) for v in (
+    7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1,
+    -1.2420140846E-1, 1.4249322787E-1, -1.6668057665E-1,
+    2.0000714765E-1, -2.4999993993E-1, 3.3333331174E-1))
+_LOG32_Q1, _LOG32_Q2 = (float(np.float32(v))
+                        for v in (-2.12194440e-4, 0.693359375))
+
+
+def _log_f32(x):
+    m, e = torch.frexp(torch.clamp_min(x, 1.17549435e-38))
+    e = e.to(x.dtype)
+    low = m < 0.707106781186547524
+    e = e - low.to(x.dtype)
+    m = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    m2 = m * m
+    m3 = m2 * m
+    c = _LOG32_P
+    y = _fma(_fma(m, c[0], c[1]), m, c[2])
+    y1 = _fma(_fma(m, c[3], c[4]), m, c[5])
+    y2 = _fma(_fma(m, c[6], c[7]), m, c[8])
+    y = _fma(_fma(y, m3, y1), m3, y2) * m3
+    y = _fma(e, _LOG32_Q1, y)
+    out = _fma(-m2, 0.5, m) + y
+    out = _fma(e, _LOG32_Q2, out)
+    return torch.where(x > 0, out, torch.log(x))
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.log` as XLA's CPU backend computes it: float64 by the C
+    library's `log` on a CPU tensor (torch's `log` on the card), float32
+    by `_log_f32`, other dtypes by torch's `log`. Non-positive inputs
+    give torch's answer (nan, -inf)."""
+    if x.dtype == torch.float32:
+        return _log_f32(x)
+    out = torch.log(x)
+    if x.dtype == torch.float64 and x.device.type == "cpu":
+        pos = x > 0
+        out[pos] = torch.tensor(list(map(math.log, x[pos].tolist())),
+                                dtype=torch.float64)
+    return out
 
 
 # XLA's ErfInv (chlo_legalize_to_hlo.cc, materializeErfInvF32 / F64):

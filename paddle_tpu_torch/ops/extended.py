@@ -947,8 +947,12 @@ def _gamma_one(keys, alpha):
     U = torch.full_like(alpha, 2.0)
 
     def cond(X, V, U):
-        return (U >= one - 0.0331 * (X * X)) & \
-            (torch.log(U) >= X * 0.5 + d * (one - V + torch.log(V)))
+        # the logs only where the squeeze test fails, as few draws do
+        out = U >= one - 0.0331 * (X * X)
+        m = out.nonzero(as_tuple=True)
+        out[m] = random_mod.xla_log(U[m]) >= X[m] * 0.5 \
+            + d[m] * (one - V[m] + random_mod.xla_log(V[m]))
+        return out
 
     live = cond(X, V, U)
     while bool(live.any()):

@@ -24,8 +24,11 @@ package writes, the other restores).
   `.emergency_saves`.
 
 The multi-process barrier around a write is `torch.distributed.barrier()`
-when a process group is initialised, else nothing. Restoring onto other
-shardings (`placements=`) is not ported yet and raises.
+when a process group is initialised, else nothing. `load` /
+`restore_latest` with `placements=` re-place the destination templates
+first (each named key takes a `DistMeta`, or `(mesh, placements)`), so
+a checkpoint saved at world N restores at world M: the loader re-slices
+the saved shards onto the new placements.
 
 Layout::
 
@@ -52,6 +55,7 @@ import numpy as np
 import torch
 
 from ..core.tensor import Tensor
+from ..distributed.auto_parallel import sharding_bridge as sb
 from ..distributed.checkpoint import CheckpointCorrupt, load_state_dict
 from ..distributed.checkpoint.errors import AsyncSaveError
 from ..distributed.checkpoint.load_state_dict import _read_metadata
@@ -329,16 +333,21 @@ class CheckpointManager:
              ) -> SimpleNamespace:
         """Restore `path` into the given objects in place (parameters and
         buffers, the optimizer's accumulators and scalars, the scaler and
-        the RNG state); returns `SimpleNamespace(step, extras)`."""
-        if placements:
-            raise NotImplementedError(
-                "CheckpointManager.load(placements=...): restoring onto "
-                "other shardings is not ported yet")
+        the RNG state); returns `SimpleNamespace(step, extras)`.
+
+        `placements` is the world-shape-aware path: a dict from the
+        caller's state keys (no ``model.`` prefix) to target placements
+        (`DistMeta`, or `(mesh, placements)`). Each named destination
+        takes its placements before the load, which then copies into
+        every shard of the new world only its overlap with the saved
+        shards."""
         self._join_pending(swallow=True)
         with open(os.path.join(path, "extra_state.json")) as f:
             extra = json.load(f)
         src = state_dict if state_dict is not None else (
             model.state_dict() if model is not None else {})
+        if placements:
+            self._apply_placements(src, placements)
         dest: Dict[str, object] = {_MODEL + k: t for k, t in src.items()}
         meta = _read_metadata(path)
         opt_keys = [k for k in meta.state_dict_metadata
@@ -370,6 +379,23 @@ class CheckpointManager:
             set_rng_state([tuple(s) for s in extra["rng"]])
         return SimpleNamespace(step=int(extra["step"]),
                                extras=extra.get("extras", {}))
+
+    @staticmethod
+    def _apply_placements(src: Dict[str, object],
+                          placements: Dict[str, object]) -> None:
+        """Give destination templates their target placements before the
+        load assembles bytes: `load_state_dict` re-slices onto whatever
+        placements a destination carries, so placing the template is
+        choosing the restored world shape. Unknown keys are an error: a
+        typo here would silently restore the old layout."""
+        missing = [k for k in placements if k not in src]
+        if missing:
+            raise KeyError(f"placements name keys absent from the state "
+                           f"dict: {missing}")
+        for k, target in placements.items():
+            if target is not None and not isinstance(target, sb.DistMeta):
+                target = sb.DistMeta(*target)
+            sb.set_meta(src[k], target)
 
     def restore_latest(self, model=None, optimizer=None, scaler=None,
                        state_dict: Optional[dict] = None,

@@ -64,8 +64,8 @@ class StepGuard:
                  state_dict=None, placements=None,
                  escalate: tuple = ()):
         """``state_dict``: guard a train state (a dict of Tensors) instead
-        of a model/optimizer pair (``placements`` is not ported: the
-        manager raises on it) —
+        of a model/optimizer pair (``placements``: the target placements
+        each restore re-places it onto) —
         saves and rollbacks flow the dict (with its target shardings)
         through the manager, the elastic supervisor's path. ``escalate``
         names exception types the guard must NOT treat as a trip-and-

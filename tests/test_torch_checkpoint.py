@@ -25,6 +25,7 @@ import paddle_tpu as jpaddle
 import paddle_tpu.distributed as jdist
 import paddle_tpu_torch as tpaddle
 import paddle_tpu_torch.distributed as tdist
+from paddle_tpu.resilience import make_emulated_trainable as jtrainable
 from paddle_tpu.resilience import CheckpointManager as JManager
 from paddle_tpu_torch.distributed.checkpoint import (AsyncSaveError,
                                                      CheckpointCorrupt,
@@ -444,10 +445,19 @@ def test_emergency_save_does_not_destroy_existing_checkpoint(tmp_path):
     assert cm.latest_valid()[0] == 3
 
 
-def test_placements_are_refused(tmp_path):
-    cm = _saved(tmp_path, n=1)
-    with pytest.raises(NotImplementedError, match="placements"):
-        cm.restore_latest(state_dict=small_state(), placements={"w": None})
+def test_placements_unknown_key_raises(tmp_path):
+    """`placements=` naming a key the state lacks raises KeyError in
+    both packages (a typo would silently restore the old layout)."""
+    for mk, state in ((lambda: make_manager(tmp_path / "port"),
+                       small_state),
+                      (lambda: JManager(str(tmp_path / "jax"),
+                                        sleep=lambda s: None),
+                       lambda: {k: jpaddle.Tensor(_np(t)) for k, t in
+                                small_state().items()})):
+        cm = mk()
+        cm.save(0, state_dict=state())
+        with pytest.raises(KeyError, match="typo"):
+            cm.restore_latest(state_dict=state(), placements={"typo": None})
 
 
 # -- StepGuard -------------------------------------------------------------
@@ -901,3 +911,288 @@ def test_resilient_train_rehearsal(tmp_path):
     assert cm.restore_latest(model=work[0], optimizer=work[1]).step == 2
     got = host(work)
     assert all(torch.equal(got[k], at2[k]) for k in at2)
+
+
+# -- sharded checkpoints: re-slicing onto the destination's placements -----
+
+def _tmesh(shape, names):
+    return tdist.ProcessMesh(np.arange(int(np.prod(shape))).reshape(shape),
+                             list(names))
+
+
+def _placed(d, p, a, mesh, spec):
+    return d.shard_tensor(p.to_tensor(np.array(a, copy=True)), mesh, spec)
+
+
+def _index(path):
+    """The `0.metadata` index without its writer's tag."""
+    with open(os.path.join(path, "0.metadata")) as f:
+        raw = json.load(f)
+    raw.pop("format")
+    return raw
+
+
+def _port_shards(t):
+    return [(r, o, v.detach().numpy()) for r, o, v in t.local_shards()]
+
+
+def _jax_shards(t):
+    out = []
+    for sh in t._data.addressable_shards:
+        off = tuple(0 if sl.start is None else int(sl.start)
+                    for sl in sh.index)
+        out.append((int(sh.device.id), off, np.asarray(sh.data)))
+    return sorted(out, key=lambda e: e[0])
+
+
+def test_sharded_roundtrip_same_mesh(tmp_path):
+    """A DistTensor saved shard by shard over 8 ranks (one file each, the
+    JAX package's index entry for entry) loads back in place."""
+    w = np.arange(64, dtype=np.float32).reshape(8, 8)
+    m8 = _tmesh((8,), ["mp"])
+    tdist.save_state_dict({"w": _placed(tdist, tpaddle, w, m8,
+                                        [tdist.Shard(0)])},
+                          str(tmp_path / "port"))
+    jdist.save_state_dict({"w": _placed(jdist, jpaddle, w, _mesh(
+        (8,), ["mp"]), [jdist.Shard(0)])}, str(tmp_path / "jax"))
+    assert _index(tmp_path / "port") == _index(tmp_path / "jax")
+    assert sorted(os.listdir(tmp_path / "port")) == \
+        sorted(os.listdir(tmp_path / "jax"))
+    dest = {"w": _placed(tdist, tpaddle, np.zeros_like(w), m8,
+                         [tdist.Shard(0)])}
+    before = dest["w"]._data
+    tdist.load_state_dict(dest, str(tmp_path / "port"))
+    assert dest["w"]._data is before
+    np.testing.assert_array_equal(_np(dest["w"]), w)
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_reshard_on_load_dp2mp4_to_dp4mp2(tmp_path, writer):
+    """Saved on dp2 x mp4 by either package, loaded on dp4 x mp2 by the
+    port and by JAX: every destination shard bit-equal to the JAX
+    package's, values exact, the destination keeping its placements."""
+    rng = np.random.default_rng(0)
+    w1 = rng.standard_normal((16, 8)).astype(np.float32)
+    w2 = rng.standard_normal((8, 12)).astype(np.float32)
+    specs = {"w1": lambda d: [d.Replicate(), d.Shard(1)],
+             "w2": lambda d: [d.Replicate(), d.Shard(0)]}
+    vals = {"w1": w1, "w2": w2}
+    save_d, save_p, save_m = (tdist, tpaddle, _tmesh) if writer == "port" \
+        else (jdist, jpaddle, _mesh)
+    st = {k: _placed(save_d, save_p, v, save_m((2, 4), ["dp", "mp"]),
+                     specs[k](save_d)) for k, v in vals.items()}
+    save_d.save_state_dict(st, str(tmp_path))
+    tdest = {k: _placed(tdist, tpaddle, np.zeros_like(v),
+                        _tmesh((4, 2), ["dp", "mp"]), specs[k](tdist))
+             for k, v in vals.items()}
+    jdest = {k: _placed(jdist, jpaddle, np.zeros_like(v),
+                        _mesh((4, 2), ["dp", "mp"]), specs[k](jdist))
+             for k, v in vals.items()}
+    tdist.load_state_dict(tdest, str(tmp_path))
+    jdist.load_state_dict(jdest, str(tmp_path))
+    for k, v in vals.items():
+        np.testing.assert_array_equal(_np(tdest[k]), v)
+        got, want = _port_shards(tdest[k]), _jax_shards(jdest[k])
+        assert [(r, o, a.shape) for r, o, a in got] == \
+            [(r, o, a.shape) for r, o, a in want]
+        for (_, _, a), (_, _, b) in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        assert tdist.auto_parallel.placements_of(tdest[k]) == \
+            specs[k](tdist)
+    assert len(tdest["w1"].local_shards()) == 8
+
+
+def test_replicated_shard_dedup(tmp_path):
+    """A tensor replicated over dp is stored once per distinct shard (2
+    mp halves), not once per rank, as the JAX package stores it."""
+    w = np.arange(32, dtype=np.float32).reshape(4, 8)
+    st = {"w": _placed(tdist, tpaddle, w, _tmesh((4, 2), ["dp", "mp"]),
+                       [tdist.Replicate(), tdist.Shard(1)])}
+    tdist.save_state_dict(st, str(tmp_path / "port"))
+    jdist.save_state_dict({"w": _placed(jdist, jpaddle, w, _mesh(
+        (4, 2), ["dp", "mp"]), [jdist.Replicate(), jdist.Shard(1)])},
+        str(tmp_path / "jax"))
+    meta = _index(tmp_path / "port")
+    assert meta == _index(tmp_path / "jax")
+    assert len(meta["state_dict_metadata"]["w"]) == 2
+    assert len(meta["storage_metadata"]) == 2
+    from paddle_tpu_torch.framework import safetensors as sft
+
+    total = 0
+    for fname in set(meta["storage_metadata"].values()):
+        r = sft.SafetensorsReader(str(tmp_path / "port" / fname))
+        total += sum(r.get_torch(n).numel() * 4 for n in r.header
+                     if n != "__metadata__")
+    assert total == w.nbytes
+
+
+@pytest.mark.parametrize("world", [4, 2])
+def test_world_shape_reshard_8_to_smaller_bitwise(tmp_path, world):
+    """A param and its moment saved sharded over world 8 restore onto
+    world 4 and 2 bit for bit, genuinely re-sliced: `world` shards of
+    16 / world rows, each equal to the JAX package's."""
+    rng = np.random.default_rng(3)
+    vals = {"w": rng.standard_normal((16, 8)).astype(np.float32),
+            "m_w": rng.standard_normal((16, 8)).astype(np.float32)}
+    st = {k: _placed(tdist, tpaddle, v, _tmesh((8,), ["world"]),
+                     [tdist.Shard(0)]) for k, v in vals.items()}
+    tdist.save_state_dict(st, str(tmp_path))
+    dest = {k: _placed(tdist, tpaddle, np.zeros_like(v),
+                       _tmesh((world,), ["world"]), [tdist.Shard(0)])
+            for k, v in vals.items()}
+    tdist.load_state_dict(dest, str(tmp_path))
+    jdest = {k: _placed(jdist, jpaddle, np.zeros_like(v),
+                        _mesh((world,), ["world"]), [jdist.Shard(0)])
+             for k, v in vals.items()}
+    jdist.load_state_dict(jdest, str(tmp_path))
+    for k, v in vals.items():
+        np.testing.assert_array_equal(_np(dest[k]), v)
+        got = _port_shards(dest[k])
+        assert [a.shape for _, _, a in got] == [(16 // world, 8)] * world
+        for (r, o, a), (r2, o2, b) in zip(got, _jax_shards(jdest[k])):
+            assert (r, o) == (r2, o2)
+            np.testing.assert_array_equal(a, b)
+
+
+def test_optimizer_state_roundtrip_with_model(tmp_path):
+    """A sharded Linear trained 3 AdamW steps on dp2 x mp4 (in both
+    packages, within 1e-5 of each other), saved, reloaded onto dp4 x mp2:
+    the training state exact."""
+    def train(p, d, mesh):
+        rng = np.random.default_rng(3)
+        lin = p.nn.Linear(8, 16)
+        lin.weight.set_value(rng.standard_normal((8, 16)).astype("float32"))
+        lin.bias.set_value(rng.standard_normal((16,)).astype("float32"))
+        for q, spec in ((lin.weight, [d.Replicate(), d.Shard(1)]),
+                        (lin.bias, [d.Replicate(), d.Shard(0)])):
+            if d is tdist:
+                tdist.auto_parallel.api._shard_param_inplace(q, mesh, spec)
+            else:
+                q._data = d.shard_tensor(p.Tensor(q._data), mesh, spec,
+                                         stop_gradient=False)._data
+        opt = p.optimizer.AdamW(learning_rate=1e-2,
+                                parameters=lin.parameters())
+        x = p.to_tensor(np.random.default_rng(4).random((4, 8))
+                        .astype(np.float32))
+        for _ in range(3):
+            loss = (lin(x) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        return lin
+
+    lin = train(tpaddle, tdist, _tmesh((2, 4), ["dp", "mp"]))
+    jlin = train(jpaddle, jdist, _mesh((2, 4), ["dp", "mp"]))
+    np.testing.assert_allclose(_np(lin.weight), _np(jlin.weight),
+                               rtol=1e-5, atol=1e-6)
+    tdist.save_state_dict({"weight": lin.weight, "bias": lin.bias},
+                          str(tmp_path))
+    mesh2 = _tmesh((4, 2), ["dp", "mp"])
+    dest_w = _placed(tdist, tpaddle, np.zeros((8, 16), np.float32), mesh2,
+                     [tdist.Replicate(), tdist.Shard(1)])
+    dest_b = _placed(tdist, tpaddle, np.zeros((16,), np.float32), mesh2,
+                     [tdist.Replicate(), tdist.Shard(0)])
+    tdist.load_state_dict({"weight": dest_w, "bias": dest_b}, str(tmp_path))
+    np.testing.assert_array_equal(_np(dest_w), _np(lin.weight))
+    np.testing.assert_array_equal(_np(dest_b), _np(lin.bias))
+    assert len({o for _, o, _ in dest_w.local_shards()}) == 2
+
+
+def test_partial_tensor_saves_its_hidden_axis_like_jax(tmp_path):
+    """A Partial DistTensor is saved as its stored value (the hidden
+    stacked axis included), shard for shard as the JAX package saves
+    it, and loads back bit for bit."""
+    x = np.random.default_rng(8).random((4, 6)).astype(np.float32)
+    tdist.save_state_dict({"p": _placed(tdist, tpaddle, x, _tmesh(
+        (2, 4), ["a", "b"]), [tdist.Partial(), tdist.Replicate()])},
+        str(tmp_path / "port"))
+    jdist.save_state_dict({"p": _placed(jdist, jpaddle, x, _mesh(
+        (2, 4), ["a", "b"]), [jdist.Partial(), jdist.Replicate()])},
+        str(tmp_path / "jax"))
+    assert _index(tmp_path / "port") == _index(tmp_path / "jax")
+    dest = {"p": _placed(tdist, tpaddle, np.zeros_like(x), _tmesh(
+        (2, 4), ["a", "b"]), [tdist.Partial(), tdist.Replicate()])}
+    tdist.load_state_dict(dest, str(tmp_path / "jax"))
+    np.testing.assert_array_equal(
+        _np(tdist.reshard(dest["p"], None, [tdist.Replicate()] * 2)), x)
+
+
+# -- world-shape-changing restore through the CheckpointManager ------------
+
+def _trained_world8(tmp_path, steps=3):
+    from paddle_tpu_torch.resilience import make_emulated_trainable
+
+    tr8 = make_emulated_trainable(seed=5, device="cpu")(
+        [f"p{i}" for i in range(8)])
+    for i in range(steps):
+        tr8.step(i)
+    cm = make_manager(tmp_path, keep_last_n=8)
+    cm.save(steps - 1, state_dict=tr8.state_dict())
+    return tr8, cm, get_rng_state()
+
+
+@pytest.mark.parametrize("world", [4, 2])
+def test_restore_at_smaller_world_bitwise_params(tmp_path, world):
+    """Params and momentum round-trip 8 -> world bit for bit after
+    gather, the destination re-sliced (world shards of 8 / world rows),
+    and the RNG state travels with the checkpoint; the JAX package
+    restores the same directory onto its world-`world` mesh to the same
+    bits and shards."""
+    from paddle_tpu_torch.resilience import make_emulated_trainable
+
+    tr8, cm, rng_at_save = _trained_world8(tmp_path)
+    trn = make_emulated_trainable(seed=99, device="cpu")(
+        [f"p{i}" for i in range(world)])
+    tpaddle.seed(12345)
+    assert get_rng_state() != rng_at_save
+    res = cm.restore_latest(state_dict=trn.state_dict(),
+                            placements=trn.placements())
+    assert res.step == 2
+    full8, fulln = tr8.gather(), trn.gather()
+    for k in full8:
+        np.testing.assert_array_equal(full8[k], fulln[k])
+    w = trn.state_dict()["w"]
+    assert len(w.local_shards()) == world
+    assert {tuple(v.shape) for _, _, v in w.local_shards()} == \
+        {(8 // world, 8)}
+    assert get_rng_state() == rng_at_save
+    jtr = jtrainable(seed=99)([f"p{i}" for i in range(world)])
+    JManager(str(tmp_path / "ckpt"), sleep=lambda s: None).restore_latest(
+        state_dict=jtr.state_dict(), placements=jtr.placements())
+    for k, v in jtr.gather().items():
+        np.testing.assert_array_equal(v, fulln[k])
+    got, want = _port_shards(w), _jax_shards(jtr.state_dict()["w"])
+    assert [(r, o) for r, o, _ in got] == [(r, o) for r, o, _ in want]
+
+
+def test_post_resume_losses_agree_across_worlds(tmp_path):
+    """The restored state is the same math at any world: replayed steps
+    at world 4 and 2 agree to float tolerance (another rank order of the
+    contraction's sum), each world replays itself bit for bit, and each
+    is within 1e-5 of the JAX package's replay at that world."""
+    from paddle_tpu_torch.resilience import make_emulated_trainable
+
+    _tr8, cm, _rng = _trained_world8(tmp_path)
+    jcm = JManager(str(tmp_path / "ckpt"), sleep=lambda s: None)
+    out = {}
+    for world in (4, 2):
+        pods = [f"p{i}" for i in range(world)]
+        losses = {}
+        tr = make_emulated_trainable(device="cpu")(pods)
+        cm.restore_latest(state_dict=tr.state_dict(),
+                          placements=tr.placements())
+        for i in range(3, 6):
+            losses[i] = tr.step(i)
+        out[world] = losses
+        tr2 = make_emulated_trainable(device="cpu")(pods)
+        cm.restore_latest(state_dict=tr2.state_dict(),
+                          placements=tr2.placements())
+        for i in range(3, 6):
+            assert repr(tr2.step(i)) == repr(losses[i])
+        jtr = jtrainable()(pods)
+        jcm.restore_latest(state_dict=jtr.state_dict(),
+                           placements=jtr.placements())
+        for i in range(3, 6):
+            np.testing.assert_allclose(losses[i], jtr.step(i), rtol=1e-5)
+    for i in range(3, 6):
+        np.testing.assert_allclose(out[4][i], out[2][i], rtol=1e-5)

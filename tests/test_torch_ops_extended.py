@@ -228,15 +228,15 @@ def test_standard_gamma_queue_c_element_bit_equal():
 
 @pytest.mark.parametrize("seed", [0, 77])
 def test_standard_gamma_2000_draws_last_bit(seed):
-    """2,000 float64 draws over alpha in [1, 40]: the normal draws are
-    XLA's bits and `1 + x c` is fused as XLA fuses it, so at most 3 % of
-    the draws differ, each in its last bits only (ROADMAP Queue C names
-    the first)."""
+    """2,000 float64 draws over alpha in [1, 40]: the normal draws and
+    the loop's logs are XLA's bits and `1 + x c` is fused as XLA fuses
+    it, so at most 2.8 % of the draws differ, each in its last bits only
+    (ROADMAP Queue C names the first)."""
     alpha = np.linspace(1.0, 40.0, 2000)
     (want,), (got,) = _both(lambda p: p.standard_gamma(_t(p, alpha)), seed)
     differ = want != got
-    assert differ.mean() <= 0.03
-    np.testing.assert_allclose(got, want, rtol=4e-15, atol=0)
+    assert differ.mean() <= 0.028
+    np.testing.assert_allclose(got, want, rtol=2.5e-15, atol=0)
 
 
 @pytest.mark.parametrize("alpha", [0.4, 3.0])

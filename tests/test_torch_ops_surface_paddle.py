@@ -10,7 +10,7 @@ from torch_ops_surface_common import one_thread, port_on_cpu  # noqa: F401
 
 NAMESPACES = ['paddle']
 # exports each namespace resolves at least
-TARGETS = {'paddle': 415}
+TARGETS = {'paddle': 416}
 # (ran, matched the recipe's numpy reference, finite-difference verified)
 FLOORS = {'paddle': (410, 250, 123)}
 

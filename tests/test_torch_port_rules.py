@@ -90,7 +90,20 @@ def test_port_files_exist():
                  "distributed/checkpoint/save_state_dict.py",
                  "distributed/checkpoint/load_state_dict.py",
                  "resilience/checkpoint_manager.py", "resilience/guard.py",
-                 "tools/resilience_workload.py", "tools/quant_workload.py"):
+                 "tools/resilience_workload.py", "tools/quant_workload.py",
+                 "distributed/__init__.py", "distributed/placement.py",
+                 "distributed/process_mesh.py", "distributed/parallel.py",
+                 "distributed/auto_parallel/__init__.py",
+                 "distributed/auto_parallel/api.py",
+                 "distributed/auto_parallel/sharding_bridge.py",
+                 "distributed/auto_parallel/strategy.py",
+                 "distributed/communication/__init__.py",
+                 "distributed/communication/group.py",
+                 "distributed/communication/collective.py",
+                 "distributed/communication/stream.py",
+                 "distributed/communication/watchdog.py",
+                 "resilience/elastic_train.py",
+                 "tools/elastic_workload.py", "tools/draw_timing.py"):
         assert f"paddle_tpu_torch/{name}" in rel, name
 
 
@@ -181,7 +194,20 @@ def test_import_loads_neither_package():
             "paddle_tpu_torch.regularizer, paddle_tpu_torch.optimizer.lr, "
             "paddle_tpu_torch.tools.loop_workload, "
             "paddle_tpu_torch.ops.extended, paddle_tpu_torch.fft, "
-            "paddle_tpu_torch.signal, paddle_tpu_torch.tools.fnet_workload\n"
+            "paddle_tpu_torch.signal, paddle_tpu_torch.tools.fnet_workload, "
+            "paddle_tpu_torch.distributed.placement, "
+            "paddle_tpu_torch.distributed.parallel, "
+            "paddle_tpu_torch.distributed.auto_parallel, "
+            "paddle_tpu_torch.distributed.auto_parallel.api, "
+            "paddle_tpu_torch.distributed.auto_parallel.sharding_bridge, "
+            "paddle_tpu_torch.distributed.auto_parallel.strategy, "
+            "paddle_tpu_torch.distributed.communication, "
+            "paddle_tpu_torch.distributed.communication.group, "
+            "paddle_tpu_torch.distributed.communication.collective, "
+            "paddle_tpu_torch.distributed.communication.stream, "
+            "paddle_tpu_torch.distributed.communication.watchdog, "
+            "paddle_tpu_torch.resilience.elastic_train, "
+            "paddle_tpu_torch.tools.elastic_workload\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]\n"
             "assert not bad, bad\n")
